@@ -170,10 +170,18 @@ def test_server_refuses_control_verbs_and_bad_json(server):
     assert len(good["tokens"][0]) == 1
 
 
+_SP = {"prefill_mode": "sp", "decode_mode": "sp"}
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"paged": True}, {"decode_path": "mega"}, {"decode_path": "auto"},
-    {"use_mega": True}, {"spec": object()}, {"prefill_chunk": 4},
-    {"prefill_mode": "sp", "decode_mode": "sp"}, {"prefix_cache": True},
+    # Paged and sp serving, the prefix cache and chunked sp prefill are
+    # ported (tests/test_torch_sp_engine.py); the decode paths and
+    # speculation they can be combined with are not.
+    {"paged": True, "decode_path": "mega", **_SP}, {"decode_path": "mega"},
+    {"decode_path": "auto"}, {"use_mega": True}, {"spec": object()},
+    {"prefill_chunk": 4, "use_mega": True, **_SP},
+    {"spec": object(), **_SP},
+    {"prefix_cache": True, "paged": True, "decode_path": "auto", **_SP},
 ], ids=["paged", "mega", "auto", "use_mega", "spec", "prefill_chunk", "sp",
         "prefix_cache"])
 def test_unported_engine_options_raise(models, kwargs):

@@ -111,6 +111,79 @@ def test_gemm_ar_on_a_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         ops.gemm_ar(a, b)
 
 
+def test_flash_decode_on_cuda_tensors_never_takes_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed flash-decode calls (each entry point
+    and each kernel wrapper) reach the kernel build and fail there
+    instead of computing the plain version on the CPU."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    def fake(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    class CudaView:
+        """A meta tensor that reports the CUDA device."""
+
+        def __init__(self, t):
+            self._t = t
+            self.device = torch.device("cuda", 0)
+            self.dtype, self.shape = t.dtype, t.shape
+
+        def dim(self):
+            return self._t.dim()
+
+        def is_contiguous(self):
+            return True
+
+        def element_size(self):
+            return self._t.element_size()
+
+        def __getitem__(self, i):
+            return CudaView(self._t[i])
+
+    q = CudaView(fake((2, 8, 16)))
+    cache = CudaView(fake((2, 32, 2, 16)))
+    pool = CudaView(fake((9, 4, 2, 16)))
+    table = CudaView(fake((1, 2, 8), torch.int32))
+    for name in ("flash_decode_reference", "flash_decode_paged_reference",
+                 "flash_decode_partials_reference",
+                 "flash_decode_combine_reference"):
+        monkeypatch.setattr(fd, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    calls = [
+        lambda: fd.gqa_fwd_batch_decode(
+            q, cache, cache, 3, fd.FlashDecodeContext(variant="einsum")),
+        lambda: fd.gqa_fwd_batch_decode(
+            q, cache, cache, 3, fd.FlashDecodeContext(variant="tiled")),
+        lambda: fd.gqa_fwd_batch_decode_paged(q, pool, pool, table, 3),
+        lambda: fd.flash_decode_single(q, cache, cache, 3),
+        lambda: fd.flash_decode_partial(q, cache, cache, 3, 64, 1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no build of flash_decode"):
+            call()
+
+
+def test_flash_decode_source_targets_sm90a_without_atomics():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["flash_decode"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text
+    for entry in ("tdt_flash_decode_plan", "tdt_flash_decode_partial",
+                  "tdt_flash_decode_combine", "tdt_flash_decode_single"):
+        assert entry in text
+    for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+        assert atomic not in text             # fixed-order sums only
+
+
 def test_build_command_targets_sm90a_and_sources_exist():
     from triton_dist_tpu_torch.ops import _build
     assert _build.SOURCES and all(p.is_file() and p.is_relative_to(PACKAGE)

@@ -1,7 +1,9 @@
 """The port's gemm_ar (triton_dist_tpu_torch.ops.gemm_reduce_scatter)
 against the JAX package's gemm_ar(impl="pallas") on a 1-device mesh (the
-Pallas kernel in interpret mode), and the CUDA kernel against its plain
-version on the card (marked ``cuda``; skipped without one).
+Pallas kernel in interpret mode), and the CUDA kernels (gemm_ar and the
+three flash-decode kernels of ops.flash_decode) against their plain
+versions on the card (marked ``cuda``; skipped without one). The flash
+decode's CPU parity tests are in tests/test_torch_flash_decode.py.
 
 Inputs come from numpy with a fixed seed. Tolerances: f32 within 1e-5
 relative (plus 1e-6 absolute for entries near zero); bf16 within one bf16
@@ -113,7 +115,7 @@ def test_launch_count_counts_by_shape():
 @pytest.fixture()
 def cuda_device(monkeypatch):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the gemm_ar kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
     # The plain version is the exact f32 product only without TF32.
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
@@ -187,3 +189,126 @@ def test_gemm_ar_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
     else:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-5, atol=3e-5)
+
+
+# -- flash decode (triton_dist_tpu_torch.ops.flash_decode) --------------------
+# Qwen3-8B's decode shapes (B = 4, 32 query / 8 KV heads of dim 128) and a
+# small odd one. Tolerances (kernel vs plain version on the same inputs):
+# f32 within 1e-5 (sums in another order). bf16: the kernel rounds each
+# probability to bf16 against its 64-position chunk's running max, the
+# plain version against the row's final max, so a probability moves by up
+# to 2^-8 of itself and an output by up to 2^-8 * max|v|; both outputs
+# then round to bf16 once (one bf16 ulp, 2^-7 of the value).
+FD_SHAPES = [(4, 32, 8, 128, 1024), (3, 8, 2, 16, 48)]
+
+
+def _fd_inputs(b, hq, hkv, d, t, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, hq, d).astype(np.float32))
+    k = torch.from_numpy(rng.randn(b, t, hkv, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(b, t, hkv, d).astype(np.float32))
+    return [x.to(device, dtype) for x in (q, k, v)]
+
+
+def _fd_assert_close(got, want, v):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    exact = got.dtype == v.dtype == torch.float32
+    got, want = got.float(), want.float()
+    if exact:
+        lim = torch.full_like(got, 1e-5)
+    else:
+        lim = (2.0 ** -8 * v.float().abs().max()
+               + 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-6)
+    assert ((got - want).abs() <= lim).all(), (got - want).abs().max()
+
+
+def _fd_lens(b, t):
+    return [1, 17, 160, t, [min(x, t) for x in (1, 17, 160, 1024, 5)][:b]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", FD_SHAPES, ids=["qwen3_8b", "small"])
+def test_flash_decode_kernels_match_plain_on_card(cuda_device, dtype, shape):
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    b, hq, hkv, d, t = shape
+    q, k, v = _fd_inputs(b, hq, hkv, d, t, dtype, cuda_device)
+    p = fd.plan(b, hkv, t, 132)
+    for lens in _fd_lens(b, t):
+        before = {n: c.total for n, c in fd.launches.items()}
+        single = fd.flash_decode_single(q, k, v, lens)
+        parts = fd.flash_decode_partial(q, k, v, lens, p.split_len,
+                                        p.splits)
+        merged = fd.flash_decode_combine(*parts, dtype)
+        again = (fd.flash_decode_single(q, k, v, lens),
+                 fd.flash_decode_combine(*fd.flash_decode_partial(
+                     q, k, v, lens, p.split_len, p.splits), dtype))
+        torch.cuda.synchronize()
+        assert {n: c.total - before[n] for n, c in fd.launches.items()} == {
+            "partial": 2, "combine": 2, "single": 2}
+        assert torch.equal(single, again[0])        # no atomics
+        assert torch.equal(merged, again[1])
+        want = fd.flash_decode_reference(q, k, v, lens)
+        _fd_assert_close(single, want, v)
+        _fd_assert_close(merged, want, v)
+        # The combine kernel against its plain version on the same
+        # partials, and the partials against theirs.
+        _fd_assert_close(merged, fd.flash_decode_combine_reference(
+            *parts, dtype), torch.ones(1))
+        ref_parts = fd.flash_decode_partials_reference(q, k, v, lens,
+                                                       p.split_len, p.splits)
+        _fd_assert_close(fd.flash_decode_combine_reference(*parts, dtype),
+                         fd.flash_decode_combine_reference(*ref_parts,
+                                                           dtype), v)
+        torch.testing.assert_close(parts[2], ref_parts[2], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_paged_kernel_reads_through_the_table(cuda_device,
+                                                           dtype):
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    b, hq, hkv, d, page, n_pages = 4, 32, 8, 128, 16, 64
+    q, k, v = _fd_inputs(b, hq, hkv, d, page * n_pages, dtype, cuda_device,
+                         seed=1)
+    slots = torch.randperm(b * n_pages + 1,
+                           generator=torch.Generator().manual_seed(0))
+    table = slots[:b * n_pages].reshape(1, b, n_pages).to(torch.int32)
+    pool_k = torch.zeros((b * n_pages + 1, page, hkv, d), dtype=dtype,
+                         device=cuda_device)
+    pool_v = torch.zeros_like(pool_k)
+    idx = table[0].reshape(-1).long().to(cuda_device)
+    pool_k[idx] = k.reshape(b * n_pages, page, hkv, d)
+    pool_v[idx] = v.reshape(b * n_pages, page, hkv, d)
+    table = table.to(cuda_device)
+    for lens in _fd_lens(b, page * n_pages):
+        got = fd.gqa_fwd_batch_decode_paged(q, pool_k, pool_v, table, lens)
+        assert torch.equal(got, fd.gqa_fwd_batch_decode_paged(
+            q, pool_k, pool_v, table, lens))
+        # Paged and dense addressing of the same rows: the same bits, and
+        # so does the "gathered" variant (a contiguous copy, then dense).
+        assert torch.equal(got, fd.gqa_fwd_batch_decode(
+            q, k, v, lens, fd.FlashDecodeContext(variant="tiled")))
+        assert torch.equal(got, fd.gqa_fwd_batch_decode_paged(
+            q, pool_k, pool_v, table, lens,
+            fd.FlashDecodeContext(paged_variant="gathered")))
+        _fd_assert_close(got, fd.flash_decode_paged_reference(
+            q, pool_k, pool_v, table, lens), v)
+    # A table entry past the pool is clamped into it, never read past it.
+    bad = table.clone()
+    bad[0, 0, 0] = 1 << 20
+    out = fd.gqa_fwd_batch_decode_paged(q, pool_k, pool_v, bad, 16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_flash_decode_plan_fills_the_card(cuda_device):
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    for b, hkv, t in ((4, 8, 1024), (1, 8, 4096), (64, 8, 512), (3, 2, 48)):
+        p = fd.plan(b, hkv, t, 132)
+        assert p.split_len % 64 == 0
+        assert (p.splits - 1) * p.split_len < t <= p.splits * p.split_len
+        assert p.splits == 1 or b * hkv * p.splits <= 4 * 132
+    assert fd.plan(4, 8, 1024, 132) == fd.Plan(8, 128)

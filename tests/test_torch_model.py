@@ -179,7 +179,15 @@ def test_hf_qwen3_parity_through_load_hf_state_dict():
 
 
 def test_sp_mode_raises():
+    """Mode "sp" needs a model built with sp_axis (its parity tests are
+    in tests/test_torch_sp_engine.py); its per-row S > 1 burst is not
+    ported yet."""
     _, _, model, params = _pair(jnp.float32, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sp_axis"):
         model.forward(params, torch.tensor([[1]]), _port_caches(model, 1, 4),
                       0, mode="sp")
+    sp_model = type(model)(model.config, device="cpu", sp_axis="sp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sp_model.forward(params, torch.tensor([[1, 2]]),
+                         _port_caches(model, 1, 4), torch.tensor([0]),
+                         mode="sp")

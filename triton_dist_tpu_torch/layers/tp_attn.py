@@ -123,7 +123,7 @@ class TPAttn:
         return out, kv_cache
 
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, offset) -> None:
+def write_cache(cache: torch.Tensor, new: torch.Tensor, offset) -> None:
     """Write (B, S, hkv, D) ``new`` into ``cache`` in place at ``offset``.
 
     Scalar offset: one slice, its start clamped into [0, T - S] as JAX's
@@ -173,8 +173,8 @@ def _attention_core(q, k, v, cache_k, cache_v, offset, kv_start, *,
     b, s, hq, d = q.shape
     t = cache_k.shape[1]
     hkv = cache_k.shape[2]
-    _write_cache(cache_k, k, offset)
-    _write_cache(cache_v, v, offset)
+    write_cache(cache_k, k, offset)
+    write_cache(cache_v, v, offset)
     if torch.is_tensor(offset) and offset.dim() == 1:
         off_b = offset
     else:

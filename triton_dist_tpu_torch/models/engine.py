@@ -1,17 +1,24 @@
 """Inference engine: prefill + eager decode loop (the port of
-``triton_dist_tpu.models.engine``, contiguous-cache subset).
+``triton_dist_tpu.models.engine``).
 
 The JAX engine compiles each step with ``jax.jit``; the port runs each
 step eagerly (a CUDA graph of the step is later work, ROADMAP.md Queue A
-item 10). Prefill runs ``prefill_mode="xla_ar"`` (plain products);
-decode runs ``decode_mode="gemm_ar"``, whose o_proj and down projection
-go through the hand-written ``gemm_ar`` kernel.
+item 10). Two engine families are served:
 
-Served here: ``serve``, ``serve_ragged``, ``serve_stream`` and the
-contiguous :class:`StreamSession`. Paged caches, the prefix cache, the
-mega and auto decode paths, speculative decoding, chunked prefill and
-the ``sp`` modes raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+* the default modes, ``prefill_mode="xla_ar"`` (plain products) and
+  ``decode_mode="gemm_ar"`` (o_proj and down projection through the
+  hand-written ``gemm_ar`` kernel), over contiguous caches;
+* mode ``"sp"`` for both phases (``DenseLLM(sp_axis=...)``): prefill
+  attention of ``ops.sp_attention`` and decode through the hand-written
+  flash-decode kernels, over contiguous caches (optionally prefilled in
+  ``prefill_chunk`` slices) or, with ``paged=True``, over a
+  ``PagedKVCacheManager`` block pool with the cross-request prefix cache
+  (on by default) and block-granular stream admission.
+
+Served: ``serve``, ``serve_ragged`` (not in mode "sp", which is
+non-ragged), ``serve_stream`` and :class:`StreamSession`. The mega and
+auto decode paths, speculative decoding and chunked stream admission
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 Sampling: greedy is ``argmax``. Temperature sampling draws from a
 ``torch.Generator`` seeded with ``seed``; its draws differ from
@@ -23,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.models.kv_cache import KVCacheManager
+from triton_dist_tpu_torch.models.kv_cache import (
+    KVCacheManager, PagedKVCacheManager)
 
 
 def sample_token(logits: torch.Tensor,
@@ -76,28 +84,54 @@ class Engine:
                  prefill_mode: str = "xla_ar", decode_mode: str = "gemm_ar",
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, seed: int = 0,
-                 paged: bool = False, prefill_chunk: int | None = None,
+                 paged: bool = False, page_size: int = 16,
+                 prefill_chunk: int | None = None,
                  use_mega: bool = False, decode_path: str | None = None,
-                 prefix_cache: bool | None = None, spec=None):
-        if paged or prefix_cache:
-            raise _unported("paged KV serving and the prefix cache",
-                            "Queue A items 6-7")
+                 prefix_cache: bool | None = None,
+                 kv_slots_per_dev: int | None = None, spec=None):
         if use_mega or decode_path not in (None, "plain"):
             raise _unported(f"decode_path={decode_path or 'mega'!r}",
                             "Queue A item 10")
         if spec is not None:
             raise _unported("speculative decoding", "Queue A item 11")
-        if prefill_chunk is not None:
-            raise _unported("chunked sp prefill", "Queue A item 13")
-        if "sp" in (prefill_mode, decode_mode):
-            raise _unported("sequence-parallel serving (mode 'sp')",
-                            "Queue A items 6 and 13")
+        sp = "sp" in (prefill_mode, decode_mode)
+        if sp and not prefill_mode == decode_mode == "sp":
+            raise ValueError("mode 'sp' applies to prefill and decode "
+                             "together")
+        if sp and getattr(model, "sp_axis", None) is None:
+            raise ValueError("build the model with sp_axis=... for sp "
+                             "serving")
+        if paged and not sp:
+            raise ValueError("paged serving requires the sp modes")
+        if prefill_chunk is not None and (not sp or paged):
+            raise ValueError("prefill_chunk applies to the (non-paged) sp "
+                             "engine")
         self.model = model
         c = model.config
         self.device = model.device
-        self.kv = KVCacheManager(c.num_hidden_layers, batch, max_seq,
-                                 c.num_key_value_heads, c.head_dim,
-                                 dtype=c.dtype, device=self.device)
+        self.paged = paged
+        # The cross-request prefix cache serves paged stream sessions;
+        # on by default there (greedy outputs are identical either way).
+        self.prefix_cache = paged and (prefix_cache is None
+                                      or bool(prefix_cache))
+        self.prefill_chunk = prefill_chunk
+        if paged:
+            if max_seq % page_size:
+                raise ValueError(f"max_seq {max_seq} must divide into "
+                                 f"{page_size}-token pages")
+            # kv_slots_per_dev sizes the allocatable pool (default:
+            # whole-batch capacity; the sentinel page rides outside it).
+            # Smaller pools stream through block-granular admission;
+            # serve() still needs whole rows.
+            self.kv = PagedKVCacheManager(
+                c.num_hidden_layers, batch, page_size, max_seq // page_size,
+                c.num_key_value_heads, c.head_dim, dtype=c.dtype,
+                device=self.device, slots_per_dev=kv_slots_per_dev)
+        else:
+            self.kv = KVCacheManager(c.num_hidden_layers, batch, max_seq,
+                                     c.num_key_value_heads, c.head_dim,
+                                     dtype=c.dtype, device=self.device,
+                                     seq_shard=sp)
         self.prefill_mode = prefill_mode
         self.decode_mode = decode_mode
         self.temperature = temperature
@@ -136,17 +170,41 @@ class Engine:
         has_stop = bool(stop_tokens)
         stop = torch.tensor(list(stop_tokens) or [-1], dtype=torch.int64,
                             device=self.device)
+        sp = self.prefill_mode == "sp"
+        if sp and kv_start is not None and bool(
+                torch.as_tensor(kv_start).any()):
+            raise ValueError("sp serving is non-ragged")
         kv_start = (torch.zeros((b,), dtype=torch.int64, device=self.device)
                     if kv_start is None else
                     torch.as_tensor(kv_start, dtype=torch.int64,
                                     device=self.device))
         self.kv.reset()
-        # A request of fewer rows than the engine's batch gets caches of
-        # its own row count (the JAX engine raises on such a request).
-        caches = self.kv.init(rows=b)
-        logits, caches = self.model.forward(params, input_ids, caches, 0,
-                                            mode=self.prefill_mode,
-                                            kv_start=kv_start)
+        table = None
+        if self.paged:
+            # Admission per serve() call: reset the pool (a stream session
+            # may have left it block-granular), then reserve this
+            # request's whole rows at once (rolled back on exhaustion).
+            self.kv.reset_pool()
+            self.kv.alloc_many(range(b))
+            table = self.kv.block_table()[:, :b]
+            caches = self.kv.init()
+        else:
+            # A request of fewer rows than the engine's batch gets caches
+            # of its own row count (the JAX engine raises on such a
+            # request).
+            caches = self.kv.init(rows=b)
+        fwd = dict(block_table=table) if sp else dict(kv_start=kv_start)
+        chunk = self.prefill_chunk
+        if chunk and s > chunk:
+            # Chunked sp prefill: each slice writes its K/V and attends
+            # over the cache filled so far.
+            for start in range(0, s, chunk):
+                logits, caches = self.model.forward(
+                    params, input_ids[:, start:start + chunk], caches,
+                    start, mode="sp")
+        else:
+            logits, caches = self.model.forward(params, input_ids, caches, 0,
+                                                mode=self.prefill_mode, **fwd)
         self.kv.inc_offset(s)
         token = self._sample(logits[:, -1])
         done = torch.isin(token, stop) if has_stop else None
@@ -159,7 +217,7 @@ class Engine:
                 break
             logits, caches = self.model.forward(
                 params, token[:, None], caches, self.kv.offset,
-                mode=self.decode_mode, kv_start=kv_start)
+                mode=self.decode_mode, **fwd)
             nxt = self._sample(logits[:, -1])
             if has_stop:
                 nxt = torch.where(done, token, nxt)
@@ -215,9 +273,12 @@ class Engine:
 
         Every row runs at its own cache position: admission resets the
         row's lane (batch-1 prefill written at slot 0, rope and mask from
-        the per-row offset), so a freed row is reusable at once. Greedy
-        results equal serving each prompt alone. Returns prompt +
-        generated token lists in input order."""
+        the per-row offset), so a freed row is reusable at once. Paged
+        engines admit by blocks: the next prompt waits (FIFO) until the
+        pool holds its worst-case block demand, and a prompt that could
+        never fit the pool is refused up front. Greedy results equal
+        serving each prompt alone. Returns prompt + generated token lists
+        in input order."""
         b = self.kv.batch
         stop_set = set(self._stop_set(stop_tokens))
         if gen_len <= 0:
@@ -227,6 +288,12 @@ class Engine:
             raise ValueError("prompts must be non-empty")
         if not all(len(p) + gen_len <= self.kv.max_seq for p in prompts):
             raise ValueError("prompt + gen_len must fit max_seq")
+        if self.paged:
+            bad = [i for i, p in enumerate(prompts)
+                   if not self.kv.fits_pool(len(p), gen_len)]
+            if bad:
+                raise ValueError(f"prompts {bad} can never fit the block "
+                                 f"pool ({self.kv.slots_per_dev} slots)")
 
         sess = self.stream_session(params)
         row_req = [None] * b                 # request id occupying a row
@@ -252,6 +319,10 @@ class Engine:
             nonlocal next_req
             for r in range(b):
                 while row_req[r] is None and next_req < n_req:
+                    if not sess.can_admit(len(prompts[next_req]), gen_len):
+                        # Not enough blocks yet: FIFO order holds, the
+                        # head re-checks after the next retirement.
+                        return
                     rid = next_req
                     next_req += 1
                     first = sess.prefill_into_row(r, prompts[rid],
@@ -271,18 +342,28 @@ class Engine:
                     if row_req[r] is None or record(r, int(tok)):
                         break
             admit_free_rows()
+        if any(r is None for r in results):
+            raise RuntimeError("stream ended with unserved prompts: "
+                               "admission stalled with no live rows")
         return results
 
 
 class StreamSession:
-    """Incremental row-level API over an Engine's fixed decode window
-    (contiguous caches).
+    """Incremental row-level API over an Engine's fixed decode window.
 
     * :meth:`prefill_into_row` admits a prompt into a free row and
       returns its first token;
     * :meth:`decode_step` runs ONE shared decode step for every live row
       (frozen rows re-emit their token and do not advance);
     * :meth:`retire_row` frees a finished row for the next admission.
+
+    Paged engines run the pool block-granular: the session starts with
+    every row's table lanes on the sentinel page, admission maps cached
+    prefix blocks and allocates the rest of the prompt's blocks
+    (:meth:`can_admit` says whether the pool can take a request), each
+    decode step first grows rows whose next write crosses into a new
+    page, and retirement hands the row's blocks back at once. After
+    every table change the session re-reads the device table.
 
     Exactly one thread may drive a session."""
 
@@ -292,23 +373,55 @@ class StreamSession:
         b = engine.kv.batch
         dev = engine.device
         engine.kv.reset()
+        self.cur_table = None
+        if engine.paged:
+            engine.kv.stream_setup(prefix_cache=engine.prefix_cache)
+            self.cur_table = engine.kv.block_table()
         self.caches = engine.kv.init()
         self.token = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.offsets = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.live = [False] * b
+        self._host_off = [0] * b     # host shadow of the per-row offsets
+        #: Facts about the last admission: the prompt tokens served from
+        #: the prefix cache.
+        self.admit_info: dict | None = None
 
     @property
     def batch(self) -> int:
         return self.engine.kv.batch
 
+    def can_admit(self, prompt_len: int, gen_len: int,
+                  extra=None) -> bool:
+        """Block-granular admission control (paged engines): enough free
+        or evictable blocks for this request's worst-case demand, net of
+        live rows' commitments and of ``extra`` (summed
+        :meth:`admission_need` of admissions not yet run). Contiguous
+        sessions always admit."""
+        if not self.engine.paged:
+            return True
+        return self.engine.kv.can_admit(prompt_len, gen_len, extra=extra)
+
+    def admission_need(self, prompt_len: int, gen_len: int):
+        """Per-device worst-case block demand (the ``extra`` operand of
+        :meth:`can_admit`); ``None`` for contiguous sessions."""
+        if not self.engine.paged:
+            return None
+        return self.engine.kv.need_per_dev(prompt_len, gen_len)
+
     # -- admission ---------------------------------------------------------
     def prefill_into_row(self, row: int, prompt, chunk: int | None = None,
                          gen_budget: int | None = None) -> int:
         """Admit ``prompt`` into free row ``row`` in one admission
-        prefill and return the first sampled token. ``gen_budget`` is
-        accepted for the JAX signature; contiguous rows reserve nothing.
-        Chunked admission (``chunk``) is not ported yet."""
-        if chunk:
+        prefill and return the first sampled token.
+
+        ``gen_budget`` (paged engines): the tokens this request may still
+        generate; admission commits that many future blocks so a later
+        admission cannot starve the row mid-decode. Chunked admission
+        (``chunk``) of the default modes is not ported yet; mode "sp"
+        engines admit in one prefill whatever ``chunk`` says, as in
+        the JAX package."""
+        eng = self.engine
+        if chunk and eng.prefill_mode != "sp":
             raise _unported("chunked admission (prefill_step)",
                             "Queue A item 9")
         if self.live[row]:
@@ -316,7 +429,14 @@ class StreamSession:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompts must be non-empty")
+        if eng.paged:
+            return self._admit_paged(row, prompt, gen_budget)
         return self._admit_whole(row, prompt)
+
+    def _prefill_ids(self, tokens: list, lb: int) -> torch.Tensor:
+        """``tokens`` right-padded with 0 to the bucket length ``lb``."""
+        return torch.tensor([tokens + [0] * (lb - len(tokens))],
+                            dtype=torch.int64, device=self.engine.device)
 
     @torch.no_grad()
     def _admit_whole(self, row: int, prompt: list) -> int:
@@ -332,17 +452,65 @@ class StreamSession:
         per-row mask ever exposes them."""
         eng = self.engine
         lb = min(eng._bucket_len(len(prompt)), eng.kv.max_seq)
-        ids = torch.tensor([prompt + [0] * (lb - len(prompt))],
-                           dtype=torch.int64, device=eng.device)
         lanes = [(ck[row:row + 1, :lb], cv[row:row + 1, :lb])
                  for ck, cv in self.caches]
-        logits, _ = eng.model.forward(self.params, ids, lanes, 0,
-                                      mode=eng.prefill_mode)
+        logits, _ = eng.model.forward(self.params,
+                                      self._prefill_ids(prompt, lb), lanes,
+                                      0, mode=eng.prefill_mode)
         first = int(eng._sample(logits[:, len(prompt) - 1])[0])
-        self.offsets[row] = len(prompt)
+        self._mark_admitted(row, len(prompt), first)
+        return first
+
+    @torch.no_grad()
+    def _admit_paged(self, row: int, prompt: list,
+                     gen_budget: int | None) -> int:
+        """Block-granular paged admission with cross-request prefix
+        reuse: map cached prefix blocks into the row's lanes, then run
+        only the SUFFIX through the prefill (the whole prompt when the
+        cache misses). The cached blocks hold exactly the K/V a cold
+        prefill of the same tokens writes; the suffix's attention over
+        them rounds differently from a whole-prompt prefill only in
+        bf16 (the f32 greedy tokens are the JAX engine's)."""
+        eng, kv = self.engine, self.engine.kv
+        L = len(prompt)
+        # Size the suffix against the pool BEFORE claiming hits: the
+        # padded suffix is written at cached + [0, lb) and must not run
+        # off max_seq. Fewer hits give a longer suffix but more room;
+        # k = 0 (cold, lb clamped to max_seq) always fits.
+        hashes = kv.prefix_hashes(prompt)
+        k = kv.prefix_probe(prompt, hashes=hashes)
+        while k > 0 and (k * kv.page_size
+                         + eng._bucket_len(L - k * kv.page_size)
+                         > kv.max_seq):
+            k -= 1
+        cached = kv.admit_row(row, prompt, gen_budget=int(gen_budget or 0),
+                              use_hits=k, hashes=hashes)
+        suffix = prompt[cached:]
+        lb = min(eng._bucket_len(len(suffix)), kv.max_seq - cached)
+        try:
+            self.cur_table = kv.block_table()
+            # Offset 0 is the whole-prompt prefill; a hit's suffix starts
+            # at `cached`, the paged chunked-prefill path of forward_sp.
+            logits, _ = eng.model.forward(
+                self.params, self._prefill_ids(suffix, lb), self.caches,
+                cached, mode="sp", block_table=self.cur_table[:, row:row + 1])
+            first = int(eng._sample(logits[:, len(suffix) - 1])[0])
+        except Exception:
+            # The prefill never finished: hand the row's blocks straight
+            # back (a stranded allocation is a slow leak).
+            kv.release_row(row)
+            self.cur_table = kv.block_table()
+            raise
+        kv.register_prefix(row, prompt, hashes=hashes)
+        self.admit_info = {"cached": cached}
+        self._mark_admitted(row, L, first)
+        return first
+
+    def _mark_admitted(self, row: int, prompt_len: int, first: int) -> None:
+        self.offsets[row] = prompt_len
+        self._host_off[row] = prompt_len
         self.live[row] = True
         self.token[row] = first
-        return first
 
     # -- decode / retire ---------------------------------------------------
     def decode_burst(self) -> dict:
@@ -358,16 +526,42 @@ class StreamSession:
         cache position, frozen rows re-emit their token. Returns the
         (batch,) token vector as numpy."""
         eng = self.engine
+        if eng.paged:
+            # Grow every live row whose next write position crosses into
+            # an unallocated page; its admission committed the block.
+            grew = False
+            for r in range(self.batch):
+                if self.live[r]:
+                    grew |= eng.kv.ensure_position(r, self._host_off[r])
+            if grew:
+                self.cur_table = eng.kv.block_table()
         done = torch.tensor([not alive for alive in self.live],
                             device=eng.device)
+        fwd = ({"block_table": self.cur_table} if eng.paged else {})
         logits, self.caches = eng.model.forward(
             self.params, self.token[:, None], self.caches, self.offsets,
-            mode=eng.decode_mode)
+            mode=eng.decode_mode, **fwd)
         nxt = eng._sample(logits[:, -1])
         self.token = torch.where(done, self.token, nxt)
         self.offsets = torch.where(done, self.offsets, self.offsets + 1)
+        for r in range(self.batch):
+            if self.live[r]:
+                self._host_off[r] += 1
         return self.token.cpu().numpy()
 
     def retire_row(self, row: int) -> None:
-        """Free a finished row; the next admission may reuse its lane."""
+        """Free a finished row; the next admission may reuse its lane.
+        Paged engines release its blocks at once: shared prefix blocks
+        drop a reference (cached ones stay, evictable), private blocks
+        return to the free stack, and the lanes point back at the
+        sentinel so the row's frozen writes stay harmless."""
         self.live[row] = False
+        if self.engine.paged:
+            self.engine.kv.release_row(row)
+            self.cur_table = self.engine.kv.block_table()
+
+    def close(self) -> None:
+        """Retire every live row, returning its blocks to the pool."""
+        for r in range(self.batch):
+            if self.live[r]:
+                self.retire_row(r)

@@ -23,7 +23,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_kernels"
 #: Every CUDA source of the port, by library name.
-SOURCES = {"gemm_ar": CSRC_DIR / "gemm_ar.cu"}
+SOURCES = {"gemm_ar": CSRC_DIR / "gemm_ar.cu",
+           "flash_decode": CSRC_DIR / "flash_decode.cu"}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

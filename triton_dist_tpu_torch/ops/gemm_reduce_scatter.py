@@ -14,7 +14,6 @@ takes the plain version :func:`gemm_ar_reference`.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -22,28 +21,12 @@ from typing import NamedTuple
 import torch
 
 from triton_dist_tpu_torch.ops import _build
+from triton_dist_tpu_torch.ops.common import LaunchCount, num_sms
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-
-class LaunchCount:
-    """Kernel launches made by a wrapper: ``total`` and ``by_shape``
-    (keyed by the (K, N) of ``b``). A run resets it, drives the path and
-    reads it to show that the path went through the kernel."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.total = 0
-        self.by_shape: collections.Counter = collections.Counter()
-
-    def add(self, shape) -> None:
-        self.total += 1
-        self.by_shape[tuple(shape)] += 1
-
-
-#: Launches of the gemm_ar kernel (CPU calls do not count).
+#: Launches of the gemm_ar kernel, by the (K, N) of ``b`` (CPU calls do
+#: not count).
 launches = LaunchCount()
 
 
@@ -111,7 +94,7 @@ def gemm_ar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    sms = _num_sms(a.device.index)
+    sms = num_sms(a.device.index)
     p = plan(m, n, k, a.dtype, sms)
     a, b = _aligned16(a), _aligned16(b)
     ws = (torch.empty((p.splits, m, n), dtype=torch.float32,
@@ -134,11 +117,6 @@ def _check(lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         msg = lib.tdt_error_string(err).decode()
         raise RuntimeError(f"gemm_ar kernel call failed: {msg} ({err})")
-
-
-@functools.cache
-def _num_sms(index) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _gemm_ar_lib() -> ctypes.CDLL:
