@@ -48,7 +48,25 @@ without the final line:
    vs device time (idle share); a prefix-hit admission's first-token
    logits against a cold admission of the same prompt.
 
-Phases 7-9 run between phases 5 and 6; the JSON line covers both slices.
+10. AG-GEMM / AG-SwiGLU / GEMM-RS kernels (``csrc/ag_gemm.cu``) against
+    their plain versions in bf16 at Qwen3-8B's shapes on the model's own
+    weights: prefill M = 512 (QKV, n_b = 3; the fused SwiGLU 4096 ->
+    12288; gemm_rs at the o_proj and down shapes) and decode M = 4 (QKV,
+    gate|up with n_b = 2, down): error, bit-identical repeat, device ms,
+    plain ms, one ``torch.matmul`` of the same product (for the SwiGLU, of
+    the gate|up products without their epilogue) and the bound.
+11. ag_rs main path: Qwen3-8B (default model mode "ag_rs") served by the
+    reference engine (prefill "ag_rs", decode "gemm_ar") and the fused one
+    (both "ag_rs") through serve, serve_stream (6 prompts of 65-128
+    tokens, every admission bucket 128) and the server: per prefill 36
+    ag_gemm, 36 ag_swiglu and 72 gemm_rs launches; per decode step 72
+    ag_gemm + 72 gemm_rs (fused) or 72 gemm_ar (reference); the share of
+    greedy tokens equal to phase 3's engine; then the prefill's
+    last-position logits through the kernels against the plain versions
+    (within 0.25) and each engine's decode step wall vs device time.
+
+Phases 7-11 run between phases 5 and 6; the JSON line covers all three
+slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -281,7 +299,7 @@ def phase_model(torch, models, ops, card: str, seed: int):
     for t in [out] + rows + [torch.tensor(r) for r in res]:
         check(bool(((t >= 0) & (t < cfg.vocab_size)).all()),
               "token out of vocabulary")
-    return cfg, model, params, eng, prompts
+    return cfg, model, params, eng, prompts, (square, out)
 
 
 def phase_server(torch, eng, params, prompts, card: str) -> None:
@@ -840,6 +858,363 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
     return out
 
 
+# -- slice 3: mode "ag_rs" through the AG-GEMM / AG-SwiGLU / GEMM-RS kernels --
+#: Qwen3-8B prefill rows (batch 4 x 128-token prompts) and decode rows.
+AG_PREFILL_M, AG_DECODE_M = 512, 4
+#: The two ag_rs engines: name -> (prefill mode, decode mode).
+AG_ENGINES = {"reference": ("ag_rs", "gemm_ar"), "fused": ("ag_rs", "ag_rs")}
+
+
+def f32_sum_atol(k: int) -> float:
+    """Absolute limit for bf16 products near zero: each side sums k
+    unit-scale f32 terms in its own order, and the rounding error of such
+    a blocked sum grows like sqrt(k), about 1e-6 * sqrt(k / 1024); 4x
+    that for the gap between two such sums."""
+    return 4e-6 * max(1.0, (k / 1024) ** 0.5)
+
+
+def gemm_error(torch, got, ref, k: int) -> tuple[float, bool]:
+    """(max |got - ref|, within one bf16 ulp + f32_sum_atol(k))."""
+    diff = (got.float() - ref.float()).abs()
+    lim = (BF16_ULP_REL * torch.maximum(got.float().abs(), ref.float().abs())
+           + f32_sum_atol(k))
+    return diff.max().item(), bool((diff <= lim).all())
+
+
+def swiglu_error(torch, got, ref, a, wg, wu) -> tuple[float, bool]:
+    """(max |got - ref|, within tolerance) of the fused SwiGLU: one bf16
+    ulp of the value, plus 2^-16 (|silu(g)| + 1.1 |u|) + 1e-6 for the f32
+    gate g and up u of two summation orders, whose ~1e-6 gap moves an
+    activation near zero by more than its ulp (|silu'| < 1.1)."""
+    g = a.float() @ wg.float()
+    u = a.float() @ wu.float()
+    diff = (got.float() - ref.float()).abs()
+    lim = (BF16_ULP_REL * torch.maximum(got.float().abs(), ref.float().abs())
+           + 2.0 ** -16 * (torch.nn.functional.silu(g).abs() + 1.1 * u.abs())
+           + 1e-6)
+    return diff.max().item(), bool((diff <= lim).all())
+
+
+def gemm_bound_ms(m: int, k: int, widths, n_b_operands: int = 1):
+    """(least ms, what bounds it) of products sharing A (M, K): A, every
+    weight and every output moved once over HBM; 2*M*K*N operations per
+    product over the bf16 peak. ``n_b_operands`` weights per output width
+    (2 for the SwiGLU, whose gate and up give one output)."""
+    n = sum(widths)
+    by_bytes = (m * k + n_b_operands * k * n + m * n) * 2 / HBM_BYTES_PER_S
+    by_ops = 2.0 * m * k * n * n_b_operands / PEAK_FLOPS["bf16"]
+    return ((by_bytes * 1e3, "bytes") if by_bytes >= by_ops
+            else (by_ops * 1e3, "operations"))
+
+
+def phase_ag_kernels(torch, ag, rs, params, cfg, card: str) -> list:
+    """Phase 10: the new kernels against their plain versions at the main
+    path's shapes, bf16, on the model's own weights (cycled over the 36
+    layers so B is cold in L2, as in a forward). Returns the kernel
+    records of the JSON line, ``launches`` still to fill from phase 11."""
+    print("== phase 10: AG-GEMM, AG-SwiGLU and GEMM-RS kernels vs their "
+          "plain versions", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    layers = params["layers"]
+    h = cfg.hidden_size
+    records = []
+
+    def weights(*keys):
+        return [[lp[a][b] for a, b in keys] for lp in layers]
+
+    qkv = weights(("attn", "w_q"), ("attn", "w_k"), ("attn", "w_v"))
+    gate_up = weights(("mlp", "w_gate"), ("mlp", "w_up"))
+    o_proj = weights(("attn", "w_o"))
+    down = weights(("mlp", "w_down"))
+    # Each weight set concatenated once, outside the timing, for the one
+    # torch.matmul the library time is.
+    cat = {id(ws[0][0]): [torch.cat(w, dim=1) for w in ws[:4]]
+           for ws in (qkv, gate_up)}
+    cases = [
+        # name, rows, weight sets, kernel op, plan, counter key name,
+        # replaced TPU kernel line
+        ("ag_gemm[prefill qkv]", AG_PREFILL_M, qkv, "gemm", "prefill",
+         "triton_dist_tpu/ops/allgather_gemm.py:265"),
+        ("ag_swiglu[prefill]", AG_PREFILL_M, gate_up, "swiglu", "prefill",
+         "triton_dist_tpu/ops/allgather_gemm.py:954"),
+        ("gemm_rs[prefill o_proj]", AG_PREFILL_M, o_proj, "rs", "prefill",
+         "triton_dist_tpu/ops/gemm_reduce_scatter.py:353"),
+        ("gemm_rs[prefill down]", AG_PREFILL_M, down, "rs", "prefill",
+         "triton_dist_tpu/ops/gemm_reduce_scatter.py:533"),
+        ("ag_gemm[decode qkv]", AG_DECODE_M, qkv, "gemm", "decode",
+         "triton_dist_tpu/ops/allgather_gemm.py:265"),
+        ("ag_gemm[decode gate|up]", AG_DECODE_M, gate_up, "gemm", "decode",
+         "triton_dist_tpu/ops/allgather_gemm.py:265"),
+        ("gemm_rs[decode down]", AG_DECODE_M, down, "rs", "decode",
+         "triton_dist_tpu/ops/gemm_reduce_scatter.py:533"),
+    ]
+    for name, m, sets, op, plan, replaces in cases:
+        k = sets[0][0].shape[0]
+        widths = tuple(w.shape[1] for w in sets[0])
+        a = torch.randn((m, k), generator=gen, device="cuda",
+                        dtype=cfg.dtype)
+        if op == "gemm":
+            def kernel(ws):
+                return ag.ag_gemm_multi(a, ws)
+
+            def plain(ws):
+                return ag.ag_gemm_multi_reference(a, ws)
+        elif op == "swiglu":
+            def kernel(ws):
+                return [ag.launch_swiglu(a, ws[0], ws[1], None, None)]
+
+            def plain(ws):
+                return [ag.ag_swiglu_reference(a, ws[0], ws[1])]
+        else:
+            def kernel(ws):
+                return [rs.gemm_rs(a, ws[0])]
+
+            def plain(ws):
+                return [rs.gemm_rs_reference(a, ws[0])]
+        got, again = kernel(sets[0]), kernel(sets[0])
+        torch.cuda.synchronize()
+        ref = plain(sets[0])
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{name}: repeat differs")
+        if op == "swiglu":
+            err, ok = swiglu_error(torch, got[0], ref[0], a, *sets[0])
+            tol = "1 bf16 ulp + 2^-16 (|silu(g)| + 1.1|u|) + 1e-6"
+        else:
+            pairs = [gemm_error(torch, x, y, k) for x, y in zip(got, ref)]
+            err, ok = max(e for e, _ in pairs), all(o for _, o in pairs)
+            tol = f"1 bf16 ulp + {f32_sum_atol(k):.2g}"
+        check(ok, f"{name}: max abs err {err} outside tolerance ({tol})")
+        nk, np_ = rotating(sets), rotating(sets)
+        ms = device_ms(torch, lambda: kernel(nk()))
+        wall = wall_ms(torch, lambda: kernel(nk()))
+        plain_ms = device_ms(torch, lambda: plain(np_()))
+        if op == "rs":
+            nl = rotating([w[0] for w in sets])
+            lib_ms = device_ms(torch, lambda: torch.matmul(a, nl()))
+        else:
+            nl = rotating(cat[id(sets[0][0])])
+            lib_ms = device_ms(torch, lambda: torch.matmul(a, nl()))
+        if op == "swiglu":
+            bnd, by = gemm_bound_ms(m, k, widths[:1], 2)
+        else:
+            bnd, by = gemm_bound_ms(m, k, widths)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        if op == "rs" and m <= rs.DECODE_MAX_M:
+            key, counter, path = ("decode", k, widths), "gemm_rs", "gemm_ar.cu"
+        else:
+            p = ag.plan("swiglu" if op == "swiglu" else "gemm", m,
+                        widths[:1] if op == "swiglu" else widths, k,
+                        cfg.dtype, sms)
+            check(p.path == plan, f"{name}: plan {p.path}, expected {plan}")
+            counter = {"gemm": "ag_gemm", "swiglu": "ag_swiglu",
+                       "rs": "gemm_rs"}[op]
+            key = (p.path, k, widths[:1] if op == "swiglu" else widths)
+            path = f"{p.path}, {p.tiles} tiles x {p.splits} splits"
+        print(f"kernel {name} bf16 M={m} K={k} N={'|'.join(map(str, widths))}"
+              f" ({path}): max_abs_err={err:.3g} (tol {tol}) ok, repeat "
+              f"bit-identical; kernel_ms={ms:.4f} (wall {wall:.4f}) "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}"
+              f"{' (matmul of the gate|up products, no epilogue)' if op == 'swiglu' else ''}"
+              f" bound_ms={bnd:.4f} ({by}) [{card}]", flush=True)
+        records.append(({
+            "name": name, "route": "cuda",
+            "source": ("triton_dist_tpu_torch/csrc/gemm_ar.cu"
+                       if path == "gemm_ar.cu"
+                       else "triton_dist_tpu_torch/csrc/ag_gemm.cu"),
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms, "wall_ms": wall,
+            "shape": [m, k, list(widths)], "ok": ok}, counter, key))
+    del cat
+    return records
+
+
+def ag_counts(ag, rs, ops) -> dict:
+    return {"ag_gemm": ag.ag_gemm_launches.total,
+            "ag_swiglu": ag.ag_swiglu_launches.total,
+            "gemm_rs": rs.gemm_rs_launches.total,
+            "gemm_ar": ops.launches.total}
+
+
+def phase_ag_rs_main(torch, models, ag, rs, ops, cfg, params, base, card):
+    """Phase 11: Qwen3-8B served in mode "ag_rs" by the reference engine
+    (prefill ag_rs, decode gemm_ar) and the fused one (ag_rs both), through
+    serve, serve_stream and the server, with the launch counts of every
+    prefill and decode step. ``base``: (prompts, tokens) of the
+    xla_ar / gemm_ar engine of phase 3. Returns (engines, launches by
+    counter and key)."""
+    print("== phase 11: Qwen3-8B served in mode 'ag_rs' through the AG-GEMM,"
+          " AG-SwiGLU and GEMM-RS kernels", flush=True)
+    layers = cfg.num_hidden_layers
+    model = models.DenseLLM(cfg)                    # default mode: ag_rs
+    check(model.fwd_mode == "ag_rs", "default mode is not ag_rs")
+    engines = {name: models.Engine(model, batch=4, max_seq=1024,
+                                   prefill_mode=pf, decode_mode=dc)
+               for name, (pf, dc) in AG_ENGINES.items()}
+    square, base_out = base
+    host = torch.Generator().manual_seed(7)
+    # Admission buckets of 128: every admission prefill fuses the SwiGLU.
+    stream = [torch.randint(0, cfg.vocab_size, (n,), generator=host).tolist()
+              for n in (100, 128, 70, 90, 120, 65)]
+    for eng in engines.values():                      # warm-up
+        eng.serve(params, square, 2)
+    counters = (ag.ag_gemm_launches, ag.ag_swiglu_launches,
+                rs.gemm_rs_launches, ops.launches)
+    for c in counters:                               # ---- the main path
+        c.reset()
+    steps = GEN - 1
+    per_prefill = {"ag_gemm": layers, "ag_swiglu": layers,
+                   "gemm_rs": 2 * layers, "gemm_ar": 0}
+    for name, (pf, dc) in AG_ENGINES.items():
+        eng = engines[name]
+        per_step = ({"ag_gemm": 2 * layers, "ag_swiglu": 0,
+                     "gemm_rs": 2 * layers, "gemm_ar": 0} if dc == "ag_rs"
+                    else {"ag_gemm": 0, "ag_swiglu": 0, "gemm_rs": 0,
+                          "gemm_ar": 2 * layers})
+        before = ag_counts(ag, rs, ops)
+        _, prefill_ms = sync_time(torch, lambda: eng.serve(params, square, 1))
+        got = {k: v - before[k] for k, v in ag_counts(ag, rs, ops).items()}
+        check(got == per_prefill, f"({name}) prefill launches {got}, "
+                                  f"expected {per_prefill}")
+        before = ag_counts(ag, rs, ops)
+        out, serve_ms = sync_time(torch,
+                                  lambda: eng.serve(params, square, GEN))
+        check(tuple(out.shape) == (4, 128 + GEN), f"({name}) serve shape")
+        got = {k: v - before[k] for k, v in ag_counts(ag, rs, ops).items()}
+        want = {k: per_prefill[k] + steps * per_step[k] for k in got}
+        check(got == want, f"({name}) serve launches {got}, expected {want}")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "token out of vocabulary")
+        same = (out[:, 128:] == base_out[:, 128:]).float().mean().item()
+        decode_ms = serve_ms - prefill_ms
+        print(f"ag_rs serve ({name}: prefill {pf}, decode {dc}): batch 4 x "
+              f"128 prompt, {GEN} new tokens: prefill_ms={prefill_ms:.1f} "
+              f"decode_ms={decode_ms:.1f} per_step_ms={decode_ms / steps:.2f}"
+              f" decode_tokens_per_s={4 * steps / decode_ms * 1e3:.1f}; "
+              f"launches per prefill {per_prefill}, per step {per_step}; "
+              f"greedy tokens equal to the xla_ar/gemm_ar engine's: "
+              f"{same:.3f} [{card}]", flush=True)
+
+        before = ag_counts(ag, rs, ops)
+        res, stream_ms = sync_time(
+            torch, lambda: eng.serve_stream(params, stream, GEN))
+        check([len(r) for r in res] == [len(p) + GEN for p in stream],
+              f"({name}) serve_stream row lengths")
+        got = {k: v - before[k] for k, v in ag_counts(ag, rs, ops).items()}
+        admits = len(stream)
+        check(got["ag_swiglu"] == admits * layers,
+              f"({name}) stream ag_swiglu launches {got}")
+        # A decode step launches 2 x layers of gemm_rs (fused) or gemm_ar
+        # (reference); an admission prefill 2 x layers of gemm_rs.
+        n_steps = ((got["gemm_rs"] + got["gemm_ar"] - admits * 2 * layers)
+                   // (2 * layers))
+        want = {k: admits * per_prefill[k] + n_steps * per_step[k]
+                for k in got}
+        check(n_steps > 0 and got == want,
+              f"({name}) stream launches {got}, expected {want}")
+        print(f"ag_rs serve_stream ({name}): 6 prompts (65-128 tokens) "
+              f"through 4 rows, {GEN} new tokens in {stream_ms:.1f} ms; "
+              f"{admits} admission prefills, {n_steps} decode steps; "
+              f"launches {got} [{card}]", flush=True)
+        phase_ag_server(torch, eng, params, square, stream, name, card)
+    launches = {"ag_gemm": dict(ag.ag_gemm_launches.by_shape),
+                "ag_swiglu": dict(ag.ag_swiglu_launches.by_shape),
+                "gemm_rs": dict(rs.gemm_rs_launches.by_shape)}
+    print(f"ag_rs main path launches: {launches}; gemm_ar "
+          f"{ops.launches.total}", flush=True)          # ---- main path ends
+    return engines, launches
+
+
+def phase_ag_server(torch, eng, params, square, stream, name, card) -> None:
+    from triton_dist_tpu_torch.serving.client import ChatClient
+    from triton_dist_tpu_torch.serving.server import ModelServer
+    srv = ModelServer(eng, params, host="127.0.0.1", port=0).start()
+    try:
+        with ChatClient(srv.host, srv.port, timeout=600) as client:
+            for batch, route in ((square, "serve"), (stream, "serve_stream"),
+                                 (stream[:3], "serve_ragged")):
+                t0 = time.perf_counter()
+                reply = client.generate_ids(batch, 8)
+                ms = (time.perf_counter() - t0) * 1e3
+                check("tokens" in reply, f"server error: {reply}")
+                if route == "serve":
+                    rows = eng.serve(params, batch, 8).tolist()
+                elif route == "serve_stream":
+                    rows = eng.serve_stream(params, batch, 8)
+                else:
+                    rows = [r.tolist() for r in
+                            eng.serve_ragged(params, batch, 8)]
+                want = [r[len(p):] for r, p in zip(rows, batch)]
+                check(reply["tokens"] == want,
+                      f"({name}) server reply differs from {route}")
+                print(f"ag_rs server ({name}): {len(batch)} prompts -> 8 "
+                      f"tokens each, equal to Engine.{route}; {ms:.1f} ms "
+                      f"round trip [{card}]", flush=True)
+    finally:
+        srv.stop()
+
+
+def phase_ag_checks(torch, ag, engines, params, square, cfg,
+                    card: str) -> None:
+    """Phase 11, checks: the prefill's last-position logits through the
+    kernels against the same prefill with the plain versions patched in
+    at the two launch functions; a decode step's wall vs device time."""
+    from triton_dist_tpu_torch.models import KVCacheManager
+    model = engines["fused"].model
+    ids = torch.tensor(square, device="cuda")
+
+    def prefill():
+        kv = KVCacheManager(cfg.num_hidden_layers, 4, 1024,
+                            cfg.num_key_value_heads, cfg.head_dim,
+                            dtype=cfg.dtype, device="cuda")
+        caches = kv.init()
+        with torch.no_grad():
+            logits, caches = model.forward(params, ids, caches, 0,
+                                           mode="ag_rs")
+        return logits[:, -1], caches
+
+    got, caches = prefill()
+    launch_gemm, launch_swiglu = ag.launch_gemm, ag.launch_swiglu
+    ag.launch_gemm = lambda a, bs, count: ag.ag_gemm_multi_reference(a, bs)
+    ag.launch_swiglu = ag.ag_swiglu_reference
+    try:
+        ref, _ = prefill()
+    finally:
+        ag.launch_gemm, ag.launch_swiglu = launch_gemm, launch_swiglu
+    check(bool(torch.isfinite(got).all()), "non-finite ag_rs logits")
+    err = (got - ref).abs().max().item()
+    same = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    check(err <= LOGITS_ATOL, f"ag_rs prefill logits differ by {err}")
+    print(f"ag_rs logits: prefill (4 x 128) last-position logits through the"
+          f" kernels vs the plain versions max abs diff {err:.4g} (tol "
+          f"{LOGITS_ATOL}), argmax agreement {same:.2f}", flush=True)
+    tok = got.argmax(-1)[:, None]
+    for name, (pf, dc) in AG_ENGINES.items():
+        def step():
+            with torch.no_grad():
+                model.forward(params, tok, caches, 128, mode=dc)
+        walls = [sync_time(torch, step)[1] for _ in range(5)]
+        wall = sorted(walls)[2]
+        dev = device_ms(torch, step, n=3)
+        _, pre_wall = sync_time(torch, prefill)
+        pre_dev = device_ms(torch, prefill, n=3)
+        print(f"ag_rs decode step ({name}: mode {dc}, batch 4, forward "
+              f"only): wall {wall:.2f} ms (median of 5), device {dev:.2f} "
+              f"ms, device idle share {1 - dev / wall:.2f}; prefill "
+              f"forward wall {pre_wall:.2f} ms, device {pre_dev:.2f} ms "
+              f"[{card}]", flush=True)
+
+
+def ag_kernels_line(records, launches) -> list:
+    out = []
+    for rec, counter, key in records:
+        rec = dict(rec, launches=launches[counter].get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"ag_rs path")
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -851,6 +1226,7 @@ def main() -> int:
         return 2
     from triton_dist_tpu_torch import models
     from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
     from triton_dist_tpu_torch.ops import flash_decode as fd
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as ops
 
@@ -872,8 +1248,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     phase_kernel(torch, ops, card)
-    cfg, model, params, eng, prompts = phase_model(torch, models, ops, card,
-                                                   args.seed)
+    cfg, model, params, eng, prompts, base = phase_model(torch, models, ops,
+                                                         card, args.seed)
     phase_server(torch, eng, params, prompts, card)
     main_launches = dict(ops.launches.by_shape)    # ---- main path ends
     print(f"main path gemm_ar launches: {ops.launches.total} "
@@ -883,8 +1259,15 @@ def main() -> int:
     engines, square, stream, fd_launches = phase_sp_main(
         torch, models, ops, fd, cfg, params, card, args.seed)
     phase_sp_checks(torch, fd, engines, params, square, stream, card)
+    del engines
+    ag_records = phase_ag_kernels(torch, ag, ops, params, cfg, card)
+    ag_engines, ag_launches = phase_ag_rs_main(torch, models, ag, ops, ops,
+                                               cfg, params, base, card)
+    phase_ag_checks(torch, ag, ag_engines, params, base[0], cfg, card)
+    del ag_engines
     kernels = phase_kernels_line(torch, ops, params, cfg, main_launches)
     kernels += phase_fd_kernels_line(torch, fd, fd_launches)
+    kernels += ag_kernels_line(ag_records, ag_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

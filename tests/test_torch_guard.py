@@ -169,6 +169,95 @@ def test_flash_decode_on_cuda_tensors_never_takes_the_plain_path(
             call()
 
 
+def test_ag_gemm_entry_points_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed calls of ag_gemm_multi, ag_gemm,
+    ag_swiglu (both sides of the fusion rule) and gemm_rs (both plans)
+    reach a kernel build and fail there instead of computing a plain
+    version on the CPU."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+
+    class CudaView:
+        """A meta tensor that reports the CUDA device."""
+
+        def __init__(self, *shape):
+            self._t = torch.zeros(shape, dtype=torch.bfloat16, device="meta")
+            self.device = torch.device("cuda", 0)
+            self.dtype, self.shape = self._t.dtype, self._t.shape
+
+        def dim(self):
+            return self._t.dim()
+
+        def is_contiguous(self):
+            return True
+
+        def element_size(self):
+            return self._t.element_size()
+
+    for name in ("ag_gemm_multi_reference", "ag_swiglu_reference"):
+        monkeypatch.setattr(ag, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+    monkeypatch.setattr(rs, "gemm_rs_reference", lambda *_: pytest.fail(
+        "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    x512, x4 = CudaView(512, 64), CudaView(4, 64)
+    w, wd = CudaView(64, 256), CudaView(256, 64)
+    calls = [
+        ("ag_gemm", lambda: ag.ag_gemm_multi(x512, [w, w, w])),
+        ("ag_gemm", lambda: ag.ag_gemm(x4, w)),
+        ("ag_gemm", lambda: ag.ag_swiglu(x512, w, w)),        # fused
+        ("ag_gemm", lambda: ag.ag_swiglu(x4, w, w)),          # composed
+        ("ag_gemm", lambda: rs.gemm_rs(CudaView(512, 256), wd)),
+        ("gemm_ar", lambda: rs.gemm_rs(CudaView(4, 256), wd)),
+    ]
+    assert ag.swiglu_fuses(512, 64, 256, 2)
+    assert not ag.swiglu_fuses(4, 64, 256, 2)
+    for lib, call in calls:
+        with pytest.raises(RuntimeError, match=f"no build of {lib}"):
+            call()
+
+
+def test_ag_gemm_source_targets_sm90a_without_atomics():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["ag_gemm"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and '#include "gemm_common.cuh"' in text
+    for entry in ("tdt_ag_gemm_plan", "tdt_ag_gemm", "tdt_ag_swiglu"):
+        assert entry in text
+    # The note at the top names the TPU kernels it replaces.
+    for kernel in ("_ag_gemm_hbm_nb_kernel", "_ag_swiglu_hbm_kernel",
+                   "_gemm_rs_hbm_kernel"):
+        assert kernel in text
+    header = _build.CSRC_DIR / "gemm_common.cuh"
+    assert header in _build.HEADERS
+    for path in (src, header):
+        body = path.read_text()
+        for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+            assert atomic not in body           # fixed-order sums only
+        for library in ("cublas", "cutlass::gemm::device", "torch/"):
+            assert library not in body.lower()  # no library product
+
+
+def test_header_edits_change_every_build_name(monkeypatch, tmp_path):
+    """A build's name hashes the csrc headers too, so an edited header
+    never loads a stale library."""
+    from triton_dist_tpu_torch.ops import _build
+    before = {n: _build._library_path(n) for n in _build.SOURCES}
+    header = tmp_path / "edited.cuh"
+    header.write_text("// edited\n")
+    monkeypatch.setattr(_build, "HEADERS", _build.HEADERS + [header])
+    after = {n: _build._library_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+
+
 def test_flash_decode_source_targets_sm90a_without_atomics():
     from triton_dist_tpu_torch.ops import _build
     src = _build.SOURCES["flash_decode"]
@@ -202,3 +291,7 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
     ignore = (ROOT / ".gitignore").read_text().splitlines()
     assert "/triton_dist_tpu_torch/_kernels/" in ignore
     assert '"csrc/*.cu"' in (ROOT / "pyproject.toml").read_text()
+    assert '"csrc/*.cuh"' in (ROOT / "pyproject.toml").read_text()
+    from triton_dist_tpu_torch.ops import _build
+    assert set(_build.SOURCES) == {"gemm_ar", "flash_decode", "ag_gemm"}
+    assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))

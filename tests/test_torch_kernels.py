@@ -1,9 +1,12 @@
 """The port's gemm_ar (triton_dist_tpu_torch.ops.gemm_reduce_scatter)
 against the JAX package's gemm_ar(impl="pallas") on a 1-device mesh (the
-Pallas kernel in interpret mode), and the CUDA kernels (gemm_ar and the
-three flash-decode kernels of ops.flash_decode) against their plain
-versions on the card (marked ``cuda``; skipped without one). The flash
-decode's CPU parity tests are in tests/test_torch_flash_decode.py.
+Pallas kernel in interpret mode), and the CUDA kernels (gemm_ar, the
+three flash-decode kernels of ops.flash_decode, and the AG-GEMM,
+AG-SwiGLU and GEMM-RS kernels of ops.allgather_gemm /
+ops.gemm_reduce_scatter) against their plain versions on the card
+(marked ``cuda``; skipped without one). The CPU parity tests of flash
+decode and of AG-GEMM are in tests/test_torch_flash_decode.py and
+tests/test_torch_ag_gemm.py.
 
 Inputs come from numpy with a fixed seed. Tolerances: f32 within 1e-5
 relative (plus 1e-6 absolute for entries near zero); bf16 within one bf16
@@ -312,3 +315,155 @@ def test_flash_decode_plan_fills_the_card(cuda_device):
         assert (p.splits - 1) * p.split_len < t <= p.splits * p.split_len
         assert p.splits == 1 or b * hkv * p.splits <= 4 * 132
     assert fd.plan(4, 8, 1024, 132) == fd.Plan(8, 128)
+
+
+# -- AG-GEMM, AG-SwiGLU and GEMM-RS (csrc/ag_gemm.cu) ---------------------------
+# Qwen3-8B's shapes (prefill M = 512 and decode M = 4: QKV, gate|up, the
+# o_proj and down projections) and small odd ones: ragged M, N and K edges,
+# widths and K that are not multiples of 8 (the FMA kernel in bf16).
+AG_SHAPES = [(512, 4096, (4096, 1024, 1024)), (4, 4096, (4096, 1024, 1024)),
+             (4, 4096, (12288, 12288)), (130, 72, (40, 24, 8)),
+             (65, 264, (136,)), (7, 100, (72, 30)), (200, 36, (20, 12))]
+
+
+def _ag_inputs(m, k, widths, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    a = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    bs = [torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype(np.float32))
+          for n in widths]
+    return a.to(device, dtype), [b.to(device, dtype) for b in bs]
+
+
+def f32_sum_atol(k):
+    """Absolute limit for bf16 outputs near zero: each side (the kernel,
+    and the plain version through cuBLAS in f32) sums k unit-scale f32
+    terms in its own order, and the rounding error of such a blocked sum
+    grows like sqrt(k), about 1e-6 * sqrt(k / 1024); 4x that for the gap
+    between two such sums. Among the 2M outputs of a prefill product some
+    lie near zero, where that gap exceeds a bf16 ulp."""
+    return 4e-6 * max(1.0, (k / 1024) ** 0.5)
+
+
+def _assert_gemm_close(got, want, k):
+    """bf16: one bf16 ulp of the larger value plus :func:`f32_sum_atol`
+    (both sides sum in f32 in different orders, then round once); f32:
+    1e-5 relative and 3e-5 absolute (unit-scale outputs, sums in another
+    order)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        assert_within_bf16_ulp(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=f32_sum_atol(k))
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,widths", AG_SHAPES)
+def test_ag_gemm_kernel_matches_plain_on_card(cuda_device, dtype, m, k,
+                                              widths):
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    a, bs = _ag_inputs(m, k, widths, dtype, cuda_device, seed=m + k)
+    before = ag.ag_gemm_launches.total
+    got = ag.ag_gemm_multi(a, bs)
+    again = ag.ag_gemm_multi(a, bs)
+    torch.cuda.synchronize()
+    assert ag.ag_gemm_launches.total == before + 2     # one launch per call
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for x, want in zip(got, ag.ag_gemm_multi_reference(a, bs)):
+        _assert_gemm_close(x, want, k)
+
+
+def _swiglu_bound(a, wg, wu, bg, bu):
+    """|kernel - plain| limit of the fused SwiGLU: the f32 gate g and up u
+    of two summation orders differ by ~1e-6 of their unit scale, which
+    moves act = silu(g) u by up to that much times (|silu(g)| + 1.1 |u|)
+    (|silu'| < 1.1), more than a bf16 ulp of an act near zero: 2^-16 of
+    that sum, plus one bf16 ulp (bf16) or 1e-5 (f32) of the value."""
+    af = a.float()
+    g = af @ wg.float() + (bg.float() if bg is not None else 0)
+    u = af @ wu.float() + (bu.float() if bu is not None else 0)
+    scale = 2.0 ** -16 * (torch.nn.functional.silu(g).abs() + 1.1 * u.abs())
+    return scale + 1e-6, (2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(512, 4096, 12288), (128, 64, 128),
+                                   (130, 72, 40), (4, 100, 30)])
+@pytest.mark.parametrize("bias", [False, True], ids=["", "bias"])
+def test_ag_swiglu_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n,
+                                                bias):
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    a, (wg, wu) = _ag_inputs(m, k, (n, n), dtype, cuda_device, seed=n)
+    rng = np.random.RandomState(1)
+    bg, bu = ((torch.from_numpy(rng.randn(n).astype(np.float32)).to(
+        cuda_device, dtype) for _ in range(2)) if bias else (None, None))
+    before = ag.ag_swiglu_launches.total
+    got = ag.launch_swiglu(a, wg, wu, bg, bu)
+    again = ag.launch_swiglu(a, wg, wu, bg, bu)
+    torch.cuda.synchronize()
+    assert ag.ag_swiglu_launches.total == before + 2
+    assert torch.equal(got, again)
+    want = ag.ag_swiglu_reference(a, wg, wu, bg, bu)
+    atol, rtol = _swiglu_bound(a, wg, wu, bg, bu)
+    diff = (got.float() - want.float()).abs()
+    lim = atol + rtol * torch.maximum(got.float().abs(), want.float().abs())
+    assert (diff <= lim).all(), diff.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(512, 4096, 4096), (512, 12288, 4096),
+                                   (4, 12288, 4096), (100, 256, 136),
+                                   (64, 100, 72)])
+def test_gemm_rs_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    a, (b,) = _ag_inputs(m, k, (n,), dtype, cuda_device, seed=k)
+    rs, before_ar = port.gemm_rs_launches, port.launches.total
+    before = dict(rs.by_shape)
+    got = port.gemm_rs(a, b)
+    again = port.gemm_rs(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_gemm_close(got, port.gemm_rs_reference(a, b), k)
+    # M <= 64: the gemm_ar kernel; above it the AG-GEMM kernel's tiled plan
+    # (no split-K). Either way counted once per call under gemm_rs only.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    key = (("decode" if m <= port.DECODE_MAX_M
+            else ag.plan("gemm", m, (n,), k, dtype, sms).path), k, (n,))
+    assert rs.by_shape[key] == before.get(key, 0) + 2
+    assert port.launches.total == before_ar
+
+
+@pytest.mark.cuda
+def test_ag_gemm_plans(cuda_device):
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    bf, f32 = torch.bfloat16, torch.float32
+    qkv = (4096, 1024, 1024)
+    assert ag.plan("gemm", 512, qkv, 4096, bf, 132) == ag.Plan(
+        "prefill", 4 * 48, 1)
+    assert ag.plan("gemm", 512, (4096,), 12288, bf, 132) == ag.Plan(
+        "prefill", 4 * 32, 1)
+    assert ag.plan("swiglu", 512, (12288,), 4096, bf, 132) == ag.Plan(
+        "prefill", 4 * 192, 1)
+    p = ag.plan("gemm", 4, qkv, 4096, bf, 132)        # decode: split-K
+    assert p.path == "decode" and p.tiles == 96 and p.splits == 2
+    assert ag.plan("gemm", 64, (12288, 12288), 4096, bf, 132).path == "decode"
+    assert ag.plan("gemm", 65, (12288, 12288), 4096, bf, 132).path == "prefill"
+    assert ag.plan("gemm", 512, qkv, 4096, f32, 132).path == "fma"
+    assert ag.plan("gemm", 512, (4096, 1020), 4096, bf, 132).path == "fma"
+    assert ag.plan("swiglu", 4, (30,), 100, bf, 132).path == "fma"
+
+
+@pytest.mark.cuda
+def test_ag_gemm_offset_views_give_the_same_bits(cuda_device):
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    a, bs = _ag_inputs(130, 64, (40, 24), torch.bfloat16, cuda_device)
+    flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda_device)
+    va = flat[1:].view_as(a).copy_(a)
+    assert va.data_ptr() % 16
+    assert all(torch.equal(x, y) for x, y in zip(ag.ag_gemm_multi(va, bs),
+                                                 ag.ag_gemm_multi(a, bs)))

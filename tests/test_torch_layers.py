@@ -1,8 +1,10 @@
 """The port's layers (triton_dist_tpu_torch.layers) against the JAX
 package's on the CPU: RMSNorm, rope, the attention core in every offset
-form, and TPAttn / TPMLP in modes xla_ar and gemm_ar (the JAX side on a
-1-device mesh with impl="pallas", so gemm_ar runs the Pallas kernel in
-interpret mode).
+form, and TPAttn / TPMLP in modes xla_ar, gemm_ar, ag_rs and xla (the JAX
+side on a 1-device mesh with impl="pallas", so gemm_ar and ag_rs run the
+Pallas kernels in interpret mode). The MLP runs at M = 128 with inter 128,
+where ag_rs takes JAX's fused AG-SwiGLU, and at M = 6, where it composes
+AG-GEMM with a plain SwiGLU.
 
 Inputs come from numpy with a fixed seed; f32 throughout, within 1e-5
 (atol and rtol): the two sides differ only in summation order."""
@@ -131,11 +133,12 @@ def _attn_params(seed):
     return jp, {k: _t(v) for k, v in jp.items()}
 
 
-@pytest.mark.parametrize("mode,offset", [("xla_ar", 0), ("gemm_ar", 3),
-                                         ("gemm_ar", "per_row")])
-def test_tp_attn_matches_jax(mode, offset):
-    b, t = 2, 16
-    s = 1 if offset == "per_row" else 4
+@pytest.mark.parametrize("mode,offset,s", [
+    ("xla_ar", 0, 4), ("gemm_ar", 3, 4), ("gemm_ar", "per_row", 1),
+    ("ag_rs", 0, 64), ("ag_rs", 5, 3), ("ag_rs", "per_row", 1),
+    ("xla", 0, 64), ("xla", 5, 3), ("xla", "per_row", 1)])
+def test_tp_attn_matches_jax(mode, offset, s):
+    b, t = 2, 72
     jp, tp = _attn_params(seed=5)
     rng = np.random.RandomState(6)
     x = rng.randn(b * s, H).astype(np.float32)
@@ -147,7 +150,7 @@ def test_tp_attn_matches_jax(mode, offset):
         pos = np.tile(np.arange(s) + offset, (b, 1))
     ck = rng.randn(b, t, HKV, D).astype(np.float32)
     cv = rng.randn(b, t, HKV, D).astype(np.float32)
-    cos_j, sin_j = jcommon.precompute_rope_cache(D, 32, 1e6)
+    cos_j, sin_j = jcommon.precompute_rope_cache(D, 80, 1e6)
     jattn = _jax_attn()
     jout, (jk, jv) = jax.jit(
         lambda p, x, pos, rope, cache, off: jattn(p, x, pos, rope, cache,
@@ -158,28 +161,54 @@ def test_tp_attn_matches_jax(mode, offset):
     cache = (_t(ck), _t(cv))
     toff = _t(off).long() if offset == "per_row" else off
     out, cache = attn(tp, _t(x), _t(pos).long(),
-                      common.precompute_rope_cache(D, 32, 1e6), cache, toff,
+                      common.precompute_rope_cache(D, 80, 1e6), cache, toff,
                       mode=mode)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
     np.testing.assert_allclose(cache[0].numpy(), np.asarray(jk), **TOL)
     np.testing.assert_allclose(cache[1].numpy(), np.asarray(jv), **TOL)
 
 
-@pytest.mark.parametrize("mode", ["xla_ar", "gemm_ar"])
+@pytest.mark.parametrize("mode", ["xla_ar", "gemm_ar", "ag_rs", "xla"])
 @pytest.mark.parametrize("use_bias", [False, True])
-def test_tp_mlp_matches_jax(mode, use_bias):
-    jmlp = JaxMLP(H, INTER, mesh=_mesh1(), dtype=jnp.float32, impl="pallas",
+@pytest.mark.parametrize("m,inter", [(6, INTER), (128, 128)],
+                         ids=["composed", "fused"])
+def test_tp_mlp_matches_jax(mode, use_bias, m, inter):
+    jmlp = JaxMLP(H, inter, mesh=_mesh1(), dtype=jnp.float32, impl="pallas",
                   use_bias=use_bias)
     jp = jmlp.init(jax.random.PRNGKey(7))
     rng = np.random.RandomState(7)
     if use_bias:
         for name in ("b_gate", "b_up", "b_down"):
             jp[name] = jnp.asarray(rng.randn(*jp[name].shape), jnp.float32)
-    x = rng.randn(6, H).astype(np.float32)
+    x = rng.randn(m, H).astype(np.float32)
     want = np.asarray(jmlp(jp, jnp.asarray(x), mode=mode))
-    mlp = TPMLP(H, INTER, dtype=torch.float32, use_bias=use_bias)
+    mlp = TPMLP(H, inter, dtype=torch.float32, use_bias=use_bias)
     got = mlp({k: _t(v) for k, v in jp.items()}, _t(x), mode=mode).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_tp_mlp_bf16_modes_round_where_jax_rounds(use_bias):
+    """bf16 at M = 128 (fused SwiGLU): ag_rs and xla both round the SwiGLU
+    once, but ag_rs rounds the down product before its bias and xla after,
+    as in JAX. Each mode within one bf16 ulp (plus 1e-6) of JAX's."""
+    jmlp = JaxMLP(H, 128, mesh=_mesh1(), dtype=jnp.bfloat16, impl="pallas",
+                  use_bias=use_bias)
+    jp = jmlp.init(jax.random.PRNGKey(8))
+    rng = np.random.RandomState(8)
+    if use_bias:
+        for name in ("b_gate", "b_up", "b_down"):
+            jp[name] = jnp.asarray(rng.randn(*jp[name].shape), jnp.bfloat16)
+    x = rng.randn(128, H).astype(np.float32)
+    mlp = TPMLP(H, 128, dtype=torch.bfloat16, use_bias=use_bias)
+    tp = {k: _t(np.asarray(v.astype(jnp.float32))).bfloat16()
+          for k, v in jp.items()}
+    for mode in ("ag_rs", "xla"):
+        want = np.asarray(jmlp(jp, jnp.asarray(x, jnp.bfloat16),
+                               mode=mode).astype(jnp.float32), np.float64)
+        got = mlp(tp, _t(x).bfloat16(), mode=mode).float().numpy()
+        lim = 2.0 ** -7 * np.maximum(np.abs(got), np.abs(want)) + 1e-6
+        assert (np.abs(got - want) <= lim).all(), mode
 
 
 def test_reference_impl_equals_kernel_path_on_cpu(monkeypatch):
@@ -201,9 +230,10 @@ def test_reference_impl_equals_kernel_path_on_cpu(monkeypatch):
     assert torch.equal(outs[0], outs[1])
 
 
-@pytest.mark.parametrize("mode", ["xla", "ag_rs"])
-def test_unported_modes_raise(mode):
+def test_layers_default_to_the_fused_mode_and_refuse_unknown_ones():
     mlp = TPMLP(H, INTER, dtype=torch.float32)
+    attn = TPAttn(H, HQ, HKV, D, dtype=torch.float32)
+    assert mlp.fwd_mode == attn.fwd_mode == "ag_rs"      # as in JAX
     params = mlp.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlp(params, torch.zeros(2, H), mode=mode)
+    with pytest.raises(ValueError, match="unknown fwd mode"):
+        mlp(params, torch.zeros(2, H), mode="sp")

@@ -1,9 +1,18 @@
 """GQA attention at world = 1 (the port of ``triton_dist_tpu.layers.tp_attn``).
 
 QKV projections, Qwen3 per-head q/k RMSNorm, rotary embeddings, cached
-causal attention, then the output projection. Mode ``xla_ar`` runs the
-output projection as a plain product; mode ``gemm_ar`` sends it through
-the hand-written ``gemm_ar`` kernel (``ops.gemm_reduce_scatter``).
+causal attention, then the output projection. The modes of the JAX
+layer, at world = 1:
+
+* ``ag_rs`` (the default, the fused TP path): QKV through the
+  hand-written AG-GEMM kernel (``ops.allgather_gemm.ag_gemm_multi``, one
+  launch), the output projection through GEMM-RS
+  (``ops.gemm_reduce_scatter.gemm_rs``);
+* ``xla``: its golden, the same arithmetic through the plain versions
+  (f32 products, one rounding each), no kernel;
+* ``gemm_ar``: plain QKV products, the output projection through the
+  ``gemm_ar`` kernel;
+* ``xla_ar``: plain products throughout.
 """
 
 from __future__ import annotations
@@ -12,20 +21,18 @@ import torch
 
 from triton_dist_tpu_torch.layers.common import (
     apply_rope, col_parallel_matmul, rms_norm, row_parallel_matmul_ar)
-from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_ar
+from triton_dist_tpu_torch.ops.allgather_gemm import (
+    ag_gemm_multi, ag_gemm_multi_reference)
+from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
+    gemm_ar, gemm_rs, gemm_rs_reference)
 
-#: Modes whose fused kernels this package does not have yet
-#: (ROADMAP.md, Queue B: AG-GEMM and GEMM-RS).
-UNPORTED_MODES = ("xla", "ag_rs")
+#: The forward modes of the layers (JAX ``TPAttn`` / ``TPMLP``).
+MODES = ("ag_rs", "xla", "gemm_ar", "xla_ar")
 
 
 def check_mode(mode: str) -> None:
-    """Raise for a layer mode the port does not serve."""
-    if mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"mode {mode!r} needs the AG-GEMM / AG-SwiGLU / GEMM-RS kernels, "
-            f"not ported yet (ROADMAP.md, Queue B)")
-    if mode not in ("xla_ar", "gemm_ar"):
+    """Raise for an unknown layer mode."""
+    if mode not in MODES:
         raise ValueError(f"unknown fwd mode {mode!r}")
 
 
@@ -34,12 +41,21 @@ def output_gemm_ar(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return gemm_ar(x.contiguous(), w)
 
 
+def output_gemm_rs(x: torch.Tensor, w: torch.Tensor,
+                   mode: str) -> torch.Tensor:
+    """The row-parallel projection of the sharded modes: GEMM-RS in
+    ``ag_rs``, its plain version in ``xla``."""
+    if mode == "xla":
+        return gemm_rs_reference(x, w)
+    return gemm_rs(x.contiguous(), w)
+
+
 class TPAttn:
     """GQA attention. No QKV bias (Qwen3 dropped it)."""
 
     def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, dtype=torch.bfloat16,
-                 fwd_mode: str = "xla_ar",
+                 fwd_mode: str = "ag_rs",
                  qk_norm: bool = True, rms_eps: float = 1e-6):
         if num_heads % num_kv_heads:
             raise ValueError(f"{num_heads} heads do not group over "
@@ -97,12 +113,16 @@ class TPAttn:
         check_mode(mode)
         b, s = position_ids.shape
         d = self.head_dim
-        q = col_parallel_matmul(x, params["w_q"]).reshape(
-            b, s, self.num_heads, d)
-        k = col_parallel_matmul(x, params["w_k"]).reshape(
-            b, s, self.num_kv_heads, d)
-        v = col_parallel_matmul(x, params["w_v"]).reshape(
-            b, s, self.num_kv_heads, d)
+        w_qkv = [params["w_q"], params["w_k"], params["w_v"]]
+        if mode == "ag_rs":
+            q, k, v = ag_gemm_multi(x.contiguous(), w_qkv)
+        elif mode == "xla":
+            q, k, v = ag_gemm_multi_reference(x, w_qkv)
+        else:
+            q, k, v = (col_parallel_matmul(x, w) for w in w_qkv)
+        q = q.reshape(b, s, self.num_heads, d)
+        k = k.reshape(b, s, self.num_kv_heads, d)
+        v = v.reshape(b, s, self.num_kv_heads, d)
         # Per-head RMSNorm before rope (Qwen3).
         if self.qk_norm:
             q = rms_norm(q, params["q_norm"], self.rms_eps)
@@ -116,7 +136,9 @@ class TPAttn:
                                kv_start,
                                groups=self.num_heads // self.num_kv_heads)
         attn = attn.reshape(b * s, self.num_heads * d)
-        if mode == "gemm_ar":
+        if mode in ("ag_rs", "xla"):
+            out = output_gemm_rs(attn, params["w_o"], mode)
+        elif mode == "gemm_ar":
             out = output_gemm_ar(attn, params["w_o"])
         else:
             out = row_parallel_matmul_ar(attn, params["w_o"])

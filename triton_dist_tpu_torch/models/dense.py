@@ -41,7 +41,7 @@ class DenseLLM:
     caches."""
 
     def __init__(self, config: ModelConfig, device=None,
-                 fwd_mode: str = "xla_ar", sp_axis: str | None = None):
+                 fwd_mode: str = "ag_rs", sp_axis: str | None = None):
         self.config = config
         self.device = default_device(device)
         self.fwd_mode = fwd_mode

@@ -3,11 +3,16 @@
 
 The JAX engine compiles each step with ``jax.jit``; the port runs each
 step eagerly (a CUDA graph of the step is later work, ROADMAP.md Queue A
-item 10). Two engine families are served:
+item 10). The engine families served:
 
 * the default modes, ``prefill_mode="xla_ar"`` (plain products) and
   ``decode_mode="gemm_ar"`` (o_proj and down projection through the
   hand-written ``gemm_ar`` kernel), over contiguous caches;
+* the fused TP mode ``"ag_rs"`` (QKV through AG-GEMM, gate/up through
+  AG-SwiGLU, o_proj and down through GEMM-RS) and its golden ``"xla"``,
+  in either phase beside any other non-sp mode: prefill ``"ag_rs"`` with
+  decode ``"gemm_ar"`` is the JAX reference engine, decode ``"ag_rs"``
+  fuses the decode too;
 * mode ``"sp"`` for both phases (``DenseLLM(sp_axis=...)``): prefill
   attention of ``ops.sp_attention`` and decode through the hand-written
   flash-decode kernels, over contiguous caches (optionally prefilled in

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library ``<name>-<hash>.so`` in ``triton_dist_tpu_torch/_kernels/``
-(git-ignored), where the hash covers the source and the command, so an
-edited source never loads a stale build. Nothing is built at import:
+(git-ignored), where the hash covers the source, the headers of
+``csrc/`` and the command, so an edited source never loads a stale
+build. Nothing is built at import:
 the first CUDA call of a kernel's wrapper builds it (or
 :func:`build_all` builds every source at once, one ``nvcc`` each, all
 started together). The build needs ``nvcc`` for ``sm_90a`` (Hopper).
@@ -24,7 +25,10 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_kernels"
 #: Every CUDA source of the port, by library name.
 SOURCES = {"gemm_ar": CSRC_DIR / "gemm_ar.cu",
-           "flash_decode": CSRC_DIR / "flash_decode.cu"}
+           "flash_decode": CSRC_DIR / "flash_decode.cu",
+           "ag_gemm": CSRC_DIR / "ag_gemm.cu"}
+#: The headers the sources include (``csrc/*.cuh``).
+HEADERS = sorted(CSRC_DIR.glob("*.cuh"))
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -51,6 +55,8 @@ def nvcc_command(source: Path, output: Path, nvcc: str = "nvcc") -> list:
 def _library_path(name: str) -> Path:
     source = SOURCES[name]
     digest = hashlib.sha256(source.read_bytes())
+    for header in HEADERS:
+        digest.update(header.read_bytes())
     digest.update(" ".join(nvcc_command(source, Path("out"))).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -30,3 +30,9 @@ class LaunchCount:
 def num_sms(index) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when it does not start on 16 bytes (an
+    offset view): the GEMM kernels read 16-byte chunks."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,15 +1,20 @@
-"""GEMM + AllReduce (``gemm_ar``) at world = 1.
+"""GEMM + AllReduce (``gemm_ar``) and GEMM + ReduceScatter (``gemm_rs``)
+at world = 1.
 
-The port of ``triton_dist_tpu.ops.gemm_reduce_scatter.gemm_ar`` (:898),
-whose Pallas kernels ``_gemm_rs_kernel`` (:249) and
-``_gemm_rs_hbm_nb_kernel`` (:353) reduce to ``o = x @ w`` with f32
-accumulation when the ring has one member. The kernel is hand-written
-CUDA for Hopper in ``csrc/gemm_ar.cu``; the note at its top says what
-bounds it and what its design does about that.
+The port of ``triton_dist_tpu.ops.gemm_reduce_scatter.gemm_ar`` (:898)
+and ``gemm_rs`` (:884). With one ring member their Pallas kernels
+(``_gemm_rs_kernel`` :249, ``_gemm_rs_hbm_nb_kernel`` :353,
+``_gemm_rs_hbm_kernel`` :533) all reduce to ``o = x @ w`` with f32
+accumulation and one rounding, so the two entry points compute one
+function. The kernels are hand-written CUDA for Hopper: ``gemm_ar`` runs
+``csrc/gemm_ar.cu`` (B-streaming, for decode batches); ``gemm_rs`` runs
+that kernel for M <= 64 and the tiled prefill GEMM of ``csrc/ag_gemm.cu``
+(one product) above. The notes at the top of the sources say what bounds
+them and what their design does about that.
 
-``gemm_ar`` on a CUDA tensor launches that kernel or raises; it never
-falls back to a library product. Only a tensor that lies on the CPU
-takes the plain version :func:`gemm_ar_reference`.
+On a CUDA tensor both launch a kernel or raise; they never fall back to
+a library product. Only tensors that lie on the CPU take the plain
+versions :func:`gemm_ar_reference` and :func:`gemm_rs_reference`.
 """
 
 from __future__ import annotations
@@ -21,18 +26,30 @@ from typing import NamedTuple
 import torch
 
 from triton_dist_tpu_torch.ops import _build
-from triton_dist_tpu_torch.ops.common import LaunchCount, num_sms
+from triton_dist_tpu_torch.ops import allgather_gemm
+from triton_dist_tpu_torch.ops.common import LaunchCount, aligned16, num_sms
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+#: Largest M that ``gemm_rs`` sends to the B-streaming gemm_ar kernel.
+DECODE_MAX_M = 64
 
-#: Launches of the gemm_ar kernel, by the (K, N) of ``b`` (CPU calls do
-#: not count).
+#: Launches of the gemm_ar kernel by ``gemm_ar``, by the (K, N) of ``b``
+#: (CPU calls do not count).
 launches = LaunchCount()
+#: Launches by ``gemm_rs``, by (plan, K, N): plan "decode" is the gemm_ar
+#: kernel (M <= 64), "prefill" / "fma" the AG-GEMM kernel's plans.
+gemm_rs_launches = LaunchCount()
 
 
 def gemm_ar_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: ``(a.f32 @ b.f32)`` cast to ``a.dtype``."""
     return (a.float() @ b.float()).to(a.dtype)
+
+
+def gemm_rs_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gemm_rs``: at world = 1 the function of
+    :func:`gemm_ar_reference`."""
+    return gemm_ar_reference(a, b)
 
 
 class Plan(NamedTuple):
@@ -59,15 +76,15 @@ def plan(m: int, n: int, k: int, dtype: torch.dtype, num_sms: int) -> Plan:
     return Plan(bool(path.value), tiles.value, splits.value)
 
 
-def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
+def _check_operands(op: str, a: torch.Tensor, b: torch.Tensor) -> None:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"gemm_ar needs a (M, K) and b (K, N), got "
+        raise ValueError(f"{op} needs a (M, K) and b (K, N), got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     if a.dtype != b.dtype:
-        raise ValueError(f"gemm_ar needs one dtype, got {a.dtype} and "
+        raise ValueError(f"{op} needs one dtype, got {a.dtype} and "
                          f"{b.dtype}")
     if a.device != b.device:
-        raise ValueError(f"gemm_ar operands on {a.device} and {b.device}")
+        raise ValueError(f"{op} operands on {a.device} and {b.device}")
 
 
 def gemm_ar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,15 +94,43 @@ def gemm_ar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors run the hand-written kernel (bf16 or f32, contiguous);
     CPU tensors run :func:`gemm_ar_reference`."""
-    _check_operands(a, b)
+    _check_operands("gemm_ar", a, b)
     if a.device.type == "cpu":
         return gemm_ar_reference(a, b)
+    return _launch_gemm_ar("gemm_ar", a, b, launches,
+                           (a.shape[1], b.shape[1]))
+
+
+def gemm_rs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``reduce_scatter(a @ b)`` at world = 1: ``(a @ b)`` with f32
+    accumulation, cast to ``a.dtype``, the function of :func:`gemm_ar`.
+    a: (M, K), b: (K, N) in the JAX (in, out) layout. Returns (M, N).
+
+    CUDA tensors (bf16 or f32, contiguous) run the gemm_ar kernel for
+    M <= :data:`DECODE_MAX_M`, which streams B once for all rows, and the
+    AG-GEMM kernel's tiled plan above; both count in
+    :data:`gemm_rs_launches`. CPU tensors run :func:`gemm_rs_reference`."""
+    _check_operands("gemm_rs", a, b)
+    if a.device.type == "cpu":
+        return gemm_rs_reference(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    if m > DECODE_MAX_M and n > 0:
+        return allgather_gemm.launch_gemm(a, [b], gemm_rs_launches)[0]
+    return _launch_gemm_ar("gemm_rs", a, b, gemm_rs_launches,
+                           ("decode", k, (n,)))
+
+
+def _launch_gemm_ar(op: str, a: torch.Tensor, b: torch.Tensor,
+                    count: LaunchCount, key) -> torch.Tensor:
+    """The gemm_ar kernel on checked operands, one launch counted in
+    ``count`` under ``key`` (none for an empty product)."""
     if a.device.type != "cuda":
-        raise ValueError(f"gemm_ar runs on CUDA or the CPU, not {a.device}")
+        raise ValueError(f"{op} runs on CUDA or the CPU, not {a.device}")
     if a.dtype not in _DTYPE_CODES:
-        raise ValueError(f"gemm_ar kernel takes bf16 or f32, not {a.dtype}")
+        raise ValueError(f"{op} kernel takes bf16 or f32, not {a.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("gemm_ar kernel needs contiguous operands")
+        raise ValueError(f"{op} kernel needs contiguous operands")
     lib = _gemm_ar_lib()
     m, k = a.shape
     n = b.shape[1]
@@ -96,21 +141,15 @@ def gemm_ar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out.zero_()
     sms = num_sms(a.device.index)
     p = plan(m, n, k, a.dtype, sms)
-    a, b = _aligned16(a), _aligned16(b)
+    a, b = aligned16(a), aligned16(b)
     ws = (torch.empty((p.splits, m, n), dtype=torch.float32,
                       device=a.device) if p.splits > 1 else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _check(lib, lib.tdt_gemm_ar(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                 ws.data_ptr() if ws is not None else None,
                                 m, n, k, sms, _DTYPE_CODES[a.dtype], stream))
-    launches.add((k, n))
+    count.add(key)
     return out
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it when it does not start on 16 bytes (an
-    offset view): the kernel reads 16-byte chunks."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(lib: ctypes.CDLL, err: int) -> None:
