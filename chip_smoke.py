@@ -65,7 +65,28 @@ without the final line:
     last-position logits through the kernels against the plain versions
     (within 0.25) and each engine's decode step wall vs device time.
 
-Phases 7-11 run between phases 5 and 6; the JSON line covers all three
+12. MoE kernels: Qwen3-30B-A3B (``presets.qwen3_30b_a3b()``, full width
+    and depth, random bf16 weights drawn on the card from the seed) after
+    every Qwen3-8B object is released (device memory printed); then the
+    grouped-GEMM kernel (``csrc/group_gemm.cu``: gate|up with the plain
+    epilogue, the SwiGLU epilogue, the down product), the MoE-reduce
+    kernel (``csrc/moe_rs.cu``, rounded and f32 pairs) and the all-gather
+    copy (``csrc/allgather.cu``) against their plain versions at decode (4
+    tokens, 32 pairs) and prefill (512 tokens, 4096 pairs) shapes routed
+    by layer 0's router: error, bit-identical repeat, device ms, plain
+    ms, the bound and one ``torch._grouped_mm`` (``Tensor.copy_`` for the
+    all-gather; none for the MoE-reduce).
+13. MoE main path: the default (prefill xla_ar, decode gemm_ar), all-ag_rs
+    and paged sp engines through serve, serve_ragged (not sp),
+    serve_stream and the server, with launch counts per prefill and per
+    decode step; the prefill and one decode step through the kernels
+    against the plain versions with the routing held fixed (within
+    ``MOE_LOGITS_ATOL``); free-running greedy agreement and flipped
+    routing decisions (not gated); one MoE layer under
+    ``torch.cuda.set_sync_debug_mode("error")``; each engine's decode step
+    wall vs device time.
+
+Phases 7-13 run between phases 5 and 6; the JSON line covers all four
 slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
@@ -75,6 +96,7 @@ the script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -129,6 +151,24 @@ def device_ms(torch, fn, n: int = 20) -> float:
         if total_us > 0:
             return total_us / n / 1e3
     raise SmokeFailure("the profiler saw no device time in 3 sessions")
+
+
+def device_breakdown(torch, fn, n: int = 3, top: int = 8) -> list:
+    """The ``top`` kernels of one ``fn()`` call by device time: [(kernel
+    name cut to 70 characters, ms per call, share of the call's device
+    time)], from the profiler over ``n`` calls after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / n / 1e3)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    total = sum(ms for _, ms in rows) or 1.0
+    rows.sort(key=lambda r: -r[1])
+    return [(k[:70], ms, ms / total) for k, ms in rows[:top]]
 
 
 def wall_ms(torch, fn, n: int = 20) -> float:
@@ -1214,6 +1254,538 @@ def ag_kernels_line(records, launches) -> list:
         out.append(rec)
     return out
 
+# -- slice 4: Qwen3-30B-A3B through the grouped-GEMM, MoE-reduce and all-gather
+# kernels -----------------------------------------------------------------------
+#: Qwen3-30B-A3B's decode tokens (batch 4) and prefill tokens (4 x 128).
+MOE_DECODE_M, MOE_PREFILL_M = 4, 512
+#: The three MoE engines: name -> (prefill mode, decode mode, options).
+MOE_ENGINES = {"default": ("xla_ar", "gemm_ar", {}),
+               "ag_rs": ("ag_rs", "ag_rs", {}),
+               "paged_sp": ("sp", "sp", {"paged": True,
+                                         "page_size": FD_PAGE})}
+#: Prefill (4 x 128) last-position logits and one decode step's logits,
+#: kernel path vs plain path with the routing held fixed, after 48 bf16
+#: layers: one-ulp differences in a few kernel outputs move every later
+#: bf16 rounding, as in phases 5 and 11 (the same limit).
+MOE_LOGITS_ATOL = 0.25
+
+
+def moe_error(torch, got, ref, k: int, pair_mag=None) -> tuple[float, bool]:
+    """(max |got - ref|, within tolerance) of a grouped product or a
+    MoE-reduce: one bf16 ulp of the larger value plus f32_sum_atol(k);
+    with ``pair_mag`` (the reduce over rounded pairs: sum_j w_j |pair_j|)
+    also one bf16 ulp of that, for a pair that rounded the other way."""
+    diff = (got.float() - ref.float()).abs()
+    lim = (BF16_ULP_REL * torch.maximum(got.float().abs(), ref.float().abs())
+           + f32_sum_atol(k))
+    if pair_mag is not None:
+        lim = lim + BF16_ULP_REL * pair_mag
+    return diff.max().item(), bool((diff <= lim).all())
+
+
+def moe_counts(counters) -> dict:
+    return {name: c.total for name, c in counters.items()}
+
+
+def moe_counters(ag, rs, ops, fd, gg, mrs, agk) -> dict:
+    out = {"group_gemm": gg.group_gemm_launches,
+           "moe_rs": mrs.moe_rs_launches,
+           "all_gather": agk.all_gather_launches,
+           "ag_gemm": ag.ag_gemm_launches, "gemm_rs": rs.gemm_rs_launches,
+           "gemm_ar": ops.launches}
+    out.update({f"flash_decode_{n}": c for n, c in fd.launches.items()})
+    return out
+
+
+def phase_moe_load(torch, models, card: str, seed: int):
+    print("== phase 12 (setup): Qwen3-30B-A3B drawn on the card", flush=True)
+    cfg = models.presets.qwen3_30b_a3b()
+    model = models.AutoLLM.build(cfg, sp_axis="sp")
+    check(type(model).__name__ == "Qwen3MoE", f"AutoLLM built {model}")
+    params, init_ms = sync_time(torch, lambda: model.init(seed))
+    print(f"model qwen3_30b_a3b: {cfg.num_hidden_layers} layers hidden "
+          f"{cfg.hidden_size} heads {cfg.num_attention_heads}/"
+          f"{cfg.num_key_value_heads} head_dim {cfg.head_dim} experts "
+          f"{cfg.num_experts} top-{cfg.num_experts_per_tok} expert width "
+          f"{cfg.moe_intermediate_size} vocab {cfg.vocab_size}; "
+          f"~{models.presets.param_count(cfg) / 1e9:.2f}B params drawn in "
+          f"{init_ms:.0f} ms; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB [{card}]",
+          flush=True)
+    return cfg, model, params
+
+
+def grouped_bound_ms(live: int, rows: int, pairs: int, k: int, n: int,
+                     n_b: int, out_rows: int, extra_bytes: int = 0):
+    """(least ms, what bounds it) of a grouped product: the ``rows`` token
+    rows (K wide) and the ``live`` experts' ``n_b`` weights (K x N) read
+    once, ``out_rows`` x N x n_b outputs written once (bf16), plus
+    ``extra_bytes``; 2 * pairs * K * N * n_b operations over the bf16
+    peak."""
+    by_bytes = ((rows * k + live * n_b * k * n + out_rows * n * n_b) * 2
+                + extra_bytes) / HBM_BYTES_PER_S * 1e3
+    by_ops = 2.0 * pairs * k * n * n_b / PEAK_FLOPS["bf16"] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
+    """Phase 12: the grouped-GEMM (plain gate|up, SwiGLU, down), MoE-reduce
+    (rounded and f32 pairs) and all-gather kernels against their plain
+    versions at Qwen3-30B-A3B's decode (4 tokens, P = 32 pairs) and
+    prefill (512 tokens, P = 4096) shapes, routed by layer 0's seeded
+    router. Times cycle the 48 layers' weights (cold in L2, as in a
+    forward). Returns the records of the JSON line, ``launches`` still to
+    fill from phase 13."""
+    print("== phase 12: grouped-GEMM, MoE-reduce and all-gather kernels vs "
+          "their plain versions", flush=True)
+    from triton_dist_tpu_torch.ops.moe_utils import topk_routing
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    e, topk = cfg.num_experts, cfg.num_experts_per_tok
+    h, inter = cfg.hidden_size, cfg.moe_intermediate_size
+    moe = [lp["moe"] for lp in params["layers"]]
+    has_grouped_mm = hasattr(torch, "_grouped_mm")
+    records = []
+
+    def library_grouped(a_rows, ids, w_cat):
+        """One torch._grouped_mm over the pairs sorted by expert (sorted
+        and concatenated outside the timing), or None."""
+        if not has_grouped_mm:
+            return None
+        eids = ids.long()
+        order = torch.argsort(eids, stable=True)
+        a_sorted = a_rows[order].contiguous()
+        offs = torch.cumsum(torch.bincount(eids, minlength=e), 0).to(
+            torch.int32)
+        nl = rotating(w_cat)
+
+        def call():
+            return torch._grouped_mm(a_sorted, nl(), offs=offs)
+        try:                          # a yardstick only: the port never calls it
+            call()
+        except RuntimeError as err:
+            print(f"torch._grouped_mm refused these operands: {err}",
+                  flush=True)
+            return None
+        return call
+
+    for m in (MOE_DECODE_M, MOE_PREFILL_M):
+        p = m * topk
+        x = torch.randn((m, h), generator=gen, device="cuda").to(cfg.dtype)
+        w, idx = topk_routing(x.float() @ moe[0]["w_router"], topk)
+        ids = idx.reshape(-1)
+        live = int(torch.unique(ids).numel())
+        pairs_x = x.repeat_interleave(topk, 0)
+        act = torch.randn((p, inter), generator=gen, device="cuda").to(
+            cfg.dtype)
+        gate_up = [[lp["w_gate"], lp["w_up"]] for lp in moe]
+        downs = [lp["w_down"] for lp in moe]
+        cat_gu = ([torch.cat(gu, dim=2) for gu in gate_up[:2]]
+                  if has_grouped_mm else None)
+        plan = gg.plan(p, e, h, inter, cfg.dtype)
+        plan_dn = gg.plan(p, e, inter, h, cfg.dtype)
+        cases = [
+            ("group_gemm[gate|up]", "group_gemm",
+             (plan.path, plan.m_blk, "plain", p, h, (inter, inter)),
+             lambda ws: gg.grouped_matmul_multi(x, ws, ids, e, topk),
+             lambda ws: [gg.grouped_matmul_reference(x, wt, ids, e, topk)
+                         for wt in ws], gate_up, h,
+             grouped_bound_ms(live, m, p, h, inter, 2, p),
+             library_grouped(pairs_x, ids, cat_gu) if cat_gu else None,
+             "triton_dist_tpu/ops/group_gemm.py:139"),
+            ("group_gemm[swiglu]", "group_gemm",
+             (plan.path, plan.m_blk, "swiglu", p, h, (inter, inter)),
+             lambda ws: [gg.grouped_swiglu(x, ws[0], ws[1], ids, e, topk)],
+             lambda ws: [gg.grouped_swiglu_reference(x, ws[0], ws[1], ids,
+                                                     e, topk)], gate_up, h,
+             grouped_bound_ms(live, m, p, h, inter, 2, p // 2),
+             library_grouped(pairs_x, ids, cat_gu) if cat_gu else None,
+             "triton_dist_tpu/ops/group_gemm.py:139"),
+            ("group_gemm[down]", "group_gemm",
+             (plan_dn.path, plan_dn.m_blk, "plain", p, inter, (h,)),
+             lambda ws: [gg.grouped_matmul(act, ws, ids, e)],
+             lambda ws: [gg.grouped_matmul_reference(act, ws, ids, e)],
+             downs, inter, grouped_bound_ms(live, p, p, inter, h, 1, p),
+             library_grouped(act, ids, downs[:4]),
+             "triton_dist_tpu/ops/group_gemm.py:139"),
+        ]
+        ctx = mrs.create_moe_rs_context(num_experts=e, topk=topk)
+        for impl, tag in (("ring", "rounded"), ("fused", "f32")):
+            cases.append((
+                f"moe_rs[{tag} pairs]", "moe_rs",
+                (plan_dn.path, plan_dn.m_blk, tag, p, inter, h),
+                lambda ws, impl=impl: [mrs.moe_reduce_rs(act, ws, ids, w,
+                                                         ctx, impl)],
+                lambda ws, impl=impl: [mrs.moe_reduce_rs_reference(
+                    act, ws, ids, w, e, impl == "ring")],
+                downs, inter,
+                grouped_bound_ms(live, p, p, inter, h, 1, m,
+                                 extra_bytes=p * 4),
+                None, "triton_dist_tpu/ops/moe_reduce_rs.py:72"))
+        for (name, counter, key, kernel, plain, sets, k, (bnd, by), lib,
+             replaces) in cases:
+            got, again = kernel(sets[0]), kernel(sets[0])
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} P={p}: repeat differs")
+            ref = plain(sets[0])
+            if name.startswith("group_gemm[swiglu"):
+                g = gg.grouped_matmul_reference(x, sets[0][0], ids, e, topk,
+                                                torch.float32)
+                u = gg.grouped_matmul_reference(x, sets[0][1], ids, e, topk,
+                                                torch.float32)
+                diff = (got[0].float() - ref[0].float()).abs()
+                lim = (BF16_ULP_REL * torch.maximum(got[0].float().abs(),
+                                                    ref[0].float().abs())
+                       + 2.0 ** -16 * (torch.nn.functional.silu(g).abs()
+                                       + 1.1 * u.abs()) + 1e-6)
+                err, ok = diff.max().item(), bool((diff <= lim).all())
+                tol = "1 bf16 ulp + 2^-16 (|silu(g)| + 1.1|u|) + 1e-6"
+            elif counter == "moe_rs":
+                mag = None
+                if key[2] == "rounded":
+                    pair = gg.grouped_matmul_reference(act, sets[0], ids, e)
+                    mag = (pair.float().abs().reshape(m, topk, -1)
+                           * w[..., None]).sum(1)
+                err, ok = moe_error(torch, got[0], ref[0], k, mag)
+                tol = (f"1 bf16 ulp + {f32_sum_atol(k):.2g}"
+                       + (" + 1 ulp of sum w|pair|" if mag is not None
+                          else ""))
+            else:
+                pairs = [moe_error(torch, a, b, k) for a, b in zip(got, ref)]
+                err, ok = max(q for q, _ in pairs), all(o for _, o in pairs)
+                tol = f"1 bf16 ulp + {f32_sum_atol(k):.2g}"
+            check(ok, f"{name} P={p}: max abs err {err} outside tolerance "
+                      f"({tol})")
+            nk, np_ = rotating(sets), rotating(sets)
+            ms = device_ms(torch, lambda: kernel(nk()))
+            wall = wall_ms(torch, lambda: kernel(nk()))
+            plain_ms = device_ms(torch, lambda: plain(np_()), n=3)
+            lib_ms = device_ms(torch, lib) if lib is not None else None
+            lib_txt = (f"{lib_ms:.4f} (torch._grouped_mm"
+                       f"{', no epilogue' if 'swiglu' in name else ''})"
+                       if lib_ms is not None else "—")
+            print(f"kernel {name} bf16 P={p} ({m} tokens, {live} live "
+                  f"experts, {key[0]}, {key[1]}-row tiles): max_abs_err="
+                  f"{err:.3g} (tol {tol}) ok, repeat bit-identical; "
+                  f"kernel_ms={ms:.4f} (wall {wall:.4f}) plain_ms="
+                  f"{plain_ms:.4f} library_ms={lib_txt} bound_ms={bnd:.4f} "
+                  f"({by}) [{card}]", flush=True)
+            if key[2] == "f32":
+                continue       # the fused numerics: not on the served path
+            records.append(({
+                "name": f"{name} P={p}", "route": "cuda",
+                "source": ("triton_dist_tpu_torch/csrc/moe_rs.cu"
+                           if counter == "moe_rs" else
+                           "triton_dist_tpu_torch/csrc/group_gemm.cu"),
+                "replaces": replaces, "launches": 0, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                "bound_by": by, "library_ms": lib_ms, "wall_ms": wall,
+                "shape": [m, topk, k, list(key[-1]) if counter ==
+                          "group_gemm" else key[-1]], "live_experts": live,
+                "ok": ok}, counter, key))
+        del cat_gu
+
+        # The all-gather of the token rows.
+        got = agk.all_gather(x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, x) and torch.equal(agk.all_gather(x), got),
+              f"all_gather ({m}, {h}) differs from its input")
+        nbytes = x.numel() * x.element_size()
+        out = torch.empty_like(x)
+        ms = device_ms(torch, lambda: agk.all_gather(x))
+        wall = wall_ms(torch, lambda: agk.all_gather(x))
+        plain_ms = device_ms(torch, lambda: agk.all_gather_reference(x))
+        lib_ms = device_ms(torch, lambda: out.copy_(x))
+        bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"kernel all_gather bf16 ({m}, {h}): equal to its input "
+              f"(tol exact), repeat bit-identical; kernel_ms={ms:.4f} (wall "
+              f"{wall:.4f}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"(Tensor.copy_) bound_ms={bnd:.5f} (bytes) [{card}]",
+              flush=True)
+        records.append(({
+            "name": f"all_gather ({m}, {h})", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/allgather.cu",
+            "replaces": "triton_dist_tpu/ops/allgather.py:254",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
+            "library_ms": lib_ms, "wall_ms": wall, "shape": [m, h],
+            "ok": True}, "all_gather", (m, h * x.element_size())))
+    return records
+
+
+def phase_moe_main(torch, models, counters, cfg, model, params, card: str,
+                   seed: int):
+    """Phase 13: Qwen3-30B-A3B served by the default (prefill xla_ar, decode
+    gemm_ar), all-ag_rs and paged sp engines through serve, serve_ragged
+    (not sp), serve_stream and the server, with the launch counts of every
+    prefill and decode step. Returns (engines, the square prompts, tokens
+    by engine, launches by counter and key)."""
+    print("== phase 13: Qwen3-30B-A3B served through the grouped-GEMM, "
+          "MoE-reduce and all-gather kernels", flush=True)
+    engines = {name: models.Engine(model, batch=4, max_seq=1024,
+                                   prefill_mode=pf, decode_mode=dc, **kw)
+               for name, (pf, dc, kw) in MOE_ENGINES.items()}
+    square, stream = sp_prompts(torch, cfg, seed + 10)
+    mixed = [p[:n] for p, n in zip(square, (128, 77, 33, 101))]
+    for eng in engines.values():                       # warm-up
+        eng.serve(params, square, 2)
+    for c in counters.values():                        # ---- the main path
+        c.reset()
+    steps = GEN - 1
+    tokens = {}
+    for name, (pf, dc, _) in MOE_ENGINES.items():
+        eng = engines[name]
+        before = moe_counts(counters)
+        _, prefill_ms = sync_time(torch, lambda: eng.serve(params, square, 1))
+        mid = moe_counts(counters)
+        out, serve_ms = sync_time(torch,
+                                  lambda: eng.serve(params, square, GEN))
+        after = moe_counts(counters)
+        per_prefill = {k: mid[k] - before[k] for k in mid
+                       if mid[k] != before[k]}
+        per_step = {}
+        for k in after:
+            extra = after[k] - mid[k] - per_prefill.get(k, 0)
+            check(extra % steps == 0, f"({name}) {k}: {extra} launches over "
+                                      f"{steps} steps")
+            if extra:
+                per_step[k] = extra // steps
+        layers = cfg.num_hidden_layers
+        for k, want in (("group_gemm", layers * (2 if pf == "sp" else 1)),
+                        ("moe_rs", 0 if pf == "sp" else layers),
+                        ("all_gather", layers if pf == "ag_rs" else 0)):
+            check(per_prefill.get(k, 0) == want,
+                  f"({name}) prefill {k} launches {per_prefill}")
+        for k, want in (("group_gemm", layers * (2 if dc == "sp" else 1)),
+                        ("moe_rs", 0 if dc == "sp" else layers),
+                        ("all_gather", 0 if dc == "sp" else layers)):
+            check(per_step.get(k, 0) == want,
+                  f"({name}) decode step {k} launches {per_step}")
+        check(tuple(out.shape) == (4, 128 + GEN), f"({name}) serve shape")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "token out of vocabulary")
+        tokens[name] = out
+        decode_ms = serve_ms - prefill_ms
+        print(f"moe serve ({name}: prefill {pf}, decode {dc}): batch 4 x 128"
+              f" prompt, {GEN} new tokens: prefill_ms={prefill_ms:.1f} "
+              f"decode_ms={decode_ms:.1f} per_step_ms={decode_ms / steps:.2f}"
+              f" decode_tokens_per_s={4 * steps / decode_ms * 1e3:.1f}; "
+              f"launches per prefill {per_prefill}, per decode step "
+              f"{per_step} [{card}]", flush=True)
+        if pf != "sp":
+            before = moe_counts(counters)
+            rows, ragged_ms = sync_time(
+                torch, lambda: eng.serve_ragged(params, mixed, 16))
+            check([len(r) for r in rows] == [len(q) + 16 for q in mixed],
+                  f"({name}) serve_ragged row lengths")
+            got = {k: v - before[k] for k, v in moe_counts(counters).items()}
+            check(got["group_gemm"] > 0 and got["moe_rs"] > 0,
+                  f"({name}) serve_ragged launches {got}")
+            print(f"moe serve_ragged ({name}): lengths "
+                  f"{[len(q) for q in mixed]}, 16 new tokens in "
+                  f"{ragged_ms:.1f} ms; grouped-GEMM launches "
+                  f"{got['group_gemm']}, MoE-reduce {got['moe_rs']} [{card}]",
+                  flush=True)
+        before = moe_counts(counters)
+        res, stream_ms = sync_time(
+            torch, lambda: eng.serve_stream(params, stream, GEN))
+        check([len(r) for r in res] == [len(q) + GEN for q in stream],
+              f"({name}) serve_stream row lengths")
+        got = {k: v - before[k] for k, v in moe_counts(counters).items()}
+        check(got["group_gemm"] > 0, f"({name}) stream launches {got}")
+        print(f"moe serve_stream ({name}): 6 prompts sharing a "
+              f"{PREFIX_LEN}-token prefix through 4 rows, {GEN} new tokens "
+              f"in {stream_ms:.1f} ms; grouped-GEMM launches "
+              f"{got['group_gemm']}, MoE-reduce {got['moe_rs']}, all-gather "
+              f"{got['all_gather']} [{card}]", flush=True)
+        phase_moe_server(torch, eng, params, square, stream, mixed, name,
+                         card)
+    launches = {name: dict(c.by_shape) for name, c in counters.items()}
+    print(f"moe main path launches: group_gemm {launches['group_gemm']}; "
+          f"moe_rs {launches['moe_rs']}; all_gather "
+          f"{launches['all_gather']}", flush=True)       # ---- main path ends
+    for name in ("group_gemm", "moe_rs", "all_gather"):
+        check(counters[name].total > 0, f"{name} never launched")
+    return engines, square, tokens, launches
+
+
+def phase_moe_server(torch, eng, params, square, stream, mixed, name,
+                     card) -> None:
+    from triton_dist_tpu_torch.serving.client import ChatClient
+    from triton_dist_tpu_torch.serving.server import ModelServer
+    srv = ModelServer(eng, params, host="127.0.0.1", port=0).start()
+    try:
+        with ChatClient(srv.host, srv.port, timeout=600) as client:
+            for batch, route in ((square, "serve"), (stream, "serve_stream"),
+                                 (mixed, "serve_ragged")):
+                t0 = time.perf_counter()
+                reply = client.generate_ids(batch, 8)
+                ms = (time.perf_counter() - t0) * 1e3
+                if route == "serve_ragged" and eng.paged:
+                    check("non-ragged" in reply.get("error", ""),
+                          f"({name}) ragged prompts were not refused")
+                    print(f"moe server ({name}): ragged prompts get the "
+                          f"error reply", flush=True)
+                    continue
+                check("tokens" in reply, f"server error: {reply}")
+                if route == "serve":
+                    rows = eng.serve(params, batch, 8).tolist()
+                elif route == "serve_stream":
+                    rows = eng.serve_stream(params, batch, 8)
+                else:
+                    rows = [r.tolist() for r in
+                            eng.serve_ragged(params, batch, 8)]
+                want = [r[len(q):] for r, q in zip(rows, batch)]
+                check(reply["tokens"] == want,
+                      f"({name}) server reply differs from {route}")
+                print(f"moe server ({name}): {len(batch)} prompts -> 8 tokens"
+                      f" each, equal to Engine.{route}; {ms:.1f} ms round "
+                      f"trip [{card}]", flush=True)
+    finally:
+        srv.stop()
+
+
+def phase_moe_checks(torch, gg, mrs, agk, ag, rs, engines, cfg, params,
+                     square, tokens, card: str) -> None:
+    """Phase 13, checks: the kernel path against the plain path with the
+    routing held fixed (prefill logits and one decode step, mode ag_rs);
+    free-running greedy agreement and flipped routing decisions (printed,
+    not gated); one TPMoE layer under sync debug "error"; each engine's
+    decode step wall vs device time."""
+    from triton_dist_tpu_torch.layers import tp_attn, tp_moe
+    from triton_dist_tpu_torch.models import KVCacheManager
+    model = engines["ag_rs"].model
+    ids = torch.tensor(square, device="cuda")
+    routing = tp_moe.topk_routing
+
+    def run(mode_fixed=None):
+        """(prefill last logits, decode step logits, routing per call) in
+        mode ag_rs; ``mode_fixed``: routing to replay, in call order."""
+        seen = []
+
+        def route(logits, k, norm=True):
+            out = (mode_fixed.pop(0) if mode_fixed is not None
+                   else routing(logits, k, norm))
+            seen.append(out)
+            return out
+        tp_moe.topk_routing = route
+        try:
+            kv = KVCacheManager(cfg.num_hidden_layers, 4, 1024,
+                                cfg.num_key_value_heads, cfg.head_dim,
+                                dtype=cfg.dtype, device="cuda")
+            caches = kv.init()
+            with torch.no_grad():
+                logits, caches = model.forward(params, ids, caches, 0,
+                                               mode="ag_rs")
+                tok = logits[:, -1].argmax(-1)[:, None]
+                step, _ = model.forward(params, tok, caches, 128,
+                                        mode="ag_rs")
+        finally:
+            tp_moe.topk_routing = routing
+        return logits[:, -1], step[:, 0], seen
+
+    def plain_path():
+        """Patch the plain versions in at the call sites of this path."""
+        saved = (ag.launch_gemm, tp_attn.gemm_rs, tp_moe.all_gather,
+                 tp_moe.grouped_matmul_multi, tp_moe.moe_reduce_rs)
+        ag.launch_gemm = lambda a, bs, count: ag.ag_gemm_multi_reference(
+            a, bs)
+        tp_attn.gemm_rs = rs.gemm_rs_reference
+        tp_moe.all_gather = lambda x, ctx=None, impl="pallas": (
+            agk.all_gather_reference(x))
+        tp_moe.grouped_matmul_multi = lambda t, ws, i, e, topk=1: [
+            gg.grouped_matmul_reference(t, w, i, e, topk) for w in ws]
+        tp_moe.moe_reduce_rs = lambda a, w, i, wt, ctx, impl="ring": (
+            mrs.moe_reduce_rs_reference(a, w, i, wt, ctx.num_experts,
+                                        impl in mrs.ROUNDED_IMPLS))
+        return saved
+
+    def restore(saved):
+        (ag.launch_gemm, tp_attn.gemm_rs, tp_moe.all_gather,
+         tp_moe.grouped_matmul_multi, tp_moe.moe_reduce_rs) = saved
+
+    got_pre, got_step, seen = run()
+    saved = plain_path()
+    try:
+        ref_pre, ref_step, _ = run(list(seen))
+        free_pre, free_step, free_seen = run()
+        plain_tokens = engines["ag_rs"].serve(params, square, GEN)
+    finally:
+        restore(saved)
+    for what, got, ref in (("prefill (4 x 128) last-position", got_pre,
+                            ref_pre), ("decode step", got_step, ref_step)):
+        check(bool(torch.isfinite(got).all()), f"non-finite moe {what} "
+                                               f"logits")
+        err = (got - ref).abs().max().item()
+        same = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        check(err <= MOE_LOGITS_ATOL, f"moe {what} logits differ by {err}")
+        print(f"moe logits (mode ag_rs, routing held fixed): {what} logits "
+              f"through the kernels vs the plain versions max abs diff "
+              f"{err:.4g} (tol {MOE_LOGITS_ATOL}), argmax agreement "
+              f"{same:.2f} [{card}]", flush=True)
+    flips = sum(int((torch.sort(a[1], -1)[0] != torch.sort(b[1], -1)[0])
+                    .any(-1).sum()) for a, b in zip(seen, free_seen))
+    decisions = sum(int(a[1].shape[0]) for a in seen)
+    same = (tokens["ag_rs"][:, 128:] == plain_tokens[:, 128:]).float()
+    print(f"moe free-running (not gated): the plain path routes "
+          f"{flips} of {decisions} token-layer decisions (prefill + one "
+          f"step) to another expert set; greedy tokens of the ag_rs engine "
+          f"equal to the plain path's on {same.mean().item():.3f} of "
+          f"positions [{card}]", flush=True)
+
+    # One MoE layer under sync debug "error": no host round trip.
+    layer = params["layers"][0]["moe"]
+    for m in (MOE_DECODE_M, MOE_PREFILL_M):
+        x = torch.randn((m, cfg.hidden_size), device="cuda").to(cfg.dtype)
+        model.moe(layer, x, mode="ag_rs")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = model.moe(layer, x, mode="ag_rs")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(y).all()), "non-finite TPMoE output")
+        print(f"moe layer ({m} tokens, mode ag_rs) ran under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host sync",
+              flush=True)
+
+    for name, (pf, dc, _) in MOE_ENGINES.items():
+        eng = engines[name]
+        if eng.paged:
+            fn = sp_step(torch, eng, params, square)
+        else:
+            kv = KVCacheManager(cfg.num_hidden_layers, 4, 1024,
+                                cfg.num_key_value_heads, cfg.head_dim,
+                                dtype=cfg.dtype, device="cuda")
+            caches = kv.init()
+            with torch.no_grad():
+                model.forward(params, ids, caches, 0, mode=pf)
+
+            def fn():
+                with torch.no_grad():
+                    return model.forward(params, ids[:, :1], caches, 128,
+                                         mode=dc)[0]
+        walls = [sync_time(torch, fn)[1] for _ in range(5)]
+        wall = sorted(walls)[2]
+        dev = device_ms(torch, fn, n=3)
+        print(f"moe decode step ({name}: mode {dc}, batch 4, forward only): "
+              f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, device"
+              f" idle share {1 - dev / wall:.2f} [{card}]", flush=True)
+        for kernel, ms, share in device_breakdown(torch, fn):
+            print(f"  moe decode step ({name}) device time: {ms:.3f} ms "
+                  f"({share:.2f}) {kernel}", flush=True)
+
+
+def moe_kernels_line(records, launches) -> list:
+    out = []
+    for rec, counter, key in records:
+        rec = dict(rec, launches=launches[counter].get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"MoE path")
+        out.append(rec)
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1229,6 +1801,9 @@ def main() -> int:
     from triton_dist_tpu_torch.ops import allgather_gemm as ag
     from triton_dist_tpu_torch.ops import flash_decode as fd
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as ops
+    from triton_dist_tpu_torch.ops import allgather as agk
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
 
     print("== phase 1: setup", flush=True)
     card = card_line()
@@ -1265,9 +1840,24 @@ def main() -> int:
                                                cfg, params, base, card)
     phase_ag_checks(torch, ag, ag_engines, params, base[0], cfg, card)
     del ag_engines
+    # The dense kernels' records read the Qwen3-8B weights: before they go.
     kernels = phase_kernels_line(torch, ops, params, cfg, main_launches)
     kernels += phase_fd_kernels_line(torch, fd, fd_launches)
     kernels += ag_kernels_line(ag_records, ag_launches)
+    del cfg, model, params, eng, prompts, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"Qwen3-8B released: device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    counters = moe_counters(ag, ops, ops, fd, gg, mrs, agk)
+    cfg, model, params = phase_moe_load(torch, models, card, args.seed)
+    moe_records = phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card)
+    engines, square, tokens, moe_launches = phase_moe_main(
+        torch, models, counters, cfg, model, params, card, args.seed)
+    phase_moe_checks(torch, gg, mrs, agk, ag, ops, engines, cfg, params,
+                     square, tokens, card)
+    kernels += moe_kernels_line(moe_records, moe_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -293,5 +293,84 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
     assert '"csrc/*.cu"' in (ROOT / "pyproject.toml").read_text()
     assert '"csrc/*.cuh"' in (ROOT / "pyproject.toml").read_text()
     from triton_dist_tpu_torch.ops import _build
-    assert set(_build.SOURCES) == {"gemm_ar", "flash_decode", "ag_gemm"}
+    assert set(_build.SOURCES) == {"gemm_ar", "flash_decode", "ag_gemm",
+                                   "group_gemm", "moe_rs", "allgather"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
+
+
+def test_moe_entry_points_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed calls of the grouped GEMM (both
+    epilogues, the FFN, ag_group_gemm), the MoE-reduce (every impl) and
+    the all-gather reach a kernel build and fail there instead of
+    computing a plain version on the CPU."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for mod, name in ((gg, "grouped_matmul_reference"),
+                      (gg, "grouped_swiglu_reference"),
+                      (mrs, "moe_reduce_rs_reference"),
+                      (ag, "all_gather_reference")):
+        monkeypatch.setattr(mod, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    x = on_cuda(torch.zeros(4, 8, dtype=torch.bfloat16))
+    w = on_cuda(torch.zeros(3, 8, 16, dtype=torch.bfloat16))
+    wd = on_cuda(torch.zeros(3, 16, 8, dtype=torch.bfloat16))
+    ids = on_cuda(torch.zeros(8, dtype=torch.int32))
+    wts = on_cuda(torch.ones(4, 2))
+    ctx = mrs.create_moe_rs_context(num_experts=3, topk=2)
+    calls = [
+        ("group_gemm", lambda: gg.grouped_matmul(x, w, ids, 3, topk=2)),
+        ("group_gemm", lambda: gg.grouped_matmul_multi(x, [w, w], ids, 3,
+                                                       topk=2)),
+        ("group_gemm", lambda: gg.grouped_swiglu(x, w, w, ids, 3, topk=2)),
+        ("group_gemm", lambda: gg.grouped_expert_ffn(x, w, w, wd, ids, 3,
+                                                     topk=2)),
+        ("group_gemm", lambda: gg.ag_group_gemm(x, w, ids[:4], 3,
+                                                impl="fused")),
+        ("allgather", lambda: ag.all_gather(x)),
+    ] + [("moe_rs", lambda impl=impl: mrs.moe_reduce_rs(
+        on_cuda(torch.zeros(8, 16, dtype=torch.bfloat16)), wd, ids, wts,
+        ctx, impl=impl)) for impl in ("ring", "xla", "fused")]
+    for lib, call in calls:
+        with pytest.raises(RuntimeError, match=f"no build of {lib}"):
+            call()
+
+
+@pytest.mark.parametrize("name,kernels", [
+    ("group_gemm", ("_ag_group_gemm_kernel",)),
+    ("moe_rs", ("_moe_rs_fused_kernel",)),
+    ("allgather", ("_full_mesh_push_kernel", "_ring_ag_kernel"))])
+def test_moe_sources_target_sm90a_without_atomics(name, kernels):
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES[name]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and "tdt_error_string" in text
+    for kernel in kernels:                  # the note names what it replaces
+        assert kernel in text
+    bodies = [text]
+    if name != "allgather":
+        assert '#include "group_gemm.cuh"' in text
+        bodies.append((_build.CSRC_DIR / "group_gemm.cuh").read_text())
+    for body in bodies:
+        for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+            assert atomic not in body           # fixed-order sums only
+        for library in ("cublas", "cutlass::gemm::device", "torch/"):
+            assert library not in body.lower()  # no library product

@@ -1,12 +1,14 @@
 """The port's gemm_ar (triton_dist_tpu_torch.ops.gemm_reduce_scatter)
 against the JAX package's gemm_ar(impl="pallas") on a 1-device mesh (the
 Pallas kernel in interpret mode), and the CUDA kernels (gemm_ar, the
-three flash-decode kernels of ops.flash_decode, and the AG-GEMM,
-AG-SwiGLU and GEMM-RS kernels of ops.allgather_gemm /
-ops.gemm_reduce_scatter) against their plain versions on the card
-(marked ``cuda``; skipped without one). The CPU parity tests of flash
-decode and of AG-GEMM are in tests/test_torch_flash_decode.py and
-tests/test_torch_ag_gemm.py.
+three flash-decode kernels of ops.flash_decode, the AG-GEMM, AG-SwiGLU
+and GEMM-RS kernels of ops.allgather_gemm / ops.gemm_reduce_scatter, and
+the grouped-GEMM, MoE-reduce and all-gather kernels of ops.group_gemm /
+ops.moe_reduce_rs / ops.allgather) against their plain versions on the
+card (marked ``cuda``; skipped without one). The CPU parity tests of
+flash decode, of AG-GEMM and of the MoE ops are in
+tests/test_torch_flash_decode.py, tests/test_torch_ag_gemm.py and
+tests/test_torch_moe_ops.py.
 
 Inputs come from numpy with a fixed seed. Tolerances: f32 within 1e-5
 relative (plus 1e-6 absolute for entries near zero); bf16 within one bf16
@@ -467,3 +469,154 @@ def test_ag_gemm_offset_views_give_the_same_bits(cuda_device):
     assert va.data_ptr() % 16
     assert all(torch.equal(x, y) for x, y in zip(ag.ag_gemm_multi(va, bs),
                                                  ag.ag_gemm_multi(a, bs)))
+
+
+# -- grouped GEMM, MoE-reduce, all-gather (csrc/group_gemm.cu, moe_rs.cu,
+# allgather.cu) ---------------------------------------------------------------
+# Qwen3-30B-A3B's shapes (E = 128, top-8, hidden 2048, expert width 768) at
+# decode (4 tokens, P = 32 pairs) and prefill (512 tokens, P = 4096), and
+# small odd ones: K or N not a multiple of 8 (the FMA kernel in bf16), few
+# live experts (most empty), sentinel ids (== E, run through the last
+# expert). Tolerances as for AG-GEMM above.
+# (tokens, topk, E, K, N, live experts or None for all, sentinel share)
+MOE_SHAPES = [(4, 8, 128, 2048, 768, None, 0.0),
+              (512, 8, 128, 2048, 768, None, 0.0),
+              (512, 8, 128, 768, 2048, 3, 0.0),
+              (9, 2, 5, 40, 24, None, 0.25),
+              (70, 2, 8, 64, 136, 2, 0.1)]
+MOE_IDS = ["decode", "prefill", "few_experts", "odd_sentinel", "sentinel"]
+
+
+def _moe_inputs(t, topk, e, k, n, live, sentinel, dtype, device, seed=0):
+    """Tokens (t, k), two weight stacks (e, k, n) and (t * topk,) int32
+    expert ids drawn from ``live`` experts (all if None), a ``sentinel``
+    share of them set to e."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(t, k).astype(np.float32))
+    ws = [torch.from_numpy((rng.randn(e, k, n) / np.sqrt(k)).astype(
+        np.float32)) for _ in range(2)]
+    pool = rng.choice(e, size=live or e, replace=False)
+    ids = pool[rng.randint(0, len(pool), t * topk)]
+    ids[rng.rand(t * topk) < sentinel] = e
+    return (x.to(device, dtype), [w.to(device, dtype) for w in ws],
+            torch.from_numpy(ids.astype(np.int32)).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MOE_SHAPES, ids=MOE_IDS)
+def test_grouped_gemm_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    t, topk, e, k, n, live, sentinel = shape
+    x, ws, ids = _moe_inputs(*shape, dtype, cuda_device, seed=t + k)
+    before = gg.group_gemm_launches.total
+    got = gg.grouped_matmul_multi(x, ws, ids, e, topk)
+    again = gg.grouped_matmul_multi(x, ws, ids, e, topk)
+    torch.cuda.synchronize()
+    assert gg.group_gemm_launches.total == before + 2    # gate|up: one launch
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for out, w in zip(got, ws):
+        _assert_gemm_close(out, gg.grouped_matmul_reference(x, w, ids, e,
+                                                            topk), k)
+    # One product alone, from the expanded rows (topk = 1), gives the bits
+    # of the gathered rows.
+    single = gg.grouped_matmul(x.repeat_interleave(topk, 0), ws[1], ids, e)
+    assert torch.equal(single, got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MOE_SHAPES, ids=MOE_IDS)
+def test_grouped_swiglu_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                     shape):
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    t, topk, e, k, n, live, sentinel = shape
+    x, (wg, wu), ids = _moe_inputs(*shape, dtype, cuda_device, seed=n)
+    got = gg.grouped_swiglu(x, wg, wu, ids, e, topk)
+    again = gg.grouped_swiglu(x, wg, wu, ids, e, topk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = gg.grouped_swiglu_reference(x, wg, wu, ids, e, topk)
+    # The limit of the fused AG-SwiGLU, on each pair's own expert.
+    g, u = (gg.grouped_matmul_reference(x, w, ids, e, topk, torch.float32)
+            for w in (wg, wu))
+    atol = 2.0 ** -16 * (torch.nn.functional.silu(g).abs() + 1.1 * u.abs())
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    diff = (got.float() - want.float()).abs()
+    lim = atol + 1e-6 + rtol * torch.maximum(got.float().abs(),
+                                             want.float().abs())
+    assert (diff <= lim).all(), diff.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MOE_SHAPES, ids=MOE_IDS)
+@pytest.mark.parametrize("impl", ["ring", "fused"])
+def test_moe_reduce_kernel_matches_plain_on_card(cuda_device, dtype, shape,
+                                                 impl):
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    t, topk, e, k, n, live, sentinel = shape
+    x, (w, _), ids = _moe_inputs(*shape, dtype, cuda_device, seed=k)
+    act = x.repeat_interleave(topk, 0).contiguous()
+    rng = np.random.RandomState(t)
+    wts = torch.from_numpy(rng.dirichlet(np.ones(topk), t).astype(
+        np.float32)).to(cuda_device)
+    ctx = mrs.create_moe_rs_context(num_experts=e, topk=topk)
+    before = mrs.moe_rs_launches.total
+    got = mrs.moe_reduce_rs(act, w, ids, wts, ctx, impl=impl)
+    again = mrs.moe_reduce_rs(act, w, ids, wts, ctx, impl=impl)
+    torch.cuda.synchronize()
+    assert mrs.moe_rs_launches.total == before + 2
+    assert torch.equal(got, again)
+    rounded = impl == "ring"
+    want = mrs.moe_reduce_rs_reference(act, w, ids, wts, e, rounded)
+    # Each pair's product within one bf16 ulp + f32_sum_atol(k) of the
+    # plain one (rounded pairs) or f32 apart by f32_sum_atol(k); the
+    # weights sum to one; then one rounding of the output.
+    pair = mrs.grouped_matmul_reference(act, w, ids, e).float()
+    pair_mag = (pair.abs().reshape(t, topk, -1) * wts[..., None]).sum(1)
+    if dtype == torch.bfloat16:
+        lim = (2.0 ** -7 * (torch.maximum(got.float().abs(),
+                                          want.float().abs())
+                            + (pair_mag if rounded else 0))
+               + f32_sum_atol(k))
+    else:
+        lim = 1e-5 * torch.maximum(got.abs(), want.abs()) + 3e-5
+    diff = (got.float() - want.float()).abs()
+    assert (diff <= lim).all(), diff.max()
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_plans(cuda_device):
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    bf, f32 = torch.bfloat16, torch.float32
+    # Rows per tile: twice the mean pairs per expert, in [16, 64]; the grid
+    # is the worst case ceil(P / m_blk) + min(E, P).
+    assert gg.plan(32, 128, 2048, 768, bf) == gg.Plan("mma", 16, 2 + 32)
+    assert gg.plan(4096, 128, 2048, 768, bf) == gg.Plan("mma", 64, 64 + 128)
+    assert gg.plan(1024, 128, 768, 2048, bf).m_blk == 16
+    assert gg.plan(2048, 128, 768, 2048, bf).m_blk == 32
+    assert gg.plan(4096, 128, 2048, 768, f32).path == "fma"
+    assert gg.plan(32, 128, 2048, 770, bf).path == "fma"
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        gg.plan(32, 2048, 64, 64, bf)                 # more than 1024 experts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,dtype", [(4, 2048, torch.bfloat16),
+                                             (512, 2048, torch.bfloat16),
+                                             (3, 5, torch.float32),
+                                             (7, 3, torch.bfloat16)])
+def test_all_gather_copy_on_card(cuda_device, rows, cols, dtype):
+    from triton_dist_tpu_torch.ops import allgather as ag
+    x = torch.randn(rows, cols, device=cuda_device).to(dtype)
+    before = ag.all_gather_launches.total
+    got = ag.all_gather(x)
+    torch.cuda.synchronize()
+    assert ag.all_gather_launches.total == before + 1
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
+    # A view that starts off 16 bytes takes the byte copy.
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+    view = flat[1:].view_as(x).copy_(x)
+    assert torch.equal(ag.all_gather(view), x)
+    assert ag.all_gather(x, impl="xla") is x

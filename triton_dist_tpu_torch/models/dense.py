@@ -42,6 +42,10 @@ class DenseLLM:
 
     def __init__(self, config: ModelConfig, device=None,
                  fwd_mode: str = "ag_rs", sp_axis: str | None = None):
+        if config.is_moe:
+            raise ValueError("DenseLLM needs a dense config; an MoE config "
+                             "(num_experts > 0) builds Qwen3MoE (AutoLLM."
+                             "build picks it)")
         self.config = config
         self.device = default_device(device)
         self.fwd_mode = fwd_mode
@@ -144,7 +148,7 @@ class DenseLLM:
                              cache, offset, mode=mode, kv_start=kv_start)
             x = x + a
             h = rms_norm(x, lp["ln_mlp"], c.rms_norm_eps)
-            x = x + self.mlp(lp["mlp"], h, mode=mode)
+            x = x + self._ffn(lp, h, mode)
 
         x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
         logits = x.float() @ params["lm_head_f32"].t()
@@ -259,6 +263,10 @@ class DenseLLM:
         logits = x.float() @ params["lm_head_f32"].t()
         return logits, kv_caches
 
+    def _ffn(self, lp: dict, h: torch.Tensor, mode: str) -> torch.Tensor:
+        """FFN of :meth:`forward` on (M, H) rows: the MLP in ``mode``."""
+        return self.mlp(lp["mlp"], h, mode=mode)
+
     def _sp_ffn(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
         """FFN of the sp forward on (B, S, H): the MLP's plain products
         (mode "xla_ar"; the JAX sp forward runs no fused GEMM)."""
@@ -352,18 +360,27 @@ def _to_torch(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+#: Leaves that the JAX models keep in f32 whatever the model dtype: the
+#: MoE router (``TPMoE.init``, ``Qwen3MoE.load_hf_state_dict``).
+F32_LEAVES = ("w_router",)
+
+
 def params_from_jax(np_tree: dict, config: ModelConfig, device=None) -> dict:
-    """The JAX ``DenseLLM`` params pytree, with numpy arrays for leaves,
-    as the port's params on ``device`` (default: the CUDA card). Both
-    packages use the (in, out) layout, so every leaf is a plain copy."""
+    """The JAX ``DenseLLM`` or ``Qwen3MoE`` params pytree, with numpy
+    arrays for leaves, as the port's params on ``device`` (default: the
+    CUDA card). Both packages use the (in, out) layout (experts stacked
+    (E, in, out)), so every leaf is a plain copy in ``config.dtype``,
+    except the f32 leaves of :data:`F32_LEAVES`: a bf16 router would
+    route differently."""
     dev = default_device(device)
 
-    def conv(node):
+    def conv(node, name=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        return _to_torch(node, config.dtype, dev)
+        dtype = torch.float32 if name in F32_LEAVES else config.dtype
+        return _to_torch(node, dtype, dev)
 
     params = conv(np_tree)
     if config.tie_word_embeddings:

@@ -13,7 +13,7 @@ item 10). The engine families served:
   in either phase beside any other non-sp mode: prefill ``"ag_rs"`` with
   decode ``"gemm_ar"`` is the JAX reference engine, decode ``"ag_rs"``
   fuses the decode too;
-* mode ``"sp"`` for both phases (``DenseLLM(sp_axis=...)``): prefill
+* mode ``"sp"`` for both phases (a model built with ``sp_axis=...``): prefill
   attention of ``ops.sp_attention`` and decode through the hand-written
   flash-decode kernels, over contiguous caches (optionally prefilled in
   ``prefill_chunk`` slices) or, with ``paged=True``, over a
@@ -79,7 +79,7 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 class Engine:
-    """Serve loop around a port ``DenseLLM``.
+    """Serve loop around a port ``DenseLLM`` or ``Qwen3MoE``.
 
     The model's device is the engine's device. Options of the JAX engine
     that the port does not have yet are refused with

@@ -26,7 +26,10 @@ BUILD_DIR = PACKAGE_DIR / "_kernels"
 #: Every CUDA source of the port, by library name.
 SOURCES = {"gemm_ar": CSRC_DIR / "gemm_ar.cu",
            "flash_decode": CSRC_DIR / "flash_decode.cu",
-           "ag_gemm": CSRC_DIR / "ag_gemm.cu"}
+           "ag_gemm": CSRC_DIR / "ag_gemm.cu",
+           "group_gemm": CSRC_DIR / "group_gemm.cu",
+           "moe_rs": CSRC_DIR / "moe_rs.cu",
+           "allgather": CSRC_DIR / "allgather.cu"}
 #: The headers the sources include (``csrc/*.cuh``).
 HEADERS = sorted(CSRC_DIR.glob("*.cuh"))
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")

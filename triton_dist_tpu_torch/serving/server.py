@@ -148,32 +148,58 @@ class ModelServer:
             self._thread.join(timeout=10)
 
 
-def main():  # pragma: no cover - manual demo
+def preset_config(args, **overrides):
+    """The config of ``--preset`` (a tiny dense model when unset), with
+    ``overrides`` applied to its fields."""
+    from triton_dist_tpu_torch.models import ModelConfig
+    from triton_dist_tpu_torch.models import presets
+
+    if args.preset:
+        return presets.PRESETS[args.preset](**overrides)
+    tiny = dict(num_hidden_layers=2, hidden_size=256, intermediate_size=512,
+                num_attention_heads=8, num_key_value_heads=8, head_dim=32,
+                vocab_size=1024)
+    return ModelConfig(**dict(tiny, **overrides))
+
+
+def build_model(args, **overrides):
+    """(model, params) of the command line: a local HF checkpoint
+    (``--model-dir``) or :func:`preset_config` with random weights.
+    ``AutoLLM`` builds a ``Qwen3MoE`` for an MoE config and a ``DenseLLM``
+    otherwise."""
+    from triton_dist_tpu_torch.models import AutoLLM
+
+    if args.model_dir:
+        return AutoLLM.from_pretrained(args.model_dir, device=args.device)
+    model = AutoLLM.build(preset_config(args, **overrides),
+                          device=args.device)
+    return model, model.init(args.seed)
+
+
+def parse_args(argv=None):
     import argparse
-    from triton_dist_tpu_torch.models import DenseLLM, Engine, ModelConfig
     from triton_dist_tpu_torch.models import presets
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model-dir", default=None,
+                    help="HF checkpoint dir (config.json + *.safetensors)")
     ap.add_argument("--preset", default=None, choices=sorted(presets.PRESETS),
                     help="model preset with random weights (a tiny random "
-                         "model if unset)")
+                         "model if neither this nor --model-dir is set)")
     ap.add_argument("--port", type=int, default=8777)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--max-seq", type=int, default=1024)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
-    if args.preset:
-        cfg = presets.PRESETS[args.preset]()
-    else:
-        cfg = ModelConfig(num_hidden_layers=2, hidden_size=256,
-                          intermediate_size=512, num_attention_heads=8,
-                          num_key_value_heads=8, head_dim=32,
-                          vocab_size=1024)
-    model = DenseLLM(cfg, device=args.device)
-    params = model.init(args.seed)
+
+def main():  # pragma: no cover - manual demo
+    from triton_dist_tpu_torch.models import Engine
+
+    args = parse_args()
+    model, params = build_model(args)
     eng = Engine(model, batch=args.batch, max_seq=args.max_seq)
     srv = ModelServer(eng, params, port=args.port).start()
     print(f"serving on {srv.host}:{srv.port}")
