@@ -86,7 +86,34 @@ without the final line:
     ``torch.cuda.set_sync_debug_mode("error")``; each engine's decode step
     wall vs device time.
 
-Phases 7-13 run between phases 5 and 6; the JSON line covers all four
+14. flash-prefill kernel (``csrc/sp_attention.cu``) against its plain
+    version ``sp_attention_fused_reference`` (64-wide KV tiles, as the
+    kernel's) after every Qwen3-8B object is released, at Qwen3-8B's
+    attention width (32 query heads, D = 128): bf16 and f32, causal and
+    full, G = 4 and 8, S = 1000 (no multiple of the tiles), B = 4 at
+    S = 4096 and the full case B = 1, S = 32768; each within the port's
+    tolerance (``sp_attention_tolerance``: bf16 2^-7 |out| + 2^-8 sum_j
+    (p_j / l) |v_j| elementwise), a planted fault (the KV tile at S / 2
+    zeroed for the kernel only) refused by that same limit, bit-identical
+    on repeat, with its time beside the bound;
+    the full case also with the plain version's time and one
+    ``scaled_dot_product_attention(is_causal, enable_gqa)``. These times
+    come from CUDA events around back-to-back calls, not the profiler.
+15. sp main path (this slice's), every count set to 0 just before it:
+    ``SpAttentionLayer(impl="pallas")`` prefill of the 32k prompt (one
+    kernel launch, equal to phase 14's output), ``SpFlashDecodeLayer``
+    over a cache of 32768 + 32 positions filled by ``append``, then 32
+    append-then-decode steps (partial + combine per step) each against
+    ``flash_decode_reference`` (2^-7 |out| + 2^-8 sum_j (p_j / l) |v_j|); ``sp_ag_attention`` in xla, ulysses and
+    ag_pallas (the all-gather kernel) equal to ring, and pallas within
+    tolerance, at S = 4096; every all_reduce and reduce_scatter method
+    and broadcast at (1, 4, 4096) and (1, 512, 4096) bf16 equal to their
+    plain versions; then the flash-decode kernels at kv_len 32800 (with a
+    planted fault, one split dropped, refused by the same limit) and the
+    copy kernel under each collective are timed for the JSON line.
+
+Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
+release, before the Qwen3-30B-A3B load); the JSON line covers all five
 slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
@@ -1787,6 +1814,397 @@ def moe_kernels_line(records, launches) -> list:
     return out
 
 
+# -- slice 5: SP long-context prefill through the flash-prefill kernel, SP
+# decode over its cache, and the world = 1 collectives -------------------------
+#: One 32k-token prompt at Qwen3-8B's attention width, then decode steps.
+SP_S, SP_DECODE = 32768, 32
+#: Phase 14's cases: (name, dtype, causal, B, S, KV heads); query heads and
+#: head dim are Qwen3-8B's (32, 128). 8 KV heads: G = 4 (Qwen3-8B); 4: G = 8
+#: (Qwen3-30B-A3B's). S = 1000 is no multiple of the 64-wide tiles.
+SP_CASES = [("qwen3_8b_32k", "bf16", True, 1, SP_S, 8),
+            ("b4_4096", "bf16", True, 4, 4096, 8),
+            ("full_4096", "bf16", False, 1, 4096, 8),
+            ("g8_4096", "bf16", True, 1, 4096, 4),
+            ("odd_1000", "bf16", True, 2, 1000, 8),
+            ("f32_b4_4096", "f32", True, 4, 4096, 8),
+            ("f32_odd_1000", "f32", True, 1, 1000, 8),
+            ("f32_full_g8_1000", "f32", False, 1, 1000, 4)]
+#: The functional impls held against "ring", and the collectives' shapes.
+SP_IMPL_S = 4096
+COLL_SHAPES = ((1, 4, 4096), (1, 512, 4096))
+
+
+def sp_error(got, ref, lim) -> tuple[float, bool, float]:
+    """(max |got - ref|, within the elementwise limit ``lim`` everywhere,
+    the largest share of its limit that an element uses). The limits are
+    the port's own: ``sp_attention_tolerance`` for the flash prefill and
+    ``bf16_attention_limit`` for flash decode (ops/sp_attention.py)."""
+    diff = (got.float() - ref.float()).abs()
+    return (diff.max().item(), bool((diff <= lim).all()),
+            (diff / lim).max().item())
+
+
+def zero_middle_tile(x, tile):
+    """A copy of k or v (B, S, H, D) with the KV tile that holds position
+    S // 2 zeroed: a planted fault, for the deep rows of a causal pass."""
+    bad = x.clone()
+    first = x.shape[1] // 2 // tile * tile
+    bad[:, first:first + tile] = 0
+    return bad
+
+
+def fd_weight(fd, q, k, v, kv_len):
+    """sum_j (p_j / l) |v_j| for each element of a decode output (f32):
+    the plain flash decode in f32 over |v|."""
+    return fd.flash_decode_reference(q.float(), k.float(), v.float().abs(),
+                                     kv_len).float()
+
+
+def sp_bound_ms(b, s, hq, hkv, d, itemsize, kind, causal):
+    """(least ms, what bounds it) of one prefill attention: q, k, v read
+    once and the output written once over HBM; 4 * D operations per
+    (query head, live (query, key) pair), S (S + 1) / 2 pairs when
+    causal."""
+    by_bytes = 2 * b * s * (hq + hkv) * d * itemsize / HBM_BYTES_PER_S * 1e3
+    pairs = s * (s + 1) / 2 if causal else s * s
+    by_ops = 4.0 * b * hq * d * pairs / PEAK_FLOPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def sp_operands(torch, dtype, b, s, hq, hkv, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((b, s, h, d), generator=gen,
+                             device="cuda").to(dtype)
+                 for h in (hq, hkv, hkv))
+
+
+def phase_sp_attn_kernels(torch, sp, cfg, card: str):
+    """Phase 14: the flash-prefill kernel against its plain version over
+    SP_CASES, each held to ``sp_attention_tolerance`` and then, as a
+    planted fault, with the KV tile at S / 2 zeroed for the kernel only,
+    which the same limit must refuse. Times come from CUDA events around
+    back-to-back calls (``wall_ms``): each call keeps the card busy for
+    far longer than its host overhead, and in a full run the profiler
+    missed most launches of the 34 ms kernel. Returns (the record of the
+    JSON line, ``launches`` still to fill from phase 15, and the full
+    case's (q, k, v, kernel output))."""
+    import torch.nn.functional as F
+    print("== phase 14: flash-prefill kernel vs sp_attention_fused_reference",
+          flush=True)
+    hq, d = cfg.num_attention_heads, cfg.head_dim
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    record, full = None, None
+    for i, (name, dt, causal, b, s, hkv) in enumerate(SP_CASES):
+        dtype = dtypes[dt]
+        q, k, v = sp_operands(torch, dtype, b, s, hq, hkv, d, seed=40 + i)
+        got = sp.launch_sp_attention(q, k, v, causal)
+        again = sp.launch_sp_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        ref = sp.sp_attention_fused_reference(q, k, v, causal,
+                                              t_sub=sp.KV_TILE)
+        lim = sp.sp_attention_tolerance(got, ref, q, k, v, causal)
+        err, ok, used = sp_error(got, ref, lim)
+        bad = sp.launch_sp_attention(q, zero_middle_tile(k, sp.KV_TILE),
+                                     zero_middle_tile(v, sp.KV_TILE), causal)
+        bad_err, bad_ok, bad_used = sp_error(bad, ref, lim)
+        del lim, bad
+        same = torch.equal(got, again)
+        finite = bool(torch.isfinite(got.float()).all())
+        kernel = lambda: sp.launch_sp_attention(q, k, v, causal)  # noqa: E731
+        ms = wall_ms(torch, kernel, n=5 if s > 4096 else 20)
+        bnd, by = sp_bound_ms(b, s, hq, hkv, d, q.element_size(), dt, causal)
+        tol = ("2^-7 max|out| + 2^-8 sum_j (p_j/l)|v_j|" if dt == "bf16"
+               else sp.SP_F32_ATOL)
+        print(f"sp_attention {name} {dt} causal={causal} B={b} S={s} "
+              f"heads {hq}/{hkv} D={d}: max_abs_err={err:.3e} (tol {tol}, "
+              f"largest share used {used:.3f}) ok={ok}; planted fault "
+              f"(KV tile at S/2 zeroed): max_abs_err={bad_err:.3e}, share "
+              f"{bad_used:.3f}, refused={not bad_ok}; repeat "
+              f"bit-identical={same} finite={finite} kernel_ms={ms:.3f} "
+              f"bound_ms={bnd:.3f} ({by}) [{card}]", flush=True)
+        check(ok and same and finite and not bad_ok,
+              f"sp_attention {name}: err {err}, repeat {same}, finite "
+              f"{finite}, planted fault refused {not bad_ok}")
+        if name == "qwen3_8b_32k":
+            plain_ms = wall_ms(
+                torch, lambda: sp.sp_attention_fused_reference(
+                    q, k, v, causal, t_sub=sp.KV_TILE), n=1)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = wall_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), n=5)
+            del qt, kt, vt
+            print(f"sp_attention {name}: plain_ms={plain_ms:.1f} "
+                  f"library_ms={lib_ms:.3f} (scaled_dot_product_attention, "
+                  f"is_causal, enable_gqa) [{card}]", flush=True)
+            record = {
+                "name": "sp_attention", "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/sp_attention.cu",
+                "replaces": "triton_dist_tpu/ops/sp_attention.py:147",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                "library_ms": lib_ms, "shape": [b, s, hq, hkv, d], "ok": ok,
+                "tol_share": used, "fault_tol_share": bad_used}
+            full = (q, k, v, got)
+        del q, k, v, got, again, ref
+    return record, full
+
+
+def sp_counters(sp, fd, agk, ar, rs) -> dict:
+    out = {"sp_attention": sp.sp_attention_launches,
+           "all_gather": agk.all_gather_launches,
+           "broadcast": agk.broadcast_launches,
+           "all_reduce": ar.all_reduce_launches,
+           "reduce_scatter": rs.reduce_scatter_launches}
+    out.update({f"flash_decode_{n}": c for n, c in fd.launches.items()})
+    return out
+
+
+def phase_sp_attn_main(torch, layers, sp, fd, agk, ar, rs, cfg, full,
+                       card: str) -> dict:
+    """Phase 15, the main path of this slice, with every count set to 0
+    just before it: ``SpAttentionLayer(impl="pallas")`` prefill of the
+    32k prompt, ``SpFlashDecodeLayer`` decode steps over its cache,
+    ``sp_ag_attention`` in every impl at SP_IMPL_S, and the collectives
+    at COLL_SHAPES. Returns the launch counts by counter and key."""
+    print("== phase 15: SP prefill (32k) and decode through the layers, the "
+          "impls and the collectives", flush=True)
+    counters = sp_counters(sp, fd, agk, ar, rs)
+    hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    q, k, v, want = full
+    for c in counters.values():
+        c.reset()                                  # ---- main path starts
+    prefill = layers.SpAttentionLayer(impl="pallas")
+    t0 = time.perf_counter()
+    out = prefill(q, k, v)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(sp.sp_attention_launches.total == 1,
+          f"prefill launched the kernel {sp.sp_attention_launches.total} "
+          f"times, not once")
+    check(torch.equal(out, want), "the layer's prefill differs from the "
+                                  "kernel's output on the same inputs")
+    print(f"SpAttentionLayer(impl='pallas') prefill B=1 S={SP_S}: 1 kernel "
+          f"launch, equal to phase 14's kernel output, wall "
+          f"{prefill_s * 1e3:.1f} ms [{card}]", flush=True)
+
+    decode = layers.SpFlashDecodeLayer(1, SP_S + SP_DECODE, hkv, d,
+                                       dtype=torch.bfloat16)
+    cache = decode.append(decode.init_cache(), k, v, 0)
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    worst, share, per_step = 0.0, 0.0, set()
+    t0 = time.perf_counter()
+    for i in range(SP_DECODE):
+        qn = torch.randn((1, hq, d), generator=gen, device="cuda").bfloat16()
+        kn, vn = (torch.randn((1, 1, hkv, d), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        cache = decode.append(cache, kn, vn, SP_S + i)
+        before = sum(c.total for c in fd.launches.values())
+        got = decode(qn, cache, SP_S + i + 1)
+        per_step.add(sum(c.total for c in fd.launches.values()) - before)
+        ref = fd.flash_decode_reference(qn, cache[0], cache[1], SP_S + i + 1)
+        lim = sp.bf16_attention_limit(
+            got, ref, fd_weight(fd, qn, cache[0], cache[1], SP_S + i + 1))
+        err, ok, used = sp_error(got, ref, lim)
+        check(ok, f"decode step {i}: max abs err {err} outside tolerance")
+        worst, share = max(worst, err), max(share, used)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(per_step == {2}, f"decode steps launched {per_step} flash-decode "
+                           f"kernels, not partial + combine")
+    print(f"SpFlashDecodeLayer: {SP_DECODE} append + decode steps over the "
+          f"{SP_S}-position cache (max_seq {SP_S + SP_DECODE}), 2 launches "
+          f"per step (partial + combine), max_abs_err vs "
+          f"flash_decode_reference {worst:.3e} (tol 2^-7 max|out| + 2^-8 "
+          f"sum_j (p_j/l)|v_j|, largest share used {share:.3f}), wall "
+          f"{decode_s * 1e3 / SP_DECODE:.2f} ms per step incl. the plain "
+          f"check [{card}]", flush=True)
+    del cache, decode
+
+    qs, ks, vs = (x[:, :SP_IMPL_S].contiguous() for x in (q, k, v))
+    ring = sp.sp_ag_attention(qs, ks, vs, impl="ring")
+    for impl in ("xla", "ulysses", "ag_pallas"):
+        check(torch.equal(sp.sp_ag_attention(qs, ks, vs, impl=impl), ring),
+              f"sp_ag_attention impl={impl} differs from ring")
+    fused = sp.sp_ag_attention(qs, ks, vs, impl="pallas")
+    err, ok, used = sp_error(fused, ring, sp.sp_attention_tolerance(
+        fused, ring, qs, ks, vs))
+    del fused
+    check(ok, f"sp_ag_attention impl=pallas: max abs err {err} vs ring")
+    print(f"sp_ag_attention S={SP_IMPL_S}: xla, ulysses and ag_pallas equal "
+          f"to ring bit for bit; pallas within the bf16 tolerance "
+          f"(max_abs_err {err:.3e}, largest share used {used:.3f}) "
+          f"[{card}]", flush=True)
+    del qs, ks, vs, ring
+
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    for shape in COLL_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        for method in ar.AllReduceMethod:
+            ctx = ar.create_allreduce_context(method=method)
+            check(torch.equal(ar.all_reduce(x, ctx),
+                              ar.all_reduce_reference(x)),
+                  f"all_reduce {method.value} {shape} differs")
+        for method in rs.ReduceScatterMethod:
+            ctx = rs.create_reduce_scatter_context(method=method)
+            check(torch.equal(rs.reduce_scatter(x, ctx),
+                              rs.reduce_scatter_reference(x)),
+                  f"reduce_scatter {method.value} {shape} differs")
+        check(torch.equal(agk.broadcast(x[0]), agk.broadcast_reference(x[0])),
+              f"broadcast {shape} differs")
+    torch.cuda.synchronize()
+    launches = {name: dict(c.by_shape) for name, c in counters.items()}
+    print(f"sp main path launches: "
+          f"{ {n: c.total for n, c in counters.items()} }", flush=True)
+    print(f"collectives {COLL_SHAPES} bf16: every all_reduce method, every "
+          f"reduce_scatter method and broadcast equal to their plain "
+          f"versions (tol exact) [{card}]", flush=True)
+    return launches
+
+
+def sp_fd_records(torch, sp, fd, cfg, card: str) -> list:
+    """The flash-decode kernels at the decode steps' last shape (kv_len
+    SP_S + SP_DECODE over a cache of that many positions), with
+    ``launches`` to fill from phase 15."""
+    import torch.nn.functional as F
+    hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    t = SP_S + SP_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    q = torch.randn((1, hq, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((1, t, hkv, d), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fd.plan(1, hkv, t, sms)
+    parts = fd.flash_decode_partial(q, k, v, t, p.split_len, p.splits)
+    part_bytes = sum(x.numel() * 4 for x in parts)
+    q_bytes = out_bytes = hq * d * 2
+    kv_bytes = 2 * t * hkv * d * 2
+    got = fd.flash_decode_combine(*parts, torch.bfloat16)
+    want = fd.flash_decode_reference(q, k, v, t)
+    lim = sp.bf16_attention_limit(got, want, fd_weight(fd, q, k, v, t))
+    err, ok, used = sp_error(got, want, lim)
+    # A planted fault: the middle split's partial dropped before the
+    # combine kernel; the same limit must refuse it.
+    a, l, m = (x.clone() for x in parts)
+    drop = p.splits // 2
+    a[:, :, drop], l[:, :, drop], m[:, :, drop] = 0.0, 0.0, -1e30
+    bad_err, bad_ok, bad_used = sp_error(
+        fd.flash_decode_combine(a, l, m, torch.bfloat16), want, lim)
+    print(f"flash decode at kv_len {t}: max_abs_err={err:.3e} (tol 2^-7 "
+          f"max|out| + 2^-8 sum_j (p_j/l)|v_j|, largest share used "
+          f"{used:.3f}) ok={ok}; planted fault (split {drop} of {p.splits} "
+          f"dropped): max_abs_err={bad_err:.3e}, share {bad_used:.3f}, "
+          f"refused={not bad_ok} [{card}]", flush=True)
+    check(ok and not bad_ok, f"flash decode at kv_len {t}: max abs err "
+                             f"{err}, planted fault refused {not bad_ok}")
+    del a, l, m, lim
+    qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, kt, vt, enable_gqa=True))
+    cases = [
+        ("flash_decode_partial[dense, kv_len 32k]", "partial", 280,
+         lambda: fd.flash_decode_partial(q, k, v, t, p.split_len, p.splits),
+         lambda: fd.flash_decode_partials_reference(q, k, v, t, p.split_len,
+                                                    p.splits),
+         (q_bytes + kv_bytes + part_bytes) / HBM_BYTES_PER_S * 1e3, lib_ms),
+        ("flash_decode_combine[kv_len 32k]", "combine", 218,
+         lambda: fd.flash_decode_combine(*parts, torch.bfloat16),
+         lambda: fd.flash_decode_combine_reference(*parts, torch.bfloat16),
+         (part_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, None)]
+    out = []
+    for name, counter, line, kernel, plain, bnd, lib in cases:
+        ms = device_ms(torch, kernel)
+        plain_ms = device_ms(torch, plain)
+        print(f"{name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd:.4f} (bytes) library_ms="
+              f"{'%.4f' % lib if lib else None} splits={p.splits} "
+              f"[{card}]", flush=True)
+        out.append(({
+            "name": name, "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
+            "replaces": f"triton_dist_tpu/ops/flash_decode.py:{line}",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
+            "library_ms": lib, "wall_ms": wall_ms(torch, kernel),
+            "shape": [1, hq, hkv, d, t], "ok": ok},
+            f"flash_decode_{counter}", None))
+    return out
+
+
+def coll_records(torch, agk, ar, rs, card: str) -> list:
+    """One record for each Pallas function whose world = 1 body the copy
+    kernel runs, timed at the larger collective shape, with ``launches``
+    to fill from phase 15 (the counter and the method). Each call takes
+    the next of 16 inputs (64 MiB, more than the 50 MB L2), so it reads
+    from HBM as the bound assumes."""
+    shape = COLL_SHAPES[-1]
+    xs = [torch.randn(shape, device="cuda").bfloat16() for _ in range(16)]
+    x = rotating(xs)
+    nbytes = xs[0][0].numel() * xs[0].element_size()
+    bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    out = torch.empty_like(xs[0][0])
+    lib_ms = device_ms(torch, lambda: out.copy_(x()[0]))
+    AR, RS = ar.AllReduceMethod, rs.ReduceScatterMethod
+    cases = [
+        ("all_reduce[one_shot]", "all_reduce", AR.ONE_SHOT, "allreduce.py:114",
+         lambda: ar.all_reduce(x(), ar.create_allreduce_context(
+             method=AR.ONE_SHOT)), lambda: ar.all_reduce_reference(x())),
+        ("all_reduce[recursive_doubling]", "all_reduce",
+         AR.RECURSIVE_DOUBLING, "allreduce.py:158",
+         lambda: ar.all_reduce(x(), ar.create_allreduce_context(
+             method=AR.RECURSIVE_DOUBLING)),
+         lambda: ar.all_reduce_reference(x())),
+        ("all_reduce[two_shot]", "all_reduce", AR.TWO_SHOT, "allreduce.py:193",
+         lambda: ar.all_reduce(x(), ar.create_allreduce_context(
+             method=AR.TWO_SHOT)), lambda: ar.all_reduce_reference(x())),
+        ("reduce_scatter[ring]", "reduce_scatter", RS.RING,
+         "reduce_scatter.py:92",
+         lambda: rs.reduce_scatter(x(), rs.create_reduce_scatter_context(
+             method=RS.RING)), lambda: rs.reduce_scatter_reference(x())),
+        ("reduce_scatter[one_shot]", "reduce_scatter", RS.ONE_SHOT,
+         "reduce_scatter.py:150",
+         lambda: rs.reduce_scatter(x(), rs.create_reduce_scatter_context(
+             method=RS.ONE_SHOT)), lambda: rs.reduce_scatter_reference(x())),
+        ("broadcast", "broadcast", None, "allgather.py:218",
+         lambda: agk.broadcast(x()[0]),
+         lambda: agk.broadcast_reference(x()[0]))]
+    records = []
+    for name, counter, method, replaces, kernel, plain in cases:
+        ms = device_ms(torch, kernel)
+        plain_ms = device_ms(torch, plain)
+        print(f"kernel {name} bf16 {shape}: kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} library_ms={lib_ms:.4f} (Tensor.copy_) "
+              f"bound_ms={bnd:.5f} (bytes) [{card}]", flush=True)
+        records.append(({
+            "name": name, "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/allgather.cu",
+            "replaces": f"triton_dist_tpu/ops/{replaces}", "launches": 0,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms,
+            "wall_ms": wall_ms(torch, kernel), "shape": list(shape),
+            "ok": True}, counter, method))
+    return records
+
+
+def sp_kernels_line(records, launches) -> list:
+    """The records with their launches on phase 15's path: a record's key
+    is a method (summed over shapes), ``None`` (every launch of the
+    counter) or the sp_attention record's own."""
+    out = []
+    for rec, counter, method in records:
+        counts = launches[counter]
+        if method is None:
+            n = sum(counts.values())
+        else:
+            n = sum(c for key, c in counts.items() if key[0] == method.value)
+        rec = dict(rec, launches=n)
+        check(n > 0, f"{rec['name']} never launched on the sp path")
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1804,6 +2222,10 @@ def main() -> int:
     from triton_dist_tpu_torch.ops import allgather as agk
     from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.layers import sp_flash_decode as layers
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    from triton_dist_tpu_torch.ops import sp_attention as sp
 
     print("== phase 1: setup", flush=True)
     card = card_line()
@@ -1849,6 +2271,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"Qwen3-8B released: device memory allocated "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    cfg = models.presets.qwen3_8b()
+    sp_record, full = phase_sp_attn_kernels(torch, sp, cfg, card)
+    sp_launches = phase_sp_attn_main(torch, layers, sp, fd, agk, ar, rs, cfg,
+                                     full, card)
+    del full
+    records = [(sp_record, "sp_attention", None)]
+    records += sp_fd_records(torch, sp, fd, cfg, card)
+    records += coll_records(torch, agk, ar, rs, card)
+    kernels += sp_kernels_line(records, sp_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     counters = moe_counters(ag, ops, ops, fd, gg, mrs, agk)
     cfg, model, params = phase_moe_load(torch, models, card, args.seed)

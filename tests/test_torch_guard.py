@@ -294,7 +294,8 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
     assert '"csrc/*.cuh"' in (ROOT / "pyproject.toml").read_text()
     from triton_dist_tpu_torch.ops import _build
     assert set(_build.SOURCES) == {"gemm_ar", "flash_decode", "ag_gemm",
-                                   "group_gemm", "moe_rs", "allgather"}
+                                   "group_gemm", "moe_rs", "allgather",
+                                   "sp_attention"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
 
 
@@ -374,3 +375,93 @@ def test_moe_sources_target_sm90a_without_atomics(name, kernels):
             assert atomic not in body           # fixed-order sums only
         for library in ("cublas", "cutlass::gemm::device", "torch/"):
             assert library not in body.lower()  # no library product
+
+
+def test_sp_attention_and_collectives_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed calls of the fused SP attention (the
+    functional entry, the fused entry, the layer), of ag_pallas (its
+    all-gather), of the SP decode layer and of the world = 1 collectives
+    (every method) reach a kernel build and fail there instead of
+    computing a plain version on the CPU."""
+    from triton_dist_tpu_torch.layers import sp_flash_decode as spl
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    from triton_dist_tpu_torch.ops import sp_attention as sp
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for mod, name in ((sp, "sp_attention_fused_reference"),
+                      (sp, "_masked_pass"),
+                      (ag, "all_gather_reference"),
+                      (ag, "broadcast_reference"),
+                      (ar, "all_reduce_reference"),
+                      (rs, "reduce_scatter_reference"),
+                      (fd, "flash_decode_reference")):
+        monkeypatch.setattr(mod, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+    monkeypatch.setattr(spl, "flash_decode_reference",
+                        lambda *_, **__: pytest.fail(
+                            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    q = on_cuda(torch.zeros(1, 64, 8, 64, dtype=torch.bfloat16))
+    kv = on_cuda(torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16))
+    x = on_cuda(torch.zeros(1, 4, 64, dtype=torch.bfloat16))
+    decode = spl.SpFlashDecodeLayer(1, 64, 2, 64, device="cpu")
+    calls = [
+        ("sp_attention", lambda: sp.sp_ag_attention(q, kv, kv,
+                                                    impl="pallas")),
+        ("sp_attention", lambda: sp.sp_ag_attention_fused(q, kv, kv)),
+        ("sp_attention", lambda: spl.SpAttentionLayer(impl="pallas")(
+            q, kv, kv)),
+        ("allgather", lambda: sp.sp_ag_attention(q, kv, kv,
+                                                 impl="ag_pallas")),
+        ("flash_decode", lambda: decode(on_cuda(torch.zeros(
+            1, 8, 64, dtype=torch.bfloat16)), (kv, kv), 3)),
+        ("allgather", lambda: ag.broadcast(x[0])),
+        ("allgather", lambda: rs.reduce_scatter(x)),
+    ] + [("allgather", lambda m=m: ar.all_reduce(
+        x, ar.create_allreduce_context(method=m)))
+        for m in ar.AllReduceMethod] + [
+        ("allgather", lambda m=m: rs.reduce_scatter(
+            x, rs.create_reduce_scatter_context(method=m)))
+        for m in rs.ReduceScatterMethod]
+    for lib, call in calls:
+        with pytest.raises(RuntimeError, match=f"no build of {lib}"):
+            call()
+
+
+def test_sp_attention_and_collective_sources_target_sm90a_without_atomics():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["sp_attention"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and '#include "gemm_common.cuh"' in text
+    for entry in ("tdt_sp_attention", "tdt_error_string", "mma_bf16",
+                  "_sp_fused_kernel"):             # the kernel it replaces
+        assert entry in text
+    copy = _build.SOURCES["allgather"].read_text()
+    for kernel in ("_one_shot_ar_kernel", "_recursive_doubling_ar_kernel",
+                   "_two_shot_ar_kernel", "_ring_rs_kernel",
+                   "_one_shot_rs_kernel", "_broadcast_kernel"):
+        assert kernel in copy
+    for body in (text, copy):
+        for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+            assert atomic not in body           # fixed-order sums only
+        for library in ("cublas", "cudnn", "cutlass::gemm::device",
+                        "torch/", "scaled_dot_product"):
+            assert library not in body.lower()  # no library kernel

@@ -4,8 +4,10 @@ Pallas kernel in interpret mode), and the CUDA kernels (gemm_ar, the
 three flash-decode kernels of ops.flash_decode, the AG-GEMM, AG-SwiGLU
 and GEMM-RS kernels of ops.allgather_gemm / ops.gemm_reduce_scatter, and
 the grouped-GEMM, MoE-reduce and all-gather kernels of ops.group_gemm /
-ops.moe_reduce_rs / ops.allgather) against their plain versions on the
-card (marked ``cuda``; skipped without one). The CPU parity tests of
+ops.moe_reduce_rs / ops.allgather, the flash-prefill kernel of
+ops.sp_attention and the copy kernel under each world = 1 collective)
+against their plain versions on the card (marked ``cuda``; skipped
+without one). The CPU parity tests of
 flash decode, of AG-GEMM and of the MoE ops are in
 tests/test_torch_flash_decode.py, tests/test_torch_ag_gemm.py and
 tests/test_torch_moe_ops.py.
@@ -13,7 +15,9 @@ tests/test_torch_moe_ops.py.
 Inputs come from numpy with a fixed seed. Tolerances: f32 within 1e-5
 relative (plus 1e-6 absolute for entries near zero); bf16 within one bf16
 ulp of the larger of the two values (both sides sum in f32 and round
-once), plus 1e-6 absolute on the card.
+once), plus 1e-6 absolute on the card. The flash prefill is held to the
+port's ``sp_attention_tolerance`` (ops/sp_attention.py), and a run with
+one KV tile zeroed must fail it.
 
 JAX is imported only inside the parity helper, so the card tests run on
 a machine without it:
@@ -620,3 +624,103 @@ def test_all_gather_copy_on_card(cuda_device, rows, cols, dtype):
     view = flat[1:].view_as(x).copy_(x)
     assert torch.equal(ag.all_gather(view), x)
     assert ag.all_gather(x, impl="xla") is x
+
+
+# -- slice 5: the flash-prefill kernel and the collectives' copy ---------------
+#: (dtype, causal, B, S, Hq, Hkv, D): chip_smoke.py's cases at reduced S —
+#: Qwen3-8B's heads (G = 4), Qwen3-30B-A3B's (G = 8), G = 1, an S that is
+#: no multiple of the 64-wide tiles, B = 4, D = 64, f32 on the FMA path,
+#: and sequences shorter than one tile (S = 1, 7).
+SP_SHAPES = [(torch.bfloat16, True, 1, 2048, 32, 8, 128),
+             (torch.bfloat16, True, 4, 1024, 32, 8, 128),
+             (torch.bfloat16, False, 1, 1000, 32, 8, 128),
+             (torch.bfloat16, True, 1, 1000, 32, 4, 128),
+             (torch.bfloat16, True, 2, 333, 8, 8, 64),
+             (torch.float32, True, 1, 1000, 32, 8, 128),
+             (torch.float32, False, 1, 512, 32, 4, 128),
+             (torch.float32, True, 1, 100, 4, 4, 64),
+             (torch.bfloat16, True, 3, 1, 32, 8, 128),
+             (torch.float32, False, 2, 7, 32, 4, 128)]
+
+
+def zero_middle_tile(x, tile):
+    """A copy of k or v (B, S, H, D) with the KV tile that holds position
+    S // 2 zeroed: a planted fault, for the deep rows of a causal pass."""
+    bad = x.clone()
+    first = x.shape[1] // 2 // tile * tile
+    bad[:, first:first + tile] = 0
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,b,s,hq,hkv,d", SP_SHAPES)
+def test_sp_attention_kernel_matches_plain_on_card(cuda_device, dtype, causal,
+                                                   b, s, hq, hkv, d):
+    from triton_dist_tpu_torch.ops import sp_attention as sp
+    rng = np.random.RandomState(s)
+    q, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+               .to(cuda_device, dtype) for h in (hq, hkv, hkv))
+    ctx = sp.create_sp_attention_context(causal=causal)
+    before = sp.sp_attention_launches.total
+    got = sp.sp_ag_attention(q, k, v, ctx, impl="pallas")
+    again = sp.sp_ag_attention_fused(q, k, v, ctx)
+    torch.cuda.synchronize()
+    assert sp.sp_attention_launches.total == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)                  # bit-identical repeat
+    ref = sp.sp_attention_fused_reference(q, k, v, causal, t_sub=sp.KV_TILE)
+    diff = (got.float() - ref.float()).abs()
+    assert bool(torch.isfinite(got.float()).all())
+    lim = sp.sp_attention_tolerance(got, ref, q, k, v, causal)
+    assert bool((diff <= lim).all()), diff.max().item()
+    # The same check refuses a kernel run that lost one KV tile.
+    bad = sp.launch_sp_attention(q, zero_middle_tile(k, sp.KV_TILE),
+                                 zero_middle_tile(v, sp.KV_TILE), causal)
+    assert not bool(((bad.float() - ref.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+def test_sp_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    from triton_dist_tpu_torch.ops import sp_attention as sp
+    q = torch.zeros(1, 64, 4, 128, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 64, 1, 128, device=cuda_device, dtype=torch.bfloat16)
+    for args in ((q.float(), kv, kv), (q[..., :96].contiguous(),
+                                       kv[..., :96].contiguous(),
+                                       kv[..., :96].contiguous()),
+                 (q.transpose(1, 2), kv, kv)):
+        with pytest.raises(ValueError):
+            sp.launch_sp_attention(*args, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,dtype", [(4, 4096, torch.bfloat16),
+                                       (512, 4096, torch.bfloat16),
+                                       (3, 5, torch.float32)])
+def test_collectives_copy_on_card(cuda_device, m, n, dtype):
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    x = torch.randn(1, m, n, device=cuda_device).to(dtype)
+    key = str(dtype).removeprefix("torch.")
+    for method in ar.AllReduceMethod:
+        ctx = ar.create_allreduce_context(method=method)
+        ran = ar.resolve_method(ctx, m, x[0].numel() * x.element_size())
+        before = ar.all_reduce_launches.by_shape[(ran.value, m, n, key)]
+        got = ar.all_reduce(x, ctx, stacked=method is ar.AllReduceMethod.AUTO)
+        assert ar.all_reduce_launches.by_shape[(ran.value, m, n, key)] == \
+            before + 1
+        assert got.data_ptr() != x.data_ptr()
+        assert torch.equal(got.reshape(m, n), x[0])
+    for method in rs.ReduceScatterMethod:
+        ctx = rs.create_reduce_scatter_context(method=method)
+        ran = ctx.resolve_method(x[0].numel() * x.element_size())
+        before = rs.reduce_scatter_launches.by_shape[(ran.value, m, n, key)]
+        assert torch.equal(rs.reduce_scatter(x, ctx), x[0])
+        assert rs.reduce_scatter_launches.by_shape[(ran.value, m, n, key)] \
+            == before + 1
+    before = ag.broadcast_launches.total
+    got = ag.broadcast(x[0])
+    torch.cuda.synchronize()
+    assert ag.broadcast_launches.total == before + 1
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, x[0])
+    assert ar.all_reduce(x, impl="xla").data_ptr() == x.data_ptr()

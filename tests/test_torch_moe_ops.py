@@ -276,8 +276,8 @@ def test_cpu_calls_take_the_plain_versions_and_are_not_counted():
     (lambda: ag.all_gather(torch.ones(2, 2),
                            ag.create_allgather_context(world_size=2)),
      "Queue B item 8"),
-    (lambda: ag.all_gather(torch.ones(2, 2), ag.create_allgather_context(
-        method=ag.AllGatherMethod.BROADCAST)), "Queue B item 8"),
+    (lambda: ag.broadcast(torch.ones(2, 2), 0, ag.create_allgather_context(
+        world_size=2)), "Queue B item 8"),
     (lambda: ag.get_auto_all_gather_method(4, 64), "Queue B item 8"),
 ], ids=["ag_group_gemm_auto", "ag_group_gemm_world2", "moe_rs_auto",
         "moe_rs_world2", "all_gather_world2", "broadcast", "auto_world4"])

@@ -29,7 +29,8 @@ from triton_dist_tpu_torch.models import (
     DenseLLM, Engine, ModelConfig, params_from_jax)
 from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
 from triton_dist_tpu_torch.models.prefix_cache import PrefixCache
-from triton_dist_tpu_torch.ops.sp_attention import sp_ag_attention
+from triton_dist_tpu_torch.ops.sp_attention import (
+    SpAttentionContext, sp_ag_attention)
 from triton_dist_tpu_torch.serving.client import ChatClient
 from triton_dist_tpu_torch.serving.server import ModelServer
 
@@ -181,10 +182,13 @@ def test_stream_session_paged_verbs(models, jax_tokens):
 
 
 def test_sp_attention_refuses_unported_impls():
+    """Every impl runs at world 1; a larger world is not ported yet."""
     q = torch.zeros((1, 4, 2, 8))
+    ctx = SpAttentionContext(world_size=2)
     for impl in ("pallas", "ag_pallas", "ulysses"):
+        assert sp_ag_attention(q, q, q, impl=impl).shape == q.shape
         with pytest.raises(NotImplementedError, match="Queue B item 6"):
-            sp_ag_attention(q, q, q, impl=impl)
+            sp_ag_attention(q, q, q, ctx, impl=impl)
 
 
 @pytest.fixture()

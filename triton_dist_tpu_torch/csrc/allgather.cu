@@ -1,24 +1,35 @@
-// All-gather at world = 1 for Hopper (sm_90a): this rank's row chunk into
-// its slot of the gathered buffer, out[rank * rows : (rank + 1) * rows] = x.
+// The world = 1 bodies of the collectives for Hopper (sm_90a): one copy
+// kernel. At world = 1 each of these Pallas kernels copies a buffer and
+// nothing else, so one grid-stride copy serves them all:
 //
-// Replaces the world = 1 body of triton_dist_tpu/ops/allgather.py::
-// _full_mesh_push_kernel (:254; `o_ref[pl.ds(me * rows, rows)] = x_ref`,
-// :260-262), the kernel `all_gather(impl="pallas")` runs at world <= 2
-// (:84-85), and of `_ring_ag_kernel` (:133), whose world = 1 body is the
-// same copy. The pushes to peers and the ring hops come with the multi-GPU
-// slice.
+//  * all-gather: this rank's row chunk into its slot of the gathered
+//    buffer, out[rank * rows : (rank + 1) * rows] = x, at rank 0 a copy.
+//    Replaces triton_dist_tpu/ops/allgather.py::_full_mesh_push_kernel
+//    (:254; `o_ref[pl.ds(me * rows, rows)] = x_ref`, :260-262), the kernel
+//    `all_gather(impl="pallas")` runs at world <= 2 (:84-85), and
+//    `_ring_ag_kernel` (:133), whose world = 1 body is the same copy;
+//  * the world = 1 bodies of the other collectives, all dst = src:
+//    - ops/allreduce.py::_one_shot_ar_kernel (:114, body :120-122),
+//      _recursive_doubling_ar_kernel (:158, :172-174) and
+//      _two_shot_ar_kernel (:193, :203-205): `o = x`;
+//    - ops/reduce_scatter.py::_ring_rs_kernel (:92, :110-112) and
+//      _one_shot_rs_kernel (:150, :157-159): `o = x[0 : M]`;
+//    - ops/allgather.py::_broadcast_kernel (:218, :225-229): the root's
+//      buffer.
+// The pushes to peers and the ring hops come with the multi-GPU slice.
 //
-// Shape on the path (Qwen3-30B-A3B's TPMoE, bf16): x (M, 2048), M = 4 at
-// decode (16 KiB) and 512 at prefill (2 MiB). What bounds it: the bytes,
-// read once and written once at 3.35 TB/s (0.01 us and 1.25 us); at these
-// sizes the launch itself costs more.
+// Shapes on the paths: Qwen3-30B-A3B's TPMoE all-gather (bf16) x (M, 2048),
+// M = 4 at decode (16 KiB) and 512 at prefill (2 MiB); the collectives at
+// (1, 4, 4096) and (1, 512, 4096) bf16 (32 KiB and 4 MiB). What bounds it:
+// the bytes, read once and written once at 3.35 TB/s (0.01 to 2.5 us); at
+// these sizes the launch itself costs more.
 //
 // The design: a grid-stride copy in 16-byte vectors when both ends are
 // 16-byte aligned, then the tail bytes; byte copies otherwise. About eight
 // blocks per SM at most.
 //
-// Plain C entry point `tdt_all_gather`, loaded with ctypes. It runs on the
-// stream it is given, allocates nothing and returns cudaGetLastError().
+// Plain C entry point `tdt_copy`, loaded with ctypes. It runs on the stream
+// it is given, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,22 +63,21 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// out + rank * chunk_bytes <- x (chunk_bytes bytes), on a card with `sms`
-// SMs. Returns a cudaError_t.
-int tdt_all_gather(const void* x, void* out, long long chunk_bytes, int rank,
-                   int sms, void* stream) {
-  if (x == nullptr || out == nullptr || chunk_bytes < 0 || rank < 0 ||
-      sms <= 0)
+// dst <- src (nbytes bytes), on a card with `sms` SMs. Returns a
+// cudaError_t.
+int tdt_copy(const void* src, void* dst, long long nbytes, int sms,
+             void* stream) {
+  if (src == nullptr || dst == nullptr || nbytes < 0 || sms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (chunk_bytes == 0) return static_cast<int>(cudaSuccess);
-  unsigned char* dst = static_cast<unsigned char*>(out) + rank * chunk_bytes;
-  const unsigned char* src = static_cast<const unsigned char*>(x);
-  const int vec = aligned16(src) && aligned16(dst);
-  const long long units = vec ? (chunk_bytes + 15) / 16 : chunk_bytes;
+  if (nbytes == 0) return static_cast<int>(cudaSuccess);
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  const int vec = aligned16(s) && aligned16(d);
+  const long long units = vec ? (nbytes + 15) / 16 : nbytes;
   long long blocks = (units + kThreads - 1) / kThreads;
   if (blocks > 8LL * sms) blocks = 8LL * sms;
   chunk_copy<<<static_cast<unsigned>(blocks), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(src, dst, chunk_bytes, vec);
+               static_cast<cudaStream_t>(stream)>>>(s, d, nbytes, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,7 +29,8 @@ SOURCES = {"gemm_ar": CSRC_DIR / "gemm_ar.cu",
            "ag_gemm": CSRC_DIR / "ag_gemm.cu",
            "group_gemm": CSRC_DIR / "group_gemm.cu",
            "moe_rs": CSRC_DIR / "moe_rs.cu",
-           "allgather": CSRC_DIR / "allgather.cu"}
+           "allgather": CSRC_DIR / "allgather.cu",
+           "sp_attention": CSRC_DIR / "sp_attention.cu"}
 #: The headers the sources include (``csrc/*.cuh``).
 HEADERS = sorted(CSRC_DIR.glob("*.cuh"))
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
