@@ -32,8 +32,11 @@ without the final line:
 7. flash-decode kernels: the split-KV ``partial`` (dense rows and pages
    through a block table), ``combine`` and ``single`` kernels against their
    plain versions at Qwen3-8B's decode shapes, kv_len 1, 17, 160, 1024 and
-   ragged, bf16 and f32, with the stated tolerance; repeats must give the
-   same bits, and paged and dense addressing of the same rows too.
+   ragged, bf16 and f32, with the stated tolerance (bf16: 2^-7 |out| +
+   2^-8 sum_j (p_j / l)|v_j|, the weight rule of phases 14-15); repeats
+   must give the same bits, and paged and dense addressing of the same
+   rows too; a planted fault (one split dropped before the combine, at
+   kv_len 160 and 1024) must fail that limit.
 8. sp main path (flash decode's): Qwen3-8B served in mode "sp" by three
    engines, (a) paged (page 16), (b) contiguous with max_seq 1024 (the
    split kernel) and (c) contiguous with max_seq 512 (the single-pass
@@ -112,9 +115,33 @@ without the final line:
     planted fault, one split dropped, refused by the same limit) and the
     copy kernel under each collective are timed for the JSON line.
 
+16. expert parallelism (this slice's main path), on phase 12's
+    Qwen3-30B-A3B weights once phase 13's engines are released: the
+    all-to-all kernel (``csrc/all_to_all.cu``) against
+    ``fast_all_to_all_reference`` at W = 4 and 2 (and W = 8, which the
+    model's 4 KV heads do not allow, at its hidden 2048), decode (batch 4)
+    and prefill (4 x 128) slabs routed by layer 0's router, bf16 and the
+    fp8 path's int8 wire: live rows bit-equal, dead-chunk NaN canaries
+    intact, bit-identical on repeat, a planted fault (one slab's count
+    lowered by a chunk for the kernel only) refused, with its time
+    (profiler device time of the kernel alone) beside the bound, the
+    plain version and one ``Tensor.copy_`` of the transposed slabs. Then
+    ``Qwen3MoE(moe_parallel="ep", world=4)`` over the same params (per-rank
+    views, device memory printed before and after) served by
+    ``Engine(prefill_mode="xla", decode_mode="xla")``, 4 x 128 prompts
+    and 16 new tokens, every count set to 0 just before: 96 all-to-all
+    launches (dispatch and combine, 48 layers) and 384 grouped-GEMM
+    launches per prefill and per decode step; the prefill's last-position
+    logits and one decode step's logits through the kernel bit-equal to
+    the same forward with the plain exchange; one EP MoE layer under
+    ``torch.cuda.set_sync_debug_mode("error")``; greedy agreement with
+    phase 13's default engine (not gated); the decode step's and the
+    prefill's wall and device time, the grouped GEMM's share and the
+    dead-slot share of the slots it runs.
+
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
-release, before the Qwen3-30B-A3B load); the JSON line covers all five
-slices.
+release, before the Qwen3-30B-A3B load), phase 16 after phase 13; the
+JSON line covers all six slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -142,6 +169,9 @@ F32_ATOL = 3e-5
 #: later bf16 rounding; logits have std ~1.3 at these init scales.
 LOGITS_ATOL = 0.25
 GEN = 32
+#: Profiler sessions a timing tries before it fails: a session now and
+#: then records no kernel at all (seen at the 512-row all-gather copy).
+PROFILER_SESSIONS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -168,8 +198,8 @@ def device_ms(torch, fn, n: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no kernels: retry
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILER_SESSIONS):  # a session now and then records no
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
@@ -177,7 +207,8 @@ def device_ms(torch, fn, n: int = 20) -> float:
                        for e in prof.key_averages())
         if total_us > 0:
             return total_us / n / 1e3
-    raise SmokeFailure("the profiler saw no device time in 3 sessions")
+    raise SmokeFailure(f"the profiler saw no device time in "
+                       f"{PROFILER_SESSIONS} sessions")
 
 
 def device_breakdown(torch, fn, n: int = 3, top: int = 8) -> list:
@@ -492,20 +523,33 @@ STREAM_SLOTS = 24
 PREFIX_LEN = 64
 
 
-def fd_error(torch, got, ref, v) -> tuple[float, bool]:
+def fd_error(torch, got, ref, weight) -> tuple[float, bool]:
     """(max |got - ref|, within tolerance) of attention outputs. f32: 1e-5
     (f32 sums in another order). bf16: the kernel rounds each probability
     to bf16 against its 64-position chunk's running max, the plain
-    version against the row's final max, so a probability moves by up to
-    2^-8 of itself and an output by up to 2^-8 * max|v|; both outputs
-    then round to bf16 once (2^-7 of the value)."""
+    version against the row's final max, so a probability p_j moves by
+    up to 2^-8 of itself on each side; both outputs then round to bf16
+    once. The limit is the SP phases' weight rule,
+    ``bf16_attention_limit`` (ops/sp_attention.py): 2^-7 |out| + 2^-8
+    sum_j (p_j / l)|v_j|, ``weight`` being that sum from the plain decode
+    over |v| (:func:`fd_weight`)."""
+    from triton_dist_tpu_torch.ops.sp_attention import bf16_attention_limit
     diff = (got.float() - ref.float()).abs()
-    if got.dtype == v.dtype == torch.float32:
+    if got.dtype == torch.float32:
         lim = torch.full_like(diff, F32_ATOL / 3)
     else:
-        lim = (2.0 ** -8 * v.float().abs().max() + BF16_ULP_REL
-               * torch.maximum(got.float().abs(), ref.float().abs()) + 1e-6)
+        lim = bf16_attention_limit(got, ref, weight)
     return diff.max().item(), bool((diff <= lim).all())
+
+
+def drop_split(parts, lens, split_len: int):
+    """A planted fault: the partials (acc, l, m) with the split that holds
+    the last position of the shortest row dropped before the combine."""
+    a, l, m = (x.clone() for x in parts)
+    first = min(lens) if isinstance(lens, list) else lens
+    drop = min((first - 1) // split_len, a.shape[2] - 1)
+    a[:, :, drop], l[:, :, drop], m[:, :, drop] = 0.0, 0.0, -1e30
+    return (a, l, m), drop
 
 
 def fd_operands(torch, dtype, t: int, seed: int):
@@ -547,8 +591,11 @@ def phase_flash_kernels(torch, fd, card: str) -> None:
         k5, v5 = k[:, :512].contiguous(), v[:, :512].contiguous()
         p = fd.plan(FD_B, FD_HKV, 1024, sms)
         errs = {"partial": 0.0, "combine": 0.0, "single": 0.0}
+        faults = []
         for lens in FD_LENS:
             lens = list(lens) if isinstance(lens, tuple) else lens
+            w = fd_weight(fd, q, k, v, lens)
+            w5 = fd_weight(fd, q, k5, v5, lens)
             runs = []
             for _ in range(2):               # the repeat must match bits
                 dense = fd.flash_decode_partial(q, k, v, lens, p.split_len,
@@ -576,31 +623,41 @@ def phase_flash_kernels(torch, fd, card: str) -> None:
                                fd.flash_decode_combine_reference(*dense,
                                                                  dtype),
                                fd.flash_decode_combine_reference(*plain,
-                                                                 dtype), v)
+                                                                 dtype), w)
             check(ok, f"partial {kind} kv_len {lens}: err {err}")
             errs["partial"] = max(errs["partial"], err)
             err, ok = fd_error(torch, merged,
                                fd.flash_decode_combine_reference(*dense,
-                                                                 dtype),
-                               torch.ones(1, dtype=dtype))
+                                                                 dtype), w)
             check(ok, f"combine {kind} kv_len {lens}: err {err}")
             errs["combine"] = max(errs["combine"], err)
             err, ok = fd_error(torch, single,
-                               fd.flash_decode_reference(q, k5, v5, lens), v)
+                               fd.flash_decode_reference(q, k5, v5, lens), w5)
             check(ok, f"single {kind} kv_len {lens}: err {err}")
             errs["single"] = max(errs["single"], err)
-            err, ok = fd_error(torch, merged,
-                               fd.flash_decode_reference(q, k, v, lens), v)
+            want = fd.flash_decode_reference(q, k, v, lens)
+            err, ok = fd_error(torch, merged, want, w)
             check(ok, f"partial+combine {kind} kv_len {lens}: err {err}")
+            if lens in (160, 1024):
+                # Phase 8's kv_len (160) and the full cache: the same
+                # limit must refuse a combine that lost one split.
+                bad, drop = drop_split(dense, lens, p.split_len)
+                bad_err, bad_ok = fd_error(
+                    torch, fd.flash_decode_combine(*bad, dtype), want, w)
+                check(not bad_ok, f"flash decode {kind} kv_len {lens}: a "
+                                  f"dropped split passed ({bad_err})")
+                faults.append(f"kv_len {lens}: split {drop} dropped, err "
+                              f"{bad_err:.3g}")
         tol = ("1e-5" if dtype == torch.float32 else
-               "2^-8 max|v| + 1 bf16 ulp")
+               "2^-7 |out| + 2^-8 sum_j (p_j/l)|v_j|")
         print(f"kernel flash_decode {kind} B={FD_B} Hq={FD_HQ} Hkv={FD_HKV} "
               f"D={FD_D}, kv_len {list(FD_LENS)}: "
               f"partial (T=1024 dense and paged, {p.splits} splits of "
               f"{p.split_len}) max_abs_err={errs['partial']:.3g}, combine "
               f"{errs['combine']:.3g}, single (T=512) {errs['single']:.3g} "
-              f"(tol {tol}); repeats bit-identical, paged == dense bits "
-              f"[{card}]", flush=True)
+              f"(tol {tol}); repeats bit-identical, paged == dense bits; "
+              f"planted faults refused: {'; '.join(faults)} [{card}]",
+              flush=True)
 
 
 def sp_prompts(torch, cfg, seed: int):
@@ -872,41 +929,42 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
     parts = dense_partial()
     part_bytes = sum(x.numel() * 4 for x in parts)
     ref = fd.flash_decode_reference(q, k, v, lens)
+    w, w5 = fd_weight(fd, q, k, v, lens), fd_weight(fd, q, k5, v5, lens)
     merge = fd.flash_decode_combine_reference
     # name, counter, launch key, replaced line, kernel, plain version,
-    # (kernel result, plain result, v for the tolerance), library, bound
+    # (kernel result, plain result, weight of the tolerance), library, bound
     cases = [
         ("flash_decode_partial[paged]", "partial", ("paged", FD_B, 1024),
          280, paged_partial,
          lambda: fd.flash_decode_partials_reference(
              q, view(pool_k, table), view(pool_v, table), lens,
              p.split_len, p.splits),
-         (merge(*paged_partial(), dtype), ref, v),
+         (merge(*paged_partial(), dtype), ref, w),
          library(view(pool_k, table), view(pool_v, table)),
          attn_bound_ms(lens, 1024, 2, kind, part_bytes)),
         ("flash_decode_partial[dense]", "partial", ("dense", FD_B, 1024),
          280, dense_partial,
          lambda: fd.flash_decode_partials_reference(
              q, k, v, lens, p.split_len, p.splits),
-         (merge(*parts, dtype), ref, v), library(k, v),
+         (merge(*parts, dtype), ref, w), library(k, v),
          attn_bound_ms(lens, 1024, 2, kind, part_bytes)),
         ("flash_decode_combine", "combine", None, 218,
          lambda: fd.flash_decode_combine(*parts, dtype),
          lambda: merge(*parts, dtype),
-         (fd.flash_decode_combine(*parts, dtype), merge(*parts, dtype),
-          torch.ones(1, dtype=dtype)), None,
+         (fd.flash_decode_combine(*parts, dtype), merge(*parts, dtype), w),
+         None,
          ((part_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bytes")),
         ("flash_decode_single", "single", ("dense", FD_B, 512), 262,
          lambda: fd.flash_decode_single(q, k5, v5, lens),
          lambda: fd.flash_decode_reference(q, k5, v5, lens),
          (fd.flash_decode_single(q, k5, v5, lens),
-          fd.flash_decode_reference(q, k5, v5, lens), v),
+          fd.flash_decode_reference(q, k5, v5, lens), w5),
          library(k5, v5), attn_bound_ms(lens, 512, 2, kind, out_bytes)),
     ]
     out = []
-    for (name, counter, key, line, kernel, plain, (got, want, vv), lib,
+    for (name, counter, key, line, kernel, plain, (got, want, wt), lib,
          (bnd, by)) in cases:
-        err, ok = fd_error(torch, got, want, vv)
+        err, ok = fd_error(torch, got, want, wt)
         check(ok, f"{name}: max abs err {err} outside tolerance")
         launches = (fd_launches[counter].get(key, 0) if key is not None
                     else sum(fd_launches[counter].values()))
@@ -2205,6 +2263,333 @@ def sp_kernels_line(records, launches) -> list:
     return out
 
 
+# -- slice 6: expert parallelism at world 4 through the all-to-all kernel --------
+#: Ranks of the EP main path: each holds 1 KV head, 8 query heads and 32
+#: whole experts of Qwen3-30B-A3B.
+EP_WORLD = 4
+#: New tokens of the EP serve (16, as phase 13's prompts: 4 x 128).
+EP_GEN = 16
+#: The kernel's cases: (world, tokens) at Qwen3-30B-A3B's hidden 2048:
+#: decode (batch 4) and prefill (4 x 128) at W = 4 and 2, and W = 8 (the
+#: model's 4 KV heads stop its attention at W = 4; the exchange itself
+#: runs at the model's width).
+A2A_CASES = ((4, 4), (4, 512), (2, 4), (2, 512), (8, 4), (8, 512))
+
+
+def ep_capacity(world: int, tokens: int, topk: int, align: int) -> tuple:
+    """(rows per rank, slab capacity) of an EP layer over ``tokens`` rows:
+    EPMoE pads the rows to the ranks, EPAll2AllLayer sizes a slab for
+    every pair of a rank, aligned to 8 rows (32 for the fp8 wire)."""
+    t_loc = -(-tokens // world)
+    cap = t_loc * topk
+    return t_loc, max(align, -(-cap // align) * align)
+
+
+def ep_send(torch, mu, group, x, idx, num_experts: int, cap: int):
+    """The rank-major send buffer (W * W, cap, H) and counts (W * W,) of
+    token rows ``x`` routed by ``idx``: EPAll2AllLayer's per-rank pack."""
+    world = group.world
+
+    def pack(xs, ids):
+        meta = mu.dispatch_layout(ids, num_experts, world, cap)
+        buf, _ = mu.scatter_to_slabs(xs, meta, world, cap)
+        return buf, meta["send_counts"]
+    return group.per_rank(pack, x, idx, in_dims=(0, 0), out_dims=(0, 0))
+
+
+def device_rows(torch, fn, name: str = "", n: int = 10) -> list:
+    """[(kernel name, ms per call)] of one ``fn()`` call, from the
+    profiler over ``n`` calls after a warm-up, for a session that saw a
+    kernel whose name holds ``name``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / n / 1e3)
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+        if any(name in key for key, _ in rows):
+            return rows
+    raise SmokeFailure(f"the profiler saw no {name or 'kernel'} in "
+                       f"{PROFILER_SESSIONS} sessions")
+
+
+def kernel_device_ms(torch, fn, name: str, n: int = 10) -> float:
+    """Mean device time in ms per ``fn()`` call of the kernels whose name
+    holds ``name`` (the wrapper's small tensor ops around the launch are
+    left out)."""
+    return sum(ms for key, ms in device_rows(torch, fn, name, n)
+               if name in key)
+
+
+def bits(torch, t):
+    """``t``'s bits as integers: NaN canaries compare equal."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card: str) -> list:
+    """Phase 16, kernel: the all-to-all against its plain version at the
+    cases of :data:`A2A_CASES`, bf16 and the fp8 path's int8 wire, routed
+    by layer 0's router. Returns the JSON records of the W = 4 bf16
+    decode and prefill cases, ``launches`` still to fill."""
+    print("== phase 16: all-to-all kernel vs fast_all_to_all_reference",
+          flush=True)
+    h, e, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
+    router = params["layers"][0]["moe"]["w_router"]
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    records = []
+    for world, tokens in A2A_CASES:
+        group = rd.create_rank_group(world)
+        x = torch.randn((tokens, h), generator=gen, device="cuda").to(
+            cfg.dtype)
+        _, idx = mu.topk_routing(x.float() @ router, k, cfg.norm_topk_prob)
+        t_pad = -(-tokens // world) * world
+        if t_pad != tokens:                  # EPMoE's pad rows: expert 0
+            x = torch.cat([x, x.new_zeros((t_pad - tokens, h))])
+            idx = torch.cat([idx, idx.new_zeros((t_pad - tokens, k))])
+        for wire in ("bf16", "int8"):
+            _, cap = ep_capacity(world, tokens, k, 32 if wire == "int8"
+                                 else 8)
+            send, counts = ep_send(torch, mu, group, x, idx, e, cap)
+            if wire == "int8":
+                send = a2a.quantize_fp8_rows(send)[0].view(torch.int8)
+            ctx = a2a.create_all_to_all_context(group, capacity=cap)
+            chunk = ctx.resolve_chunk(send.element_size())
+            canary = 127 if wire == "int8" else float("nan")
+
+            def canvas():
+                return torch.full_like(send, canary)
+
+            want, _ = a2a.fast_all_to_all_reference(send, counts, world,
+                                                    chunk, out=canvas())
+            got = [a2a.fast_all_to_all(send, counts, ctx, out=canvas())[0]
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            same = torch.equal(bits(torch, got[0]), bits(torch, want))
+            again = torch.equal(bits(torch, got[0]), bits(torch, got[1]))
+            # A planted fault: the fullest slab's count lowered by one
+            # chunk for the kernel only; the same check must refuse it.
+            bad = counts.clone()
+            top = int(torch.argmax(bad))
+            bad[top] = max(int(bad[top]) - chunk, 0)
+            faulty = a2a.fast_all_to_all(send, bad, ctx, out=canvas())[0]
+            refused = not torch.equal(bits(torch, faulty), bits(torch, want))
+            live = int(counts.sum())
+            rows = (torch.arange(cap, device="cuda")[None, :]
+                    < a2a._xla_a2a(counts, world)[:, None])
+            err = ((got[0].float() - want.float())[rows].abs().max().item()
+                   if live else 0.0)
+            check(same and again and refused,
+                  f"a2a W={world} tokens {tokens} {wire}: bit-equal {same}, "
+                  f"repeat {again}, planted fault refused {refused}")
+            out = canvas()
+            moved = send.view(world, world, cap, h).transpose(0, 1)
+            ms = kernel_device_ms(torch, lambda: a2a.fast_all_to_all(
+                send, counts, ctx, out=out), "a2a_kernel")
+            plain_ms = device_ms(torch, lambda: a2a.fast_all_to_all_reference(
+                send, counts, world, chunk, out=out), n=10)
+            lib_ms = device_ms(torch, lambda: out.view(
+                world, world, cap, h).copy_(moved), n=10)
+            bnd = 2.0 * live * h * send.element_size() / HBM_BYTES_PER_S * 1e3
+            print(f"kernel all_to_all W={world} tokens {tokens} {wire}: cap "
+                  f"{cap} chunk {chunk}, {live} live rows of "
+                  f"{world * world * cap}, grid {world} x "
+                  f"{a2a.blocks_per_rank(world, cap // chunk)} blocks; live "
+                  f"rows bit-equal, dead-chunk canaries intact, repeat "
+                  f"bit-identical, planted fault (slab {top} count lowered "
+                  f"by {chunk}) refused; kernel_ms={ms:.5f} plain_ms="
+                  f"{plain_ms:.5f} bound_ms={bnd:.5f} (bytes) copy_ms="
+                  f"{lib_ms:.5f} (profiler device time) [{card}]",
+                  flush=True)
+            if world == EP_WORLD and wire == "bf16":
+                shape = "decode" if tokens == 4 else "prefill"
+                records.append(({
+                    "name": f"all_to_all[{shape}]", "route": "cuda",
+                    "source": "triton_dist_tpu_torch/csrc/all_to_all.cu",
+                    "replaces": "triton_dist_tpu/ops/all_to_all.py:155",
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bnd,
+                    "bound_by": "bytes", "library_ms": lib_ms,
+                    "wall_ms": wall_ms(torch, lambda: a2a.fast_all_to_all(
+                        send, counts, ctx, out=out)),
+                    "shape": [world, cap, h, live], "ok": True},
+                    (world, cap, h * send.element_size())))
+    return records
+
+
+def phase_ep_main(torch, models, a2a, gg, cfg, params, base, card: str,
+                  seed: int):
+    """Phase 16, main path: Qwen3-30B-A3B with moe_parallel="ep" at world
+    4 over phase 13's weights, served by Engine(prefill xla, decode xla)
+    with the launch counts of every prefill and decode step. Returns
+    (model, prompts, the launches by counter and key)."""
+    print(f"== phase 16: Qwen3-30B-A3B served with moe_parallel='ep' at "
+          f"world {EP_WORLD} through the all-to-all kernel", flush=True)
+    before = torch.cuda.memory_allocated()
+    model = models.AutoLLM.build(cfg, fwd_mode="xla", moe_parallel="ep",
+                                 world=EP_WORLD)
+    eng = models.Engine(model, batch=4, max_seq=256, prefill_mode="xla",
+                        decode_mode="xla")
+    print(f"EP model over the same params (per-rank views, no copy): "
+          f"device memory {before / 2**30:.2f} GiB before, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after [{card}]",
+          flush=True)
+    square, _ = sp_prompts(torch, cfg, seed + 10)
+    eng.serve(params, square, 2)                       # warm-up
+    counters = {"all_to_all": a2a.a2a_launches,
+                "group_gemm": gg.group_gemm_launches}
+    for c in counters.values():                        # ---- the main path
+        c.reset()
+    steps = EP_GEN - 1
+    _, prefill_ms = sync_time(torch, lambda: eng.serve(params, square, 1))
+    mid = moe_counts(counters)
+    out, serve_ms = sync_time(torch, lambda: eng.serve(params, square,
+                                                       EP_GEN))
+    after = moe_counts(counters)
+    launches = {name: dict(c.by_shape) for name, c in counters.items()}
+    layers = cfg.num_hidden_layers                     # ---- main path ends
+    per_step = {n: (after[n] - 2 * mid[n]) / steps for n in after}
+    want = {"all_to_all": 2 * layers, "group_gemm": 2 * EP_WORLD * layers}
+    check(mid == want, f"EP launches per prefill {mid}, want {want}")
+    check(per_step == want, f"EP launches per decode step {per_step}, want "
+                            f"{want}")
+    check(tuple(out.shape) == (4, 128 + EP_GEN), "EP serve shape")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "EP token out of vocabulary")
+    decode_ms = serve_ms - prefill_ms
+    same = (out[:, 128:] == base[:, 128:128 + EP_GEN]).float().mean().item()
+    print(f"ep serve (prefill xla, decode xla, W={EP_WORLD}): batch 4 x 128 "
+          f"prompt, {EP_GEN} new tokens: prefill_ms={prefill_ms:.1f} "
+          f"decode_ms={decode_ms:.1f} per_step_ms={decode_ms / steps:.2f} "
+          f"decode_tokens_per_s={4 * steps / decode_ms * 1e3:.1f}; launches "
+          f"per prefill {mid}, per decode step {per_step}; greedy tokens "
+          f"equal to phase 13's default TP engine on {same:.3f} of "
+          f"positions (not gated) [{card}]", flush=True)
+    print(f"ep main path launches: all_to_all {launches['all_to_all']}; "
+          f"group_gemm {launches['group_gemm']}", flush=True)
+    return model, square, launches
+
+
+def phase_ep_checks(torch, a2a, cfg, model, params, square, card: str):
+    """Phase 16, checks: prefill and decode-step logits through the kernel
+    bit-equal to the same forward with the plain exchange; one EP MoE
+    layer under sync debug "error"; the decode step's and the prefill's
+    wall and device time, the grouped GEMM's share and the dead-slot
+    share of the slots it runs."""
+    from triton_dist_tpu_torch.layers import ep_a2a
+    from triton_dist_tpu_torch.models import KVCacheManager
+    ids = torch.tensor(square, device="cuda")
+    kernel_a2a = ep_a2a.fast_all_to_all
+    seen = []
+
+    def recording(send, counts, ctx, impl="pallas"):
+        seen.append((int(counts.sum()), send.shape[0] * send.shape[1]))
+        return kernel_a2a(send, counts, ctx, impl=impl)
+
+    def plain(send, counts, ctx, impl="pallas"):
+        return a2a.fast_all_to_all_reference(
+            send, counts, ctx.world_size,
+            ctx.resolve_chunk(send.element_size()))
+
+    def caches():
+        return KVCacheManager(cfg.num_hidden_layers, 4, 256,
+                              cfg.num_key_value_heads, cfg.head_dim,
+                              dtype=cfg.dtype, device="cuda",
+                              world=EP_WORLD).init()
+
+    def run():
+        kv = caches()
+        with torch.no_grad():
+            pre, kv = model.forward(params, ids, kv, 0, mode="xla")
+            tok = pre[:, -1].argmax(-1)[:, None]
+            step, _ = model.forward(params, tok, kv, 128, mode="xla")
+        return pre[:, -1], step[:, 0]
+
+    ep_a2a.fast_all_to_all = recording
+    try:
+        got = run()
+        ep_a2a.fast_all_to_all = plain
+        ref = run()
+    finally:
+        ep_a2a.fast_all_to_all = kernel_a2a
+    for what, g, r in (("prefill (4 x 128) last-position", got[0], ref[0]),
+                       ("decode step", got[1], ref[1])):
+        check(bool(torch.isfinite(g).all()), f"non-finite EP {what} logits")
+        check(torch.equal(g, r), f"EP {what} logits through the kernel "
+                                 f"differ from the plain exchange by "
+                                 f"{(g - r).abs().max().item()}")
+        print(f"ep logits: {what} logits through the all-to-all kernel "
+              f"bit-equal to the same forward with "
+              f"fast_all_to_all_reference [{card}]", flush=True)
+    layers = cfg.num_hidden_layers
+    for name, calls in (("prefill", seen[:2 * layers]),
+                        ("decode", seen[2 * layers:])):
+        live = sum(n for n, _ in calls[::2])       # dispatch calls
+        slots = sum(n for _, n in calls[::2])
+        print(f"ep {name}: the grouped GEMM runs {slots // layers} slots per "
+              f"layer over the ranks, {live / slots:.3f} of them live "
+              f"(dead-slot share {1 - live / slots:.3f}; dead slots run "
+              f"through each rank's last expert) [{card}]", flush=True)
+
+    # One EP MoE layer under sync debug "error": no host round trip.
+    layer = params["layers"][0]["moe"]
+    for m in (MOE_DECODE_M, MOE_PREFILL_M):
+        x = torch.randn((m, cfg.hidden_size), device="cuda").to(cfg.dtype)
+        model.moe(layer, x)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = model.moe(layer, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(y).all()), "non-finite EPMoE output")
+        print(f"ep moe layer ({m} tokens, W={EP_WORLD}) ran under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host sync",
+              flush=True)
+
+    kv = caches()
+    with torch.no_grad():
+        model.forward(params, ids, kv, 0, mode="xla")
+
+    def step():
+        with torch.no_grad():
+            return model.forward(params, ids[:, :1], kv, 128, mode="xla")[0]
+
+    def prefill():
+        with torch.no_grad():
+            return model.forward(params, ids, caches(), 0, mode="xla")[0]
+
+    for name, fn in (("decode step", step), ("prefill (4 x 128)", prefill)):
+        walls = [sync_time(torch, fn)[1] for _ in range(5)]
+        wall = sorted(walls)[2]
+        rows = device_rows(torch, fn, "a2a_kernel", n=3)
+        dev = sum(ms for _, ms in rows)
+        gg_ms = sum(ms for key, ms in rows if "group_" in key)
+        a2a_ms = sum(ms for key, ms in rows if "a2a_kernel" in key)
+        print(f"ep {name} (W={EP_WORLD}, mode xla, batch 4, forward only): "
+              f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, device"
+              f" idle share {1 - dev / wall:.2f}; grouped GEMM {gg_ms:.3f} "
+              f"ms ({gg_ms / dev:.2f} of device time), all-to-all "
+              f"{a2a_ms:.3f} ms ({a2a_ms / dev:.3f}) [{card}]", flush=True)
+        for kernel, ms in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"  ep {name} device time: {ms:.3f} ms ({ms / dev:.2f}) "
+                  f"{kernel[:70]}", flush=True)
+
+
+def ep_kernels_line(records, launches) -> list:
+    out = []
+    for rec, key in records:
+        rec = dict(rec, launches=launches["all_to_all"].get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"EP path")
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2226,6 +2611,9 @@ def main() -> int:
     from triton_dist_tpu_torch.ops import allreduce as ar
     from triton_dist_tpu_torch.ops import reduce_scatter as rs
     from triton_dist_tpu_torch.ops import sp_attention as sp
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import moe_utils as mu
+    from triton_dist_tpu_torch.runtime import dist as rd
 
     print("== phase 1: setup", flush=True)
     card = card_line()
@@ -2292,6 +2680,16 @@ def main() -> int:
     phase_moe_checks(torch, gg, mrs, agk, ag, ops, engines, cfg, params,
                      square, tokens, card)
     kernels += moe_kernels_line(moe_records, moe_launches)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    a2a_records = phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card)
+    ep_model, square, ep_launches = phase_ep_main(
+        torch, models, a2a, gg, cfg, params, tokens["default"], card,
+        args.seed)
+    phase_ep_checks(torch, a2a, cfg, ep_model, params, square, card)
+    kernels += ep_kernels_line(a2a_records, ep_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -295,7 +295,7 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
     from triton_dist_tpu_torch.ops import _build
     assert set(_build.SOURCES) == {"gemm_ar", "flash_decode", "ag_gemm",
                                    "group_gemm", "moe_rs", "allgather",
-                                   "sp_attention"}
+                                   "sp_attention", "all_to_all"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
 
 
@@ -465,3 +465,92 @@ def test_sp_attention_and_collective_sources_target_sm90a_without_atomics():
         for library in ("cublas", "cudnn", "cutlass::gemm::device",
                         "torch/", "scaled_dot_product"):
             assert library not in body.lower()  # no library kernel
+
+
+def test_expert_parallel_modules_are_guarded():
+    """The modules of the EP slice import, and are held to the import
+    rules above (every port module is)."""
+    names = _module_names()
+    for mod in ("runtime.dist", "runtime.symm_mem", "ops.all_to_all",
+                "layers.ep_a2a", "layers.ep_moe"):
+        assert f"triton_dist_tpu_torch.{mod}" in names
+    for path in ("runtime/dist.py", "runtime/symm_mem.py",
+                 "ops/all_to_all.py", "layers/ep_a2a.py",
+                 "layers/ep_moe.py"):
+        assert PACKAGE / path in PORT_FILES
+
+
+def test_expert_parallel_entry_points_need_an_explicit_cpu(no_cuda):
+    from triton_dist_tpu_torch.models import ModelConfig, Qwen3MoE
+    from triton_dist_tpu_torch.ops.all_to_all import create_all_to_all_context
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    cfg = ModelConfig(hidden_size=16, moe_intermediate_size=16,
+                      intermediate_size=0, num_hidden_layers=1,
+                      num_attention_heads=4, num_key_value_heads=4,
+                      head_dim=4, vocab_size=32, max_position_embeddings=16,
+                      num_experts=8, num_experts_per_tok=2,
+                      dtype=torch.float32)
+    for call in (lambda: create_rank_group(4),
+                 lambda: create_all_to_all_context(),
+                 lambda: Qwen3MoE(cfg, moe_parallel="ep", world=4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    model = Qwen3MoE(cfg, device="cpu", moe_parallel="ep", world=4)
+    assert model.group.device == torch.device("cpu")
+
+
+def test_all_to_all_on_cuda_tensors_never_takes_the_plain_path(monkeypatch):
+    """Without a card, CUDA-typed calls of fast_all_to_all (both wires)
+    reach the kernel build and fail there instead of computing the plain
+    version on the CPU."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    monkeypatch.setattr(a2a, "fast_all_to_all_reference",
+                        lambda *_, **__: pytest.fail(
+                            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    ctx = a2a.create_all_to_all_context(create_rank_group(2, device="cpu"),
+                                        capacity=8)
+    send = on_cuda(torch.zeros(4, 8, 16, dtype=torch.bfloat16))
+    counts = on_cuda(torch.full((4,), 3, dtype=torch.int32))
+    for call in (lambda: a2a.fast_all_to_all(send, counts, ctx),
+                 lambda: a2a.fast_all_to_all_fp8(send, counts, ctx)):
+        with pytest.raises(RuntimeError, match="no build of all_to_all"):
+            call()
+
+
+def test_all_to_all_source_targets_sm90a_and_synchronises_by_signals():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["all_to_all"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and '#include "shmem.cuh"' in text
+    for entry in ("tdt_all_to_all", "tdt_all_to_all_grid",
+                  "tdt_error_string", "cudaLaunchCooperativeKernel",
+                  "_a2a_kernel", "a2a_send_peer", "a2a_wait_src"):
+        assert entry in text
+    header = _build.CSRC_DIR / "shmem.cuh"
+    assert header in _build.HEADERS
+    shmem = header.read_text()
+    for entry in ("tdt_peer_ptr", "tdt_putmem_block", "st.release.gpu",
+                  "ld.acquire.gpu", "tdt_signal_wait_until",
+                  "tdt_barrier_all"):
+        assert entry in shmem
+    for body in (text, shmem):
+        for library in ("cublas", "nccl", "nvshmem", "torch/"):
+            assert library not in body.lower()  # no library exchange

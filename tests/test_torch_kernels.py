@@ -204,10 +204,12 @@ def test_gemm_ar_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
 # Qwen3-8B's decode shapes (B = 4, 32 query / 8 KV heads of dim 128) and a
 # small odd one. Tolerances (kernel vs plain version on the same inputs):
 # f32 within 1e-5 (sums in another order). bf16: the kernel rounds each
-# probability to bf16 against its 64-position chunk's running max, the
-# plain version against the row's final max, so a probability moves by up
-# to 2^-8 of itself and an output by up to 2^-8 * max|v|; both outputs
-# then round to bf16 once (one bf16 ulp, 2^-7 of the value).
+# probability p_j to bf16 against its 64-position chunk's running max, the
+# plain version against the row's final max, so p_j moves by up to 2^-8 of
+# itself on each side; both outputs then round to bf16 once. The limit is
+# the port's ``bf16_attention_limit`` (ops/sp_attention.py): one bf16 ulp
+# of the output plus 2^-8 sum_j (p_j / l)|v_j|, the sum taken by the plain
+# decode over |v|. A combine that lost one split must fail it.
 FD_SHAPES = [(4, 32, 8, 128, 1024), (3, 8, 2, 16, 48)]
 
 
@@ -219,16 +221,28 @@ def _fd_inputs(b, hq, hkv, d, t, dtype, device, seed=0):
     return [x.to(device, dtype) for x in (q, k, v)]
 
 
-def _fd_assert_close(got, want, v):
+def _fd_weight(q, k, v, lens):
+    """sum_j (p_j / l)|v_j| per output element: the plain decode in f32
+    over |v|."""
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    return fd.flash_decode_reference(q.float(), k.float(), v.float().abs(),
+                                     lens)
+
+
+def _fd_close(got, want, weight):
+    """Whether a decode output is within the tolerance above."""
+    from triton_dist_tpu_torch.ops.sp_attention import bf16_attention_limit
     assert got.dtype == want.dtype and got.shape == want.shape
-    exact = got.dtype == v.dtype == torch.float32
-    got, want = got.float(), want.float()
-    if exact:
-        lim = torch.full_like(got, 1e-5)
+    if got.dtype == torch.float32:
+        lim = torch.full(got.shape, 1e-5, device=got.device)
     else:
-        lim = (2.0 ** -8 * v.float().abs().max()
-               + 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-6)
-    assert ((got - want).abs() <= lim).all(), (got - want).abs().max()
+        lim = bf16_attention_limit(got, want, weight)
+    return bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+def _fd_assert_close(got, want, weight):
+    assert _fd_close(got, want, weight), (got.float() - want.float()).abs(
+    ).max()
 
 
 def _fd_lens(b, t):
@@ -258,19 +272,28 @@ def test_flash_decode_kernels_match_plain_on_card(cuda_device, dtype, shape):
         assert torch.equal(single, again[0])        # no atomics
         assert torch.equal(merged, again[1])
         want = fd.flash_decode_reference(q, k, v, lens)
-        _fd_assert_close(single, want, v)
-        _fd_assert_close(merged, want, v)
+        w = _fd_weight(q, k, v, lens)
+        _fd_assert_close(single, want, w)
+        _fd_assert_close(merged, want, w)
         # The combine kernel against its plain version on the same
         # partials, and the partials against theirs.
         _fd_assert_close(merged, fd.flash_decode_combine_reference(
-            *parts, dtype), torch.ones(1))
+            *parts, dtype), w)
         ref_parts = fd.flash_decode_partials_reference(q, k, v, lens,
                                                        p.split_len, p.splits)
         _fd_assert_close(fd.flash_decode_combine_reference(*parts, dtype),
                          fd.flash_decode_combine_reference(*ref_parts,
-                                                           dtype), v)
+                                                           dtype), w)
         torch.testing.assert_close(parts[2], ref_parts[2], rtol=1e-5,
                                    atol=1e-5)
+        # A planted fault: the split that holds the shortest row's last
+        # position dropped before the combine; the limit must refuse it.
+        a, l, m = (x.clone() for x in parts)
+        last = min(lens) if isinstance(lens, list) else lens
+        drop = min((min(last, t) - 1) // p.split_len, p.splits - 1)
+        a[:, :, drop], l[:, :, drop], m[:, :, drop] = 0.0, 0.0, -1e30
+        assert not _fd_close(fd.flash_decode_combine(a, l, m, dtype), want,
+                             w)
 
 
 @pytest.mark.cuda
@@ -303,7 +326,7 @@ def test_flash_decode_paged_kernel_reads_through_the_table(cuda_device,
             q, pool_k, pool_v, table, lens,
             fd.FlashDecodeContext(paged_variant="gathered")))
         _fd_assert_close(got, fd.flash_decode_paged_reference(
-            q, pool_k, pool_v, table, lens), v)
+            q, pool_k, pool_v, table, lens), _fd_weight(q, k, v, lens))
     # A table entry past the pool is clamped into it, never read past it.
     bad = table.clone()
     bad[0, 0, 0] = 1 << 20
@@ -724,3 +747,87 @@ def test_collectives_copy_on_card(cuda_device, m, n, dtype):
     assert ag.broadcast_launches.total == before + 1
     assert got.data_ptr() != x.data_ptr() and torch.equal(got, x[0])
     assert ar.all_reduce(x, impl="xla").data_ptr() == x.data_ptr()
+
+
+# -- slice 6: the expert-parallel all-to-all (csrc/all_to_all.cu) --------------
+#: (world, capacity): Qwen3-30B-A3B's decode (cap 8, one chunk) and prefill
+#: (cap 1024, chunks of 128) slabs and a two-chunk bf16 slab, at W = 2, 4, 8.
+A2A_CASES = [(w, cap) for w in (2, 4, 8) for cap in (8, 16, 1024)]
+#: A value the kernel never writes into a dead chunk of the receive buffer.
+A2A_CANARY = {torch.bfloat16: float("nan"), torch.float32: float("nan"),
+              torch.int8: 127}
+
+
+def _bits(t):
+    """``t``'s bits as integers, so NaN canaries compare equal."""
+    return t.view({2: torch.int16, 4: torch.int32, 1: torch.int8}[
+        t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("world,cap", A2A_CASES)
+def test_all_to_all_kernel_matches_plain_on_card(cuda_device, dtype, world,
+                                                 cap):
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    h = 256
+    rng = np.random.RandomState(world * cap + h)
+    if dtype == torch.int8:
+        send = torch.from_numpy(rng.randint(-100, 100, (world * world, cap,
+                                                        h)).astype(np.int8))
+    else:
+        send = torch.from_numpy(rng.randn(world * world, cap, h).astype(
+            np.float32)).to(dtype)
+    counts = rng.randint(0, cap + 1, world * world).astype(np.int32)
+    counts[0], counts[-1] = cap, 0             # a full slab, an empty one
+    send = send.to(cuda_device)
+    counts = torch.from_numpy(counts).to(cuda_device)
+    ctx = a2a.create_all_to_all_context(
+        create_rank_group(world, device=cuda_device), capacity=cap)
+    chunk = ctx.resolve_chunk(send.element_size())
+
+    def canvas():
+        return torch.full_like(send, A2A_CANARY[dtype])
+
+    want, want_counts = a2a.fast_all_to_all_reference(send, counts, world,
+                                                      chunk, out=canvas())
+    before = a2a.a2a_launches.total
+    runs = [a2a.fast_all_to_all(send, counts, ctx, out=canvas())
+            for _ in range(3)]                 # three epochs on one state
+    torch.cuda.synchronize()
+    assert a2a.a2a_launches.total == before + 3
+    for got, got_counts in runs:
+        # Live chunks bit-equal, dead chunks' canaries intact.
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(got_counts, want_counts)
+    # A planted fault: one slab's count lowered by a chunk for the kernel
+    # only; the same check must refuse it.
+    bad = counts.clone()
+    bad[0] -= chunk
+    got, _ = a2a.fast_all_to_all(send, bad, ctx, out=canvas())
+    assert not torch.equal(_bits(got), _bits(want))
+    # The fp8 wire: the int8 bytes through the kernel, dequantized rows
+    # bit-equal to the same bytes through the plain exchange.
+    if dtype == torch.bfloat16:
+        got, _ = a2a.fast_all_to_all_fp8(send, counts, ctx)
+        q, scale = a2a.quantize_fp8_rows(send)
+        wire = q.view(torch.int8)
+        moved, _ = a2a.fast_all_to_all_reference(
+            wire, counts, world, ctx.resolve_chunk(1))
+        ref = a2a.dequantize_fp8_rows(moved.view(torch.float8_e4m3fn),
+                                      a2a._xla_a2a(scale, world), dtype)
+        live = (torch.arange(cap, device=cuda_device)[None, :]
+                < want_counts[:, None])[..., None].expand_as(ref)
+        assert torch.equal(_bits(got)[live], _bits(ref)[live])
+
+
+@pytest.mark.cuda
+def test_all_to_all_grid_fits_the_card(cuda_device):
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    most = a2a.max_blocks()
+    assert most >= 132
+    for world, n_chunks in ((4, 1), (4, 8), (8, 8), (2, 1 << 20)):
+        bpr = a2a.blocks_per_rank(world, n_chunks)
+        assert 1 <= bpr <= world * n_chunks and world * bpr <= most
+    assert a2a.blocks_per_rank(4, 8) == 32      # one block per item

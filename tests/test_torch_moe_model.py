@@ -233,8 +233,12 @@ def test_dense_refuses_an_moe_config():
     with pytest.raises(ValueError, match="DenseLLM"):
         Qwen3MoE(_tiny_config(num_experts=0, intermediate_size=96),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        Qwen3MoE(_tiny_config(), device="cpu", moe_parallel="ep")
+    # Expert parallelism is ported (tests/test_torch_ep_moe.py holds it
+    # against JAX); TP MoE over more than one rank is not, and raises.
+    assert Qwen3MoE(_tiny_config(), device="cpu",
+                    moe_parallel="ep").moe_parallel == "ep"
+    with pytest.raises(NotImplementedError, match="Queue B items 10-11"):
+        Qwen3MoE(_tiny_config(), device="cpu", world=4)
 
 
 def test_server_builds_the_moe_preset_as_qwen3_moe():

@@ -129,6 +129,35 @@ def test_contiguous_sp_serve_and_stream_match_jax(models, jax_tokens):
         jax_tokens["paged_serve"]
 
 
+def test_chunk_at_the_front_of_a_longer_cache_matches_jax(models, mesh):
+    """A chunked sp prefill at world 1 over a contiguous cache longer than
+    the prompt (positions 3..4 of 32, after a first chunk of 3): JAX's
+    live-prefix slice rounds up to lcm(t_cache, 1) = t_cache at world 1,
+    so both packages attend the whole cache; logits within 1e-5."""
+    from triton_dist_tpu.models.kv_cache import KVCacheManager as JaxKV
+    from triton_dist_tpu_torch.models import KVCacheManager
+    jmodel, jparams, model, params = models
+    c = model.config
+    ids = np.asarray(SQUARE, np.int32)
+    jkv = JaxKV(c.num_hidden_layers, 2, 32, c.num_key_value_heads,
+                c.head_dim, mesh=mesh, axis="sp", dtype=jnp.float32,
+                seq_shard=True).init()
+    kv = KVCacheManager(c.num_hidden_layers, 2, 32, c.num_key_value_heads,
+                        c.head_dim, dtype=torch.float32, device="cpu",
+                        seq_shard=True).init()
+    t_ids = torch.from_numpy(ids).long()
+    want, jkv = jmodel.forward(jparams, jnp.asarray(ids[:, :3]), jkv, 0,
+                               mode="sp")
+    got, kv = model.forward(params, t_ids[:, :3], kv, 0, mode="sp")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    want, _ = jmodel.forward(jparams, jnp.asarray(ids[:, 3:]), jkv, 3,
+                             mode="sp")
+    got, _ = model.forward(params, t_ids[:, 3:], kv, 3, mode="sp")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_sp_modes_give_the_default_modes_tokens(models, jax_tokens):
     """Mode "sp" computes the same model as xla_ar / gemm_ar."""
     plain = Engine(DenseLLM(models[2].config, device="cpu"), batch=2,

@@ -1,14 +1,19 @@
-"""Shared layer math: RMSNorm, rotary embeddings, the world = 1 matmuls.
+"""Shared layer math: RMSNorm, rotary embeddings, the sharded matmuls.
 
 The port of ``triton_dist_tpu.layers.common``. Norms and rope stay plain
 PyTorch, as the JAX package left them to XLA; the f32 upcasts are the
 same. At world = 1 the column/row-parallel matmuls carry no collective:
 each is one product with f32 accumulation, cast back to the input dtype.
+Over a rank group of W > 1 (``runtime.dist``) each rank multiplies its
+shard of the weight (a view), and the row-parallel product sums the
+ranks' partial products (the psum of JAX's bodies).
 """
 
 from __future__ import annotations
 
 import torch
+
+from triton_dist_tpu_torch.runtime.dist import RankGroup
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -42,18 +47,38 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return out.to(x.dtype)
 
 
-def col_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) at world = 1, in the JAX (in, out) layout.
+def shard_param(x: torch.Tensor, group: RankGroup, dim: int | None) -> list:
+    """Each rank's shard of a global parameter along ``dim``, a view (JAX
+    ``shard_param`` places a host array with a named sharding); ``dim =
+    None`` (``P()``, replicated) gives the one shared tensor for every
+    rank, not W copies."""
+    return group.shard(x, dim)
+
+
+def col_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
+                        group: RankGroup | None = None) -> torch.Tensor:
+    """x replicated (M, K) @ w column-sharded (K, N) -> (M, N), in the JAX
+    (in, out) layout; over ``group`` each rank multiplies its column
+    shard and the (M, N / W) results join column-sharded.
 
     f32 inputs multiply in f32. bf16 inputs multiply in bf16 with f32
     accumulation and one rounding of the result (cuBLAS and oneDNN both
     accumulate bf16 products in f32; ``chip_smoke.py`` turns off cuBLAS's
     reduced-precision bf16 reduction)."""
-    return torch.matmul(x, w)
+    if group is None or group.world == 1:
+        return torch.matmul(x, w)
+    return group.per_rank(lambda ws: torch.matmul(x, ws), w, in_dims=(1,),
+                          out_dims=1)
 
 
-def row_parallel_matmul_ar(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) + AllReduce; at world = 1 the reduction is the
-    identity, so this is the same product as :func:`col_parallel_matmul`
-    (the plain golden of the fused ``gemm_ar`` path)."""
-    return torch.matmul(x, w)
+def row_parallel_matmul_ar(x: torch.Tensor, w: torch.Tensor,
+                           group: RankGroup | None = None) -> torch.Tensor:
+    """x column-sharded (M, K) @ w row-sharded (K, N) + AllReduce ->
+    replicated (M, N); at world = 1 the reduction is the identity, so
+    this is the same product as :func:`col_parallel_matmul` (the plain
+    golden of the fused ``gemm_ar`` path). Over ``group``: each rank's
+    partial product rounded, then summed (``RankGroup.psum``)."""
+    if group is None or group.world == 1:
+        return torch.matmul(x, w)
+    return group.psum(torch.matmul(xs, ws) for xs, ws in
+                      zip(group.shard(x, 1), group.shard(w, 0)))

@@ -1,4 +1,4 @@
-"""GQA attention at world = 1 (the port of ``triton_dist_tpu.layers.tp_attn``).
+"""GQA attention (the port of ``triton_dist_tpu.layers.tp_attn``).
 
 QKV projections, Qwen3 per-head q/k RMSNorm, rotary embeddings, cached
 causal attention, then the output projection. The modes of the JAX
@@ -13,6 +13,14 @@ layer, at world = 1:
 * ``gemm_ar``: plain QKV products, the output projection through the
   ``gemm_ar`` kernel;
 * ``xla_ar``: plain products throughout.
+
+Over a rank group of W > 1 (``runtime.dist``, the heads sharded over the
+ranks as JAX's ``shard_params`` shards them) the plain modes ``xla`` and
+``xla_ar`` run: the projections through the world > 1 XLA bodies of
+``ag_gemm_multi`` / ``gemm_rs`` (``xla``) or the sharded matmuls of
+``layers.common`` (``xla_ar``), and attention once per rank on its heads
+and its view of the cache's KV heads (JAX ``_attention``'s shard_map).
+The fused modes need the ring halves of the kernels and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from triton_dist_tpu_torch.ops.allgather_gemm import (
     ag_gemm_multi, ag_gemm_multi_reference)
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
     gemm_ar, gemm_rs, gemm_rs_reference)
+from triton_dist_tpu_torch.runtime.dist import RankGroup
 
 #: The forward modes of the layers (JAX ``TPAttn`` / ``TPMLP``).
 MODES = ("ag_rs", "xla", "gemm_ar", "xla_ar")
@@ -56,10 +65,16 @@ class TPAttn:
     def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, dtype=torch.bfloat16,
                  fwd_mode: str = "ag_rs",
-                 qk_norm: bool = True, rms_eps: float = 1e-6):
+                 qk_norm: bool = True, rms_eps: float = 1e-6,
+                 group: RankGroup | None = None):
         if num_heads % num_kv_heads:
             raise ValueError(f"{num_heads} heads do not group over "
                              f"{num_kv_heads} kv heads")
+        self.group = group
+        self.world = group.world if group is not None else 1
+        if num_kv_heads % self.world:
+            raise ValueError(f"{num_kv_heads} kv heads do not shard over "
+                             f"{self.world} ranks")
         self.hidden_size = hidden_size
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim = head_dim
@@ -103,7 +118,8 @@ class TPAttn:
           x: (M, H) activations, M = B*S.
           position_ids: (B, S) absolute positions.
           rope_cache: (cos, sin) tables (T_max, D/2).
-          kv_cache: (k, v) each (B, T, num_kv_heads, D); updated in place.
+          kv_cache: (k, v) each (B, T, num_kv_heads, D); updated in place
+            (over a rank group, each rank writes its view of its heads).
           offset: write position into the cache: an int, or a (B,) tensor
             of per-row positions (see :func:`_attention_core`).
         Returns:
@@ -111,6 +127,9 @@ class TPAttn:
         """
         mode = mode or self.fwd_mode
         check_mode(mode)
+        if self.world > 1:
+            return self._call_world(params, x, position_ids, rope_cache,
+                                    kv_cache, offset, mode, kv_start)
         b, s = position_ids.shape
         d = self.head_dim
         w_qkv = [params["w_q"], params["w_k"], params["w_v"]]
@@ -123,13 +142,7 @@ class TPAttn:
         q = q.reshape(b, s, self.num_heads, d)
         k = k.reshape(b, s, self.num_kv_heads, d)
         v = v.reshape(b, s, self.num_kv_heads, d)
-        # Per-head RMSNorm before rope (Qwen3).
-        if self.qk_norm:
-            q = rms_norm(q, params["q_norm"], self.rms_eps)
-            k = rms_norm(k, params["k_norm"], self.rms_eps)
-        cos, sin = rope_cache
-        q = apply_rope(q, cos, sin, position_ids)
-        k = apply_rope(k, cos, sin, position_ids)
+        q, k = self._norm_rope(params, q, k, position_ids, rope_cache)
         if kv_start is None:
             kv_start = torch.zeros((b,), dtype=torch.int64, device=x.device)
         attn = _attention_core(q, k, v, kv_cache[0], kv_cache[1], offset,
@@ -142,6 +155,54 @@ class TPAttn:
             out = output_gemm_ar(attn, params["w_o"])
         else:
             out = row_parallel_matmul_ar(attn, params["w_o"])
+        return out, kv_cache
+
+    def _norm_rope(self, params, q, k, position_ids, rope_cache):
+        """Per-head RMSNorm before rope (Qwen3), then rope, on q and k."""
+        if self.qk_norm:
+            q = rms_norm(q, params["q_norm"], self.rms_eps)
+            k = rms_norm(k, params["k_norm"], self.rms_eps)
+        cos, sin = rope_cache
+        return (apply_rope(q, cos, sin, position_ids),
+                apply_rope(k, cos, sin, position_ids))
+
+    def _call_world(self, params, x, position_ids, rope_cache, kv_cache,
+                    offset, mode, kv_start):
+        """The layer over a rank group of W > 1, modes ``xla`` and
+        ``xla_ar``: the global (M, H) activations in, the global (M, H)
+        output out (row-sharded in ``xla``, replicated in ``xla_ar``:
+        the same global tensor)."""
+        if mode not in ("xla", "xla_ar"):
+            raise NotImplementedError(
+                f"attention mode {mode!r} at world {self.world} runs the "
+                f"ring halves of the AG-GEMM and GEMM-RS/AR kernels, which "
+                f"are not ported yet (ROADMAP.md, Queue B items 3-5)")
+        group = self.group
+        b, s = position_ids.shape
+        d = self.head_dim
+        w_qkv = [params["w_q"], params["w_k"], params["w_v"]]
+        if mode == "xla":
+            q, k, v = ag_gemm_multi(x, w_qkv, group, impl="xla")
+        else:
+            q, k, v = (col_parallel_matmul(x, w, group) for w in w_qkv)
+        q = q.reshape(b, s, self.num_heads, d)
+        k = k.reshape(b, s, self.num_kv_heads, d)
+        v = v.reshape(b, s, self.num_kv_heads, d)
+        q, k = self._norm_rope(params, q, k, position_ids, rope_cache)
+        if kv_start is None:
+            kv_start = torch.zeros((b,), dtype=torch.int64, device=x.device)
+        groups = self.num_heads // self.num_kv_heads
+
+        def local(qr, kr, vr, ckr, cvr):
+            return _attention_core(qr, kr, vr, ckr, cvr, offset, kv_start,
+                                   groups=groups)
+        attn = group.per_rank(local, q, k, v, kv_cache[0], kv_cache[1],
+                              in_dims=(2,) * 5, out_dims=2)
+        attn = attn.reshape(b * s, self.num_heads * d)
+        if mode == "xla":
+            out = gemm_rs(attn, params["w_o"], group, impl="xla")
+        else:
+            out = row_parallel_matmul_ar(attn, params["w_o"], group)
         return out, kv_cache
 
 

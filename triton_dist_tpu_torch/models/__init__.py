@@ -1,8 +1,10 @@
-"""Models and engine of the port (world = 1).
+"""Models and engine of the port.
 
 ``AutoLLM`` (the port of JAX ``models/__init__.py:27-64``) builds a
 ``DenseLLM`` or a ``Qwen3MoE`` from the config's MoE fields and loads a
-local HF checkpoint's safetensors.
+local HF checkpoint's safetensors. ``moe_parallel`` and ``world`` reach
+the MoE model (``moe_parallel="ep", world=4``: expert parallelism over
+four ranks on the one card); a dense model runs at world 1.
 """
 
 from __future__ import annotations
@@ -43,13 +45,23 @@ class AutoLLM:
 
     @staticmethod
     def build(config: ModelConfig, device=None, fwd_mode: str = "ag_rs",
-              sp_axis: str | None = None):
-        cls = Qwen3MoE if config.is_moe else DenseLLM
-        return cls(config, device=device, fwd_mode=fwd_mode, sp_axis=sp_axis)
+              sp_axis: str | None = None, moe_parallel: str = "tp",
+              world: int = 1):
+        if config.is_moe:
+            return Qwen3MoE(config, device=device, fwd_mode=fwd_mode,
+                            sp_axis=sp_axis, moe_parallel=moe_parallel,
+                            world=world)
+        if moe_parallel != "tp" or world != 1:
+            raise ValueError(f"a dense model runs at world 1 without "
+                             f"experts, not moe_parallel={moe_parallel!r} "
+                             f"world={world}")
+        return DenseLLM(config, device=device, fwd_mode=fwd_mode,
+                        sp_axis=sp_axis)
 
     @staticmethod
     def from_pretrained(model_dir: str, device=None, fwd_mode: str = "ag_rs",
-                        sp_axis: str | None = None, dtype=None):
+                        sp_axis: str | None = None, dtype=None,
+                        moe_parallel: str = "tp", world: int = 1):
         """The model of a local HF checkpoint directory (``config.json``
         and ``*.safetensors``) with its weights on ``device``. ``dtype``
         overrides the config's (default bf16). Returns (model, params)."""
@@ -57,6 +69,7 @@ class AutoLLM:
         if dtype is not None:
             config.dtype = dtype
         model = AutoLLM.build(config, device=device, fwd_mode=fwd_mode,
-                              sp_axis=sp_axis)
+                              sp_axis=sp_axis, moe_parallel=moe_parallel,
+                              world=world)
         params = model.load_hf_state_dict(_load_safetensors_state(model_dir))
         return model, params

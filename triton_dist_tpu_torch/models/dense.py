@@ -145,7 +145,8 @@ class DenseLLM:
         for lp, cache in zip(params["layers"], kv_caches):
             h = rms_norm(x, lp["ln_attn"], c.rms_norm_eps)
             a, _ = self.attn(lp["attn"], h, position_ids, self.rope_cache,
-                             cache, offset, mode=mode, kv_start=kv_start)
+                             cache, offset, mode=self._attn_mode(mode),
+                             kv_start=kv_start)
             x = x + a
             h = rms_norm(x, lp["ln_mlp"], c.rms_norm_eps)
             x = x + self._ffn(lp, h, mode)
@@ -263,6 +264,10 @@ class DenseLLM:
         logits = x.float() @ params["lm_head_f32"].t()
         return logits, kv_caches
 
+    def _attn_mode(self, mode: str) -> str:
+        """The attention layer's mode in model mode ``mode``: the same."""
+        return mode
+
     def _ffn(self, lp: dict, h: torch.Tensor, mode: str) -> torch.Tensor:
         """FFN of :meth:`forward` on (M, H) rows: the MLP in ``mode``."""
         return self.mlp(lp["mlp"], h, mode=mode)
@@ -371,7 +376,12 @@ def params_from_jax(np_tree: dict, config: ModelConfig, device=None) -> dict:
     CUDA card). Both packages use the (in, out) layout (experts stacked
     (E, in, out)), so every leaf is a plain copy in ``config.dtype``,
     except the f32 leaves of :data:`F32_LEAVES`: a bf16 router would
-    route differently."""
+    route differently.
+
+    Whatever the JAX model's sharding (TP or EP, any world), its arrays
+    hold the global values, and the port's params are those global
+    tensors: a world-W model takes each rank's shard as a view when it
+    runs, so nothing here depends on ``moe_parallel`` or the world."""
     dev = default_device(device)
 
     def conv(node, name=None):

@@ -136,7 +136,8 @@ class Engine:
             self.kv = KVCacheManager(c.num_hidden_layers, batch, max_seq,
                                      c.num_key_value_heads, c.head_dim,
                                      dtype=c.dtype, device=self.device,
-                                     seq_shard=sp)
+                                     seq_shard=sp,
+                                     world=getattr(model, "world", 1))
         self.prefill_mode = prefill_mode
         self.decode_mode = decode_mode
         self.temperature = temperature

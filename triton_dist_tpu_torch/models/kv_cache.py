@@ -1,6 +1,7 @@
-"""KV caches (the port of ``triton_dist_tpu.models.kv_cache`` at
-world = 1): the contiguous :class:`KVCacheManager` and the paged
-:class:`PagedKVCacheManager` with its host-side block allocator.
+"""KV caches (the port of ``triton_dist_tpu.models.kv_cache``): the
+contiguous :class:`KVCacheManager` (at world 1, and head-sharded over a
+rank group of W > 1) and the paged :class:`PagedKVCacheManager` (world 1)
+with its host-side block allocator.
 
 The contiguous cache is a list of per-layer ``(k, v)`` tensors of shape
 (B, T, Hkv, D); the paged cache a list of per-layer ``(pool_k, pool_v)``
@@ -29,11 +30,25 @@ from triton_dist_tpu_torch.models.prefix_cache import PrefixCache
 class KVCacheManager:
     """Contiguous per-layer caches. ``seq_shard`` (the sp engines' cache)
     is accepted for the JAX signature: at world = 1 a sequence-sharded
-    cache has the same layout as a head-sharded one."""
+    cache has the same layout as a head-sharded one.
+
+    ``world`` > 1: the caches are head-sharded over the ranks, JAX's
+    ``P(None, None, axis, None)``. They stay global (B, T, Hkv, D)
+    tensors; rank r's cache is the view of its Hkv / W heads (the rank
+    group's ``shard(cache, 2)``), which the attention layer writes in
+    place."""
 
     def __init__(self, num_layers: int, batch: int, max_seq: int,
                  num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 device=None, seq_shard: bool = False):
+                 device=None, seq_shard: bool = False, world: int = 1):
+        if num_kv_heads % world:
+            raise ValueError(f"{num_kv_heads} kv heads do not shard over "
+                             f"{world} ranks")
+        if seq_shard and world > 1:
+            raise NotImplementedError(
+                "a sequence-sharded cache at world > 1 (SP serving over "
+                "ranks) is not ported yet (ROADMAP.md, Queue A item 13)")
+        self.world = world
         self.num_layers = num_layers
         self.batch, self.max_seq = batch, max_seq
         self.num_kv_heads, self.head_dim = num_kv_heads, head_dim

@@ -1,4 +1,4 @@
-"""Qwen3-MoE decoder at world = 1 (the port of
+"""Qwen3-MoE decoder (the port of
 ``triton_dist_tpu.models.qwen_moe.Qwen3MoE``).
 
 Dense attention (``layers.tp_attn``) and the sparse FFN of
@@ -14,7 +14,17 @@ forward are the dense model's, with the FFN swapped:
   grouped-GEMM kernel (gate and up stay f32 and round once after the
   SwiGLU, as JAX's ``grouped_expert_ffn``).
 
-Expert parallelism (``moe_parallel="ep"``) is not ported yet.
+Expert parallelism (``moe_parallel="ep"``, :class:`~triton_dist_tpu_torch.
+layers.ep_moe.EPMoE`) over ``world`` ranks on the one device
+(``runtime.dist``): the experts are sharded over the ranks, tokens reach
+them through the all-to-all (the hand-written kernel on the card), and
+attention is TP over the same ranks. The mode choice is JAX's
+``forward`` (qwen_moe.py:136-160): the MoE runs EP in every mode, and
+attention runs the requested mode, but in mode ``"ep"`` the fused
+``ag_rs`` path, whose world > 1 rings are not ported yet (at world > 1
+mode ``"ep"`` raises; modes ``"xla"`` and ``"xla_ar"`` run). ``sp_axis``
+needs ``moe_parallel="tp"``, as in JAX. ``moe_parallel="tp"`` runs at
+world 1 only.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from triton_dist_tpu_torch.layers.common import precompute_rope_cache
+from triton_dist_tpu_torch.layers.ep_moe import EPMoE
 from triton_dist_tpu_torch.layers.tp_attn import TPAttn
 from triton_dist_tpu_torch.layers.tp_moe import TPMoE
 from triton_dist_tpu_torch.models.config import ModelConfig
@@ -32,29 +43,39 @@ from triton_dist_tpu_torch.ops.group_gemm import grouped_expert_ffn
 from triton_dist_tpu_torch.ops.moe_utils import topk_reduce, topk_routing
 from triton_dist_tpu_torch.ops.sp_attention import SpAttentionContext
 from triton_dist_tpu_torch.runtime.device import default_device
+from triton_dist_tpu_torch.runtime.dist import create_rank_group
 
 
 class Qwen3MoE:
     """Qwen3-MoE decoder. ``device=None`` means the CUDA card (raises when
-    there is none); ``sp_axis`` (any name) enables mode "sp"."""
+    there is none); ``sp_axis`` (any name) enables mode "sp";
+    ``moe_parallel="ep"`` with ``world`` W shards the experts (and the
+    attention heads) over W ranks on the device."""
 
     def __init__(self, config: ModelConfig, device=None,
                  fwd_mode: str = "ag_rs", impl: str = "pallas",
-                 moe_parallel: str = "tp", sp_axis: str | None = None):
+                 moe_parallel: str = "tp", sp_axis: str | None = None,
+                 world: int = 1):
         if not config.is_moe:
             raise ValueError("Qwen3MoE needs an MoE config (num_experts > "
                              "0); use DenseLLM for dense ones")
-        if moe_parallel == "ep":
-            raise NotImplementedError(
-                "moe_parallel='ep' (expert parallelism through the "
-                "all-to-all) is not ported yet (ROADMAP.md, Queue A item 14)")
-        if moe_parallel != "tp":
+        if moe_parallel not in ("tp", "ep"):
             raise ValueError(f"unknown moe_parallel {moe_parallel!r}")
+        if sp_axis is not None and moe_parallel != "tp":
+            raise ValueError("mode 'sp' needs moe_parallel='tp' (JAX: ep x "
+                             "sp is future work)")
+        if moe_parallel == "tp" and world != 1:
+            raise NotImplementedError(
+                f"moe_parallel='tp' at world {world} (the ring halves of the "
+                f"grouped GEMM and the MoE reduce-scatter) is not ported "
+                f"yet (ROADMAP.md, Queue B items 10-11)")
         self.config = config
         self.device = default_device(device)
         self.fwd_mode = fwd_mode
         self.moe_parallel = moe_parallel
         self.sp_axis = sp_axis
+        self.world = world
+        self.group = create_rank_group(world, "tp", self.device)
         if sp_axis is not None:
             self.sp_ctx = SpAttentionContext(causal=True)
             self.fd_ctx = FlashDecodeContext()
@@ -62,11 +83,18 @@ class Qwen3MoE:
         self.attn = TPAttn(c.hidden_size, c.num_attention_heads,
                            c.num_key_value_heads, c.head_dim, dtype=c.dtype,
                            fwd_mode=fwd_mode, rms_eps=c.rms_norm_eps,
-                           qk_norm=c.qk_norm)
-        self.moe = TPMoE(c.hidden_size, c.moe_intermediate_size,
-                         c.num_experts, c.num_experts_per_tok, dtype=c.dtype,
-                         fwd_mode=self._moe_mode(fwd_mode), impl=impl,
-                         norm_topk_prob=c.norm_topk_prob)
+                           qk_norm=c.qk_norm, group=self.group)
+        if moe_parallel == "ep":
+            self.moe = EPMoE(c.hidden_size, c.moe_intermediate_size,
+                             c.num_experts, c.num_experts_per_tok,
+                             self.group, dtype=c.dtype, impl=impl,
+                             norm_topk_prob=c.norm_topk_prob)
+        else:
+            self.moe = TPMoE(c.hidden_size, c.moe_intermediate_size,
+                             c.num_experts, c.num_experts_per_tok,
+                             dtype=c.dtype,
+                             fwd_mode=self._moe_mode(fwd_mode), impl=impl,
+                             norm_topk_prob=c.norm_topk_prob)
         self.rope_cache = precompute_rope_cache(
             c.head_dim, c.max_position_embeddings, c.rope_theta,
             device=self.device)
@@ -116,8 +144,25 @@ class Qwen3MoE:
     forward_sp = DenseLLM.forward_sp
     _paged_scatter = staticmethod(DenseLLM._paged_scatter)
 
+    def _attn_mode(self, mode: str) -> str:
+        """Attention's mode in model mode ``mode`` (JAX ``forward``,
+        qwen_moe.py:148-160): an EP model's mode "ep" runs the fused
+        ``ag_rs`` attention, whose world > 1 rings are not ported yet."""
+        if self.moe_parallel == "ep" and mode == "ep":
+            if self.world > 1:
+                raise NotImplementedError(
+                    f"mode 'ep' at world {self.world} runs attention through "
+                    f"the ring halves of the AG-GEMM and GEMM-RS/AR kernels, "
+                    f"which are not ported yet (ROADMAP.md, Queue B items "
+                    f"3-5); serve EP with mode 'xla'")
+            return "ag_rs"
+        return mode
+
     def _ffn(self, lp: dict, h: torch.Tensor, mode: str) -> torch.Tensor:
-        """FFN of :meth:`forward` on (M, H) rows."""
+        """FFN of :meth:`forward` on (M, H) rows: EP in every mode, TP in
+        the MoE mode of ``mode``."""
+        if self.moe_parallel == "ep":
+            return self.moe(lp["moe"], h)
         return self.moe(lp["moe"], h, mode=self._moe_mode(mode))
 
     def _sp_ffn(self, lp: dict, h: torch.Tensor) -> torch.Tensor:

@@ -116,7 +116,8 @@ def ag_swiglu_reference(a: torch.Tensor, w_gate: torch.Tensor,
 
 
 # -- entry points ----------------------------------------------------------------
-def ag_gemm_multi(a: torch.Tensor, bs) -> list:
+def ag_gemm_multi(a: torch.Tensor, bs, group=None,
+                  impl: str = "pallas") -> list:
     """``[allgather(a) @ b for b in bs]`` at world = 1: each product with
     f32 accumulation, cast to ``a.dtype``. a: (M, K); bs: one to three
     (K, N_i) weights in the JAX (in, out) layout. Returns the list of
@@ -124,9 +125,22 @@ def ag_gemm_multi(a: torch.Tensor, bs) -> list:
 
     CUDA tensors run the hand-written kernel, all products in one launch
     (bf16 or f32, contiguous); CPU tensors run
-    :func:`ag_gemm_multi_reference`."""
+    :func:`ag_gemm_multi_reference`.
+
+    Over a rank group (``runtime.dist.RankGroup``) of W > 1: a is the
+    row-sharded global (M, K), each b column-sharded. ``impl="xla"`` is
+    JAX's XLA body, plain: every rank multiplies the gathered a by its
+    column shard (:func:`ag_gemm_multi_reference`) and the results join
+    column-sharded. ``impl="pallas"`` (the ring all-gather under the
+    GEMM) is not ported yet and raises."""
     bs = list(bs)
     _check_operands("ag_gemm_multi", a, bs)
+    if group is not None and group.world > 1:
+        _check_world("ag_gemm_multi", a, group, impl)
+        n = len(bs)
+        return list(group.per_rank(
+            lambda *ws: tuple(ag_gemm_multi_reference(a, ws)), *bs,
+            in_dims=(1,) * n, out_dims=(1,) * n))
     if a.device.type == "cpu":
         return ag_gemm_multi_reference(a, bs)
     return launch_gemm(a, bs, ag_gemm_launches)
@@ -267,6 +281,19 @@ def _check_operands(op: str, a: torch.Tensor, bs: list) -> None:
     if any(b.device != a.device for b in bs):
         raise ValueError(f"{op} operands on {a.device} and "
                          f"{[str(b.device) for b in bs]}")
+
+
+def _check_world(op: str, a: torch.Tensor, group, impl: str) -> None:
+    """What a world > 1 call takes: the plain XLA body, and rows that
+    split over the ranks."""
+    if impl != "xla":
+        raise NotImplementedError(
+            f"{op}(impl={impl!r}) at world {group.world} runs the ring "
+            f"halves of AG-GEMM / GEMM-RS, which are not ported yet "
+            f"(ROADMAP.md, Queue B items 3-5)")
+    if a.shape[0] % group.world:
+        raise ValueError(f"{op}: {a.shape[0]} rows do not split over "
+                         f"{group.world} ranks")
 
 
 def _check_swiglu_operands(a, w_gate, w_up, b_gate, b_up) -> None:

@@ -87,21 +87,27 @@ def _check_operands(op: str, a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"{op} operands on {a.device} and {b.device}")
 
 
-def gemm_ar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gemm_ar(a: torch.Tensor, b: torch.Tensor, group=None,
+            impl: str = "pallas") -> torch.Tensor:
     """``allreduce(a @ b)`` at world = 1: ``(a @ b)`` with f32
     accumulation, cast to ``a.dtype``. a: (M, K), b: (K, N) in the JAX
     (in, out) layout. Returns (M, N).
 
     CUDA tensors run the hand-written kernel (bf16 or f32, contiguous);
-    CPU tensors run :func:`gemm_ar_reference`."""
+    CPU tensors run :func:`gemm_ar_reference`. Over a rank group of
+    W > 1, see :func:`gemm_rs` (the result is replicated, JAX pads M to
+    the ranks)."""
     _check_operands("gemm_ar", a, b)
+    if group is not None and group.world > 1:
+        return _psum_of_products("gemm_ar", a, b, group, impl, pad=True)
     if a.device.type == "cpu":
         return gemm_ar_reference(a, b)
     return _launch_gemm_ar("gemm_ar", a, b, launches,
                            (a.shape[1], b.shape[1]))
 
 
-def gemm_rs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gemm_rs(a: torch.Tensor, b: torch.Tensor, group=None,
+            impl: str = "pallas") -> torch.Tensor:
     """``reduce_scatter(a @ b)`` at world = 1: ``(a @ b)`` with f32
     accumulation, cast to ``a.dtype``, the function of :func:`gemm_ar`.
     a: (M, K), b: (K, N) in the JAX (in, out) layout. Returns (M, N).
@@ -109,8 +115,17 @@ def gemm_rs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     CUDA tensors (bf16 or f32, contiguous) run the gemm_ar kernel for
     M <= :data:`DECODE_MAX_M`, which streams B once for all rows, and the
     AG-GEMM kernel's tiled plan above; both count in
-    :data:`gemm_rs_launches`. CPU tensors run :func:`gemm_rs_reference`."""
+    :data:`gemm_rs_launches`. CPU tensors run :func:`gemm_rs_reference`.
+
+    Over a rank group (``runtime.dist.RankGroup``) of W > 1: a is
+    column-sharded, b row-sharded, the result row-sharded. ``impl="xla"``
+    is JAX's XLA body, plain: each rank's partial product rounded
+    (:func:`gemm_rs_reference` on its shards), summed over the ranks
+    (``RankGroup.psum``). ``impl="pallas"`` (the ring reduce-scatter) is
+    not ported yet and raises."""
     _check_operands("gemm_rs", a, b)
+    if group is not None and group.world > 1:
+        return _psum_of_products("gemm_rs", a, b, group, impl)
     if a.device.type == "cpu":
         return gemm_rs_reference(a, b)
     m, k = a.shape
@@ -119,6 +134,24 @@ def gemm_rs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return allgather_gemm.launch_gemm(a, [b], gemm_rs_launches)[0]
     return _launch_gemm_ar("gemm_rs", a, b, gemm_rs_launches,
                            ("decode", k, (n,)))
+
+
+def _psum_of_products(op: str, a: torch.Tensor, b: torch.Tensor, group,
+                      impl: str, pad: bool = False) -> torch.Tensor:
+    """The world > 1 XLA body of gemm_rs / gemm_ar: the sum over ranks of
+    each rank's rounded partial product. ``pad``: rows that do not split
+    over the ranks are allowed (gemm_ar pads and slices them in JAX,
+    which leaves the sum of the real rows as it is)."""
+    if impl != "xla":
+        raise NotImplementedError(
+            f"{op}(impl={impl!r}) at world {group.world} runs the ring "
+            f"reduce-scatter of GEMM-RS/AR, which is not ported yet "
+            f"(ROADMAP.md, Queue B items 3-5)")
+    if not pad and a.shape[0] % group.world:
+        raise ValueError(f"{op}: {a.shape[0]} rows do not split over "
+                         f"{group.world} ranks")
+    return group.psum(gemm_rs_reference(xs, ws) for xs, ws in
+                      zip(group.shard(a, 1), group.shard(b, 0)))
 
 
 def _launch_gemm_ar(op: str, a: torch.Tensor, b: torch.Tensor,

@@ -1,12 +1,13 @@
 """MoE routing utilities (the port of ``triton_dist_tpu.ops.moe_utils``).
 
-The functions the Qwen3-MoE path calls at world = 1: the softmax / top-k
-router, the weighted top-k reduce, the static-length bincount and the
-stable sort by group. Plain PyTorch with static shapes: none of them
-reads a value back to the host, so a layer that calls them never waits
-for the card. The expert-parallel helpers (``dispatch_layout``,
-``scatter_to_slabs``, ``live_slot_mask``) and ``moe_align_block_size``
-come with the EP slice (ROADMAP.md, Queue A item 14).
+The softmax / top-k router, the weighted top-k reduce, the static-length
+bincount, the stable sort by group, and the expert-parallel helpers of
+the all-to-all dispatch: :func:`dispatch_layout`,
+:func:`scatter_to_slabs` and :func:`live_slot_mask`. Plain PyTorch with
+static shapes: none of them reads a value back to the host, so a layer
+that calls them never waits for the card. ``moe_align_block_size`` (a
+host tile plan with a native helper) is not ported yet (ROADMAP.md,
+Queue A item 14).
 """
 
 from __future__ import annotations
@@ -65,3 +66,68 @@ def sort_by_group(values: torch.Tensor, group_ids: torch.Tensor,
     sizes = bincount(torch.clamp(group_ids, max=num_groups), num_groups)
     unsort = torch.argsort(order, stable=True)
     return values[order], sizes, unsort
+
+
+def live_slot_mask(counts: torch.Tensor, world: int,
+                   capacity: int) -> torch.Tensor:
+    """(world, capacity) bool: slot s of slab p is live iff ``s <
+    counts[p]`` (JAX ``live_slot_mask``, moe_utils.py:48-62), the one
+    definition of a live slot of the all-to-all's slab layout."""
+    slot = torch.arange(capacity, device=counts.device)
+    return slot[None, :] < counts.reshape(world, 1)
+
+
+def dispatch_layout(exp_indices: torch.Tensor, num_experts: int, world: int,
+                    capacity: int) -> dict:
+    """The rank-major dispatch layout of expert parallelism (JAX
+    ``dispatch_layout``, moe_utils.py:69-111): (token, k) pair i goes to
+    rank ``dest = expert // (num_experts // world)`` at slot ``pos``, its
+    ordinal among the earlier pairs (token-major) with the same
+    destination; pairs at ``pos >= capacity`` are dropped.
+
+    exp_indices: (T, K) global expert ids. Returns a dict of ``dest``,
+    ``pos``, ``valid`` (T, K), ``send_counts`` (world,) and
+    ``local_expert`` (T, K), all int32 but ``valid`` (bool)."""
+    epr = num_experts // world
+    t, k = exp_indices.shape
+    flat = exp_indices.reshape(-1).long()
+    dest = flat // epr
+    ranks = torch.arange(world, device=flat.device)
+    onehot = (dest[:, None] == ranks[None, :]).to(torch.int32)  # (TK, W)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    pos = pos.gather(1, dest[:, None])[:, 0]
+    valid = pos < capacity
+    send_counts = (onehot * valid[:, None]).sum(dim=0, dtype=torch.int32)
+    return {
+        "dest": dest.to(torch.int32).reshape(t, k),
+        "pos": pos.reshape(t, k),
+        "valid": valid.reshape(t, k),
+        "send_counts": send_counts,
+        "local_expert": (flat % epr).to(torch.int32).reshape(t, k),
+    }
+
+
+def scatter_to_slabs(x: torch.Tensor, meta: dict, world: int, capacity: int,
+                     extra: dict | None = None):
+    """Scatter each (token, k) pair's row of ``x`` (T, H) into the
+    (world, capacity, H) send buffer of ``meta`` (:func:`dispatch_layout`;
+    JAX ``scatter_to_slabs``, moe_utils.py:114-146). ``extra``: name ->
+    (T, K) side-band values scattered alongside into (world, capacity).
+    Unused slots are zero; dropped pairs land in a spare row that is cut
+    off, as JAX's ``mode="drop"`` drops them.
+
+    Returns (send_buf (world, capacity, H), {name: (world, capacity)})."""
+    k = meta["dest"].shape[1]
+    h = x.shape[-1]
+    n = world * capacity
+    slot = torch.where(meta["valid"].reshape(-1),
+                       (meta["dest"] * capacity + meta["pos"]).reshape(-1),
+                       n).long()
+    buf = x.new_zeros((n + 1, h))
+    buf[slot] = x[:, None, :].expand(x.shape[0], k, h).reshape(-1, h)
+    extras = {}
+    for name, val in (extra or {}).items():
+        e = val.new_zeros((n + 1,))
+        e[slot] = val.reshape(-1)
+        extras[name] = e[:n].reshape(world, capacity)
+    return buf[:n].reshape(world, capacity, h), extras

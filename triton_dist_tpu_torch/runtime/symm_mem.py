@@ -1,0 +1,94 @@
+"""Symmetric memory for ranks on one device (the port of
+``triton_dist_tpu.runtime.symm_mem``).
+
+A symmetric tensor is W equally shaped buffers, one per rank. JAX
+returns it as one global array of shape ``(axis_size, *local_shape)``
+sharded on its leading dimension, and Pallas kernels reach a peer's
+shard by device id. Here the W buffers are separate allocations, and the
+tensor carries ``table``, a device ``int64`` tensor of their base
+addresses: a kernel reaches rank r's buffer through ``table[r]``
+(``csrc/shmem.cuh``: ``tdt_peer_ptr``), never by assuming the ranks lie
+side by side. :func:`rank_table` gives the same table for the rank
+shards of one global tensor (its leading dimension), as the all-to-all
+uses for its send and receive buffers.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+
+from triton_dist_tpu_torch.runtime.dist import RankGroup
+
+
+class SymmTensor:
+    """W per-rank buffers of one shape and dtype, with the device table
+    of their addresses. ``shape`` is JAX's global shape, ``(world,
+    *local_shape)``."""
+
+    def __init__(self, buffers: Sequence[torch.Tensor]):
+        buffers = list(buffers)
+        if not buffers or any(b.shape != buffers[0].shape
+                              or b.dtype != buffers[0].dtype
+                              or b.device != buffers[0].device
+                              for b in buffers):
+            raise ValueError("symmetric buffers need one shape, dtype and "
+                             "device")
+        self.buffers = buffers
+        self.table = torch.tensor([b.data_ptr() for b in buffers],
+                                  dtype=torch.int64, device=buffers[0].device)
+
+    @property
+    def world(self) -> int:
+        return len(self.buffers)
+
+    @property
+    def shape(self) -> tuple:
+        return (self.world, *self.buffers[0].shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.buffers[0].dtype
+
+    def __getitem__(self, rank: int) -> torch.Tensor:
+        return self.buffers[rank]
+
+
+def symm_tensor(local_shape: Sequence[int], dtype, group: RankGroup,
+                fill: float | int = 0) -> SymmTensor:
+    """One ``local_shape`` buffer per rank of ``group``, filled with
+    ``fill``, on the group's device (JAX ``symm_tensor``)."""
+    return SymmTensor([torch.full(tuple(local_shape), fill, dtype=dtype,
+                                  device=group.device)
+                       for _ in range(group.world)])
+
+
+def symm_like(x: torch.Tensor, group: RankGroup) -> SymmTensor:
+    """A symmetric tensor with per-rank buffers shaped like ``x``."""
+    return symm_tensor(x.shape, x.dtype, group)
+
+
+def local_shard(x: SymmTensor, index: int = 0) -> torch.Tensor:
+    """Rank ``index``'s buffer (JAX ``local_shard``)."""
+    return x[index]
+
+
+_ARANGE: dict = {}
+
+
+def rank_table(x: torch.Tensor, world: int) -> torch.Tensor:
+    """The device ``int64`` table of the base addresses of the ``world``
+    rank shards of ``x`` along its leading dimension. Computed on the
+    device from the base address and the stride: no host-to-device copy,
+    so a layer can call it on every forward without a host sync."""
+    if x.shape[0] % world:
+        raise ValueError(f"{x.shape[0]} rows do not split over {world} "
+                         f"ranks")
+    key = (x.device, world)
+    ar = _ARANGE.get(key)
+    if ar is None:
+        ar = _ARANGE[key] = torch.arange(world, dtype=torch.int64,
+                                         device=x.device)
+    step = x.stride(0) * (x.shape[0] // world) * x.element_size()
+    return ar * step + x.data_ptr()
