@@ -137,11 +137,45 @@ without the final line:
     ``torch.cuda.set_sync_debug_mode("error")``; greedy agreement with
     phase 13's default engine (not gated); the decode step's and the
     prefill's wall and device time, the grouped GEMM's share and the
-    dead-slot share of the slots it runs.
+    dead-slot share of the slots it runs. Then mode "ep" (attention
+    through the ring kernels of phase 17, the MoE through the all-to-all):
+    one prefill and four decode steps, every count set to 0 just before,
+    48 AG-GEMM ring, 48 GEMM-RS ring and 96 all-to-all launches each, the
+    logits within 0.25 of mode "xla" with the routing held fixed (the ep
+    run's routing replayed, as phase 13 holds it).
+
+17. ring kernels (``csrc/ag_gemm_ring.cu``, ``csrc/gemm_rs_ring.cu``)
+    against their plain ring versions, on Qwen3-8B's layer-0 weights:
+    AG-GEMM (QKV, gate|up), AG-SwiGLU, GEMM-RS (o_proj, down) and GEMM-AR
+    at prefill (M = 512) and decode (M = 4, gemm_ar padding where W does
+    not divide it) shapes, W = 2, 3, 4, 8, ring_dirs 1 and 2, bf16 and
+    f32 (smaller shapes): AG within the GEMM limits (``gemm_error``,
+    ``swiglu_error``), RS / AR within the ring's own rounding (W ulps of
+    the sum of the partials' magnitudes, share printed), bit-identical on
+    repeat, GEMM-AR's W per-rank buffers bit-equal, the workspaces' NaN
+    canaries intact, a planted fault (rank 0's first push skipped, its
+    signal still set) refused; the AG output against the world-1 kernel
+    on each rank's column shard (bit-equal or not); the W = 4 cases timed
+    by the profiler beside the plain version, one ``torch.matmul`` of the
+    global product, the world-1 kernel at the same global shape and the
+    bound (the ring's copies counted as HBM traffic).
+18. TP main path: Qwen3-8B at W = 4, full width and depth, over the same
+    params (per-rank views), served by three engines -- (xla_ar, gemm_ar)
+    (JAX ``tdt-serve``'s default at world W), (ag_rs, gemm_ar) and (ag_rs,
+    ag_rs) -- through serve (4 x 128, 16 new tokens), serve_stream and the
+    server, every count set to 0 just before: per ag_rs prefill 36
+    AG-GEMM, 36 AG-SwiGLU and 72 GEMM-RS ring launches, per decode step 72
+    GEMM-AR (gemm_ar) or 72 AG-GEMM + 72 GEMM-RS (ag_rs) ring launches, no
+    world-1 kernel; prefill and decode-step logits through the rings
+    within 0.25 of the same world-4 model's plain modes (xla / xla_ar);
+    one layer in each fused mode under sync debug "error"; greedy
+    agreement with phase 3 (not gated); wall and device time, idle share
+    and the device time by kernel of a decode step and a prefill.
 
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
-release, before the Qwen3-30B-A3B load), phase 16 after phase 13; the
-JSON line covers all six slices.
+release, before the Qwen3-30B-A3B load), phases 17-18 after phase 11
+(before that release), phase 16 after phase 13; the JSON line covers all
+seven slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -1250,14 +1284,18 @@ def phase_ag_rs_main(torch, models, ag, rs, ops, cfg, params, base, card):
     return engines, launches
 
 
-def phase_ag_server(torch, eng, params, square, stream, name, card) -> None:
+def phase_ag_server(torch, eng, params, square, stream, name, card,
+                    ragged: int = 3) -> None:
+    """The server over ``eng``: uniform prompts (serve), more prompts than
+    rows (serve_stream) and the first ``ragged`` stream prompts
+    (serve_ragged), each reply equal to the engine's own call."""
     from triton_dist_tpu_torch.serving.client import ChatClient
     from triton_dist_tpu_torch.serving.server import ModelServer
     srv = ModelServer(eng, params, host="127.0.0.1", port=0).start()
     try:
         with ChatClient(srv.host, srv.port, timeout=600) as client:
             for batch, route in ((square, "serve"), (stream, "serve_stream"),
-                                 (stream[:3], "serve_ragged")):
+                                 (stream[:ragged], "serve_ragged")):
                 t0 = time.perf_counter()
                 reply = client.generate_ids(batch, 8)
                 ms = (time.perf_counter() - t0) * 1e3
@@ -2590,6 +2628,551 @@ def ep_kernels_line(records, launches) -> list:
     return out
 
 
+# -- slice 7: tensor parallelism at world 4 through the ring kernels -----------
+#: Ranks of the TP main path (Qwen3-8B's 8 KV heads shard over 4).
+TP_WORLD = 4
+#: New tokens of phase 18's serves.
+TP_GEN = 16
+#: The world-W engines: name -> (prefill mode, decode mode). "tdt-serve" is
+#: the JAX server's default engine at world W (Engine's defaults).
+TP_ENGINES = {"tdt-serve": ("xla_ar", "gemm_ar"),
+              "reference": ("ag_rs", "gemm_ar"), "fused": ("ag_rs", "ag_rs")}
+#: The JAX kernels the ring kernels replace, by op.
+RING_REPLACES = {
+    "gemm": "triton_dist_tpu/ops/allgather_gemm.py:265",
+    "swiglu": "triton_dist_tpu/ops/allgather_gemm.py:954",
+    "rs": "triton_dist_tpu/ops/gemm_reduce_scatter.py:353",
+    "ar": "triton_dist_tpu/ops/gemm_reduce_scatter.py:353"}
+RING_SOURCES = {"gemm": "ag_gemm_ring.cu", "swiglu": "ag_gemm_ring.cu",
+                "rs": "gemm_rs_ring.cu", "ar": "gemm_rs_ring.cu"}
+
+
+def ring_error(torch, got, ref, parts_abs, k: int, world: int):
+    """(max |got - ref|, largest share of the limit) of a GEMM-RS / AR
+    ring against its plain ring version. The limit is the ring's own
+    rounding: each rank's partial is an f32 sum in another order than the
+    plain version's, so it may round to the neighbouring bf16 value, and
+    that ulp travels down the ring, so up to W ulps of the sum of the
+    partials' magnitudes (2^-7 W sum_r |p_r|), plus W f32_sum_atol(k) for
+    partials near zero. f32: 1e-5 of the same sum plus W f32_sum_atol."""
+    rel = BF16_ULP_REL if got.dtype == torch.bfloat16 else 1e-5
+    lim = world * (rel * parts_abs + f32_sum_atol(k))
+    diff = (got.float() - ref.float()).abs()
+    return diff.max().item(), (diff / lim).max().item()
+
+
+def ring_bound_ms(op: str, m: int, k: int, widths, world: int, itemsize: int):
+    """(least ms, what bounds it) of one ring call over every rank: A, the
+    weights and the output moved once over HBM, plus the ring's copies
+    (each a read and a write: the W - 1 chunks of A each rank receives;
+    for RS the W - 1 travelling partial sums of every chunk; for AR those
+    and the all-gather's W - 1 chunks); the global product's operations
+    over the peak of the type."""
+    n = sum(widths)
+    nb = 2 if op == "swiglu" else 1
+    moved = m * k + nb * k * n + m * n
+    if op in ("gemm", "swiglu"):
+        moved += 2 * (world - 1) * m * k
+    else:
+        moved += 2 * (world - 1) * m * n * (2 if op == "ar" else 1)
+    by_bytes = moved * itemsize / HBM_BYTES_PER_S * 1e3
+    kind = "bf16" if itemsize == 2 else "f32"
+    by_ops = 2.0 * m * k * n * nb / PEAK_FLOPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a):
+    """Calls of one ring case over ``world`` ranks: a (m, K) activations
+    (column-sharded for rs / ar, row-sharded otherwise), ws the global
+    weights. Returns a dict: ctx, kernel(fault) (rank 0's outputs),
+    plain, shard (the world-1 kernel on rank r's column shard, AG only),
+    world1 (the world-1 kernel at the same global shape), library (one
+    torch.matmul of the global product), key (the launch key), live (the
+    workspace's live elements per rank) and plan (rs / ar)."""
+    group = rd.create_rank_group(world)
+    k = a.shape[1]
+    if op in ("gemm", "swiglu"):
+        ctx = ag.AllGatherGEMMContext(group, ring_dirs=dirs)
+        widths = ((ws[0].shape[1],) if op == "swiglu"
+                  else tuple(w.shape[1] for w in ws))
+        shards = tuple(n // world for n in widths)
+        key = (ag.ring_path(a.dtype, k, shards), world, m, k, shards)
+
+        def cols(w, r):
+            n = w.shape[1] // world
+            return w[:, r * n:(r + 1) * n].contiguous()
+        if op == "gemm":
+            def plain():
+                return ag.ag_gemm_multi_ring_reference(a, ws, world, dirs)
+
+            def shard(r):
+                return ag.ag_gemm_multi(a, [cols(w, r) for w in ws])
+
+            def world1():
+                return ag.ag_gemm_multi(a, ws)
+        else:
+            def plain():
+                return [ag.ag_swiglu_ring_reference(a, ws[0], ws[1],
+                                                    world=world, dirs=dirs)]
+
+            def shard(r):
+                return [ag.launch_swiglu(a, *(cols(w, r) for w in ws), None,
+                                         None)]
+
+            def world1():
+                return [ag.launch_swiglu(a, ws[0], ws[1], None, None)]
+        cat = torch.cat(ws, dim=1)
+        return dict(
+            ctx=ctx, plain=plain, shard=shard, world1=world1, key=key,
+            live=m * k, plan=None,
+            kernel=lambda fault=False: ag.launch_ag_ring(op, a, ws, ctx,
+                                                         fault=fault),
+            library=lambda: torch.matmul(a, cat))
+    ctx = rs.GEMMReduceScatterContext(group, ring_dirs=dirs)
+    b = ws[0]
+    n = b.shape[1]
+    pad = -m % world
+    mp = m + pad
+    ap = torch.cat([a, a.new_zeros((pad, k))]) if pad else a
+    plan = rs.ring_plan(mp, k // world, n, a.element_size(), world, dirs,
+                        op == "ar")
+    check(plan.variant != "xla", f"{op} at {m}x{k}x{n}: no ring (JAX psum)")
+    key = (rs.ring_path(a.dtype, k // world, n, plan.split), world,
+           mp // world, k // world, n)
+
+    def kernel(fault=False):
+        out = rs.launch_ring(ap, b, ctx, plan.split, op == "ar", fault=fault)
+        return [out[0, :m]] if op == "ar" else [out]
+
+    def plain():
+        if op == "ar":
+            return [rs.gemm_ar_ring_reference(a, b, world, plan.split)]
+        return [rs.gemm_rs_ring_reference(a, b, world, plan.split)]
+
+    def world1():
+        return [rs.gemm_ar(a, b) if op == "ar" else rs.gemm_rs(a, b)]
+    return dict(ctx=ctx, kernel=kernel, plain=plain, shard=None,
+                world1=world1, library=lambda: torch.matmul(a, b), key=key,
+                live=(world - 1) * (mp // world) * n, plan=plan, padded=ap)
+
+
+def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
+    """Phase 17: the ring kernels against their plain ring versions at
+    W = 2, 3, 4, 8, prefill (M = 512, 384 at W = 3) and decode (M = 4)
+    shapes on the model's layer-0 weights, bf16 and f32 (smaller shapes),
+    ring_dirs 1 and 2: error within the limit, bit-identical on repeat,
+    GEMM-AR's W buffers bit-equal, the workspaces' NaN canaries intact and
+    a planted fault (one hop's push skipped, its signal still set)
+    refused. The W = 4, dirs 2, bf16 cases at the main path's shapes are
+    timed and returned as JSON records, ``launches`` to fill from phase
+    18."""
+    print("== phase 17: ring AG-GEMM / AG-SwiGLU / GEMM-RS / GEMM-AR kernels "
+          "vs their plain ring versions", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    lp = params["layers"][0]
+    qkv = [lp["attn"][n] for n in ("w_q", "w_k", "w_v")]
+    gate_up = [lp["mlp"]["w_gate"], lp["mlp"]["w_up"]]
+    o_proj, down = [lp["attn"]["w_o"]], [lp["mlp"]["w_down"]]
+
+    def small(k, *widths, dtype=torch.float32):
+        return [(torch.randn((k, n), generator=gen, device="cuda")
+                 / k ** 0.5).to(dtype) for n in widths]
+    f32 = torch.float32
+    # name, op, world, M, weights, dirs, timed (a JSON record), fault
+    cases = [
+        ("ag_gemm_ring[prefill qkv]", "gemm", 4, 512, qkv, 2, True, True),
+        ("ag_swiglu_ring[prefill]", "swiglu", 4, 512, gate_up, 2, True,
+         True),
+        ("ag_gemm_ring[decode qkv]", "gemm", 4, 4, qkv, 2, True, False),
+        ("ag_gemm_ring[decode gate|up]", "gemm", 4, 4, gate_up, 2, True,
+         False),
+        ("gemm_rs_ring[prefill o_proj]", "rs", 4, 512, o_proj, 2, True, True),
+        ("gemm_rs_ring[prefill down]", "rs", 4, 512, down, 2, True, False),
+        ("gemm_rs_ring[decode o_proj]", "rs", 4, 4, o_proj, 2, True, False),
+        ("gemm_rs_ring[decode down]", "rs", 4, 4, down, 2, True, False),
+        ("gemm_ar_ring[decode o_proj]", "ar", 4, 4, o_proj, 2, True, True),
+        ("gemm_ar_ring[decode down]", "ar", 4, 4, down, 2, True, False),
+        ("ag_gemm_ring[qkv W=2]", "gemm", 2, 512, qkv, 2, False, False),
+        ("ag_gemm_ring[gate|up W=3]", "gemm", 3, 384, gate_up, 2, False,
+         False),
+        ("ag_gemm_ring[qkv W=8]", "gemm", 8, 512, qkv, 2, False, False),
+        ("ag_gemm_ring[qkv dirs 1]", "gemm", 4, 512, qkv, 1, False, False),
+        ("ag_swiglu_ring[W=2]", "swiglu", 2, 512, gate_up, 2, False, False),
+        ("gemm_rs_ring[down W=2]", "rs", 2, 512, down, 2, False, False),
+        ("gemm_rs_ring[down W=3]", "rs", 3, 384, down, 2, False, False),
+        ("gemm_rs_ring[o_proj W=8]", "rs", 8, 512, o_proj, 2, False, False),
+        ("gemm_rs_ring[o_proj dirs 1]", "rs", 4, 512, o_proj, 1, False,
+         False),
+        ("gemm_ar_ring[down W=3]", "ar", 3, 4, down, 2, False, False),
+        ("gemm_ar_ring[o_proj W=8]", "ar", 8, 4, o_proj, 2, False, False),
+        ("gemm_ar_ring[down dirs 1]", "ar", 4, 4, down, 1, False, False),
+        ("ag_gemm_ring[f32]", "gemm", 4, 64, small(512, 256, 128), 2, False,
+         True),
+        ("ag_swiglu_ring[f32]", "swiglu", 4, 512, small(256, 512, 512), 2,
+         False, False),
+        ("gemm_rs_ring[f32]", "rs", 4, 64, small(512, 512), 2, False, True),
+        ("gemm_ar_ring[f32]", "ar", 4, 4, small(384, 512), 1, False, True),
+    ]
+    records = []
+    for name, op, world, m, ws, dirs, timed, fault in cases:
+        dtype = ws[0].dtype
+        k = ws[0].shape[0]
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        c = ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a)
+        kernel, plain, key = c["kernel"], c["plain"], c["key"]
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        check(all(torch.equal(bits(torch, x), bits(torch, y))
+                  for x, y in zip(got, again)), f"{name}: repeat differs")
+        if op in ("gemm", "swiglu"):
+            if op == "swiglu":
+                err, ok = swiglu_error(torch, got[0], ref[0], a, *ws)
+            else:
+                pairs = [gemm_error(torch, x, y, k) for x, y in zip(got, ref)]
+                err, ok = max(e for e, _ in pairs), all(o for _, o in pairs)
+            share, tol = None, f"1 bf16 ulp + {f32_sum_atol(k):.2g}"
+        else:
+            parts = rs._ring_partials(c["padded"], ws[0],
+                                      world).float().abs().sum(0)[:m]
+            err, share = ring_error(torch, got[0], ref[0], parts, k // world,
+                                    world)
+            ok = share <= 1.0
+            tol = "W (2^-7 sum_r |p_r| + f32_sum_atol(K / W))"
+        check(ok, f"{name}: max abs err {err} outside tolerance ({tol})")
+        extra = ""
+        if op == "ar":
+            bufs = rs.launch_ring(c["padded"], ws[0], c["ctx"],
+                                  c["plan"].split, True)
+            check(all(torch.equal(bufs[0], bufs[r]) for r in range(world)),
+                  f"{name}: the ranks' GEMM-AR buffers differ")
+            extra += f", the {world} ranks' buffers bit-equal"
+        workspace = c["ctx"].state.workspace(c["live"], dtype)
+        check(bool(workspace[:, c["live"]:].isnan().all()),
+              f"{name}: a workspace canary was overwritten")
+        extra += ", canaries intact"
+        if fault:
+            workspace.fill_(float("nan"))
+            bad = kernel(fault=True)
+            torch.cuda.synchronize()
+            if op in ("gemm", "swiglu"):
+                if op == "swiglu":
+                    _, fault_ok = swiglu_error(torch, bad[0], ref[0], a, *ws)
+                else:
+                    fault_ok = all(gemm_error(torch, x, y, k)[1]
+                                   for x, y in zip(bad, ref))
+            else:
+                _, fshare = ring_error(torch, bad[0], ref[0], parts,
+                                       k // world, world)
+                fault_ok = fshare <= 1.0
+            check(not fault_ok, f"{name}: the planted fault (a push "
+                                f"skipped, its signal set) was not refused")
+            again = kernel()                     # the workspace recovers
+            check(all(torch.equal(bits(torch, x), bits(torch, y))
+                      for x, y in zip(got, again)),
+                  f"{name}: differs after the fault")
+            extra += ", planted fault refused"
+        w1 = ""
+        if op in ("gemm", "swiglu") and timed:
+            same = all(torch.equal(
+                g[:, r * (g.shape[1] // world):(r + 1) * (g.shape[1] // world)],
+                x) for r in range(world) for g, x in zip(got, c["shard"](r)))
+            w1 = (f"; equal to the world-1 kernel on the gathered A and each"
+                  f" rank's column shard: {same} (bit-equal where both run "
+                  f"tiles.cuh's tile: the world-1 prefill plan; the decode "
+                  f"plan streams B with split K)")
+        print(f"kernel {name} {str(dtype)[6:]} W={world} dirs={dirs} M={m} "
+              f"K={k} N={'|'.join(str(w.shape[1]) for w in ws)} ({key[0]}):"
+              f" max_abs_err={err:.3g} (tol {tol}"
+              f"{'' if share is None else f', share {share:.3f}'}) ok, "
+              f"repeat bit-identical{extra}{w1}", flush=True)
+        if not timed:
+            continue
+        name_k = "ag_ring_kernel" if op in ("gemm", "swiglu") else \
+            "rs_ring_kernel"
+        ms = kernel_device_ms(torch, kernel, name_k)
+        plain_ms = device_ms(torch, plain, n=5)
+        lib_ms = device_ms(torch, c["library"])
+        w1_ms = device_ms(torch, c["world1"], n=10)
+        widths = tuple(w.shape[1] for w in ws[:1 if op == "swiglu" else 3])
+        bnd, by = ring_bound_ms(op, m, k, widths, world, a.element_size())
+        print(f"  {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (one torch.matmul of the global "
+              f"product{', gate|up' if op == 'swiglu' else ''}, no exchange)"
+              f" world1_ms={w1_ms:.4f} (the world-1 kernel on the same global"
+              f" shape) bound_ms={bnd:.4f} ({by}) [{card}]", flush=True)
+        records.append(({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{RING_SOURCES[op]}",
+            "replaces": RING_REPLACES[op], "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "world1_ms": w1_ms, "world": world, "ring_dirs": dirs,
+            "shape": [m, k, list(widths)], "tol_share": share, "ok": ok},
+            op, key))
+    return records
+
+
+def ring_counts(ag, rs) -> dict:
+    return {"ag_ring": ag.ag_ring_launches.total,
+            "ag_swiglu_ring": ag.ag_swiglu_ring_launches.total,
+            "rs_ring": rs.rs_ring_launches.total,
+            "ar_ring": rs.ar_ring_launches.total}
+
+
+def phase_tp_main(torch, models, ag, rs, ops, cfg, params, base, card):
+    """Phase 18: Qwen3-8B at world 4 (per-rank views of the same params)
+    served by the three engines of :data:`TP_ENGINES` through serve (4 x
+    128 prompts, 16 new tokens), serve_stream and the server, with the
+    ring launches of every prefill and decode step; the world-1 kernels
+    must not run. Returns (model, launches by counter and key)."""
+    print(f"== phase 18: Qwen3-8B served at world {TP_WORLD} through the "
+          f"ring kernels", flush=True)
+    layers = cfg.num_hidden_layers
+    before = torch.cuda.memory_allocated()
+    model = models.AutoLLM.build(cfg, world=TP_WORLD)
+    check(model.world == TP_WORLD, "AutoLLM did not build a world-4 model")
+    engines = {name: models.Engine(model, batch=4, max_seq=1024,
+                                   prefill_mode=pf, decode_mode=dc)
+               for name, (pf, dc) in TP_ENGINES.items()}
+    print(f"world-{TP_WORLD} model and engines over the same params: device "
+          f"memory {before / 2**30:.2f} GiB before, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after [{card}]",
+          flush=True)
+    square, base_out = base
+    host = torch.Generator().manual_seed(18)
+    stream = [torch.randint(0, cfg.vocab_size, (n,), generator=host).tolist()
+              for n in (100, 128, 70, 90, 120, 65)]
+    for eng in engines.values():                      # warm-up
+        eng.serve(params, square, 2)
+    world1 = (ag.ag_gemm_launches, ag.ag_swiglu_launches,
+              rs.gemm_rs_launches, ops.launches)
+    rings = (ag.ag_ring_launches, ag.ag_swiglu_ring_launches,
+             rs.rs_ring_launches, rs.ar_ring_launches)
+    for c in world1 + rings:                         # ---- the main path
+        c.reset()
+    steps = TP_GEN - 1
+    for name, (pf, dc) in TP_ENGINES.items():
+        eng = engines[name]
+        per_prefill = ({"ag_ring": layers, "ag_swiglu_ring": layers,
+                        "rs_ring": 2 * layers, "ar_ring": 0} if pf == "ag_rs"
+                       else dict.fromkeys(("ag_ring", "ag_swiglu_ring",
+                                           "rs_ring", "ar_ring"), 0))
+        per_step = ({"ag_ring": 2 * layers, "ag_swiglu_ring": 0,
+                     "rs_ring": 2 * layers, "ar_ring": 0} if dc == "ag_rs"
+                    else {"ag_ring": 0, "ag_swiglu_ring": 0, "rs_ring": 0,
+                          "ar_ring": 2 * layers})
+        before = ring_counts(ag, rs)
+        _, prefill_ms = sync_time(torch, lambda: eng.serve(params, square, 1))
+        got = {k: v - before[k] for k, v in ring_counts(ag, rs).items()}
+        check(got == per_prefill, f"({name}) prefill launches {got}, "
+                                  f"expected {per_prefill}")
+        before = ring_counts(ag, rs)
+        out, serve_ms = sync_time(
+            torch, lambda: eng.serve(params, square, TP_GEN))
+        got = {k: v - before[k] for k, v in ring_counts(ag, rs).items()}
+        want = {k: per_prefill[k] + steps * per_step[k] for k in got}
+        check(got == want, f"({name}) serve launches {got}, expected {want}")
+        check(tuple(out.shape) == (4, 128 + TP_GEN), f"({name}) serve shape")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "token out of vocabulary")
+        same = (out[:, 128:] == base_out[:, 128:128 + TP_GEN]).float().mean()
+        decode_ms = serve_ms - prefill_ms
+        print(f"tp serve ({name}: prefill {pf}, decode {dc}, W={TP_WORLD}): "
+              f"batch 4 x 128 prompt, {TP_GEN} new tokens: prefill_ms="
+              f"{prefill_ms:.1f} decode_ms={decode_ms:.1f} per_step_ms="
+              f"{decode_ms / steps:.2f} decode_tokens_per_s="
+              f"{4 * steps / decode_ms * 1e3:.1f}; ring launches per prefill"
+              f" {per_prefill}, per step {per_step}; greedy tokens equal to "
+              f"phase 3's world-1 engine: {same.item():.3f} (not gated) "
+              f"[{card}]", flush=True)
+        before = ring_counts(ag, rs)
+        res, stream_ms = sync_time(
+            torch, lambda: eng.serve_stream(params, stream, TP_GEN))
+        check([len(r) for r in res] == [len(p) + TP_GEN for p in stream],
+              f"({name}) serve_stream row lengths")
+        got = {k: v - before[k] for k, v in ring_counts(ag, rs).items()}
+        print(f"tp serve_stream ({name}): 6 prompts (65-128 tokens) through "
+              f"4 rows, {TP_GEN} new tokens in {stream_ms:.1f} ms; ring "
+              f"launches {got} [{card}]", flush=True)
+        check(sum(got.values()) > 0,
+              f"({name}) serve_stream launched no ring kernel")
+        phase_ag_server(torch, eng, params, square, stream, f"W=4 {name}",
+                        card, ragged=4)
+    check(all(c.total == 0 for c in world1),
+          f"world-1 kernels ran on the world-{TP_WORLD} path: "
+          f"{[c.total for c in world1]}")
+    launches = {"gemm": dict(ag.ag_ring_launches.by_shape),
+                "swiglu": dict(ag.ag_swiglu_ring_launches.by_shape),
+                "rs": dict(rs.rs_ring_launches.by_shape),
+                "ar": dict(rs.ar_ring_launches.by_shape)}
+    print(f"tp main path ring launches: {launches}", flush=True)
+    return model, launches                           # ---- main path ends
+
+
+def phase_tp_checks(torch, ag, rs, model, params, square, cfg, card) -> None:
+    """Phase 18, checks: prefill and decode-step logits through the ring
+    kernels within LOGITS_ATOL of the same world-4 model in its plain
+    modes (xla for ag_rs, xla_ar for gemm_ar); one layer under sync debug
+    "error"; wall and device time of a decode step and a prefill, and the
+    device time by kernel."""
+    from triton_dist_tpu_torch.models import KVCacheManager
+    ids = torch.tensor(square, device="cuda")
+
+    def caches():
+        return KVCacheManager(cfg.num_hidden_layers, 4, 1024,
+                              cfg.num_key_value_heads, cfg.head_dim,
+                              dtype=cfg.dtype, device="cuda",
+                              world=TP_WORLD).init()
+
+    def prefill(mode, kv=None):
+        with torch.no_grad():
+            return model.forward(params, ids, kv or caches(), 0, mode=mode)
+
+    pre_plain, kv_plain = prefill("xla")
+    pre_ring, kv_ring = prefill("ag_rs")
+    tok = pre_plain[:, -1].argmax(-1)[:, None]
+    for what, got, ref in [("prefill ag_rs vs xla", pre_ring[:, -1],
+                            pre_plain[:, -1])] + [
+            (f"decode step {mode} vs {plain}",
+             model.forward(params, tok, kv_ring, 128, mode=mode)[0][:, 0],
+             model.forward(params, tok, kv_plain, 128, mode=plain)[0][:, 0])
+            for mode, plain in (("gemm_ar", "xla_ar"), ("ag_rs", "xla"))]:
+        check(bool(torch.isfinite(got).all()), f"non-finite {what} logits")
+        err = (got - ref).abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        check(err <= LOGITS_ATOL, f"world-4 {what} logits differ by {err}")
+        print(f"tp logits (W={TP_WORLD}): {what} max abs diff {err:.4g} (tol"
+              f" {LOGITS_ATOL}), argmax agreement {agree:.2f} [{card}]",
+              flush=True)
+
+    lp = params["layers"][0]
+    x = torch.randn((512, cfg.hidden_size), device="cuda").to(cfg.dtype)
+    pos = torch.arange(128, device="cuda").expand(4, 128)
+    for mode in ("ag_rs", "gemm_ar"):
+        def layer():
+            a, _ = model.attn(lp["attn"], x, pos, model.rope_cache,
+                              kv_ring[0], 0, mode=mode)
+            return model.mlp(lp["mlp"], x + a, mode=mode)
+        layer()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = layer()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(y).all()), f"non-finite {mode} layer")
+        print(f"tp layer (attention + MLP, 512 rows, W={TP_WORLD}, mode "
+              f"{mode}) ran under torch.cuda.set_sync_debug_mode('error'): "
+              f"no host sync", flush=True)
+
+    for name, (pf, dc) in TP_ENGINES.items():
+        kv = caches()
+        prefill(pf, kv)
+
+        def step():
+            with torch.no_grad():
+                return model.forward(params, tok, kv, 128, mode=dc)[0]
+
+        for what, fn in ((f"decode step ({dc})", step),
+                         (f"prefill 4 x 128 ({pf})",
+                          lambda: prefill(pf)[0])):
+            walls = [sync_time(torch, fn)[1] for _ in range(5)]
+            wall = sorted(walls)[2]
+            rows = device_rows(torch, fn, n=3)
+            dev = sum(ms for _, ms in rows)
+            ring = sum(ms for key, ms in rows if "ring_kernel" in key)
+            print(f"tp {what}, engine {name}, W={TP_WORLD}, forward only: "
+                  f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, "
+                  f"device idle share {1 - dev / wall:.2f}; ring kernels "
+                  f"{ring:.3f} ms ({ring / dev:.2f} of device time) [{card}]",
+                  flush=True)
+            for kernel, ms in sorted(rows, key=lambda r: -r[1])[:6]:
+                print(f"  tp {what} device time: {ms:.3f} ms "
+                      f"({ms / dev:.2f}) {kernel[:70]}", flush=True)
+
+
+def ring_kernels_line(records, launches) -> list:
+    out = []
+    for rec, op, key in records:
+        rec = dict(rec, launches=launches[op].get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"world-{TP_WORLD} path")
+        out.append(rec)
+    return out
+
+
+def phase_ep_mode(torch, ag, rs, a2a, cfg, model, params, square, card):
+    """Phase 16, mode "ep" (JAX's EP forward): attention through the ring
+    kernels (ag_rs: 4 x 128 and 4 rows both split over the ranks), the
+    MoE through the all-to-all; one prefill and four decode steps, every
+    count set to 0 just before, against the same steps in mode "xla"
+    with the routing held fixed (replayed from the ep run, as phase 13
+    holds it: near-tied experts flip under bf16 differences), within
+    MOE_LOGITS_ATOL."""
+    from triton_dist_tpu_torch.layers import ep_moe
+    from triton_dist_tpu_torch.models import KVCacheManager
+    ids = torch.tensor(square, device="cuda")
+    layers = cfg.num_hidden_layers
+    routing = ep_moe.topk_routing
+    counters = {"ag_ring": ag.ag_ring_launches,
+                "rs_ring": rs.rs_ring_launches,
+                "all_to_all": a2a.a2a_launches}
+
+    def run(mode, replay=None, tokens=None):
+        """Prefill + 4 decode steps in ``mode``: (last-position logits of
+        each, the tokens fed, the routing of each MoE call, launches of
+        each forward). ``replay``: routing to use, in call order."""
+        seen, launches, logits = [], [], []
+
+        def route(lg, k, norm=True):
+            out = replay.pop(0) if replay is not None else routing(lg, k,
+                                                                  norm)
+            seen.append(out)
+            return out
+        kv = KVCacheManager(layers, 4, 256, cfg.num_key_value_heads,
+                            cfg.head_dim, dtype=cfg.dtype, device="cuda",
+                            world=EP_WORLD).init()
+        ep_moe.topk_routing = route
+        try:
+            with torch.no_grad():
+                x, tok, fed = ids, None, []
+                for i in range(5):
+                    for c in counters.values():
+                        c.reset()
+                    out, _ = model.forward(params, x, kv,
+                                           0 if i == 0 else 127 + i,
+                                           mode=mode)
+                    launches.append({n: c.total
+                                     for n, c in counters.items()})
+                    logits.append(out[:, -1])
+                    tok = (tokens[i] if tokens is not None
+                           else out[:, -1].argmax(-1)[:, None])
+                    fed.append(tok)
+                    x = tok
+        finally:
+            ep_moe.topk_routing = routing
+        return logits, fed, seen, launches
+
+    ep, fed, seen, launches = run("ep")
+    xla, _, _, _ = run("xla", replay=list(seen), tokens=fed)
+    want = {"ag_ring": layers, "rs_ring": layers, "all_to_all": 2 * layers}
+    check(all(n == want for n in launches),
+          f"mode ep launches per forward {launches}, want {want}")
+    for i, (got, ref) in enumerate(zip(ep, xla)):
+        what = ("prefill (4 x 128) last-position" if i == 0
+                else f"decode step {i}")
+        check(bool(torch.isfinite(got).all()), f"non-finite ep {what}")
+        err = (got - ref).abs().max().item()
+        check(err <= MOE_LOGITS_ATOL, f"mode ep {what} logits differ from "
+                                      f"mode xla by {err}")
+        print(f"ep mode 'ep' (W={EP_WORLD}, attention ag_rs through the ring"
+              f" kernels): {what} logits vs mode xla, routing held fixed, "
+              f"max abs diff {err:.4g} (tol {MOE_LOGITS_ATOL}); launches "
+              f"{want} [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2650,10 +3233,20 @@ def main() -> int:
                                                cfg, params, base, card)
     phase_ag_checks(torch, ag, ag_engines, params, base[0], cfg, card)
     del ag_engines
+    t17 = time.perf_counter()
+    ring_records = phase_ring_kernels(torch, ag, ops, rd, params, cfg, card)
+    t18 = time.perf_counter()
+    tp_model, ring_launches = phase_tp_main(torch, models, ag, ops, ops, cfg,
+                                            params, base, card)
+    phase_tp_checks(torch, ag, ops, tp_model, params, base[0], cfg, card)
+    del tp_model
+    print(f"phase 17 took {t18 - t17:.1f} s, phase 18 "
+          f"{time.perf_counter() - t18:.1f} s", flush=True)
     # The dense kernels' records read the Qwen3-8B weights: before they go.
     kernels = phase_kernels_line(torch, ops, params, cfg, main_launches)
     kernels += phase_fd_kernels_line(torch, fd, fd_launches)
     kernels += ag_kernels_line(ag_records, ag_launches)
+    kernels += ring_kernels_line(ring_records, ring_launches)
     del cfg, model, params, eng, prompts, base
     gc.collect()
     torch.cuda.empty_cache()
@@ -2689,6 +3282,7 @@ def main() -> int:
         torch, models, a2a, gg, cfg, params, tokens["default"], card,
         args.seed)
     phase_ep_checks(torch, a2a, cfg, ep_model, params, square, card)
+    phase_ep_mode(torch, ag, ops, a2a, cfg, ep_model, params, square, card)
     kernels += ep_kernels_line(a2a_records, ep_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))

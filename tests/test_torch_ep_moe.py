@@ -12,13 +12,15 @@ Pallas interpret mode. Weights cross through numpy, f32 throughout.
 * ``EPMoE`` against JAX's ``EPMoE`` on the same params at W = 4 and 8:
   within 1e-5.
 * The world-W XLA bodies of ``ag_gemm_multi``, ``gemm_rs`` and
-  ``gemm_ar`` against JAX's at W = 4.
+  ``gemm_ar`` against JAX's at W = 4, and their rings (impl "pallas")
+  against JAX's Pallas kernels in interpret mode.
 * ``Qwen3MoE(moe_parallel="ep", world=4)`` (tiny, 2 layers) in mode
   "xla": prefill and one decode step's logits within 1e-5 of JAX's, and
   ``Engine(prefill_mode="xla", decode_mode="xla")``'s ``serve`` and
   ``serve_ragged`` greedy tokens identical to the JAX engine's; the port's EP model against its TP model
-  on the same weights within JAX's own 3e-3; the modes that need the
-  unported rings raise.
+  on the same weights within JAX's own 3e-3; mode "ep" (attention
+  through the rings, the MoE through the all-to-all) against JAX's mode
+  "ep", and modes ag_rs / gemm_ar against JAX's logits, within 1e-5.
 """
 
 import jax
@@ -158,7 +160,8 @@ def test_world_xla_bodies_match_jax():
     """ag_gemm_multi / gemm_rs / gemm_ar over 4 ranks, impl "xla", against
     JAX's XLA bodies on its 4-device mesh (all-gather + dot, dot +
     psum_scatter / psum; gemm_ar pads rows that do not split); their
-    Pallas impls (the rings) raise."""
+    Pallas impls (the plain rings on CPU tensors) against JAX's Pallas
+    rings in interpret mode."""
     from triton_dist_tpu.ops.allgather_gemm import (
         ag_gemm_multi as jax_ag_gemm_multi, create_ag_gemm_context)
     from triton_dist_tpu.ops.gemm_reduce_scatter import (
@@ -195,11 +198,19 @@ def test_world_xla_bodies_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
     t = torch.from_numpy
-    for call in (lambda: ag.ag_gemm_multi(t(a), [t(b1)], group),
-                 lambda: rs.gemm_rs(t(x), t(w), group),
-                 lambda: rs.gemm_ar(t(x), t(w), group)):
-        with pytest.raises(NotImplementedError, match="Queue B items 3-5"):
-            call()
+    want = jax_ag_gemm_multi(put(a, P("tp")), [put(b1, P(None, "tp"))],
+                             create_ag_gemm_context(mesh, "tp"),
+                             impl="pallas")
+    got = ag.ag_gemm_multi(t(a), [t(b1)], group)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-5)
+    for rows, jfn, fn in ((8, jax_gemm_rs, rs.gemm_rs),
+                          (6, jax_gemm_ar, rs.gemm_ar)):
+        want = jfn(put(x[:rows], P(None, "tp")), put(w, P("tp")), ctx,
+                   impl="pallas")
+        got = fn(t(x[:rows]), t(w), group)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
 
 
 # -- the model and the engine -----------------------------------------------------
@@ -308,6 +319,33 @@ def test_ep_at_world_one_runs_mode_ep(models):
                                atol=1e-5)
 
 
+def test_ep_mode_at_world_matches_jax(models):
+    """Mode "ep" at world 4: attention through the rings (ag_rs: the rows
+    split over the ranks), the MoE through the all-to-all; prefill and one
+    decode step against JAX's mode "ep" (the forward the jax_out fixture
+    jitted)."""
+    jmodel, jparams, model, params = models
+    c = jmodel.config
+    jc = JaxKV(c.num_hidden_layers, B, MAX_SEQ, c.num_key_value_heads,
+               c.head_dim, mesh=jmodel.mesh, axis="tp",
+               dtype=jnp.float32).init()
+    tc = _caches(model)
+    ids = _ids()
+    assert model._attn_mode("ep", ids.size) == "ag_rs"
+    assert model._attn_mode("ep", 3) == "gemm_ar"
+    jl, jc = jmodel.forward(jparams, jnp.asarray(ids), jc, 0, mode="ep")
+    tl, tc = model.forward(params, torch.from_numpy(ids).long(), tc, 0,
+                           mode="ep")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                               atol=1e-5)
+    tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
+    jl2, _ = jmodel.forward(jparams, jnp.asarray(tok), jc, S, mode="ep")
+    tl2, _ = model.forward(params, torch.from_numpy(tok).long(), tc, S,
+                           mode="ep")
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_ep_kv_cache_ranks_view_their_heads(models):
     _, _, model, _ = models
     c = model.config
@@ -325,14 +363,16 @@ def test_ep_kv_cache_ranks_view_their_heads(models):
         KVCacheManager(1, 1, 4, 6, 2, device="cpu", world=4)
 
 
-def test_unported_world_modes_raise(models):
+def test_unported_world_modes_raise(models, jax_out):
+    """Modes ag_rs and gemm_ar at world W run the rings (their logits
+    within 1e-5 of JAX's, f32: every mode computes the same products);
+    what stays unported raises."""
     _, _, model, params = models
     ids = torch.from_numpy(_ids()).long()
-    with pytest.raises(NotImplementedError, match="Queue B items 3-5"):
-        model.forward(params, ids, _caches(model), 0, mode="ep")
     for mode in ("ag_rs", "gemm_ar"):
-        with pytest.raises(NotImplementedError, match="Queue B items 3-5"):
-            model.forward(params, ids, _caches(model), 0, mode=mode)
+        out, _ = model.forward(params, ids, _caches(model), 0, mode=mode)
+        np.testing.assert_allclose(out.numpy(), jax_out["prefill"],
+                                   rtol=1e-5, atol=1e-5, err_msg=mode)
     with pytest.raises(NotImplementedError, match="Queue B items 10-11"):
         Qwen3MoE(model.config, device="cpu", world=W)
     with pytest.raises(ValueError, match="moe_parallel='tp'"):

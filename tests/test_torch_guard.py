@@ -222,6 +222,92 @@ def test_ag_gemm_entry_points_on_cuda_tensors_never_take_the_plain_path(
             call()
 
 
+def test_ring_entry_points_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed calls of ag_gemm_multi, ag_gemm,
+    ag_swiglu (fused and composed), gemm_rs and gemm_ar over a world-4
+    rank group reach the ring kernels' builds and fail there instead of
+    computing a plain ring version on the CPU."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+
+    class CudaView:
+        """A meta tensor that reports the CUDA device."""
+
+        def __init__(self, *shape):
+            self._t = torch.zeros(shape, dtype=torch.bfloat16, device="meta")
+            self.device = torch.device("cuda", 0)
+            self.dtype, self.shape = self._t.dtype, self._t.shape
+
+        def dim(self):
+            return self._t.dim()
+
+        def is_contiguous(self):
+            return True
+
+        def element_size(self):
+            return self._t.element_size()
+
+    for name in ("ag_gemm_multi_ring_reference", "ag_swiglu_ring_reference",
+                 "ag_gemm_multi_reference", "ag_swiglu_reference"):
+        monkeypatch.setattr(ag, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+    for name in ("gemm_rs_ring_reference", "gemm_ar_ring_reference",
+                 "gemm_rs_reference", "_psum_of_products"):
+        monkeypatch.setattr(rs, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    group = create_rank_group(4, device="meta")
+    x512, x4 = CudaView(512, 64), CudaView(4, 64)
+    w, wd = CudaView(64, 512), CudaView(512, 64)
+    calls = [
+        ("ag_gemm_ring", lambda: ag.ag_gemm_multi(x512, [w, w, w], group)),
+        ("ag_gemm_ring", lambda: ag.ag_gemm(x4, w, group)),
+        ("ag_gemm_ring", lambda: ag.ag_swiglu(x512, w, w, group=group)),
+        ("ag_gemm_ring", lambda: ag.ag_swiglu(x4, w, w, group=group)),
+        ("gemm_rs_ring", lambda: rs.gemm_rs(CudaView(512, 512), wd, group)),
+        ("gemm_rs_ring", lambda: rs.gemm_ar(CudaView(3, 512), wd, group)),
+    ]
+    assert ag.swiglu_fuses(128, 64, 128, 2)
+    assert not ag.swiglu_fuses(1, 64, 128, 2)
+    for lib, call in calls:
+        with pytest.raises(RuntimeError, match=f"no build of {lib}"):
+            call()
+
+
+def test_ring_sources_target_sm90a_through_cooperative_launches():
+    from triton_dist_tpu_torch.ops import _build
+    for name, entries, kernels in (
+            ("ag_gemm_ring", ("tdt_ag_ring_grid", "tdt_ag_ring"),
+             ("_ag_gemm_kernel", "_ag_gemm_hbm_nb_kernel",
+              "_ag_gemm_hbm_kernel", "_ag_swiglu_hbm_kernel")),
+            ("gemm_rs_ring", ("tdt_rs_ring_grid", "tdt_rs_ring_tiles",
+                              "tdt_rs_ring"),
+             ("_gemm_rs_kernel", "_gemm_rs_hbm_nb_kernel",
+              "_gemm_rs_hbm_kernel"))):
+        src = _build.SOURCES[name]
+        assert src.is_file() and src.is_relative_to(PACKAGE)
+        cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+        assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+        text = src.read_text()
+        assert 'extern "C"' in text and '#include "shmem.cuh"' in text
+        assert '#include "tiles.cuh"' in text
+        assert "cudaLaunchCooperativeKernel" in text
+        for entry in entries:
+            assert entry in text
+        for kernel in kernels:                # the TPU kernels it replaces
+            assert kernel in text
+        for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+            assert atomic not in text         # fixed-order sums only
+        for library in ("cublas", "cutlass::gemm::device", "torch/"):
+            assert library not in text.lower()
+
+
 def test_ag_gemm_source_targets_sm90a_without_atomics():
     from triton_dist_tpu_torch.ops import _build
     src = _build.SOURCES["ag_gemm"]
@@ -229,16 +315,16 @@ def test_ag_gemm_source_targets_sm90a_without_atomics():
     cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
     text = src.read_text()
-    assert 'extern "C"' in text and '#include "gemm_common.cuh"' in text
+    assert 'extern "C"' in text and '#include "tiles.cuh"' in text
     for entry in ("tdt_ag_gemm_plan", "tdt_ag_gemm", "tdt_ag_swiglu"):
         assert entry in text
     # The note at the top names the TPU kernels it replaces.
     for kernel in ("_ag_gemm_hbm_nb_kernel", "_ag_swiglu_hbm_kernel",
                    "_gemm_rs_hbm_kernel"):
         assert kernel in text
-    header = _build.CSRC_DIR / "gemm_common.cuh"
-    assert header in _build.HEADERS
-    for path in (src, header):
+    headers = [_build.CSRC_DIR / n for n in ("gemm_common.cuh", "tiles.cuh")]
+    assert all(h in _build.HEADERS for h in headers)
+    for path in (src, *headers):
         body = path.read_text()
         for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
             assert atomic not in body           # fixed-order sums only
@@ -295,7 +381,8 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
     from triton_dist_tpu_torch.ops import _build
     assert set(_build.SOURCES) == {"gemm_ar", "flash_decode", "ag_gemm",
                                    "group_gemm", "moe_rs", "allgather",
-                                   "sp_attention", "all_to_all"}
+                                   "sp_attention", "all_to_all",
+                                   "ag_gemm_ring", "gemm_rs_ring"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
 
 

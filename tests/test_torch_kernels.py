@@ -831,3 +831,153 @@ def test_all_to_all_grid_fits_the_card(cuda_device):
         bpr = a2a.blocks_per_rank(world, n_chunks)
         assert 1 <= bpr <= world * n_chunks and world * bpr <= most
     assert a2a.blocks_per_rank(4, 8) == 32      # one block per item
+
+
+# -- slice 7: the ring kernels (csrc/ag_gemm_ring.cu, csrc/gemm_rs_ring.cu) --
+#: (world, M, K, widths, ring_dirs) of the AG ring: Qwen3-8B's prefill QKV
+#: and decode gate|up at W = 4, W = 2 / 8, one direction, odd shapes (the
+#: FMA tile).
+AG_RING_CASES = [(4, 512, 4096, (4096, 1024, 1024), 2),
+                 (4, 4, 4096, (12288, 12288), 2),
+                 (2, 512, 4096, (4096,), 2), (8, 64, 512, (1024, 256), 2),
+                 (4, 512, 4096, (4096, 1024, 1024), 1),
+                 (3, 96, 72, (24, 48), 2)]
+#: (world, M, K, N, ring_dirs) of the RS / AR ring: Qwen3-8B's o_proj and
+#: down at prefill and decode, W = 2 / 3 / 8, one direction, odd shapes.
+RS_RING_CASES = [(4, 512, 4096, 4096, 2), (4, 512, 12288, 4096, 2),
+                 (4, 4, 12288, 4096, 2), (2, 512, 4096, 4096, 2),
+                 (3, 384, 12288, 4096, 2), (8, 512, 4096, 4096, 2),
+                 (4, 512, 4096, 4096, 1), (3, 6, 96, 40, 2)]
+
+
+def _ring_group(world, device):
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    return create_rank_group(world, device=device)
+
+
+def _assert_ring_close(got, want, a, b, world):
+    """Within the ring's own rounding: W ulps (bf16) or 1e-5 (f32) of the
+    sum of the partials' magnitudes, plus W f32_sum_atol(K / W)."""
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+    parts = rs._ring_partials(a, b, world).float().abs().sum(0)
+    rel = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+    lim = world * (rel * parts[:got.shape[0]]
+                   + f32_sum_atol(a.shape[1] // world))
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world,m,k,widths,dirs", AG_RING_CASES)
+def test_ag_ring_kernel_matches_plain_on_card(cuda_device, dtype, world, m,
+                                              k, widths, dirs):
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    a, bs = _ag_inputs(m, k, widths, dtype, cuda_device, seed=m + k + world)
+    ctx = ag.AllGatherGEMMContext(_ring_group(world, cuda_device), dirs)
+    before = ag.ag_ring_launches.total
+    got = ag.ag_gemm_multi(a, bs, ctx.group, ctx=ctx)
+    again = ag.ag_gemm_multi(a, bs, ctx.group, ctx=ctx)
+    torch.cuda.synchronize()
+    assert ag.ag_ring_launches.total == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for x, want in zip(got, ag.ag_gemm_multi_ring_reference(a, bs, world,
+                                                            dirs)):
+        _assert_gemm_close(x, want, k)
+    ws = ctx.state.workspace(m * k, dtype)
+    assert bool(ws[:, m * k:].isnan().all())       # canaries intact
+    # A planted fault: rank 0's first push skipped, its signal still set.
+    ws.fill_(float("nan"))
+    bad = ag.launch_ag_ring("gemm", a, bs, ctx, fault=True)
+    assert not all(torch.equal(x, y) for x, y in zip(bad, got))
+    if world > 1 and dtype == torch.bfloat16 and m >= 128 * world:
+        n = widths[0] // world                     # the world-1 tile's bits
+        shard = ag.ag_gemm_multi(a, [bs[0][:, :n].contiguous()])[0]
+        assert torch.equal(got[0][:, :n], shard)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world,m,k,n,bias", [
+    (4, 512, 4096, 12288, False), (2, 256, 64, 256, True),
+    (4, 512, 72, 512, True)])
+def test_ag_swiglu_ring_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                     world, m, k, n, bias):
+    """The fused SwiGLU through the ring (launched directly: in f32 at
+    Qwen3-8B's width JAX's rule composes instead)."""
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    a, (wg, wu) = _ag_inputs(m, k, (n, n), dtype, cuda_device, seed=n + k)
+    rng = np.random.RandomState(n)
+    biases = ([torch.from_numpy(rng.randn(n).astype(np.float32)).to(
+        cuda_device, dtype) for _ in range(2)] if bias else [])
+    ctx = ag.AllGatherGEMMContext(_ring_group(world, cuda_device))
+    before = ag.ag_swiglu_ring_launches.total
+    got = ag.launch_ag_ring("swiglu", a, [wg, wu], ctx, biases)[0]
+    again = ag.launch_ag_ring("swiglu", a, [wg, wu], ctx, biases)[0]
+    torch.cuda.synchronize()
+    assert ag.ag_swiglu_ring_launches.total == before + 2
+    assert torch.equal(got, again)
+    want = ag.ag_swiglu_ring_reference(a, wg, wu, *biases, world=world)
+    atol, rtol = _swiglu_bound(a, wg, wu, *(biases or (None, None)))
+    diff = (got.float() - want.float()).abs()
+    lim = atol + rtol * torch.maximum(got.float().abs(), want.float().abs())
+    assert (diff <= lim).all(), diff.max()
+    if ag.swiglu_fuses(m // world, k, n // world, a.element_size()):
+        entry = ag.ag_swiglu(a, wg, wu, *biases, group=ctx.group, ctx=ctx)
+        assert torch.equal(entry, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world,m,k,n,dirs", RS_RING_CASES)
+@pytest.mark.parametrize("op", ["gemm_rs", "gemm_ar"])
+def test_rs_ring_kernel_matches_plain_on_card(cuda_device, dtype, world, m,
+                                              k, n, dirs, op):
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+    (a, (b,)) = _ag_inputs(m, k, (n,), dtype, cuda_device, seed=m + n)
+    ctx = rs.GEMMReduceScatterContext(_ring_group(world, cuda_device), dirs)
+    ar = op == "gemm_ar"
+    plan = rs.ring_plan(m, k // world, n, a.element_size(), world, dirs, ar)
+    count = rs.ar_ring_launches if ar else rs.rs_ring_launches
+    before = count.total
+    entry = getattr(rs, op)(a, b, ctx.group, ctx=ctx)
+    if plan.variant == "xla":          # JAX's gemm_ar falls back to psum
+        assert count.total == before
+        assert torch.equal(entry, getattr(rs, op)(a, b, ctx.group,
+                                                  impl="xla"))
+    else:
+        assert count.total == before + 1
+    # The kernel itself at the plan's split (at the psum fallback too).
+    got = rs.launch_ring(a, b, ctx, plan.split, ar)
+    again = rs.launch_ring(a, b, ctx, plan.split, ar)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if ar:                                   # every rank's copy
+        assert all(torch.equal(got[0], got[r]) for r in range(world))
+        got = got[0]
+    if plan.variant != "xla":
+        assert torch.equal(entry, got)
+    ref = (rs.gemm_ar_ring_reference if ar
+           else rs.gemm_rs_ring_reference)(a, b, world, plan.split)
+    _assert_ring_close(got, ref, a, b, world)
+    live = (world - 1) * (m // world) * n
+    slabs = ctx.state.workspace(live, dtype)
+    assert bool(slabs[:, live:].isnan().all())     # canaries intact
+    # A planted fault: rank 0's first pushes skipped, signals still set.
+    slabs.fill_(float("nan"))
+    bad = rs.launch_ring(a, b, ctx, plan.split, ar, fault=True)
+    assert not torch.equal(bad[0] if ar else bad, got)
+
+
+@pytest.mark.cuda
+def test_ring_grids_fit_the_card(cuda_device):
+    import ctypes
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+    out = ctypes.c_int()
+    for world in (2, 3, 4, 8):
+        assert ag._ring_lib().tdt_ag_ring_grid(0, 0, 1, world,
+                                               ctypes.byref(out)) == 0
+        assert 1 <= out.value and world * out.value <= 132 * 8
+        assert rs._ring_lib().tdt_rs_ring_grid(0, 1, world,
+                                               ctypes.byref(out)) == 0
+        assert 1 <= out.value

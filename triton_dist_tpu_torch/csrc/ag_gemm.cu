@@ -49,43 +49,22 @@
 //  * Every sum has a fixed order and there are no atomics, so equal inputs
 //    give equal bits from run to run.
 //  * No wgmma / TMA / persistent blocks yet: that is later work.
+//  * The tile bodies live in tiles.cuh, shared with the ring kernels of
+//    ag_gemm_ring.cu and gemm_rs_ring.cu.
 //
 // Plain C entry points `tdt_ag_gemm_plan`, `tdt_ag_gemm` and `tdt_ag_swiglu`,
 // loaded with ctypes. A launch runs on the stream it is given, allocates
 // nothing and returns cudaGetLastError().
 
-#include "gemm_common.cuh"
+#include "tiles.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kOpGemm = 0;
 constexpr int kOpSwiglu = 1;
 
 // ---------------------------------------------------------------------------
-// Prefill: tiled tensor-core kernel.
-constexpr int kPfBM = 128;                 // rows per block
-constexpr int kPfBK = 64;                  // K per pipeline stage
-constexpr int kPfStages = 4;
-constexpr int kPfFold = 2;                 // stages summed in the tensor core
-constexpr int kPfThreads = 256;            // 8 warps: 2 along M x 4 along N
-constexpr int kPfLdA = kPfBK + 8;          // padded rows: conflict-free ldmatrix
-constexpr int kPfBN = 128;                 // columns per block (plain)
-constexpr int kPfBNSwiglu = 64;            // columns per block (gate and up)
-
-template <int BN, bool SWIGLU>
-constexpr int tile_smem_bytes() {
-  return kPfStages * (kPfBM * kPfLdA + (SWIGLU ? 2 : 1) * kPfBK * (BN + 8)) *
-         static_cast<int>(sizeof(bf16));
-}
-
-// SiLU(g) * u in f32, as the TPU kernel's epilogue (gate * sigmoid(gate) *
-// up) computes it; expf, not the fast __expf.
-__device__ __forceinline__ float swiglu(float g, float u) {
-  return g / (1.f + expf(-g)) * u;
-}
-
+// Prefill: the tensor-core tile of tiles.cuh, one tile per block.
 // grid = (column tiles of all products, ceil(M / 128)), 256 threads.
 // SWIGLU: one product (segs.b[0] = Wg, segs.c[0] = act) and Bu = Wu; the
 // optional biases have one entry per column.
@@ -94,180 +73,25 @@ __global__ void __launch_bounds__(kPfThreads, 1)
 tile_mma(const bf16* __restrict__ A, Segs<bf16> segs,
          const bf16* __restrict__ Bu, const bf16* __restrict__ bias_g,
          const bf16* __restrict__ bias_u, int M, int K) {
-  constexpr int NB = SWIGLU ? 2 : 1;       // B operands per stage
-  constexpr int LDB = BN + 8;
-  constexpr int WN = BN / 4;               // columns per warp
-  constexpr int NP = WN / 16;              // 16-column ldmatrix groups
-  constexpr int NF = 2 * NP;               // n8 fragments per warp
-  constexpr int MF = kPfBM / 2 / 16;       // m16 fragments per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + kPfStages * kPfBM * kPfLdA;    // [stage][NB][BK][LDB]
-
   const int seg = seg_of_tile(segs, blockIdx.x);
-  const bf16* __restrict__ B0 = seg_field(segs.b, seg);
   const int N = seg_field(segs.n, seg);
   const int n0 = (blockIdx.x - seg_field(segs.tile0, seg)) * BN;
   const int m0 = blockIdx.y * kPfBM;
-  const int nk = (K + kPfBK - 1) / kPfBK;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 2) * (kPfBM / 2);     // warp's first row
-  const int wn = (warp & 3) * WN;               // warp's first column
-
-  // Stage `kc` into pipeline slot `slot`: every thread copies the same
-  // number of 16-byte chunks (constant trip counts, so the index math
-  // folds). Chunks of 8 elements past M, N or K are zero-filled (N and K
-  // are multiples of 8).
-  constexpr int kChunksA = kPfBM * (kPfBK / 8) / kPfThreads;
-  constexpr int kChunksB = kPfBK * (BN / 8) / kPfThreads;
-  static_assert(kChunksA * kPfThreads == kPfBM * (kPfBK / 8) &&
-                kChunksB * kPfThreads == kPfBK * (BN / 8),
-                "stage copies must split evenly over the threads");
-  auto load_stage = [&](int slot, int kc) {
-    const int k0 = kc * kPfBK;
-    bf16* as = As + slot * kPfBM * kPfLdA;
-#pragma unroll
-    for (int i = 0; i < kChunksA; ++i) {
-      const int c = tid + i * kPfThreads;
-      const int r = c / (kPfBK / 8);
-      const int kk = (c % (kPfBK / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + kk < K;
-      const bf16* src = ok ? A + static_cast<size_t>(m0 + r) * K + k0 + kk : A;
-      cp_async16(as + r * kPfLdA + kk, src, ok);
-    }
-#pragma unroll
-    for (int h = 0; h < NB; ++h) {
-      const bf16* B = h == 0 ? B0 : Bu;
-      bf16* bs = Bs + (slot * NB + h) * kPfBK * LDB;
-#pragma unroll
-      for (int i = 0; i < kChunksB; ++i) {
-        const int c = tid + i * kPfThreads;
-        const int r = c / (BN / 8);
-        const int nn = (c % (BN / 8)) * 8;
-        const bool ok = k0 + r < K && n0 + nn < N;
-        const bf16* src =
-            ok ? B + static_cast<size_t>(k0 + r) * N + n0 + nn : B;
-        cp_async16(bs + r * LDB + nn, src, ok);
-      }
-    }
-  };
-
-  // The tensor core's own accumulation is not a full IEEE f32 sum over
-  // thousands of terms: the products of kPfFold stages (128 K terms)
-  // accumulate in `part`, which is then added to `acc` in f32.
-  float acc[NB][MF][NF][4];
-  float part[NB][MF][NF][4];
-#pragma unroll
-  for (int h = 0; h < NB; ++h)
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[h][i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kPfStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<kPfStages - 2>();
-    __syncthreads();  // stage kc landed; slot (kc - 1) % stages is free
-    const int next = kc + kPfStages - 1;
-    if (next < nk) load_stage(next % kPfStages, next);
-    cp_async_commit();
-
-    const int slot = kc % kPfStages;
-    const bf16* as = As + slot * kPfBM * kPfLdA;
-    if (kc % kPfFold == 0) {
-#pragma unroll
-      for (int h = 0; h < NB; ++h)
-#pragma unroll
-        for (int i = 0; i < MF; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[h][i][j][e] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < kPfBK; ks += 16) {
-      unsigned afr[MF][4];
-#pragma unroll
-      for (int mf = 0; mf < MF; ++mf)
-        ldmatrix_x4(afr[mf], as + (wm + mf * 16 + (lane & 15)) * kPfLdA + ks +
-                                 (lane >> 4) * 8);
-#pragma unroll
-      for (int h = 0; h < NB; ++h) {
-        const bf16* bs = Bs + (slot * NB + h) * kPfBK * LDB;
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          // Rows ks..ks+15 of 16 columns, transposed into the "col" operand:
-          // regs 0-1 feed columns +0..7, regs 2-3 columns +8..15.
-          unsigned bfr[4];
-          ldmatrix_x4_trans(bfr, bs + (ks + (lane & 15)) * LDB + wn + p * 16 +
-                                     (lane >> 4) * 8);
-#pragma unroll
-          for (int mf = 0; mf < MF; ++mf) {
-            mma_bf16(part[h][mf][2 * p], afr[mf], bfr[0], bfr[1]);
-            mma_bf16(part[h][mf][2 * p + 1], afr[mf], bfr[2], bfr[3]);
-          }
-        }
-      }
-    }
-    if (kc % kPfFold == kPfFold - 1 || kc == nk - 1) {
-#pragma unroll
-      for (int h = 0; h < NB; ++h)
-#pragma unroll
-        for (int i = 0; i < MF; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[h][i][j][e] += part[h][i][j][e];
-    }
-  }
-  cp_async_wait<0>();
-
-  // Accumulator layout of m16n8: c0,c1 at (row g, cols 2t, 2t+1), c2,c3 at
-  // row g + 8, with g = lane / 4 and t = lane % 4. N is a multiple of 8, so
-  // both columns of a pair are in range together.
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  bf16* __restrict__ C = seg_field(segs.c, seg);
-#pragma unroll
-  for (int mf = 0; mf < MF; ++mf) {
-#pragma unroll
-    for (int nf = 0; nf < NF; ++nf) {
-      const int n = n0 + wn + nf * 8 + 2 * t;
-      if (n >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm + mf * 16 + g + half * 8;
-        if (m >= M) continue;
-        float v0 = acc[0][mf][nf][2 * half];
-        float v1 = acc[0][mf][nf][2 * half + 1];
-        if constexpr (SWIGLU) {
-          float u0 = acc[NB - 1][mf][nf][2 * half];
-          float u1 = acc[NB - 1][mf][nf][2 * half + 1];
-          if (bias_g != nullptr) {
-            v0 += to_f32(bias_g[n]);
-            v1 += to_f32(bias_g[n + 1]);
-            u0 += to_f32(bias_u[n]);
-            u1 += to_f32(bias_u[n + 1]);
-          }
-          v0 = swiglu(v0, u0);
-          v1 = swiglu(v1, u1);
-        }
-        __nv_bfloat162 pair;
-        pair.x = from_f32<bf16>(v0);
-        pair.y = from_f32<bf16>(v1);
-        *reinterpret_cast<__nv_bfloat162*>(C + static_cast<size_t>(m) * N +
-                                           n) = pair;
-      }
-    }
-  }
+  Tile<bf16> t;
+  t.a = A + static_cast<size_t>(m0) * K;
+  t.lda = K;
+  t.b = seg_field(segs.b, seg) + n0;
+  t.bu = SWIGLU ? Bu + n0 : nullptr;
+  t.ldb = N;
+  t.bias_g = bias_g != nullptr ? bias_g + n0 : nullptr;
+  t.bias_u = bias_u != nullptr ? bias_u + n0 : nullptr;
+  t.rows = min(kPfBM, M - m0);
+  t.cols = min(BN, N - n0);
+  t.K = K;
+  const StoreEpi<bf16> epi{
+      seg_field(segs.c, seg) + static_cast<size_t>(m0) * N + n0, N};
+  mma_tile<BN, SWIGLU>(t, smem_raw, epi);
 }
 
 template <int BN, bool SWIGLU>
@@ -288,98 +112,30 @@ cudaError_t launch_tile_mma(const bf16* a, const Segs<bf16>& segs,
 }
 
 // ---------------------------------------------------------------------------
-// f32 and odd shapes: tiled FMA kernel. A block computes a 64 x 64 output
-// tile (of gate and of up for SwiGLU); thread (ty, tx) owns rows ty*4..+3
-// and columns tx*4..+3 and sums K in order.
-constexpr int kFmBM = 64;
-constexpr int kFmBN = 64;
-constexpr int kFmBK = 16;
-constexpr int kFmThreads = 256;
-
+// f32 and odd shapes: the FMA tile of tiles.cuh (64 x 64), one per block.
 template <typename T, bool SWIGLU>
 __global__ void __launch_bounds__(kFmThreads)
 tile_fma(const T* __restrict__ A, Segs<T> segs, const T* __restrict__ Bu,
          const T* __restrict__ bias_g, const T* __restrict__ bias_u, int M,
          int K) {
-  constexpr int NB = SWIGLU ? 2 : 1;
-  __shared__ float As[kFmBK][kFmBM + 4];          // A tile, transposed
-  __shared__ float Bs[NB][kFmBK][kFmBN + 4];
-
   const int seg = seg_of_tile(segs, blockIdx.x);
-  const T* __restrict__ B0 = seg_field(segs.b, seg);
   const int N = seg_field(segs.n, seg);
   const int n0 = (blockIdx.x - seg_field(segs.tile0, seg)) * kFmBN;
   const int m0 = blockIdx.y * kFmBM;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  float acc[NB][4][4];
-#pragma unroll
-  for (int h = 0; h < NB; ++h)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[h][i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kFmBK) {
-    for (int e = tid; e < kFmBM * kFmBK; e += kFmThreads) {
-      const int r = e / kFmBK;
-      const int kk = e % kFmBK;
-      As[kk][r] = (m0 + r < M && k0 + kk < K)
-                      ? to_f32(A[static_cast<size_t>(m0 + r) * K + k0 + kk])
-                      : 0.f;
-    }
-#pragma unroll
-    for (int h = 0; h < NB; ++h) {
-      const T* B = h == 0 ? B0 : Bu;
-      for (int e = tid; e < kFmBK * kFmBN; e += kFmThreads) {
-        const int r = e / kFmBN;
-        const int c = e % kFmBN;
-        Bs[h][r][c] = (k0 + r < K && n0 + c < N)
-                          ? to_f32(B[static_cast<size_t>(k0 + r) * N + n0 + c])
-                          : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFmBK; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int h = 0; h < NB; ++h)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float b = Bs[h][kk][tx * 4 + j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[h][i][j] = fmaf(a[i], b, acc[h][i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-  T* __restrict__ C = seg_field(segs.c, seg);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      float v = acc[0][i][j];
-      if constexpr (SWIGLU) {
-        float u = acc[NB - 1][i][j];
-        if (bias_g != nullptr) {
-          v += to_f32(bias_g[n]);
-          u += to_f32(bias_u[n]);
-        }
-        v = swiglu(v, u);
-      }
-      C[static_cast<size_t>(m) * N + n] = from_f32<T>(v);
-    }
-  }
+  Tile<T> t;
+  t.a = A + static_cast<size_t>(m0) * K;
+  t.lda = K;
+  t.b = seg_field(segs.b, seg) + n0;
+  t.bu = SWIGLU ? Bu + n0 : nullptr;
+  t.ldb = N;
+  t.bias_g = bias_g != nullptr ? bias_g + n0 : nullptr;
+  t.bias_u = bias_u != nullptr ? bias_u + n0 : nullptr;
+  t.rows = min(kFmBM, M - m0);
+  t.cols = min(kFmBN, N - n0);
+  t.K = K;
+  const StoreEpi<T> epi{
+      seg_field(segs.c, seg) + static_cast<size_t>(m0) * N + n0, N};
+  fma_tile<T, SWIGLU>(t, epi);
 }
 
 template <typename T, bool SWIGLU>

@@ -15,12 +15,13 @@ layer, at world = 1:
 * ``xla_ar``: plain products throughout.
 
 Over a rank group of W > 1 (``runtime.dist``, the heads sharded over the
-ranks as JAX's ``shard_params`` shards them) the plain modes ``xla`` and
-``xla_ar`` run: the projections through the world > 1 XLA bodies of
-``ag_gemm_multi`` / ``gemm_rs`` (``xla``) or the sharded matmuls of
-``layers.common`` (``xla_ar``), and attention once per rank on its heads
-and its view of the cache's KV heads (JAX ``_attention``'s shard_map).
-The fused modes need the ring halves of the kernels and raise.
+ranks as JAX's ``shard_params`` shards them) every mode runs: the
+projections through ``ag_gemm_multi`` and ``gemm_rs`` (``ag_rs`` with
+the ring kernels, ``xla`` with their XLA bodies; x row-sharded) or the
+column-parallel QKV and ``gemm_ar`` (``gemm_ar`` with the ring kernel,
+``xla_ar`` with the sharded matmuls of ``layers.common``; x
+replicated), and attention once per rank on its heads and its view of
+the cache's KV heads (JAX ``_attention``'s shard_map).
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ import torch
 from triton_dist_tpu_torch.layers.common import (
     apply_rope, col_parallel_matmul, rms_norm, row_parallel_matmul_ar)
 from triton_dist_tpu_torch.ops.allgather_gemm import (
-    ag_gemm_multi, ag_gemm_multi_reference)
+    AllGatherGEMMContext, ag_gemm_multi, ag_gemm_multi_reference)
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
-    gemm_ar, gemm_rs, gemm_rs_reference)
+    GEMMReduceScatterContext, gemm_ar, gemm_rs, gemm_rs_reference)
 from triton_dist_tpu_torch.runtime.dist import RankGroup
 
 #: The forward modes of the layers (JAX ``TPAttn`` / ``TPMLP``).
@@ -45,15 +46,34 @@ def check_mode(mode: str) -> None:
         raise ValueError(f"unknown fwd mode {mode!r}")
 
 
-def output_gemm_ar(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The fused row-parallel projection of mode ``gemm_ar``."""
+def ring_contexts(group: RankGroup | None):
+    """A layer's (AG-GEMM, GEMM-RS) contexts over ``group``, which keep
+    the ring kernels' state across its calls (JAX's layers keep
+    ``ag_ctx`` / ``rs_ctx``); (None, None) at world 1."""
+    if group is None or group.world == 1:
+        return None, None
+    return AllGatherGEMMContext(group), GEMMReduceScatterContext(group)
+
+
+def output_gemm_ar(x: torch.Tensor, w: torch.Tensor,
+                   rs_ctx: GEMMReduceScatterContext | None = None
+                   ) -> torch.Tensor:
+    """The fused row-parallel projection of mode ``gemm_ar`` (over
+    ``rs_ctx``'s ranks at world W)."""
+    if rs_ctx is not None:
+        return gemm_ar(x.contiguous(), w, rs_ctx.group, ctx=rs_ctx)
     return gemm_ar(x.contiguous(), w)
 
 
-def output_gemm_rs(x: torch.Tensor, w: torch.Tensor,
-                   mode: str) -> torch.Tensor:
+def output_gemm_rs(x: torch.Tensor, w: torch.Tensor, mode: str,
+                   rs_ctx: GEMMReduceScatterContext | None = None
+                   ) -> torch.Tensor:
     """The row-parallel projection of the sharded modes: GEMM-RS in
-    ``ag_rs``, its plain version in ``xla``."""
+    ``ag_rs``, its plain version (at world W its XLA body) in ``xla``."""
+    if rs_ctx is not None:
+        return gemm_rs(x.contiguous(), w, rs_ctx.group,
+                       impl="xla" if mode == "xla" else "pallas",
+                       ctx=rs_ctx)
     if mode == "xla":
         return gemm_rs_reference(x, w)
     return gemm_rs(x.contiguous(), w)
@@ -72,6 +92,7 @@ class TPAttn:
                              f"{num_kv_heads} kv heads")
         self.group = group
         self.world = group.world if group is not None else 1
+        self.ag_ctx, self.rs_ctx = ring_contexts(group)
         if num_kv_heads % self.world:
             raise ValueError(f"{num_kv_heads} kv heads do not shard over "
                              f"{self.world} ranks")
@@ -168,21 +189,18 @@ class TPAttn:
 
     def _call_world(self, params, x, position_ids, rope_cache, kv_cache,
                     offset, mode, kv_start):
-        """The layer over a rank group of W > 1, modes ``xla`` and
-        ``xla_ar``: the global (M, H) activations in, the global (M, H)
-        output out (row-sharded in ``xla``, replicated in ``xla_ar``:
-        the same global tensor)."""
-        if mode not in ("xla", "xla_ar"):
-            raise NotImplementedError(
-                f"attention mode {mode!r} at world {self.world} runs the "
-                f"ring halves of the AG-GEMM and GEMM-RS/AR kernels, which "
-                f"are not ported yet (ROADMAP.md, Queue B items 3-5)")
+        """The layer over a rank group of W > 1: the global (M, H)
+        activations in, the global (M, H) output out (row-sharded in
+        ``ag_rs`` / ``xla``, replicated in ``gemm_ar`` / ``xla_ar``: the
+        same global tensor)."""
         group = self.group
         b, s = position_ids.shape
         d = self.head_dim
         w_qkv = [params["w_q"], params["w_k"], params["w_v"]]
-        if mode == "xla":
-            q, k, v = ag_gemm_multi(x, w_qkv, group, impl="xla")
+        if mode in ("ag_rs", "xla"):
+            q, k, v = ag_gemm_multi(
+                x.contiguous(), w_qkv, group,
+                impl="xla" if mode == "xla" else "pallas", ctx=self.ag_ctx)
         else:
             q, k, v = (col_parallel_matmul(x, w, group) for w in w_qkv)
         q = q.reshape(b, s, self.num_heads, d)
@@ -199,8 +217,10 @@ class TPAttn:
         attn = group.per_rank(local, q, k, v, kv_cache[0], kv_cache[1],
                               in_dims=(2,) * 5, out_dims=2)
         attn = attn.reshape(b * s, self.num_heads * d)
-        if mode == "xla":
-            out = gemm_rs(attn, params["w_o"], group, impl="xla")
+        if mode in ("ag_rs", "xla"):
+            out = output_gemm_rs(attn, params["w_o"], mode, self.rs_ctx)
+        elif mode == "gemm_ar":
+            out = output_gemm_ar(attn, params["w_o"], self.rs_ctx)
         else:
             out = row_parallel_matmul_ar(attn, params["w_o"], group)
         return out, kv_cache

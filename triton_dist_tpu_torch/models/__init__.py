@@ -4,7 +4,8 @@
 ``DenseLLM`` or a ``Qwen3MoE`` from the config's MoE fields and loads a
 local HF checkpoint's safetensors. ``moe_parallel`` and ``world`` reach
 the MoE model (``moe_parallel="ep", world=4``: expert parallelism over
-four ranks on the one card); a dense model runs at world 1.
+four ranks on the one card); ``world`` reaches a dense model too (tensor
+parallelism over the ranks), which has no ``moe_parallel`` but "tp".
 """
 
 from __future__ import annotations
@@ -51,12 +52,11 @@ class AutoLLM:
             return Qwen3MoE(config, device=device, fwd_mode=fwd_mode,
                             sp_axis=sp_axis, moe_parallel=moe_parallel,
                             world=world)
-        if moe_parallel != "tp" or world != 1:
-            raise ValueError(f"a dense model runs at world 1 without "
-                             f"experts, not moe_parallel={moe_parallel!r} "
-                             f"world={world}")
+        if moe_parallel != "tp":
+            raise ValueError(f"a dense model has no experts to shard: "
+                             f"moe_parallel={moe_parallel!r}")
         return DenseLLM(config, device=device, fwd_mode=fwd_mode,
-                        sp_axis=sp_axis)
+                        sp_axis=sp_axis, world=world)
 
     @staticmethod
     def from_pretrained(model_dir: str, device=None, fwd_mode: str = "ag_rs",

@@ -1,5 +1,14 @@
-"""Qwen3-class dense decoder at world = 1 (the port of
+"""Qwen3-class dense decoder (the port of
 ``triton_dist_tpu.models.dense.DenseLLM``).
+
+``world`` W > 1 runs tensor parallelism over W ranks on the one card
+(``runtime.dist.RankGroup``): the attention heads and the MLP's
+intermediate columns shard over the ranks as JAX shards them, every
+shard a view of the global parameters, so ``params_from_jax`` and
+``init`` are those of world 1. The activation layout follows JAX
+(dense.py:133-136): row-sharded in modes ``xla`` / ``ag_rs`` (B * S must
+split over the ranks), replicated in ``xla_ar`` / ``gemm_ar``; the fused
+modes run the ring kernels. Mode ``sp`` stays at world 1.
 
 The module owns the config and the layer objects; the parameters are a
 dict shaped like the JAX params pytree, weights in the JAX
@@ -29,6 +38,7 @@ from triton_dist_tpu_torch.ops.flash_decode import (
 from triton_dist_tpu_torch.ops.sp_attention import (
     SpAttentionContext, sp_ag_attention)
 from triton_dist_tpu_torch.runtime.device import default_device
+from triton_dist_tpu_torch.runtime.dist import create_rank_group
 
 
 class DenseLLM:
@@ -38,10 +48,11 @@ class DenseLLM:
     ``sp_axis`` (any name; "sp" by convention) enables mode "sp",
     :meth:`forward_sp`: prefill attention of ``ops.sp_attention`` and
     decode through the flash-decode kernels over contiguous or paged
-    caches."""
+    caches. ``world`` W shards the model over W ranks on the device."""
 
     def __init__(self, config: ModelConfig, device=None,
-                 fwd_mode: str = "ag_rs", sp_axis: str | None = None):
+                 fwd_mode: str = "ag_rs", sp_axis: str | None = None,
+                 world: int = 1):
         if config.is_moe:
             raise ValueError("DenseLLM needs a dense config; an MoE config "
                              "(num_experts > 0) builds Qwen3MoE (AutoLLM."
@@ -50,6 +61,8 @@ class DenseLLM:
         self.device = default_device(device)
         self.fwd_mode = fwd_mode
         self.sp_axis = sp_axis
+        self.world = world
+        self.group = create_rank_group(world, "tp", self.device)
         if sp_axis is not None:
             # The JAX model's contexts; its "ring" prefill impl is, at
             # world = 1, the plain math of ops.sp_attention.
@@ -61,9 +74,10 @@ class DenseLLM:
         self.attn = TPAttn(c.hidden_size, c.num_attention_heads,
                            c.num_key_value_heads, c.head_dim, dtype=c.dtype,
                            fwd_mode=fwd_mode,
-                           rms_eps=c.rms_norm_eps, qk_norm=c.qk_norm)
+                           rms_eps=c.rms_norm_eps, qk_norm=c.qk_norm,
+                           group=self.group)
         self.mlp = TPMLP(c.hidden_size, c.intermediate_size, dtype=c.dtype,
-                         fwd_mode=fwd_mode)
+                         fwd_mode=fwd_mode, group=self.group)
         self.rope_cache = precompute_rope_cache(
             c.head_dim, c.max_position_embeddings, c.rope_theta,
             device=self.device)
@@ -127,6 +141,10 @@ class DenseLLM:
         if block_table is not None:
             raise ValueError("paged caches need mode 'sp'")
         b, s = input_ids.shape
+        attn_mode = self._attn_mode(mode, b * s)
+        if attn_mode in ("xla", "ag_rs") and (b * s) % self.world:
+            raise ValueError(f"mode {attn_mode!r} shards the {b * s} rows "
+                             f"over {self.world} ranks: they must split")
         dev = input_ids.device
         steps = torch.arange(s, dtype=torch.int64, device=dev)[None]
         if torch.is_tensor(offset) and offset.dim() == 1:
@@ -145,7 +163,7 @@ class DenseLLM:
         for lp, cache in zip(params["layers"], kv_caches):
             h = rms_norm(x, lp["ln_attn"], c.rms_norm_eps)
             a, _ = self.attn(lp["attn"], h, position_ids, self.rope_cache,
-                             cache, offset, mode=self._attn_mode(mode),
+                             cache, offset, mode=attn_mode,
                              kv_start=kv_start)
             x = x + a
             h = rms_norm(x, lp["ln_mlp"], c.rms_norm_eps)
@@ -180,6 +198,11 @@ class DenseLLM:
         if self.sp_axis is None:
             raise ValueError("build the model with sp_axis=... to use "
                              "mode 'sp'")
+        if self.world > 1:
+            raise NotImplementedError(
+                f"mode 'sp' at world {self.world} (sequence parallelism "
+                f"over the ranks) is not ported yet (ROADMAP.md, Queue A "
+                f"item 13)")
         c = self.config
         b, s = input_ids.shape
         dev = input_ids.device
@@ -264,8 +287,9 @@ class DenseLLM:
         logits = x.float() @ params["lm_head_f32"].t()
         return logits, kv_caches
 
-    def _attn_mode(self, mode: str) -> str:
-        """The attention layer's mode in model mode ``mode``: the same."""
+    def _attn_mode(self, mode: str, rows: int) -> str:
+        """The attention layer's mode in model mode ``mode`` for ``rows``
+        rows: the same."""
         return mode
 
     def _ffn(self, lp: dict, h: torch.Tensor, mode: str) -> torch.Tensor:

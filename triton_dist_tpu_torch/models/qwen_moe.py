@@ -21,10 +21,9 @@ them through the all-to-all (the hand-written kernel on the card), and
 attention is TP over the same ranks. The mode choice is JAX's
 ``forward`` (qwen_moe.py:136-160): the MoE runs EP in every mode, and
 attention runs the requested mode, but in mode ``"ep"`` the fused
-``ag_rs`` path, whose world > 1 rings are not ported yet (at world > 1
-mode ``"ep"`` raises; modes ``"xla"`` and ``"xla_ar"`` run). ``sp_axis``
-needs ``moe_parallel="tp"``, as in JAX. ``moe_parallel="tp"`` runs at
-world 1 only.
+``ag_rs`` path over the ring kernels, or ``gemm_ar`` where the rows do
+not split over the ranks. ``sp_axis`` needs ``moe_parallel="tp"``, as
+in JAX. ``moe_parallel="tp"`` runs at world 1 only.
 """
 
 from __future__ import annotations
@@ -144,18 +143,13 @@ class Qwen3MoE:
     forward_sp = DenseLLM.forward_sp
     _paged_scatter = staticmethod(DenseLLM._paged_scatter)
 
-    def _attn_mode(self, mode: str) -> str:
-        """Attention's mode in model mode ``mode`` (JAX ``forward``,
-        qwen_moe.py:148-160): an EP model's mode "ep" runs the fused
-        ``ag_rs`` attention, whose world > 1 rings are not ported yet."""
+    def _attn_mode(self, mode: str, rows: int) -> str:
+        """Attention's mode in model mode ``mode`` for ``rows`` rows (JAX
+        ``forward``, qwen_moe.py:148-160): an EP model's mode "ep" runs
+        the fused ``ag_rs`` attention, or ``gemm_ar`` (replicated rows)
+        where the rows do not split over the ranks."""
         if self.moe_parallel == "ep" and mode == "ep":
-            if self.world > 1:
-                raise NotImplementedError(
-                    f"mode 'ep' at world {self.world} runs attention through "
-                    f"the ring halves of the AG-GEMM and GEMM-RS/AR kernels, "
-                    f"which are not ported yet (ROADMAP.md, Queue B items "
-                    f"3-5); serve EP with mode 'xla'")
-            return "ag_rs"
+            return "ag_rs" if rows % self.world == 0 else "gemm_ar"
         return mode
 
     def _ffn(self, lp: dict, h: torch.Tensor, mode: str) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""AllGather-GEMM and the fused AG-SwiGLU at world = 1.
+"""AllGather-GEMM and the fused AG-SwiGLU.
 
 The port of ``triton_dist_tpu.ops.allgather_gemm``: ``ag_gemm_multi``
 (:643), ``ag_gemm`` (:854) and ``ag_swiglu`` (:1088). With one ring
@@ -19,14 +19,27 @@ JAX does (:1193-1205). The VMEM-driven variant choice of
 ``ag_gemm_multi`` does not change the result at world = 1 and is not
 copied.
 
+At world W > 1 (a ``runtime.dist.RankGroup`` of W ranks on one card)
+``impl="pallas"`` runs the ring: ``csrc/ag_gemm_ring.cu``, one
+cooperative launch over every rank, the counterpart of the ring halves
+of ``_ag_gemm_kernel`` (:211), ``_ag_gemm_hbm_nb_kernel`` (:265),
+``_ag_gemm_hbm_kernel`` (:379) and ``_ag_swiglu_hbm_kernel`` (:954).
+Each output row block is one chunk's full-K product, so the ring's order
+does not change the numbers: the plain ring versions
+(:func:`ag_gemm_multi_ring_reference`, :func:`ag_swiglu_ring_reference`)
+take the chunks in ``ring_chunk_schedule`` order and equal the gathered
+product.
+
 On a CUDA tensor each entry point launches its kernel or raises; only
 tensors that lie on the CPU take the plain versions
-:func:`ag_gemm_multi_reference` and :func:`ag_swiglu_reference`.
+:func:`ag_gemm_multi_reference` and :func:`ag_swiglu_reference` (and the
+ring versions at world W).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -34,7 +47,10 @@ import torch
 import torch.nn.functional as F
 
 from triton_dist_tpu_torch.ops import _build
-from triton_dist_tpu_torch.ops.common import LaunchCount, aligned16, num_sms
+from triton_dist_tpu_torch.ops.common import (
+    LaunchCount, aligned16, check_ring_dirs, num_sms, ring_chunk_schedule)
+from triton_dist_tpu_torch.runtime.dist import RankGroup
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _OP_GEMM, _OP_SWIGLU = 0, 1
@@ -53,6 +69,15 @@ DEFAULT_VMEM_BUDGET = 12 * 1024 * 1024
 ag_gemm_launches = LaunchCount()
 #: Launches of the fused AG-SwiGLU kernel, by (plan, K, (width,)).
 ag_swiglu_launches = LaunchCount()
+#: Launches of the ring kernel by ``ag_gemm_multi`` at world W > 1, by
+#: (path, world, M, K, shard widths); path "mma" (tensor cores) or "fma".
+ag_ring_launches = LaunchCount()
+#: Launches of the ring kernel's fused SwiGLU by ``ag_swiglu`` at world
+#: W > 1, keyed as :data:`ag_ring_launches`.
+ag_swiglu_ring_launches = LaunchCount()
+#: Bytes of one piece of a travelling chunk: the grain of the ring's
+#: copies and signals.
+PIECE_BYTES = 32 * 1024
 
 
 # -- JAX's fusion rule ---------------------------------------------------------
@@ -115,65 +140,139 @@ def ag_swiglu_reference(a: torch.Tensor, w_gate: torch.Tensor,
     return (gate * torch.sigmoid(gate) * up).to(a.dtype)
 
 
+def _ring_rows(a: torch.Tensor, world: int, dirs: int, outs: list,
+               fn) -> list:
+    """Every rank's column block of ``outs``, chunk by chunk in
+    ``ring_chunk_schedule`` order: ``fn(chunk rows, r)`` gives rank r's
+    outputs of those rows."""
+    rows = a.shape[0] // world
+    for r in range(world):
+        for s in range(world):
+            c = ring_chunk_schedule(r, s, world, dirs)[0]
+            for out, v in zip(outs, fn(a[c * rows:(c + 1) * rows], r)):
+                n = out.shape[1] // world
+                out[c * rows:(c + 1) * rows, r * n:(r + 1) * n] = v
+    return outs
+
+
+def ag_gemm_multi_ring_reference(a: torch.Tensor, bs, world: int,
+                                 dirs: int = 2) -> list:
+    """Plain version of the ring kernel: rank r multiplies each chunk of
+    a, in its ring order, by its column shard of every b (f32 sum, one
+    rounding). Equals :func:`ag_gemm_multi_reference` of the gathered a."""
+    outs = [a.new_empty((a.shape[0], b.shape[1])) for b in bs]
+    shards = [[b.narrow(1, r * (b.shape[1] // world), b.shape[1] // world)
+               for b in bs] for r in range(world)]
+    return _ring_rows(a, world, dirs, outs,
+                      lambda x, r: ag_gemm_multi_reference(x, shards[r]))
+
+
+def ag_swiglu_ring_reference(a: torch.Tensor, w_gate: torch.Tensor,
+                             w_up: torch.Tensor, b_gate=None, b_up=None,
+                             world: int = 1, dirs: int = 2) -> torch.Tensor:
+    """Plain version of the ring kernel's fused SwiGLU: rank r's column
+    shard of :func:`ag_swiglu_reference`, chunk by chunk in ring order."""
+    n = w_gate.shape[1] // world
+
+    def fn(x, r):
+        cols = slice(r * n, (r + 1) * n)
+        biases = (() if b_gate is None else (b_gate[cols], b_up[cols]))
+        return [ag_swiglu_reference(x, w_gate[:, cols], w_up[:, cols],
+                                    *biases)]
+    out = a.new_empty((a.shape[0], w_gate.shape[1]))
+    return _ring_rows(a, world, dirs, [out], fn)[0]
+
+
 # -- entry points ----------------------------------------------------------------
 def ag_gemm_multi(a: torch.Tensor, bs, group=None,
-                  impl: str = "pallas") -> list:
-    """``[allgather(a) @ b for b in bs]`` at world = 1: each product with
-    f32 accumulation, cast to ``a.dtype``. a: (M, K); bs: one to three
+                  impl: str = "pallas", ctx=None) -> list:
+    """``[allgather(a) @ b for b in bs]``: each product with f32
+    accumulation, cast to ``a.dtype``. a: (M, K); bs: one to three
     (K, N_i) weights in the JAX (in, out) layout. Returns the list of
     (M, N_i) outputs.
 
-    CUDA tensors run the hand-written kernel, all products in one launch
-    (bf16 or f32, contiguous); CPU tensors run
+    At world 1 CUDA tensors run the hand-written kernel, all products in
+    one launch (bf16 or f32, contiguous); CPU tensors run
     :func:`ag_gemm_multi_reference`.
 
     Over a rank group (``runtime.dist.RankGroup``) of W > 1: a is the
-    row-sharded global (M, K), each b column-sharded. ``impl="xla"`` is
-    JAX's XLA body, plain: every rank multiplies the gathered a by its
-    column shard (:func:`ag_gemm_multi_reference`) and the results join
-    column-sharded. ``impl="pallas"`` (the ring all-gather under the
-    GEMM) is not ported yet and raises."""
+    row-sharded global (M, K), each b column-sharded, the results
+    column-sharded. ``impl="xla"`` is JAX's XLA body, plain: every rank
+    multiplies the gathered a by its column shard
+    (:func:`ag_gemm_multi_reference`). ``impl="pallas"`` is the ring
+    all-gather under the products: one launch of ``csrc/ag_gemm_ring.cu``
+    on CUDA tensors (:func:`launch_ag_ring`),
+    :func:`ag_gemm_multi_ring_reference` on CPU ones. ``ctx``: the
+    :class:`AllGatherGEMMContext` whose kernel state the call uses (a
+    layer keeps one across calls; default: a new one)."""
     bs = list(bs)
     _check_operands("ag_gemm_multi", a, bs)
     if group is not None and group.world > 1:
-        _check_world("ag_gemm_multi", a, group, impl)
-        n = len(bs)
-        return list(group.per_rank(
-            lambda *ws: tuple(ag_gemm_multi_reference(a, ws)), *bs,
-            in_dims=(1,) * n, out_dims=(1,) * n))
+        _check_world("ag_gemm_multi", a, bs, group, impl)
+        if impl == "xla":
+            n = len(bs)
+            return list(group.per_rank(
+                lambda *ws: tuple(ag_gemm_multi_reference(a, ws)), *bs,
+                in_dims=(1,) * n, out_dims=(1,) * n))
+        ctx = ctx or AllGatherGEMMContext(group)
+        if a.device.type == "cpu":
+            return ag_gemm_multi_ring_reference(a, bs, group.world,
+                                                ctx.ring_dirs)
+        return launch_ag_ring("gemm", a, bs, ctx)
     if a.device.type == "cpu":
         return ag_gemm_multi_reference(a, bs)
     return launch_gemm(a, bs, ag_gemm_launches)
 
 
-def ag_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``allgather(a) @ b`` at world = 1 (one product of
-    :func:`ag_gemm_multi`)."""
-    return ag_gemm_multi(a, [b])[0]
+def ag_gemm(a: torch.Tensor, b: torch.Tensor, group=None,
+            impl: str = "pallas", ctx=None) -> torch.Tensor:
+    """``allgather(a) @ b`` (one product of :func:`ag_gemm_multi`)."""
+    return ag_gemm_multi(a, [b], group, impl, ctx)[0]
 
 
 def ag_swiglu(a: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-              b_gate=None, b_up=None) -> torch.Tensor:
+              b_gate=None, b_up=None, group=None, impl: str = "pallas",
+              ctx=None) -> torch.Tensor:
     """``silu(allgather(a) @ w_gate + b_gate) * (allgather(a) @ w_up +
-    b_up)`` at world = 1. a: (M, K); w_gate/w_up: (K, N); b_gate/b_up:
-    optional (N,) biases, both or neither. Returns (M, N) in
-    ``a.dtype``.
+    b_up)``. a: (M, K); w_gate/w_up: (K, N); b_gate/b_up: optional (N,)
+    biases, both or neither. Returns (M, N) in ``a.dtype``.
 
-    Where :func:`swiglu_fuses` says JAX fuses, one kernel computes the
-    whole epilogue in f32 and rounds once (CPU tensors:
-    :func:`ag_swiglu_reference`). Elsewhere gate and up come from
-    :func:`ag_gemm_multi`, round to ``a.dtype`` (biases added in f32,
-    rounded again), and the SwiGLU follows in plain PyTorch, as JAX
-    composes it."""
+    Where :func:`swiglu_fuses` says JAX fuses (on each rank's rows and
+    columns), one kernel computes the whole epilogue in f32 and rounds
+    once (CPU tensors: :func:`ag_swiglu_reference`). Elsewhere gate and
+    up come from :func:`ag_gemm_multi`, round to ``a.dtype`` (biases
+    added in f32, rounded again), and the SwiGLU follows in plain
+    PyTorch, as JAX composes it (:1193-1205).
+
+    Over a rank group of W > 1: a row-sharded, the weights, biases and
+    result column-sharded. ``impl="xla"`` is JAX's XLA body (the fused
+    epilogue's arithmetic per rank, plain); ``impl="pallas"`` fuses
+    through the ring kernel (:func:`launch_ag_ring`; CPU tensors:
+    :func:`ag_swiglu_ring_reference`) or composes through the ring
+    ``ag_gemm_multi``."""
     _check_swiglu_operands(a, w_gate, w_up, b_gate, b_up)
     m, k = a.shape
     n = w_gate.shape[1]
-    if not swiglu_fuses(m, k, n, a.element_size()):
-        gate, up = ag_gemm_multi(a, [w_gate, w_up])
+    world = group.world if group is not None else 1
+    biases = [] if b_gate is None else [b_gate, b_up]
+    if world > 1:
+        _check_world("ag_swiglu", a, [w_gate, w_up], group, impl)
+        if impl == "xla":
+            return group.per_rank(
+                lambda *ws: ag_swiglu_reference(a, *ws), w_gate, w_up,
+                *biases, in_dims=(1, 1) + (0,) * len(biases), out_dims=1)
+    if not swiglu_fuses(m // world, k, n // world, a.element_size()):
+        gate, up = ag_gemm_multi(a, [w_gate, w_up], group, impl, ctx)
         if b_gate is not None:
             gate = (gate.float() + b_gate.float()).to(a.dtype)
             up = (up.float() + b_up.float()).to(a.dtype)
         return F.silu(gate.float()).to(a.dtype) * up
+    if world > 1:
+        ctx = ctx or AllGatherGEMMContext(group)
+        if a.device.type == "cpu":
+            return ag_swiglu_ring_reference(a, w_gate, w_up, b_gate, b_up,
+                                            world, ctx.ring_dirs)
+        return launch_ag_ring("swiglu", a, [w_gate, w_up], ctx, biases)[0]
     if a.device.type == "cpu":
         return ag_swiglu_reference(a, w_gate, w_up, b_gate, b_up)
     return launch_swiglu(a, w_gate, w_up, b_gate, b_up)
@@ -264,6 +363,111 @@ def launch_swiglu(a, w_gate, w_up, b_gate, b_up) -> torch.Tensor:
     return out
 
 
+# -- the ring kernel (world > 1) -------------------------------------------------
+@dataclasses.dataclass
+class AllGatherGEMMContext:
+    """JAX's ``AllGatherGEMMContext`` over a rank group: ``ring_dirs`` (2:
+    chunks travel both ways round the ring, ``ring_hop_counts``; 1: one
+    way). JAX reads ``TDT_RING_DIRS`` when ``ring_dirs`` is 0; the port
+    reads no environment variable, and its default is JAX's default.
+    ``state`` holds the kernel's workspaces and signals across calls."""
+    group: RankGroup
+    ring_dirs: int = 2
+    state: RingState = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        check_ring_dirs(self.ring_dirs)
+        self.state = RingState(self.group)
+
+    @property
+    def world_size(self) -> int:
+        return self.group.world
+
+
+def ring_path(dtype: torch.dtype, k: int, widths) -> str:
+    """The ring kernel's tile: "mma" (tensor cores: bf16 with K and every
+    shard width multiples of 8) or "fma"."""
+    mma = (dtype == torch.bfloat16 and k % 8 == 0
+           and all(n % 8 == 0 for n in widths))
+    return "mma" if mma else "fma"
+
+
+def launch_ag_ring(op: str, a: torch.Tensor, bs: list,
+                   ctx: AllGatherGEMMContext, biases=(),
+                   fault: bool = False) -> list:
+    """One launch of ``csrc/ag_gemm_ring.cu`` over every rank of
+    ``ctx.group``: op "gemm" (``bs`` one to three weights, counted in
+    :data:`ag_ring_launches`) or "swiglu" (``bs`` = [w_gate, w_up] and
+    optional ``biases`` (b_gate, b_up), counted in
+    :data:`ag_swiglu_ring_launches`). a (M, K), the weights and the
+    outputs are the global tensors (contiguous, CUDA, bf16 or f32), M and
+    every width multiples of W. Returns the list of outputs. ``fault``
+    plants the test fault of the kernel (rank 0's first push to the right
+    skipped, its signal still set)."""
+    _check_cuda(f"ag_{op} ring", a, list(bs) + list(biases))
+    lib = _ring_lib()
+    world = ctx.world_size
+    m, k = a.shape
+    rows = m // world
+    swiglu = op == "swiglu"
+    outs_w = [bs[0].shape[1]] if swiglu else [b.shape[1] for b in bs]
+    widths = tuple(n // world for n in outs_w)
+    path = ring_path(a.dtype, k, widths)
+    outs = [torch.empty((m, n), dtype=a.dtype, device=a.device)
+            for n in outs_w]
+    chunk_bytes = rows * k * a.element_size()
+    piece = min(PIECE_BYTES, -(-chunk_bytes // 16) * 16)
+    pieces = -(-chunk_bytes // piece)
+    state = ctx.state
+    ws = state.workspace(m * k, a.dtype)
+    sig = state.signals("ag", world * pieces)
+    a = aligned16(a)
+    bs = [aligned16(b) for b in bs]
+    if swiglu:
+        wg, wu = bs
+        b_ptrs, c_ptrs = [wg.data_ptr(), None, None], [outs[0].data_ptr(),
+                                                       None, None]
+        n_b, u_ptr = 1, wu.data_ptr()
+    else:
+        pad = MAX_PRODUCTS - len(bs)
+        b_ptrs = [b.data_ptr() for b in bs] + [None] * pad
+        c_ptrs = [o.data_ptr() for o in outs] + [None] * pad
+        n_b, u_ptr = len(bs), None
+    bias_ptrs = ([t.data_ptr() for t in biases] if biases
+                 else [None, None])
+    n_loc = list(widths) + [0] * (MAX_PRODUCTS - len(widths))
+    # The tables stay referenced until the launch is queued: a freed
+    # temporary's memory would be handed to the next one.
+    ws_tab, sig_tab = rank_table(ws, world), rank_table(sig, world)
+    epoch = state.next_epoch()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _check(lib, lib.tdt_ag_ring(
+        _OP_SWIGLU if swiglu else _OP_GEMM, _DTYPE_CODES[a.dtype],
+        int(path == "mma"), a.data_ptr(), ws_tab.data_ptr(),
+        sig_tab.data_ptr(), n_b, *b_ptrs, *c_ptrs, *n_loc,
+        u_ptr, *bias_ptrs, world, rows, k, pieces, piece, ctx.ring_dirs,
+        epoch, int(fault), stream))
+    count = ag_swiglu_ring_launches if swiglu else ag_ring_launches
+    count.add((path, world, m, k, widths))
+    return outs
+
+
+def _ring_lib() -> ctypes.CDLL:
+    lib = _build.load("ag_gemm_ring")
+    if lib.tdt_ag_ring.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tdt_ag_ring_grid.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.tdt_ag_ring_grid.restype = i
+        lib.tdt_ag_ring.argtypes = ([i, i, i, p, p, p, i] + [p] * 6
+                                    + [i] * 3 + [p] * 3 + [i] * 4
+                                    + [ctypes.c_longlong, i,
+                                       ctypes.c_ulonglong, i, p])
+        lib.tdt_ag_ring.restype = i
+        lib.tdt_error_string.argtypes = [i]
+        lib.tdt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _check_operands(op: str, a: torch.Tensor, bs: list) -> None:
     if not 1 <= len(bs) <= MAX_PRODUCTS:
         raise ValueError(f"{op} takes 1 to {MAX_PRODUCTS} weights, got "
@@ -283,17 +487,18 @@ def _check_operands(op: str, a: torch.Tensor, bs: list) -> None:
                          f"{[str(b.device) for b in bs]}")
 
 
-def _check_world(op: str, a: torch.Tensor, group, impl: str) -> None:
-    """What a world > 1 call takes: the plain XLA body, and rows that
-    split over the ranks."""
-    if impl != "xla":
-        raise NotImplementedError(
-            f"{op}(impl={impl!r}) at world {group.world} runs the ring "
-            f"halves of AG-GEMM / GEMM-RS, which are not ported yet "
-            f"(ROADMAP.md, Queue B items 3-5)")
+def _check_world(op: str, a: torch.Tensor, bs: list, group,
+                 impl: str) -> None:
+    """What a world > 1 call takes: a known impl, rows and weight columns
+    that split over the ranks."""
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown {op} impl {impl!r}")
     if a.shape[0] % group.world:
         raise ValueError(f"{op}: {a.shape[0]} rows do not split over "
                          f"{group.world} ranks")
+    if any(b.shape[1] % group.world for b in bs):
+        raise ValueError(f"{op}: weight widths {[b.shape[1] for b in bs]} "
+                         f"do not split over {group.world} ranks")
 
 
 def _check_swiglu_operands(a, w_gate, w_up, b_gate, b_up) -> None:

@@ -1,5 +1,4 @@
-"""GEMM + AllReduce (``gemm_ar``) and GEMM + ReduceScatter (``gemm_rs``)
-at world = 1.
+"""GEMM + AllReduce (``gemm_ar``) and GEMM + ReduceScatter (``gemm_rs``).
 
 The port of ``triton_dist_tpu.ops.gemm_reduce_scatter.gemm_ar`` (:898)
 and ``gemm_rs`` (:884). With one ring member their Pallas kernels
@@ -12,14 +11,27 @@ that kernel for M <= 64 and the tiled prefill GEMM of ``csrc/ag_gemm.cu``
 (one product) above. The notes at the top of the sources say what bounds
 them and what their design does about that.
 
-On a CUDA tensor both launch a kernel or raise; they never fall back to
-a library product. Only tensors that lie on the CPU take the plain
-versions :func:`gemm_ar_reference` and :func:`gemm_rs_reference`.
+At world W > 1 (a ``runtime.dist.RankGroup`` of W ranks on one card)
+``impl="pallas"`` runs the ring: ``csrc/gemm_rs_ring.cu``, one
+cooperative launch over every rank, the counterpart of the three Pallas
+kernels' ring reduce-scatter and (``gemm_ar``) its ring all-gather
+epilogue. The ring's sum order and roundings are JAX's, not a psum's:
+:func:`gemm_rs_ring_reference` repeats them, and :func:`ring_plan`, a
+copy of JAX's variant and block choice, says where the two ring
+directions split the columns. Where JAX's ``gemm_ar`` falls back to its
+XLA psum (the k-tiled variant, which has no all-gather epilogue), the
+port gives the psum's result too (:func:`_psum_of_products`).
+
+On a CUDA tensor every entry point launches a kernel or raises; none
+falls back to a library product. Only tensors that lie on the CPU take
+the plain versions (:func:`gemm_ar_reference`, :func:`gemm_rs_reference`
+and, at world W, the ring references).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -27,7 +39,11 @@ import torch
 
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops import allgather_gemm
-from triton_dist_tpu_torch.ops.common import LaunchCount, aligned16, num_sms
+from triton_dist_tpu_torch.ops.allgather_gemm import DEFAULT_VMEM_BUDGET
+from triton_dist_tpu_torch.ops.common import (
+    LaunchCount, aligned16, check_ring_dirs, num_sms)
+from triton_dist_tpu_torch.runtime.dist import RankGroup
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 #: Largest M that ``gemm_rs`` sends to the B-streaming gemm_ar kernel.
@@ -39,6 +55,12 @@ launches = LaunchCount()
 #: Launches by ``gemm_rs``, by (plan, K, N): plan "decode" is the gemm_ar
 #: kernel (M <= 64), "prefill" / "fma" the AG-GEMM kernel's plans.
 gemm_rs_launches = LaunchCount()
+#: Launches of the ring kernel by ``gemm_rs`` at world W > 1, by (path,
+#: world, rows, K per rank, N); path "mma" (tensor cores) or "fma".
+rs_ring_launches = LaunchCount()
+#: Launches of the ring kernel with its all-gather epilogue by ``gemm_ar``
+#: at world W > 1, keyed as :data:`rs_ring_launches`.
+ar_ring_launches = LaunchCount()
 
 
 def gemm_ar_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -88,18 +110,30 @@ def _check_operands(op: str, a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def gemm_ar(a: torch.Tensor, b: torch.Tensor, group=None,
-            impl: str = "pallas") -> torch.Tensor:
-    """``allreduce(a @ b)`` at world = 1: ``(a @ b)`` with f32
-    accumulation, cast to ``a.dtype``. a: (M, K), b: (K, N) in the JAX
-    (in, out) layout. Returns (M, N).
+            impl: str = "pallas", ctx=None) -> torch.Tensor:
+    """``allreduce(a @ b)``: a (M, K), b (K, N) in the JAX (in, out)
+    layout. Returns (M, N) in ``a.dtype``.
 
-    CUDA tensors run the hand-written kernel (bf16 or f32, contiguous);
-    CPU tensors run :func:`gemm_ar_reference`. Over a rank group of
-    W > 1, see :func:`gemm_rs` (the result is replicated, JAX pads M to
-    the ranks)."""
+    At world 1 the reduction is the identity: ``(a @ b)`` with f32
+    accumulation, cast to ``a.dtype``; CUDA tensors run the hand-written
+    kernel (bf16 or f32, contiguous), CPU tensors
+    :func:`gemm_ar_reference`.
+
+    Over a rank group of W > 1: a is column-sharded, b row-sharded, the
+    result replicated; M need not split over the ranks (JAX pads it with
+    zero rows and slices them off). ``impl="xla"``: each rank's rounded
+    partial product, summed (``RankGroup.psum``). ``impl="pallas"``: the
+    ring of :func:`gemm_rs` with the all-gather epilogue, one launch of
+    ``csrc/gemm_rs_ring.cu`` on CUDA tensors (:func:`launch_ring`),
+    :func:`gemm_ar_ring_reference` on CPU ones; where JAX falls back to
+    its psum (:func:`ring_plan` variant "xla") the psum's result."""
     _check_operands("gemm_ar", a, b)
     if group is not None and group.world > 1:
-        return _psum_of_products("gemm_ar", a, b, group, impl, pad=True)
+        _check_impl("gemm_ar", impl)
+        if impl == "xla":
+            return _psum_of_products("gemm_ar", a, b, group, pad=True)
+        return _ring("gemm_ar", a, b, ctx or GEMMReduceScatterContext(group),
+                     True)
     if a.device.type == "cpu":
         return gemm_ar_reference(a, b)
     return _launch_gemm_ar("gemm_ar", a, b, launches,
@@ -107,25 +141,32 @@ def gemm_ar(a: torch.Tensor, b: torch.Tensor, group=None,
 
 
 def gemm_rs(a: torch.Tensor, b: torch.Tensor, group=None,
-            impl: str = "pallas") -> torch.Tensor:
-    """``reduce_scatter(a @ b)`` at world = 1: ``(a @ b)`` with f32
-    accumulation, cast to ``a.dtype``, the function of :func:`gemm_ar`.
-    a: (M, K), b: (K, N) in the JAX (in, out) layout. Returns (M, N).
+            impl: str = "pallas", ctx=None) -> torch.Tensor:
+    """``reduce_scatter(a @ b)``: a (M, K), b (K, N) in the JAX (in, out)
+    layout. Returns (M, N) in ``a.dtype``.
 
-    CUDA tensors (bf16 or f32, contiguous) run the gemm_ar kernel for
-    M <= :data:`DECODE_MAX_M`, which streams B once for all rows, and the
-    AG-GEMM kernel's tiled plan above; both count in
-    :data:`gemm_rs_launches`. CPU tensors run :func:`gemm_rs_reference`.
+    At world 1 the function of :func:`gemm_ar`. CUDA tensors (bf16 or
+    f32, contiguous) run the gemm_ar kernel for M <= :data:`DECODE_MAX_M`,
+    which streams B once for all rows, and the AG-GEMM kernel's tiled plan
+    above; both count in :data:`gemm_rs_launches`. CPU tensors run
+    :func:`gemm_rs_reference`.
 
     Over a rank group (``runtime.dist.RankGroup``) of W > 1: a is
-    column-sharded, b row-sharded, the result row-sharded. ``impl="xla"``
-    is JAX's XLA body, plain: each rank's partial product rounded
-    (:func:`gemm_rs_reference` on its shards), summed over the ranks
-    (``RankGroup.psum``). ``impl="pallas"`` (the ring reduce-scatter) is
-    not ported yet and raises."""
+    column-sharded, b row-sharded, the result row-sharded (M must split
+    over the ranks). ``impl="xla"`` is JAX's XLA body, plain: each rank's
+    partial product rounded, summed over the ranks (``RankGroup.psum``).
+    ``impl="pallas"`` is the ring reduce-scatter in JAX's sum order: one
+    launch of ``csrc/gemm_rs_ring.cu`` on CUDA tensors
+    (:func:`launch_ring`), :func:`gemm_rs_ring_reference` on CPU ones.
+    ``ctx``: the :class:`GEMMReduceScatterContext` whose kernel state the
+    call uses (a layer keeps one across calls; default: a new one)."""
     _check_operands("gemm_rs", a, b)
     if group is not None and group.world > 1:
-        return _psum_of_products("gemm_rs", a, b, group, impl)
+        _check_impl("gemm_rs", impl)
+        if impl == "xla":
+            return _psum_of_products("gemm_rs", a, b, group)
+        return _ring("gemm_rs", a, b, ctx or GEMMReduceScatterContext(group),
+                     False)
     if a.device.type == "cpu":
         return gemm_rs_reference(a, b)
     m, k = a.shape
@@ -136,22 +177,284 @@ def gemm_rs(a: torch.Tensor, b: torch.Tensor, group=None,
                            ("decode", k, (n,)))
 
 
+def _check_impl(op: str, impl: str) -> None:
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown {op} impl {impl!r}")
+
+
 def _psum_of_products(op: str, a: torch.Tensor, b: torch.Tensor, group,
-                      impl: str, pad: bool = False) -> torch.Tensor:
+                      pad: bool = False) -> torch.Tensor:
     """The world > 1 XLA body of gemm_rs / gemm_ar: the sum over ranks of
     each rank's rounded partial product. ``pad``: rows that do not split
     over the ranks are allowed (gemm_ar pads and slices them in JAX,
     which leaves the sum of the real rows as it is)."""
-    if impl != "xla":
-        raise NotImplementedError(
-            f"{op}(impl={impl!r}) at world {group.world} runs the ring "
-            f"reduce-scatter of GEMM-RS/AR, which is not ported yet "
-            f"(ROADMAP.md, Queue B items 3-5)")
     if not pad and a.shape[0] % group.world:
         raise ValueError(f"{op}: {a.shape[0]} rows do not split over "
                          f"{group.world} ranks")
     return group.psum(gemm_rs_reference(xs, ws) for xs, ws in
                       zip(group.shard(a, 1), group.shard(b, 0)))
+
+
+# -- the ring (world > 1) ----------------------------------------------------------
+@dataclasses.dataclass
+class GEMMReduceScatterContext:
+    """JAX's ``GEMMReduceScatterContext`` over a rank group: ``ring_dirs``
+    (2: the columns split between the two ring directions; 1: one ring)
+    and ``vmem_budget``, which the port reads only to copy JAX's variant
+    choice (:func:`ring_plan`). JAX reads ``TDT_RING_DIRS`` when
+    ``ring_dirs`` is 0; the port reads no environment variable, and its
+    default is JAX's default. ``state`` holds the kernel's slabs and
+    signals across calls."""
+    group: RankGroup
+    ring_dirs: int = 2
+    vmem_budget: int = DEFAULT_VMEM_BUDGET
+    state: RingState = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        check_ring_dirs(self.ring_dirs)
+        self.state = RingState(self.group)
+
+    @property
+    def world_size(self) -> int:
+        return self.group.world
+
+
+class RingPlan(NamedTuple):
+    """What JAX's ``_entry`` (gemm_reduce_scatter.py:620-820) runs for one
+    call: ``variant`` "vmem", "hbm" or "hbm_kt" (the Pallas kernel), or
+    "xla" (gemm_ar's psum fallback); ``dirs`` the effective ring
+    directions; ``split`` the first column of the mirrored ring (N with
+    one direction)."""
+    variant: str
+    dirs: int
+    split: int
+
+
+def _pick_block(total: int, want: int) -> int:
+    for cand in (want, 512, 256, 128):
+        if cand <= total and total % cand == 0:
+            return cand
+    return total
+
+
+def _hbm_nb_footprint(bm: int, bn: int, k_loc: int, itemsize: int) -> int:
+    return itemsize * (2 * bm * k_loc + 2 * k_loc * bn + 4 * bm * bn)
+
+
+def _hbm_budget_blocks(rows: int, k_loc: int, n: int, itemsize: int,
+                       budget: int):
+    """The first in-budget N-blocked config of JAX's ``gemm_rs_configs``
+    (:69-130, block_n then block_m descending), as (block_m, block_n), or
+    None: the re-filter of ``_entry`` (:724-733) takes its first entry."""
+    for bn in (2048, 1024, 512, 256, 128):
+        if bn > n or n % bn:
+            continue
+        for bm in (1024, 512, 256, 128):
+            if bm > rows or rows % bm:
+                continue
+            if _hbm_nb_footprint(bm, bn, k_loc, itemsize) <= budget:
+                return bm, bn
+    return None
+
+
+@functools.cache
+def ring_plan(m: int, k_loc: int, n: int, itemsize: int, world: int,
+              ring_dirs: int = 2, all_gather_epilogue: bool = False,
+              vmem_budget: int = DEFAULT_VMEM_BUDGET) -> RingPlan:
+    """JAX's decision for a ``gemm_rs`` / ``gemm_ar`` call of (already
+    padded) ``m`` rows, ``k_loc`` columns of a per rank and ``n`` output
+    columns at ``world`` ranks, with the default context's block hints
+    (256 x 512) and no autotuning: ``resolve_variant`` (:226-237), the
+    hbm block clamp and re-filter (:712-733), gemm_ar's psum fallback
+    (:735-741) and the effective directions (:745, :802, :845)."""
+    rows = m // world
+    fp = itemsize * (m * k_loc + k_loc * n + rows * n
+                     + 2 * max(world - 1, 1) * rows * n)
+    variant = "vmem" if fp <= vmem_budget else "hbm"
+    n_blk = None
+    if variant == "hbm":
+        m_blk, n_blk = _pick_block(rows, 256), _pick_block(n, 512)
+        if _hbm_nb_footprint(m_blk, n_blk, k_loc, itemsize) > vmem_budget:
+            cand = _hbm_budget_blocks(rows, k_loc, n, itemsize, vmem_budget)
+            if cand is None:
+                variant = "hbm_kt"
+            else:
+                n_blk = cand[1]
+    if variant == "hbm_kt":
+        if all_gather_epilogue:
+            return RingPlan("xla", 1, n)
+        return RingPlan("hbm_kt", 1, n)
+    if variant == "hbm":
+        n_blocks = n // n_blk
+        if ring_dirs == 2 and world > 1 and n_blocks >= 2:
+            return RingPlan("hbm", 2, (n_blocks // 2) * n_blk)
+        return RingPlan("hbm", 1, n)
+    if ring_dirs == 2 and world > 1 and n % 256 == 0:
+        return RingPlan("vmem", 2, n // 2)
+    return RingPlan("vmem", 1, n)
+
+
+def _ring_partials(a: torch.Tensor, b: torch.Tensor,
+                   world: int) -> torch.Tensor:
+    """Every rank's partial product, rounded to ``a.dtype``: (W, M, N)."""
+    m, k = a.shape
+    kl = k // world
+    ar = a.reshape(m, world, kl).transpose(0, 1).float()
+    br = b.reshape(world, kl, b.shape[1]).float()
+    return torch.bmm(ar, br).to(a.dtype)
+
+
+def gemm_rs_ring_reference(a: torch.Tensor, b: torch.Tensor, world: int,
+                           split: int) -> torch.Tensor:
+    """Plain version of the ring kernel: the global (M, N) result of the
+    ring reduce-scatter, in its sum order and roundings. Each rank's
+    partial is rounded to ``a.dtype``; row chunk c's columns [0, split)
+    add the partials p_{c+1}, p_{c+2}, ..., p_{c-1} and then p_c, its
+    columns [split, N) p_{c-1}, p_{c-2}, ..., p_{c+1} and then p_c (the
+    mirrored ring), each running sum rounded to ``a.dtype`` (JAX
+    ``send_buf[s] = part + recv_buf[s - 1]``, :296-318)."""
+    m, n = a.shape[0], b.shape[1]
+    rows = m // world
+    parts = _ring_partials(a, b, world).reshape(world, world, rows, n)
+    chunks = torch.arange(world, device=a.device)
+    out = torch.empty((world, rows, n), dtype=a.dtype, device=a.device)
+    for c0, c1, d in ((0, split, 1), (split, n, -1)):
+        if c0 == c1:
+            continue
+
+        def part(j):     # partial of rank c + j * d for every chunk c
+            return parts[(chunks + j * d) % world, chunks][..., c0:c1]
+        acc = part(1)
+        for j in list(range(2, world)) + [0]:
+            acc = (acc.float() + part(j).float()).to(a.dtype)
+        out[..., c0:c1] = acc
+    return out.reshape(m, n)
+
+
+def gemm_ar_ring_reference(a: torch.Tensor, b: torch.Tensor, world: int,
+                           split: int) -> torch.Tensor:
+    """Plain version of the ring kernel with its all-gather epilogue: M
+    padded with zero rows to a multiple of ``world``, the ring
+    reduce-scatter of :func:`gemm_rs_ring_reference`, the padding sliced
+    off. The all-gather copies, so every rank's (M, N) is this one."""
+    m = a.shape[0]
+    pad = -m % world
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad, a.shape[1]))])
+    return gemm_rs_ring_reference(a, b, world, split)[:m]
+
+
+def _ring(op: str, a: torch.Tensor, b: torch.Tensor,
+          ctx: GEMMReduceScatterContext, ag: bool) -> torch.Tensor:
+    """gemm_rs / gemm_ar at world W > 1 through the ring."""
+    world = ctx.world_size
+    m, k = a.shape
+    if k % world:
+        raise ValueError(f"{op}: K = {k} does not split over {world} ranks")
+    if not ag and m % world:
+        raise ValueError(f"{op}: {m} rows do not split over {world} ranks")
+    n = b.shape[1]
+    pad = -m % world
+    p = ring_plan(m + pad, k // world, n, a.element_size(), world,
+                  ctx.ring_dirs, ag, ctx.vmem_budget)
+    if p.variant == "xla":
+        return _psum_of_products(op, a, b, ctx.group, pad=True)
+    if a.device.type == "cpu":
+        if ag:
+            return gemm_ar_ring_reference(a, b, world, p.split)
+        return gemm_rs_ring_reference(a, b, world, p.split)
+    allgather_gemm._check_cuda(op, a, [b])
+    _ring_lib()
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad, k))])
+    out = launch_ring(a, b, ctx, p.split, ag)
+    return out[0, :m] if ag else out
+
+
+def ring_path(dtype: torch.dtype, k_loc: int, n: int, split: int) -> str:
+    """The ring kernel's tile: "mma" (tensor cores: bf16 with K per rank,
+    N and the split multiples of 8) or "fma"."""
+    mma = (dtype == torch.bfloat16 and k_loc % 8 == 0 and n % 8 == 0
+           and split % 8 == 0)
+    return "mma" if mma else "fma"
+
+
+@functools.cache
+def _ring_tiles(mma: bool, rows: int, n: int, split: int) -> int:
+    lib = _ring_lib()
+    out = ctypes.c_int()
+    _check(lib, lib.tdt_rs_ring_tiles(int(mma), rows, n, split,
+                                      ctypes.byref(out)))
+    return out.value
+
+
+def launch_ring(a: torch.Tensor, b: torch.Tensor,
+                ctx: GEMMReduceScatterContext, split: int,
+                all_gather_epilogue: bool, fault: bool = False
+                ) -> torch.Tensor:
+    """One launch of ``csrc/gemm_rs_ring.cu`` over every rank of
+    ``ctx.group``, counted in :data:`rs_ring_launches` (or, with the
+    all-gather epilogue, :data:`ar_ring_launches`). a (M, K) and b (K, N)
+    are the global tensors (contiguous, CUDA, bf16 or f32), M and K
+    multiples of W. Returns the row-sharded (M, N) result, or with the
+    epilogue every rank's (M, N) buffer as one (W, M, N) tensor (rank 0's
+    is the replicated result). ``fault`` plants the test fault of the
+    kernel (rank 0's first pushes skipped, their signals still set)."""
+    allgather_gemm._check_cuda("gemm_rs ring", a, [b])
+    world = ctx.world_size
+    m, k = a.shape
+    n = b.shape[1]
+    rows, kl = m // world, k // world
+    path = ring_path(a.dtype, kl, n, split)
+    mma = path == "mma"
+    tiles = _ring_tiles(mma, rows, n, split)
+    state = ctx.state
+    slabs = state.workspace((world - 1) * rows * n, a.dtype)
+    sig = state.signals("rs", (world - 1) * tiles)
+    a, b = aligned16(a), aligned16(b)
+    if all_gather_epilogue:
+        out = torch.empty((world, m, n), dtype=a.dtype, device=a.device)
+        out_tab = rank_table(out, world)
+        ag_sig = state.signals("ag", world * tiles)
+        ag_tab = rank_table(ag_sig, world)
+        out_ptr = None
+    else:
+        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        out_tab = ag_tab = None
+        out_ptr = out.data_ptr()
+    # The tables stay referenced until the launch is queued: a freed
+    # temporary's memory would be handed to the next one.
+    slab_tab, sig_tab = rank_table(slabs, world), rank_table(sig, world)
+    epoch = state.next_epoch()
+    lib = _ring_lib()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _check(lib, lib.tdt_rs_ring(
+        _DTYPE_CODES[a.dtype], int(mma), a.data_ptr(), b.data_ptr(), out_ptr,
+        slab_tab.data_ptr(), sig_tab.data_ptr(),
+        out_tab.data_ptr() if out_tab is not None else None,
+        ag_tab.data_ptr() if ag_tab is not None else None,
+        int(all_gather_epilogue), world, rows, kl, n, split, epoch,
+        int(fault), stream))
+    count = ar_ring_launches if all_gather_epilogue else rs_ring_launches
+    count.add((path, world, rows, kl, n))
+    return out
+
+
+def _ring_lib() -> ctypes.CDLL:
+    lib = _build.load("gemm_rs_ring")
+    if lib.tdt_rs_ring.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip = ctypes.POINTER(i)
+        lib.tdt_rs_ring_grid.argtypes = [i, i, i, ip]
+        lib.tdt_rs_ring_grid.restype = i
+        lib.tdt_rs_ring_tiles.argtypes = [i, i, i, i, ip]
+        lib.tdt_rs_ring_tiles.restype = i
+        lib.tdt_rs_ring.argtypes = ([i, i] + [p] * 7 + [i] * 6
+                                    + [ctypes.c_ulonglong, i, p])
+        lib.tdt_rs_ring.restype = i
+        lib.tdt_error_string.argtypes = [i]
+        lib.tdt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _launch_gemm_ar(op: str, a: torch.Tensor, b: torch.Tensor,

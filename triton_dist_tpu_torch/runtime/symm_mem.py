@@ -10,7 +10,9 @@ addresses: a kernel reaches rank r's buffer through ``table[r]``
 (``csrc/shmem.cuh``: ``tdt_peer_ptr``), never by assuming the ranks lie
 side by side. :func:`rank_table` gives the same table for the rank
 shards of one global tensor (its leading dimension), as the all-to-all
-uses for its send and receive buffers.
+uses for its send and receive buffers. :class:`RingState` holds the
+per-rank workspaces and signals of the ring kernels (AG-GEMM, GEMM-RS /
+AR) across calls, with the call counter that stamps the signals.
 """
 
 from __future__ import annotations
@@ -92,3 +94,51 @@ def rank_table(x: torch.Tensor, world: int) -> torch.Tensor:
                                          device=x.device)
     step = x.stride(0) * (x.shape[0] // world) * x.element_size()
     return ar * step + x.data_ptr()
+
+
+#: Elements past the live ones in every rank's ring workspace, filled with
+#: NaN when the workspace is made: a kernel that writes past its live rows
+#: shows there (``chip_smoke.py`` checks them).
+CANARY = 64
+
+
+class RingState:
+    """The kernel state a ring op's context keeps across calls: per-rank
+    workspaces (one ``(W, row)`` tensor per size and dtype, rank r's
+    buffer its row r, NaN-filled when made, so every row ends in
+    :data:`CANARY` NaN elements the kernel never touches), 64-bit signal
+    buffers (zeroed when made, never reset) and the call counter
+    (``epoch``) that stamps them, as ``AllToAllContext`` keeps its own.
+    Stream order separates two calls, so one workspace serves them all."""
+
+    def __init__(self, group: RankGroup):
+        self.group = group
+        self.epoch = 0
+        self._buffers: dict = {}
+
+    def workspace(self, numel: int, dtype: torch.dtype) -> torch.Tensor:
+        """The (W, row) workspace of ``numel`` live elements per rank; its
+        rank table is ``rank_table(ws, W)``."""
+        key = ("ws", numel, dtype)
+        ws = self._buffers.get(key)
+        if ws is None:
+            row = -(-numel // CANARY) * CANARY + CANARY
+            ws = self._buffers[key] = torch.full(
+                (self.group.world, row), float("nan"), dtype=dtype,
+                device=self.group.device)
+        return ws
+
+    def signals(self, role: str, count: int) -> torch.Tensor:
+        """The (W, count) int64 signals of ``role`` (zeroed once)."""
+        key = ("sig", role, count)
+        sig = self._buffers.get(key)
+        if sig is None:
+            sig = self._buffers[key] = torch.zeros(
+                (self.group.world, count), dtype=torch.int64,
+                device=self.group.device)
+        return sig
+
+    def next_epoch(self) -> int:
+        """This call's epoch: one more than the last call's."""
+        self.epoch += 1
+        return self.epoch
