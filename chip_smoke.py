@@ -172,10 +172,34 @@ without the final line:
     agreement with phase 3 (not gated); wall and device time, idle share
     and the device time by kernel of a decode step and a prefill.
 
+19. sequence-world kernels: the world-W flash-decode exchange
+    (``tdt_flash_decode_world``) at W = 2, 3, 4, 8, single / tiled dense /
+    tiled paged, bf16 and f32, kv_len 1 (ranks past the first empty),
+    ragged and full, within the weight rule of the plain world-W decode,
+    the W rank outputs bit-equal, repeats bit-identical, a skipped push
+    (its signal set) refused; the ring-KV prefill
+    (``tdt_sp_ring_attention``) at W = 2, 4, 8 causal and W = 4 full and
+    f32 at Qwen3-8B's attention width, within ``sp_attention_tolerance``
+    of the plain world-W version, a skipped forward refused.
+20. SP main path: Qwen3-8B (phase 3's params, full width and depth) as
+    ``AutoLLM.build(cfg, sp_axis="sp", sp_world=4)``, served by a paged
+    engine, a contiguous engine of 4096 positions (the tiled variant) and
+    one of 1024 prefilled in chunks of 64 (the single-pass variant), a
+    prefix-cache stream and the server, every count set to 0 just before:
+    36 world-W launches per decode step, none of the world-1 decode
+    kernels or of a prefill kernel; decode-step logits within 0.25 of the
+    plain world-4 decode, argmax agreement, wall / device time and idle
+    share; greedy agreement with phase 8 (not gated).
+21. SP long context at W = 4: ``SpAttentionLayer(impl="pallas")`` over a
+    group of 4 on phase 14's 32k inputs (one ring launch) and 32 append +
+    decode steps through ``SpFlashDecodeLayer`` over the sequence-split
+    cache (one world-W launch each), each against its plain world-4
+    version; times beside the world-1 kernels' on the same inputs.
+
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
-release, before the Qwen3-30B-A3B load), phases 17-18 after phase 11
-(before that release), phase 16 after phase 13; the JSON line covers all
-seven slices.
+release, before the Qwen3-30B-A3B load), phases 17-20 after phase 11
+(before that release), phase 21 after phase 15, phase 16 after phase 13;
+the JSON line covers all eight slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -708,7 +732,8 @@ def sp_prompts(torch, cfg, seed: int):
 def phase_sp_main(torch, models, ops, fd, cfg, params, card: str,
                   seed: int):
     """The sp main path: serve on (a), (b), (c), the stream on (a') and the
-    server over (a). Returns (engines, tokens by engine, launches)."""
+    server over (a). Returns (engines, the prompts, the stream, launches,
+    engine (a)'s tokens)."""
     print("== phase 8: Qwen3-8B served in mode 'sp' through the "
           "flash-decode kernels", flush=True)
     model = models.DenseLLM(cfg, sp_axis="sp")
@@ -790,7 +815,7 @@ def phase_sp_main(torch, models, ops, fd, cfg, params, card: str,
     for t in list(tokens.values()) + [torch.tensor(r) for r in res]:
         check(bool(((t >= 0) & (t < cfg.vocab_size)).all()),
               "token out of vocabulary")
-    return engines, square, stream, fd_launches
+    return engines, square, stream, fd_launches, tokens["a"]
 
 
 def phase_sp_server(torch, eng, params, square, stream, card: str) -> None:
@@ -3103,6 +3128,533 @@ def ring_kernels_line(records, launches) -> list:
     return out
 
 
+# -- slice 9: sequence parallelism at world 4 (mode "sp" over a sequence-split
+# cache) through the flash-decode exchange and the ring-KV prefill ------------
+SPW_WORLD = 4
+#: Phase 19's worlds of the flash-decode exchange and of the ring prefill.
+SPW_FD_WORLDS, SPW_RING_WORLDS = (2, 3, 4, 8), (2, 4, 8)
+#: Positions per rank of phase 19's decode caches.
+SPW_T_LOC = 256
+#: Phase 20's engines: name -> (max_seq, Engine options, the launch counter
+#: of its decode steps, the key's cache kind). (a) paged, (b) contiguous
+#: with 8 MiB per rank (the tiled variant), (c) contiguous with 2 MiB per
+#: rank (the single-pass variant), prefilled in chunks of 64.
+SPW_ENGINES = {"a": (1024, {"paged": True, "page_size": FD_PAGE},
+                     "world_tiled", "paged"),
+               "b": (4096, {}, "world_tiled", "dense"),
+               "c": (1024, {"prefill_chunk": 64}, "world_single", "dense")}
+SPW_REPLACES = {"world_single": 262, "world_tiled": 280}
+
+
+def spw_paged(torch, k, v, world: int):
+    """Each rank's positions of k/v (B, world t_loc, Hkv, D) page by page
+    in a seeded random order over its own pool of one row's pages more
+    than they fill: (pool_k, pool_v, table (world, B, n_pages))."""
+    b, t = k.shape[:2]
+    t_loc = t // world
+    n_pages = t_loc // FD_PAGE
+    per = b * n_pages + 1
+    gen = torch.Generator().manual_seed(world)
+    table = torch.stack([torch.randperm(per - 1, generator=gen)[:b * n_pages]
+                         for _ in range(world)]).reshape(world, b, n_pages)
+    rows = (table + torch.arange(world)[:, None, None] * per).reshape(-1)
+    pools = []
+    for x in (k, v):
+        pool = torch.zeros((world * per, FD_PAGE) + tuple(x.shape[2:]),
+                           dtype=x.dtype, device="cuda")
+        pool[rows.cuda()] = x.reshape(b, world, n_pages, FD_PAGE,
+                                      *x.shape[2:]).transpose(0, 1).reshape(
+            -1, FD_PAGE, *x.shape[2:])
+        pools.append(pool)
+    return pools[0], pools[1], table.to(torch.int32).cuda()
+
+
+def spw_weight(fd, q, k, v, lens, world: int):
+    """sum_j (p_j / l)|v_j| of a world-W decode output: its plain version
+    in f32 over |v|."""
+    return fd.flash_decode_world_reference(q.float(), k.float(),
+                                           v.float().abs(), lens,
+                                           world).float()
+
+
+def phase_sp_world_kernels(torch, fd, sp, rd, cfg, card: str) -> None:
+    """Phase 19: the world-W flash-decode exchange (``tdt_flash_decode_
+    world``) against the plain world-W decode at W = 2, 3, 4, 8, single /
+    tiled dense / tiled paged, bf16 and f32, over kv_len 1 (every rank but
+    the first empty), a ragged row per rank count and a full cache, held
+    to the weight rule with the W rank outputs bit-equal and repeats
+    bit-identical; a push skipped with its signal still set (on a fresh
+    context, whose combine buffers are NaN) must fail the rule. Then the
+    ring-KV prefill (``tdt_sp_ring_attention``) at W = 2, 4, 8 against
+    the plain world-W fused prefill, within ``sp_attention_tolerance``,
+    with a skipped forward refused."""
+    print("== phase 19: world-W flash-decode exchange and ring-KV prefill "
+          "vs their plain versions", flush=True)
+    t0 = time.perf_counter()
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    n_cases, worst = 0, {}
+    for world in SPW_FD_WORLDS:
+        group = rd.create_rank_group(world, "sp", "cuda")
+        t = world * SPW_T_LOC
+        for dt, dtype in dtypes.items():
+            q, k, v = fd_operands(torch, dtype, t, seed=190 + world)
+            pool_k, pool_v, table = spw_paged(torch, k, v, world)
+            for name, lens in (("kv_len 1", [1] * FD_B),
+                               ("ragged", [1, 17, SPW_T_LOC + 44, t]),
+                               ("full", [t] * FD_B)):
+                lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                want = fd.flash_decode_world_reference(q, k, v, lt, world)
+                w = spw_weight(fd, q, k, v, lt, world)
+                ctx = fd.create_flash_decode_context(group)
+                for variant, paged in (("single", False), ("tiled", False),
+                                       ("tiled", True)):
+                    kk, vv = (pool_k, pool_v) if paged else (k, v)
+                    tab = table if paged else None
+                    outs = fd.flash_decode_world(q, kk, vv, lt, ctx, variant,
+                                                 tab)
+                    again = fd.flash_decode_world(q, kk, vv, lt, ctx,
+                                                  variant, tab)
+                    torch.cuda.synchronize()
+                    err, ok = fd_error(torch, outs[0], want, w)
+                    equal = all(torch.equal(outs[0], outs[r])
+                                for r in range(world))
+                    check(ok and equal and torch.equal(outs, again),
+                          f"world decode W={world} {variant} paged={paged} "
+                          f"{dt} {name}: err {err} ok {ok}, ranks "
+                          f"bit-equal {equal}")
+                    key = (variant, dt)
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n_cases += 1
+            lt = torch.full((FD_B,), t, dtype=torch.int32, device="cuda")
+            want = fd.flash_decode_world_reference(q, k, v, lt, world)
+            w = spw_weight(fd, q, k, v, lt, world)
+            for variant in ("single", "tiled"):
+                bad = fd.flash_decode_world(
+                    q, k, v, lt, fd.create_flash_decode_context(group),
+                    variant, fault=True)
+                torch.cuda.synchronize()
+                bad_err, bad_ok = fd_error(torch, bad[1], want, w)
+                check(not bad_ok, f"world decode W={world} {variant} {dt}: "
+                                  f"the planted fault was not refused")
+    print(f"flash decode at W = {SPW_FD_WORLDS}: {n_cases} cases (single, "
+          f"tiled dense, tiled paged; bf16, f32; kv_len 1, ragged, full) "
+          f"within the weight rule (f32: {F32_ATOL / 3:.0e}), rank outputs "
+          f"bit-equal, repeats bit-identical; worst max_abs_err by variant "
+          f"{ {f'{v}/{d}': float(f'{e:.3g}') for (v, d), e in worst.items()} }"
+          f"; a skipped push (its signal set) refused at every W, variant "
+          f"and dtype [{card}]", flush=True)
+
+    hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    cases = [(w, "bf16", True, 4096) for w in SPW_RING_WORLDS] + [
+        (4, "bf16", False, 4096), (4, "f32", True, 512)]
+    for world, dt, causal, s in cases:
+        group = rd.create_rank_group(world, "sp", "cuda")
+        q, k, v = sp_operands(torch, dtypes[dt], 1, s, hq, hkv, d,
+                              seed=195 + world)
+        ctx = sp.create_sp_attention_context(causal=causal, group=group)
+        got = sp.launch_sp_ring_attention(q, k, v, ctx)
+        again = sp.launch_sp_ring_attention(q, k, v, ctx)
+        torch.cuda.synchronize()
+        ref = sp.sp_attention_fused_reference(q, k, v, causal, sp.KV_TILE,
+                                              world)
+        lim = sp.sp_attention_tolerance(got, ref, q, k, v, causal)
+        err, ok, used = sp_error(got, ref, lim)
+        bad = sp.launch_sp_ring_attention(
+            q, k, v, sp.create_sp_attention_context(causal=causal,
+                                                    group=group), fault=True)
+        bad_err, bad_ok, _ = sp_error(bad, ref, lim)
+        same = torch.equal(got, again)
+        print(f"sp ring prefill W={world} {dt} causal={causal} S={s} heads "
+              f"{hq}/{hkv} D={d}: max_abs_err={err:.3e} (largest share of "
+              f"the tolerance {used:.3f}) ok={ok}; repeat bit-identical="
+              f"{same}; planted fault (rank 0's first forward skipped, its "
+              f"signal set): max_abs_err={bad_err}, refused={not bad_ok} "
+              f"[{card}]", flush=True)
+        check(ok and same and not bad_ok,
+              f"sp ring prefill W={world} {dt}: err {err}, repeat {same}, "
+              f"fault refused {not bad_ok}")
+        del q, k, v, got, again, bad, ref, lim
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def spw_counts(fd, sp) -> dict:
+    out = {f"flash_decode_{n}": c.total for n, c in fd.launches.items()}
+    out["sp_attention"] = sp.sp_attention_launches.total
+    out["sp_ring"] = sp.sp_ring_launches.total
+    return out
+
+
+def spw_plain(fd, dense):
+    """Route the sp forward's decode through the plain world-W versions
+    (``flash_decode_world_reference`` and its paged form); the returned
+    function restores the kernels."""
+    saved = dense.gqa_fwd_batch_decode, dense.gqa_fwd_batch_decode_paged
+    dense.gqa_fwd_batch_decode = (
+        lambda q, k, v, lens, ctx=None:
+        fd.flash_decode_world_reference(q, k, v, lens, ctx.world_size))
+    dense.gqa_fwd_batch_decode_paged = (
+        lambda q, pk, pv, table, lens, ctx=None:
+        fd.flash_decode_paged_reference(q, pk, pv, table, lens))
+
+    def restore():
+        dense.gqa_fwd_batch_decode, dense.gqa_fwd_batch_decode_paged = saved
+    return restore
+
+
+def phase_sp_world_main(torch, models, fd, sp, ops, cfg, params, square,
+                        base_sp, card: str):
+    """Phase 20, this slice's main path: Qwen3-8B (full width and depth,
+    phase 3's params) as ``DenseLLM(sp_axis="sp", sp_world=4)``, served by
+    the engines of :data:`SPW_ENGINES` (4 x 128 prompts, GEN new tokens),
+    a prefix-cache stream through the paged engine and the server over
+    it, every count set to 0 just before: per decode step one world-W
+    launch per layer of the engine's variant, no world-1 flash-decode
+    kernel, no prefill kernel. Then a decode step's logits against the
+    same step through the plain world-4 decode, and the step's wall and
+    device time. Returns (the launch counts by counter and key, the
+    engines)."""
+    from triton_dist_tpu_torch.models import dense
+    print(f"== phase 20: Qwen3-8B served in mode 'sp' at sequence world "
+          f"{SPW_WORLD} through the world-W flash-decode kernel", flush=True)
+    t0 = time.perf_counter()
+    layers = cfg.num_hidden_layers
+    model = models.AutoLLM.build(cfg, sp_axis="sp", sp_world=SPW_WORLD)
+    check(model.sp_world == SPW_WORLD and model.fd_ctx.world_size
+          == SPW_WORLD, "AutoLLM did not build a sequence-world-4 model")
+    engines = {name: models.Engine(model, batch=4, max_seq=max_seq,
+                                   prefill_mode="sp", decode_mode="sp", **kw)
+               for name, (max_seq, kw, _, _) in SPW_ENGINES.items()}
+    engines["a'"] = models.Engine(model, batch=4, max_seq=1024,
+                                  prefill_mode="sp", decode_mode="sp",
+                                  paged=True, page_size=FD_PAGE,
+                                  kv_slots_per_dev=STREAM_SLOTS)
+    _, stream = sp_prompts(torch, cfg, 20)
+    for name in SPW_ENGINES:                      # warm-up
+        engines[name].serve(params, square, 2)
+    engines["a'"].serve_stream(params, stream[:2], 2)
+    counters = list(fd.launches.values()) + [sp.sp_attention_launches,
+                                             sp.sp_ring_launches,
+                                             ops.launches]
+    for c in counters:                            # ---- the main path starts
+        c.reset()
+    steps = GEN - 1
+    for name, (max_seq, _, counter, kind) in SPW_ENGINES.items():
+        eng = engines[name]
+        before = spw_counts(fd, sp)
+        _, prefill_ms = sync_time(torch, lambda: eng.serve(params, square, 1))
+        check(spw_counts(fd, sp) == before,
+              f"({name}) the prefill launched a kernel")
+        out, serve_ms = sync_time(torch,
+                                  lambda: eng.serve(params, square, GEN))
+        after = spw_counts(fd, sp)
+        got = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        want = {f"flash_decode_{counter}": layers * steps}
+        check(got == want, f"({name}) launches {got}, expected {want}")
+        check(tuple(out.shape) == (4, 128 + GEN), f"({name}) serve shape")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "token out of vocabulary")
+        same = (out[:, 128:] == base_sp[:, 128:]).float().mean().item()
+        decode_ms = serve_ms - prefill_ms
+        print(f"sp serve ({name}: "
+              f"{'paged' if eng.paged else 'contiguous'}, max_seq {max_seq}"
+              f"{', prefill_chunk 64' if eng.prefill_chunk else ''}, W="
+              f"{SPW_WORLD}): batch 4 x 128 prompt, {GEN} new tokens: "
+              f"prefill_ms={prefill_ms:.1f} decode_ms={decode_ms:.1f} "
+              f"per_step_ms={decode_ms / steps:.2f} decode_tokens_per_s="
+              f"{4 * steps / decode_ms * 1e3:.1f}; launches {got} = "
+              f"{layers} x {steps} {counter}; greedy tokens equal to phase "
+              f"8's world-1 engine on {same:.3f} (not gated) [{card}]",
+              flush=True)
+    eng = engines["a'"]
+    before = spw_counts(fd, sp)
+    res, stream_ms = sync_time(
+        torch, lambda: eng.serve_stream(params, stream, GEN))
+    check([len(r) for r in res] == [len(p) + GEN for p in stream],
+          "sp serve_stream row lengths")
+    stats, audit = eng.kv.prefix.stats(), eng.kv.block_audit()
+    check(stats["hit_blocks"] > 0, f"no prefix hits: {stats}")
+    check(audit["active"] == 0 and audit["committed"] == 0
+          and audit["free"] + audit["evictable"] == audit["total"],
+          f"block audit not clean: {audit}")
+    after = spw_counts(fd, sp)
+    got = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    check(set(got) == {"flash_decode_world_tiled"}
+          and got["flash_decode_world_tiled"] % layers == 0,
+          f"stream launches {got}")
+    print(f"sp serve_stream (a': paged, W={SPW_WORLD}, {STREAM_SLOTS} "
+          f"blocks per rank): 6 prompts sharing a {PREFIX_LEN}-token prefix "
+          f"through 4 rows, {GEN} new tokens in {stream_ms:.1f} ms; decode "
+          f"steps {got['flash_decode_world_tiled'] // layers}; prefix "
+          f"{stats}; audit {audit} [{card}]", flush=True)
+    phase_sp_server(torch, engines["a"], params, square, stream, card)
+    launches = {n: dict(c.by_shape) for n, c in fd.launches.items()}
+    check(all(fd.launches[n].total == 0 for n in ("partial", "combine",
+                                                  "single"))
+          and ops.launches.total == 0 and sp.sp_attention_launches.total
+          == 0 and sp.sp_ring_launches.total == 0,
+          f"a world-1 or prefill kernel ran on the world-{SPW_WORLD} path: "
+          f"{spw_counts(fd, sp)}, gemm_ar {ops.launches.total}")
+    print(f"sp world-{SPW_WORLD} main path launches: {launches}",
+          flush=True)                             # ---- main path ends
+
+    for name in SPW_ENGINES:
+        step = sp_step(torch, engines[name], params, square)
+        got = step()
+        restore = spw_plain(fd, dense)
+        try:
+            ref = step()
+        finally:
+            restore()
+        check(bool(torch.isfinite(got).all()), "non-finite sp logits")
+        err = (got - ref).abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        check(err <= LOGITS_ATOL, f"({name}) W={SPW_WORLD} decode logits "
+                                  f"differ from the plain decode by {err}")
+        walls = [sync_time(torch, step)[1] for _ in range(5)]
+        wall = sorted(walls)[2]
+        dev = device_ms(torch, step, n=3)
+        print(f"sp decode step ({name}, W={SPW_WORLD}, forward only): "
+              f"logits vs the plain world-{SPW_WORLD} decode max abs diff "
+              f"{err:.4g} (tol {LOGITS_ATOL}), argmax agreement {agree:.2f}; "
+              f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, "
+              f"device idle share {1 - dev / wall:.2f} [{card}]", flush=True)
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, engines
+
+
+def spw_decode_bound(live: int, b: int, world: int, itemsize: int,
+                     kind: str):
+    """(least ms, what bounds it) of one world-W decode: the live K/V rows,
+    q and the W outputs once over HBM, plus each rank's (acc, l, m)
+    partial written into W - 1 peers' buffers and read there once (the
+    exchange moves HBM to HBM on one card); 4 operations per (query head,
+    live position, head-dim element)."""
+    kv = 2 * live * FD_HKV * FD_D * itemsize
+    q_out = (1 + world) * b * FD_HQ * FD_D * itemsize
+    exchange = 2 * world * (world - 1) * b * FD_HQ * (FD_D + 2) * 4
+    by_bytes = (kv + q_out + exchange) / HBM_BYTES_PER_S * 1e3
+    by_ops = 4.0 * FD_HQ * FD_D * live / PEAK_FLOPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def spw_fd_records(torch, fd, rd, launches) -> list:
+    """The JSON records of the world-W decode at phase 20's shapes: bf16,
+    batch 4, kv_len 160 (the last decode step of a 128-token prompt and
+    GEN - 1 steps), W = 4: engine (a)'s paged pool, (b)'s 4096 and (c)'s
+    1024 positions. ``library_ms``: one ``scaled_dot_product_attention``
+    with the kv_len mask over the global (B, T) cache, a yardstick the
+    port never calls. ``launches``: phase 20's, by key. ``ms``: the
+    profiler's time of the kernel alone (the wrapper's small tensor ops
+    around the launch, kv_len's fill and the rank tables, are left
+    out)."""
+    import torch.nn.functional as F
+    from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
+    world, dtype, kind = SPW_WORLD, torch.bfloat16, "bf16"
+    group = rd.create_rank_group(world, "sp", "cuda")
+    lens = torch.full((FD_B,), 160, dtype=torch.int32, device="cuda")
+    out = []
+    for name, t, variant, paged in (
+            ("flash_decode_world_tiled[paged]", 1024, "tiled", True),
+            ("flash_decode_world_tiled[dense]", 4096, "tiled", False),
+            ("flash_decode_world_single", 1024, "single", False)):
+        q, k, v = fd_operands(torch, dtype, t, seed=200 + t)
+        kk, vv, tab = (spw_paged(torch, k, v, world) if paged
+                       else (k, v, None))
+        ctx = fd.create_flash_decode_context(group)
+
+        def kernel():
+            return fd.flash_decode_world(q, kk, vv, lens, ctx, variant, tab)
+
+        def plain():
+            if paged:
+                return fd.flash_decode_paged_reference(q, kk, vv, tab, lens)
+            return fd.flash_decode_world_reference(q, k, v, lens, world)
+        got = kernel()
+        want = fd.flash_decode_world_reference(q, k, v, lens, world)
+        err, ok = fd_error(torch, got[0], want,
+                           spw_weight(fd, q, k, v, lens, world))
+        check(ok, f"{name}: max abs err {err} outside tolerance")
+        view = (PagedKVCacheManager.gathered_view(kk, tab),
+                PagedKVCacheManager.gathered_view(vv, tab)) if paged else (k,
+                                                                          v)
+        mask = (torch.arange(t, device="cuda")[None, :]
+                < lens[:, None])[:, None, None]
+        q4, k4, v4 = q[:, :, None], view[0].transpose(1, 2), \
+            view[1].transpose(1, 2)
+        counter = "world_" + variant
+        key = ("paged" if paged else "dense", world, FD_B, t // world)
+        bnd, by = spw_decode_bound(160 * FD_B, FD_B, world, 2, kind)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
+            "replaces": f"triton_dist_tpu/ops/flash_decode.py:"
+                        f"{SPW_REPLACES[counter]}",
+            "launches": launches[counter].get(key, 0), "max_abs_err": err,
+            "ms": kernel_device_ms(torch, kernel, "flash_decode_world"),
+            "plain_ms": device_ms(torch, plain),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, enable_gqa=True)),
+            "wall_ms": wall_ms(torch, kernel),
+            "shape": [world, FD_B, FD_HQ, FD_HKV, FD_D, t, 160], "ok": ok})
+        check(out[-1]["launches"] > 0, f"{name} never launched on the "
+                                       f"world-{SPW_WORLD} path")
+        print(f"kernel {name} W={world} bf16 kv_len 160 of {t}: "
+              f"kernel_ms={out[-1]['ms']:.4f} plain_ms="
+              f"{out[-1]['plain_ms']:.4f} library_ms="
+              f"{out[-1]['library_ms']:.4f} bound_ms={bnd:.5f} ({by}) "
+              f"launches={out[-1]['launches']} max_abs_err={err:.3e}",
+              flush=True)
+    return out
+
+
+def phase_sp_world_long(torch, layers, fd, sp, rd, cfg, full, card: str):
+    """Phase 21, the long-context path at sequence world 4, every count set
+    to 0 just before it: ``SpAttentionLayer(impl="pallas")`` over a group
+    of 4 on phase 14's 32768-token inputs (one ring launch, within
+    ``sp_attention_tolerance`` of the plain world-4 fused prefill), then
+    SP_DECODE append + decode steps through ``SpFlashDecodeLayer`` over
+    the sequence-split cache (one world-W launch each, within the weight
+    rule of the plain world-4 decode). Returns the JSON records of the
+    ring prefill and of the decode at kv_len SP_S + SP_DECODE."""
+    import torch.nn.functional as F
+    print(f"== phase 21: SP long context at sequence world {SPW_WORLD}: the "
+          f"32k ring prefill and decode over the split cache", flush=True)
+    t_start = time.perf_counter()
+    hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    world = SPW_WORLD
+    group = rd.create_rank_group(world, "sp", "cuda")
+    q, k, v, _ = full
+    counters = list(fd.launches.values()) + [sp.sp_attention_launches,
+                                             sp.sp_ring_launches]
+    for c in counters:
+        c.reset()                                  # ---- main path starts
+    prefill = layers.SpAttentionLayer(impl="pallas", group=group)
+    out, prefill_ms = sync_time(torch, lambda: prefill(q, k, v))
+    check(sp.sp_ring_launches.total == 1
+          and sp.sp_attention_launches.total == 0,
+          f"the world-{world} prefill launched {spw_counts(fd, sp)}")
+    decode = layers.SpFlashDecodeLayer(1, SP_S + SP_DECODE, hkv, d,
+                                       dtype=torch.bfloat16, group=group)
+    cache = decode.append(decode.init_cache(), k, v, 0)
+    gen = torch.Generator(device="cuda").manual_seed(210)
+    steps = []
+    for i in range(SP_DECODE):
+        qn = torch.randn((1, hq, d), generator=gen, device="cuda").bfloat16()
+        kn, vn = (torch.randn((1, 1, hkv, d), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        cache = decode.append(cache, kn, vn, SP_S + i)
+        before = fd.launches["world_tiled"].total
+        steps.append((qn, decode(qn, cache, SP_S + i + 1)))
+        check(fd.launches["world_tiled"].total == before + 1,
+              f"decode step {i} did not launch the world-W kernel once")
+    torch.cuda.synchronize()
+    launches = {"sp_ring": dict(sp.sp_ring_launches.by_shape),
+                "world_tiled": dict(fd.launches["world_tiled"].by_shape)}
+    check(all(fd.launches[n].total == 0 for n in ("partial", "combine",
+                                                  "single", "world_single")),
+          f"a world-1 decode kernel ran: {spw_counts(fd, sp)}")
+    print(f"sp world-{world} long-context path launches: "
+          f"{spw_counts(fd, sp)} {launches}", flush=True)
+    # ---- main path ends
+
+    ref = sp.sp_attention_fused_reference(q, k, v, True, sp.KV_TILE, world)
+    lim = sp.sp_attention_tolerance(out, ref, q, k, v, True)
+    err, ok, used = sp_error(out, ref, lim)
+    check(ok and bool(torch.isfinite(out.float()).all()),
+          f"the world-{world} 32k prefill: max abs err {err}")
+    del ref, lim
+    worst, share = 0.0, 0.0
+    for i, (qn, got) in enumerate(steps):
+        n = SP_S + i + 1
+        ref = fd.flash_decode_world_reference(qn, cache[0], cache[1], n,
+                                              world)
+        lim = sp.bf16_attention_limit(got, ref, spw_weight(
+            fd, qn, cache[0], cache[1], n, world))
+        e, o, u = sp_error(got, ref, lim)
+        check(o, f"decode step {i}: max abs err {e} outside tolerance")
+        worst, share = max(worst, e), max(share, u)
+    ctx = sp.create_sp_attention_context(group=group)
+    kernel = lambda: sp.launch_sp_ring_attention(q, k, v, ctx)  # noqa: E731
+    ms = wall_ms(torch, kernel, n=5)
+    plain_ms = wall_ms(torch, lambda: sp.sp_attention_fused_reference(
+        q, k, v, True, sp.KV_TILE, world), n=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = wall_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), n=5)
+    del qt, kt, vt
+    # The least time: q, k, v read and the output written once, plus the
+    # ring's copies (each rank's K/V chunk into W workspaces, read and
+    # written once each) as HBM traffic; or the causal pass's operations.
+    copies = 2 * 2 * world * SP_S * hkv * d * 2
+    by_bytes = (2 * SP_S * (hq + hkv) * d * 2 + copies) \
+        / HBM_BYTES_PER_S * 1e3
+    by_ops = sp_bound_ms(1, SP_S, hq, hkv, d, 2, "bf16", True)[0]
+    bnd, by = ((by_bytes, "bytes") if by_bytes >= by_ops
+               else (by_ops, "operations"))
+    ring_rec = {
+        "name": "sp_ring_attention", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/sp_attention.cu",
+        "replaces": "triton_dist_tpu/ops/sp_attention.py:147",
+        "launches": sum(launches["sp_ring"].values()), "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib_ms, "shape": [world, 1, SP_S, hq, hkv, d],
+        "ok": ok, "tol_share": used}
+    w1_ms = wall_ms(torch, lambda: sp.launch_sp_attention(q, k, v, True),
+                    n=5)
+    print(f"SpAttentionLayer(impl='pallas', W={world}) prefill B=1 S={SP_S}:"
+          f" 1 ring launch, wall {prefill_ms:.1f} ms; max_abs_err vs the "
+          f"plain world-{world} version {err:.3e} (largest share of the "
+          f"tolerance {used:.3f}); kernel_ms={ms:.3f} (CUDA events) "
+          f"plain_ms={plain_ms:.1f} library_ms={lib_ms:.3f} (SDPA, global "
+          f"causal) bound_ms={bnd:.3f} ({by}); the world-1 kernel on the "
+          f"same inputs {w1_ms:.3f} ms [{card}]", flush=True)
+
+    t = SP_S + SP_DECODE
+    qn = steps[-1][0]
+    dctx = fd.create_flash_decode_context(group)
+    dkernel = lambda: fd.flash_decode_world(  # noqa: E731
+        qn, cache[0], cache[1], t, dctx, "tiled")
+    dms = kernel_device_ms(torch, dkernel, "flash_decode_world")
+    w1_dms = kernel_device_ms(torch, lambda: fd.gqa_fwd_batch_decode(
+        qn, cache[0], cache[1], t), "flash_decode")
+    dplain = device_ms(torch, lambda: fd.flash_decode_world_reference(
+        qn, cache[0], cache[1], t, world))
+    kq, kk, kv_ = qn[:, :, None], cache[0].transpose(1, 2), \
+        cache[1].transpose(1, 2)
+    dlib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        kq, kk, kv_, enable_gqa=True))
+    kv_bytes = 2 * t * hkv * d * 2
+    exchange = 2 * world * (world - 1) * hq * (d + 2) * 4
+    dbnd = (kv_bytes + (1 + world) * hq * d * 2 + exchange) \
+        / HBM_BYTES_PER_S * 1e3
+    dec_rec = {
+        "name": "flash_decode_world_tiled[dense, kv_len 32k]",
+        "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "triton_dist_tpu/ops/flash_decode.py:280",
+        "launches": sum(launches["world_tiled"].values()),
+        "max_abs_err": worst, "ms": dms, "plain_ms": dplain,
+        "bound_ms": dbnd, "bound_by": "bytes", "library_ms": dlib,
+        "wall_ms": wall_ms(torch, dkernel),
+        "shape": [world, 1, hq, hkv, d, t], "ok": True}
+    print(f"SpFlashDecodeLayer(W={world}): {SP_DECODE} append + decode steps "
+          f"over the split {SP_S}-position cache, 1 world-W launch each, "
+          f"max_abs_err vs the plain world-{world} decode {worst:.3e} "
+          f"(largest share of the weight rule {share:.3f}); a step's kernel "
+          f"{dms:.4f} ms device (world 1's partial + combine on the same "
+          f"cache: {w1_dms:.4f} ms), plain "
+          f"{dplain:.4f}, SDPA {dlib:.4f}, bound {dbnd:.4f} ms (bytes) "
+          f"[{card}]", flush=True)
+    print(f"phase 21 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    del cache, decode, steps
+    return [ring_rec, dec_rec]
+
+
 def phase_ep_mode(torch, ag, rs, a2a, cfg, model, params, square, card):
     """Phase 16, mode "ep" (JAX's EP forward): attention through the ring
     kernels (ag_rs: 4 x 128 and 4 rows both split over the ranks), the
@@ -3224,7 +3776,7 @@ def main() -> int:
           f"by (K, N): {main_launches}", flush=True)
     phase_logits(torch, ops, model, params, prompts, cfg, card)
     phase_flash_kernels(torch, fd, card)
-    engines, square, stream, fd_launches = phase_sp_main(
+    engines, square, stream, fd_launches, sp_tokens = phase_sp_main(
         torch, models, ops, fd, cfg, params, card, args.seed)
     phase_sp_checks(torch, fd, engines, params, square, stream, card)
     del engines
@@ -3242,11 +3794,16 @@ def main() -> int:
     del tp_model
     print(f"phase 17 took {t18 - t17:.1f} s, phase 18 "
           f"{time.perf_counter() - t18:.1f} s", flush=True)
+    phase_sp_world_kernels(torch, fd, sp, rd, cfg, card)
+    spw_launches, spw_engines = phase_sp_world_main(
+        torch, models, fd, sp, ops, cfg, params, square, sp_tokens, card)
+    del spw_engines
     # The dense kernels' records read the Qwen3-8B weights: before they go.
     kernels = phase_kernels_line(torch, ops, params, cfg, main_launches)
     kernels += phase_fd_kernels_line(torch, fd, fd_launches)
     kernels += ag_kernels_line(ag_records, ag_launches)
     kernels += ring_kernels_line(ring_records, ring_launches)
+    kernels += spw_fd_records(torch, fd, rd, spw_launches)
     del cfg, model, params, eng, prompts, base
     gc.collect()
     torch.cuda.empty_cache()
@@ -3257,11 +3814,14 @@ def main() -> int:
     sp_record, full = phase_sp_attn_kernels(torch, sp, cfg, card)
     sp_launches = phase_sp_attn_main(torch, layers, sp, fd, agk, ar, rs, cfg,
                                      full, card)
+    spw_records = phase_sp_world_long(torch, layers, fd, sp, rd, cfg, full,
+                                      card)
     del full
     records = [(sp_record, "sp_attention", None)]
     records += sp_fd_records(torch, sp, fd, cfg, card)
     records += coll_records(torch, agk, ar, rs, card)
     kernels += sp_kernels_line(records, sp_launches)
+    kernels += spw_records
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -496,9 +496,9 @@ def test_sp_attention_and_collectives_on_cuda_tensors_never_take_the_plain_path(
                       (fd, "flash_decode_reference")):
         monkeypatch.setattr(mod, name, lambda *_, **__: pytest.fail(
             "CUDA call took the plain version"))
-    monkeypatch.setattr(spl, "flash_decode_reference",
-                        lambda *_, **__: pytest.fail(
-                            "CUDA call took the plain version"))
+    for name in ("flash_decode_world_reference", "flash_decode_xla"):
+        monkeypatch.setattr(fd, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
 
     def refuse(name):
         raise RuntimeError(f"no build of {name}")
@@ -528,6 +528,100 @@ def test_sp_attention_and_collectives_on_cuda_tensors_never_take_the_plain_path(
     for lib, call in calls:
         with pytest.raises(RuntimeError, match=f"no build of {lib}"):
             call()
+
+
+def test_sequence_world_entry_points_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed calls at sequence world 4 (the decode in
+    both variants, dense and paged, the ring prefill, both SP layers over
+    a group) reach a kernel build and fail there instead of computing a
+    plain version on the CPU."""
+    from triton_dist_tpu_torch.layers import sp_flash_decode as spl
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops import sp_attention as sp
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for mod, name in ((sp, "sp_attention_fused_reference"),
+                      (sp, "_ring_pass"),
+                      (fd, "flash_decode_reference"),
+                      (fd, "flash_decode_world_reference"),
+                      (fd, "flash_decode_paged_reference")):
+        monkeypatch.setattr(mod, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    group = create_rank_group(4, "sp", "cpu")
+    q = on_cuda(torch.zeros(1, 64, 8, 64, dtype=torch.bfloat16))
+    kv = on_cuda(torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16))
+    qd = on_cuda(torch.zeros(1, 8, 64, dtype=torch.bfloat16))
+    pool = on_cuda(torch.zeros(4 * 3, 4, 2, 64, dtype=torch.bfloat16))
+    table = on_cuda(torch.zeros(4, 1, 2, dtype=torch.int32))
+    decode = spl.SpFlashDecodeLayer(1, 64, 2, 64, group=group)
+    calls = [
+        ("flash_decode", lambda v=v: fd.gqa_fwd_batch_decode(
+            qd, kv, kv, 3, fd.create_flash_decode_context(group, v)))
+        for v in ("einsum", "tiled")] + [
+        ("flash_decode", lambda: fd.gqa_fwd_batch_decode_paged(
+            qd, pool, pool, table, 3, fd.create_flash_decode_context(
+                group))),
+        ("flash_decode", lambda: decode(qd, (kv, kv), 3)),
+        ("sp_attention", lambda: sp.sp_ag_attention(
+            q, kv, kv, sp.create_sp_attention_context(group=group),
+            impl="pallas")),
+        ("sp_attention", lambda: spl.SpAttentionLayer(
+            impl="pallas", group=group)(q, kv, kv)),
+    ]
+    for lib, call in calls:
+        with pytest.raises(RuntimeError, match=f"no build of {lib}"):
+            call()
+
+
+def test_sequence_world_entry_points_need_an_explicit_cpu(no_cuda):
+    from triton_dist_tpu_torch.layers import sp_flash_decode as spl
+    from triton_dist_tpu_torch.models import DenseLLM, ModelConfig
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    cfg = ModelConfig(hidden_size=16, intermediate_size=32,
+                      num_hidden_layers=1, num_attention_heads=2,
+                      num_key_value_heads=1, head_dim=8, vocab_size=32,
+                      max_position_embeddings=16, dtype=torch.float32)
+    for call in (lambda: DenseLLM(cfg, sp_axis="sp", sp_world=4),
+                 lambda: create_rank_group(4, "sp"),
+                 lambda: spl.SpFlashDecodeLayer(1, 16, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    model = DenseLLM(cfg, device="cpu", sp_axis="sp", sp_world=4)
+    assert model.sp_group.device == torch.device("cpu")
+
+
+def test_sequence_world_sources_target_sm90a_through_cooperative_launches():
+    from triton_dist_tpu_torch.ops import _build
+    for name, entries, kernels in (
+            ("flash_decode", ("tdt_flash_decode_world_grid",
+                              "tdt_flash_decode_world"),
+             ("_decode_kernel", "_tiled_decode_kernel",
+              "_exchange_and_merge")),
+            ("sp_attention", ("tdt_sp_ring_attention",),
+             ("_sp_fused_kernel",))):
+        text = _build.SOURCES[name].read_text()
+        assert '#include "shmem.cuh"' in text
+        assert "cudaLaunchCooperativeKernel" in text
+        assert "tdt_putmem_signal_block" in text     # pushes with signals
+        assert "tdt_signal_wait_until" in text
+        for entry in entries + kernels:     # and the TPU kernels replaced
+            assert entry in text
+        for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+            assert atomic not in text         # fixed-order sums only
 
 
 def test_sp_attention_and_collective_sources_target_sm90a_without_atomics():

@@ -5,8 +5,9 @@ three flash-decode kernels of ops.flash_decode, the AG-GEMM, AG-SwiGLU
 and GEMM-RS kernels of ops.allgather_gemm / ops.gemm_reduce_scatter, and
 the grouped-GEMM, MoE-reduce and all-gather kernels of ops.group_gemm /
 ops.moe_reduce_rs / ops.allgather, the flash-prefill kernel of
-ops.sp_attention and the copy kernel under each world = 1 collective)
-against their plain versions on the card (marked ``cuda``; skipped
+ops.sp_attention and the copy kernel under each world = 1 collective,
+and at sequence world W the flash-decode exchange and the ring-KV
+prefill) against their plain versions on the card (marked ``cuda``; skipped
 without one). The CPU parity tests of
 flash decode, of AG-GEMM and of the MoE ops are in
 tests/test_torch_flash_decode.py, tests/test_torch_ag_gemm.py and
@@ -981,3 +982,100 @@ def test_ring_grids_fit_the_card(cuda_device):
         assert rs._ring_lib().tdt_rs_ring_grid(0, 1, world,
                                                ctypes.byref(out)) == 0
         assert 1 <= out.value
+
+
+# -- sequence world W: the flash-decode exchange and the ring-KV prefill --------------
+def _fd_world_weight(q, k, v, lens, world):
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    return fd.flash_decode_world_reference(q.float(), k.float(),
+                                           v.float().abs(), lens, world)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world", [2, 4])
+def test_world_flash_decode_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                         world):
+    """The world-W kernel in both variants, dense and paged, against the
+    plain world-W decode: kv_len 1 (every rank but the first empty),
+    ragged rows and a full cache; the W rank outputs bit-equal and equal
+    on repeat; a push skipped with its signal still set must fail."""
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    group = create_rank_group(world, "sp", cuda_device)
+    b, hq, hkv, d, t_loc, page = 4, 32, 8, 128, 256, 16
+    t = world * t_loc
+    q, k, v = _fd_inputs(b, hq, hkv, d, t, dtype, cuda_device, seed=world)
+    npg = t_loc // page
+    per = b * npg + 1
+    rng = np.random.RandomState(world)
+    table = np.stack([rng.permutation(per - 1)[:b * npg].reshape(b, npg)
+                      for _ in range(world)]).astype(np.int32)
+    rows = torch.from_numpy(table.astype(np.int64) + (
+        np.arange(world) * per)[:, None, None]).to(cuda_device)
+    pool_k = torch.zeros((world * per, page, hkv, d), dtype=dtype,
+                         device=cuda_device)
+    pool_v = torch.zeros_like(pool_k)
+    pool_k[rows.reshape(-1)] = k.reshape(b, world, npg, page, hkv, d
+                                         ).transpose(0, 1).reshape(
+        -1, page, hkv, d)
+    pool_v[rows.reshape(-1)] = v.reshape(b, world, npg, page, hkv, d
+                                         ).transpose(0, 1).reshape(
+        -1, page, hkv, d)
+    table = torch.from_numpy(table).to(cuda_device)
+    for lens in ([1] * b, [1, 300, 17, t], [t] * b):
+        lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        want = fd.flash_decode_world_reference(q, k, v, lens, world)
+        w = _fd_world_weight(q, k, v, lens, world)
+        ctx = fd.create_flash_decode_context(group)
+        for variant, tab in (("single", None), ("tiled", None),
+                             ("tiled", table)):
+            kk, vv = (pool_k, pool_v) if tab is not None else (k, v)
+            outs = fd.flash_decode_world(q, kk, vv, lens, ctx, variant, tab)
+            again = fd.flash_decode_world(q, kk, vv, lens, ctx, variant, tab)
+            torch.cuda.synchronize()
+            assert torch.equal(outs, again)
+            assert all(torch.equal(outs[0], outs[r]) for r in range(world))
+            _fd_assert_close(outs[0], want, w)
+    lens = torch.full((b,), t, dtype=torch.int32, device=cuda_device)
+    want = fd.flash_decode_world_reference(q, k, v, lens, world)
+    w = _fd_world_weight(q, k, v, lens, world)
+    for variant in ("single", "tiled"):
+        bad = fd.flash_decode_world(q, k, v, lens,
+                                    fd.create_flash_decode_context(group),
+                                    variant, fault=True)
+        torch.cuda.synchronize()
+        assert not _fd_close(bad[1], want, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s", [(torch.bfloat16, 4096),
+                                     (torch.float32, 512)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_prefill_kernel_matches_plain_on_card(cuda_device, dtype, s,
+                                                   causal, world):
+    """The ring-KV prefill at Qwen3-8B's attention width against the
+    plain world-W version with KV_TILE-wide tiles, within
+    ``sp_attention_tolerance`` and equal on repeat; a forward skipped
+    with its signal still set must fail the tolerance."""
+    from triton_dist_tpu_torch.ops import sp_attention as sp
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    group = create_rank_group(world, "sp", cuda_device)
+    rng = np.random.RandomState(world)
+    q, k, v = (torch.from_numpy(rng.randn(1, s, h, 128).astype(np.float32))
+               .to(cuda_device, dtype) for h in (32, 8, 8))
+    ctx = sp.create_sp_attention_context(causal=causal, group=group)
+    got = sp.sp_ag_attention(q, k, v, ctx, impl="pallas")
+    again = sp.sp_ag_attention(q, k, v, ctx, impl="pallas")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = sp.sp_attention_fused_reference(q, k, v, causal, sp.KV_TILE,
+                                           world)
+    lim = sp.sp_attention_tolerance(got, want, q, k, v, causal)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    bad = sp.launch_sp_ring_attention(
+        q, k, v, sp.create_sp_attention_context(causal=causal, group=group),
+        fault=True)
+    torch.cuda.synchronize()
+    assert not bool(((bad.float() - want.float()).abs() <= lim).all())

@@ -6,6 +6,8 @@ local HF checkpoint's safetensors. ``moe_parallel`` and ``world`` reach
 the MoE model (``moe_parallel="ep", world=4``: expert parallelism over
 four ranks on the one card); ``world`` reaches a dense model too (tensor
 parallelism over the ranks), which has no ``moe_parallel`` but "tp".
+``sp_world`` (with ``sp_axis``) splits mode "sp"'s sequence over that
+many ranks: ``AutoLLM.build(cfg, sp_axis="sp", sp_world=4)``.
 """
 
 from __future__ import annotations
@@ -47,21 +49,22 @@ class AutoLLM:
     @staticmethod
     def build(config: ModelConfig, device=None, fwd_mode: str = "ag_rs",
               sp_axis: str | None = None, moe_parallel: str = "tp",
-              world: int = 1):
+              world: int = 1, sp_world: int = 1):
         if config.is_moe:
             return Qwen3MoE(config, device=device, fwd_mode=fwd_mode,
                             sp_axis=sp_axis, moe_parallel=moe_parallel,
-                            world=world)
+                            world=world, sp_world=sp_world)
         if moe_parallel != "tp":
             raise ValueError(f"a dense model has no experts to shard: "
                              f"moe_parallel={moe_parallel!r}")
         return DenseLLM(config, device=device, fwd_mode=fwd_mode,
-                        sp_axis=sp_axis, world=world)
+                        sp_axis=sp_axis, world=world, sp_world=sp_world)
 
     @staticmethod
     def from_pretrained(model_dir: str, device=None, fwd_mode: str = "ag_rs",
                         sp_axis: str | None = None, dtype=None,
-                        moe_parallel: str = "tp", world: int = 1):
+                        moe_parallel: str = "tp", world: int = 1,
+                        sp_world: int = 1):
         """The model of a local HF checkpoint directory (``config.json``
         and ``*.safetensors``) with its weights on ``device``. ``dtype``
         overrides the config's (default bf16). Returns (model, params)."""
@@ -70,6 +73,6 @@ class AutoLLM:
             config.dtype = dtype
         model = AutoLLM.build(config, device=device, fwd_mode=fwd_mode,
                               sp_axis=sp_axis, moe_parallel=moe_parallel,
-                              world=world)
+                              world=world, sp_world=sp_world)
         params = model.load_hf_state_dict(_load_safetensors_state(model_dir))
         return model, params

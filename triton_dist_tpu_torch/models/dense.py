@@ -8,7 +8,14 @@ shard a view of the global parameters, so ``params_from_jax`` and
 ``init`` are those of world 1. The activation layout follows JAX
 (dense.py:133-136): row-sharded in modes ``xla`` / ``ag_rs`` (B * S must
 split over the ranks), replicated in ``xla_ar`` / ``gemm_ar``; the fused
-modes run the ring kernels. Mode ``sp`` stays at world 1.
+modes run the ring kernels.
+
+``sp_world`` W > 1 runs mode ``sp`` with the sequence split over W ranks
+on the one card (JAX's ``sp_axis`` of size W, read there from the mesh):
+the KV caches split their positions over the ranks, prefill attention
+runs the ring over them and decode the world-W flash-decode kernel. The
+TP world of such a model stays 1: the 2-D tp x sp model is not ported
+yet.
 
 The module owns the config and the layer objects; the parameters are a
 dict shaped like the JAX params pytree, weights in the JAX
@@ -24,6 +31,8 @@ is already f32). The logits are the same f32 product as in JAX.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -34,9 +43,10 @@ from triton_dist_tpu_torch.layers.tp_mlp import TPMLP
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
 from triton_dist_tpu_torch.ops.flash_decode import (
-    FlashDecodeContext, gqa_fwd_batch_decode, gqa_fwd_batch_decode_paged)
+    create_flash_decode_context, gqa_fwd_batch_decode,
+    gqa_fwd_batch_decode_paged)
 from triton_dist_tpu_torch.ops.sp_attention import (
-    SpAttentionContext, sp_ag_attention)
+    create_sp_attention_context, sp_ag_attention)
 from triton_dist_tpu_torch.runtime.device import default_device
 from triton_dist_tpu_torch.runtime.dist import create_rank_group
 
@@ -48,11 +58,12 @@ class DenseLLM:
     ``sp_axis`` (any name; "sp" by convention) enables mode "sp",
     :meth:`forward_sp`: prefill attention of ``ops.sp_attention`` and
     decode through the flash-decode kernels over contiguous or paged
-    caches. ``world`` W shards the model over W ranks on the device."""
+    caches, the sequence split over ``sp_world`` ranks. ``world`` W
+    shards the model over W ranks on the device (tensor parallelism)."""
 
     def __init__(self, config: ModelConfig, device=None,
                  fwd_mode: str = "ag_rs", sp_axis: str | None = None,
-                 world: int = 1):
+                 world: int = 1, sp_world: int = 1):
         if config.is_moe:
             raise ValueError("DenseLLM needs a dense config; an MoE config "
                              "(num_experts > 0) builds Qwen3MoE (AutoLLM."
@@ -63,11 +74,7 @@ class DenseLLM:
         self.sp_axis = sp_axis
         self.world = world
         self.group = create_rank_group(world, "tp", self.device)
-        if sp_axis is not None:
-            # The JAX model's contexts; its "ring" prefill impl is, at
-            # world = 1, the plain math of ops.sp_attention.
-            self.sp_ctx = SpAttentionContext(causal=True)
-            self.fd_ctx = FlashDecodeContext()
+        self._init_sp(sp_axis, sp_world)
         c = config
         # One module per role, reused across layers (all layers share
         # shapes; params differ per layer).
@@ -81,6 +88,20 @@ class DenseLLM:
         self.rope_cache = precompute_rope_cache(
             c.head_dim, c.max_position_embeddings, c.rope_theta,
             device=self.device)
+
+    def _init_sp(self, sp_axis: str | None, sp_world: int) -> None:
+        """The sp contexts (JAX dense.py:52-63): ring attention for the
+        prefill, the flash decode for the decode, over ``sp_world`` ranks
+        of the sequence axis."""
+        if sp_world > 1 and sp_axis is None:
+            raise ValueError("sp_world needs sp_axis")
+        self.sp_world = sp_world
+        if sp_axis is not None:
+            self.sp_group = create_rank_group(sp_world, sp_axis, self.device)
+            group = self.sp_group if sp_world > 1 else None
+            self.sp_ctx = create_sp_attention_context(
+                sp_axis, causal=True, world_size=sp_world, group=group)
+            self.fd_ctx = create_flash_decode_context(group)
 
     def set_fwd(self, mode: str):
         """Switch all layers' forward mode."""
@@ -176,36 +197,45 @@ class DenseLLM:
     # -- sequence-parallel forward (mode "sp") -------------------------------
     def forward_sp(self, params: dict, input_ids: torch.Tensor, kv_caches,
                    offset, block_table=None):
-        """The sp forward at world = 1 (JAX ``DenseLLM.forward_sp``).
+        """The sp forward (JAX ``DenseLLM.forward_sp``, dense.py:190-469)
+        with the sequence split over ``sp_world`` ranks.
 
-        * Prefill (S > 1, offset 0): the projected K/V are written into
-          the caches (contiguous slice, or every page of the rows'
-          tables through :meth:`_paged_scatter`) and attention runs over
-          the projected K/V (``ops.sp_attention``).
+        * Prefill (S > 1, offset 0; S must split over the ranks): the
+          projected K/V are written into the caches (contiguous slice, or
+          every page of the rows' tables through :meth:`_paged_scatter`)
+          and attention runs the ``ring`` impl over the projected K/V
+          (``ops.sp_attention``).
         * Chunked prefill (S > 1, scalar offset > 0: the contiguous
           engine's ``prefill_chunk``, the paged prefix-hit admission):
           only positions offset + [0, S) are written (a whole-table
           scatter would zero shared prefix blocks), then attention runs
-          over the cache (paged: its gathered view) with q from
-          ``offset`` and kv_len = offset + S.
+          over the cache with q from ``offset`` and kv_len = offset + S:
+          a contiguous cache sliced to the live prefix, rounded up to
+          ``lcm(t_cache / W, W)`` as JAX slices it (:431-441), a paged
+          one through its gathered view.
         * Decode (S == 1, scalar or (B,) offsets): one position per row
           is written, then the flash-decode kernels read the cache with
-          kv_len = offset + 1.
+          kv_len = offset + 1 (at world W the world-W kernel).
 
-        The caches are updated in place. ``block_table``: (1, B,
-        n_pages) int32 switches them to ``PagedKVCacheManager`` pools.
-        Returns (logits (B, S, V) f32, kv_caches)."""
+        The activations are global tensors computed once: JAX's prefill
+        activations are split over S and its decode activations
+        replicated, and on one card a replicated tensor is one shared
+        tensor, a split one the ranks' views of it. The caches are
+        updated in place. ``block_table``: (W, B, n_pages) int32
+        switches them to ``PagedKVCacheManager`` pools. Returns (logits
+        (B, S, V) f32, kv_caches)."""
         if self.sp_axis is None:
             raise ValueError("build the model with sp_axis=... to use "
                              "mode 'sp'")
         if self.world > 1:
             raise NotImplementedError(
-                f"mode 'sp' at world {self.world} (sequence parallelism "
-                f"over the ranks) is not ported yet (ROADMAP.md, Queue A "
-                f"item 13)")
+                f"mode 'sp' on a model of tensor-parallel world "
+                f"{self.world} (the 2-D tp x sp head_axis) is not ported yet "
+                f"(ROADMAP.md, Queue A item 13)")
         c = self.config
         b, s = input_ids.shape
         dev = input_ids.device
+        sp_world = self.sp_world
         per_row = torch.is_tensor(offset) and offset.dim() == 1
         if per_row and s > 1:
             raise NotImplementedError(
@@ -244,7 +274,7 @@ class DenseLLM:
                 write_cache(ck, kc, offset)
                 write_cache(cv, vc, offset)
             elif decode:
-                spd = ck.shape[0] // PagedKVCacheManager.world
+                spd = ck.shape[0] // sp_world
                 to_slot = (PagedKVCacheManager.position_to_slot_rows
                            if per_row else
                            PagedKVCacheManager.position_to_slot)
@@ -252,7 +282,7 @@ class DenseLLM:
                 ck[g, ip] = kc[:, 0]
                 cv[g, ip] = vc[:, 0]
             elif chunked:
-                spd = ck.shape[0] // PagedKVCacheManager.world
+                spd = ck.shape[0] // sp_world
                 posn = offset + torch.arange(s, device=dev)
                 g, ip = PagedKVCacheManager.position_to_slot(
                     block_table, posn, ck.shape[1], spd)   # (S, B), (S,)
@@ -274,6 +304,9 @@ class DenseLLM:
                 if block_table is not None:
                     ck = PagedKVCacheManager.gathered_view(ck, block_table)
                     cv = PagedKVCacheManager.gathered_view(cv, block_table)
+                else:
+                    t_live = live_prefix(ck.shape[1], offset + s, sp_world)
+                    ck, cv = ck[:, :t_live], cv[:, :t_live]
                 att = sp_ag_attention(q, ck, cv, self.sp_ctx,
                                       q_offset=offset, kv_len=offset + s)
             else:
@@ -307,20 +340,25 @@ class DenseLLM:
     def _paged_scatter(pool: torch.Tensor, kv: torch.Tensor,
                        table: torch.Tensor) -> None:
         """Write a (B, S, Hkv, D) prefill K/V into the pages of the rows'
-        (1, B, n_pages) table in place: positions [0, S) get the K/V and
-        every later position of each listed page gets zeros (the JAX
-        ``_paged_scatter``, which stages the whole row). Lanes that all
-        point at the sentinel page leave it holding one of their pages'
-        contents, which no live kv_len ever reads."""
+        (W, B, n_pages) table in place (JAX ``_paged_scatter``,
+        dense.py:481-518): the K/V staged into the position space of the
+        W ranks (zeros past S), then rank r's positions [r t_loc,
+        (r + 1) t_loc) into its pages (its pool rows r P + table[r]).
+        Lanes that all point at a sentinel page leave it holding one of
+        their pages' contents, which no live kv_len ever reads."""
+        world, _, n_pages = table.shape
         b, s = kv.shape[0], kv.shape[1]
-        page, n_pages = pool.shape[1], table.shape[2]
-        t_total = page * n_pages
+        page = pool.shape[1]
+        t_total = page * n_pages * world
         if s > t_total:
             raise ValueError(f"prefill {s} > paged capacity {t_total}")
         staged = kv.new_zeros((b, t_total) + tuple(kv.shape[2:]))
         staged[:, :s] = kv
-        pool[table[0].reshape(-1).long()] = staged.reshape(
-            b * n_pages, page, *kv.shape[2:])
+        pages = staged.reshape(b, world, n_pages, page, *kv.shape[2:])
+        base = torch.arange(world, device=table.device)[:, None, None] * (
+            pool.shape[0] // world)
+        pool[(table.long() + base).reshape(-1)] = pages.transpose(
+            0, 1).reshape(world * b * n_pages, page, *kv.shape[2:])
 
     # -- HF weights --------------------------------------------------------
     def load_hf_state_dict(self, state: dict) -> dict:
@@ -366,6 +404,18 @@ class DenseLLM:
                         get("lm_head.weight")),
         }
         return with_f32_head(params)
+
+
+def live_prefix(t_cache: int, t_live: int, world: int) -> int:
+    """The cache positions a chunked prefill attends over (JAX
+    dense.py:431-441): the live prefix rounded up to a multiple of
+    lcm(t_cache / W, W), so the slice lands on shard boundaries and
+    splits over the W ranks; the whole cache when that reaches it. At
+    world 1 the step is t_cache."""
+    if t_cache % world:
+        return t_cache
+    step = math.lcm(t_cache // world, world)
+    return min(-(-t_live // step) * step, t_cache)
 
 
 def with_f32_head(params: dict) -> dict:

@@ -13,12 +13,14 @@ item 10). The engine families served:
   in either phase beside any other non-sp mode: prefill ``"ag_rs"`` with
   decode ``"gemm_ar"`` is the JAX reference engine, decode ``"ag_rs"``
   fuses the decode too;
-* mode ``"sp"`` for both phases (a model built with ``sp_axis=...``): prefill
+* mode ``"sp"`` for both phases (a model built with ``sp_axis=...``,
+  its sequence split over the model's ``sp_world`` ranks): prefill
   attention of ``ops.sp_attention`` and decode through the hand-written
   flash-decode kernels, over contiguous caches (optionally prefilled in
   ``prefill_chunk`` slices) or, with ``paged=True``, over a
-  ``PagedKVCacheManager`` block pool with the cross-request prefix cache
-  (on by default) and block-granular stream admission.
+  ``PagedKVCacheManager`` block pool of one pool per rank with the
+  cross-request prefix cache (on by default) and block-granular stream
+  admission.
 
 Served: ``serve``, ``serve_ragged`` (not in mode "sp", which is
 non-ragged), ``serve_stream`` and :class:`StreamSession`. The mega and
@@ -120,24 +122,30 @@ class Engine:
         self.prefix_cache = paged and (prefix_cache is None
                                       or bool(prefix_cache))
         self.prefill_chunk = prefill_chunk
+        #: Ranks of the sequence axis (sp engines) the caches split over.
+        self.sp_world = getattr(model, "sp_world", 1) if sp else 1
         if paged:
-            if max_seq % page_size:
+            if max_seq % (self.sp_world * page_size):
                 raise ValueError(f"max_seq {max_seq} must divide into "
-                                 f"{page_size}-token pages")
-            # kv_slots_per_dev sizes the allocatable pool (default:
-            # whole-batch capacity; the sentinel page rides outside it).
-            # Smaller pools stream through block-granular admission;
-            # serve() still needs whole rows.
+                                 f"{self.sp_world} devices x {page_size}"
+                                 f"-token pages")
+            # kv_slots_per_dev sizes each device's allocatable pool
+            # (default: whole-batch capacity; the sentinel page rides
+            # outside it). Smaller pools stream through block-granular
+            # admission; serve() still needs whole rows.
             self.kv = PagedKVCacheManager(
-                c.num_hidden_layers, batch, page_size, max_seq // page_size,
+                c.num_hidden_layers, batch, page_size,
+                max_seq // (self.sp_world * page_size),
                 c.num_key_value_heads, c.head_dim, dtype=c.dtype,
-                device=self.device, slots_per_dev=kv_slots_per_dev)
+                device=self.device, slots_per_dev=kv_slots_per_dev,
+                world=self.sp_world)
         else:
             self.kv = KVCacheManager(c.num_hidden_layers, batch, max_seq,
                                      c.num_key_value_heads, c.head_dim,
                                      dtype=c.dtype, device=self.device,
                                      seq_shard=sp,
-                                     world=getattr(model, "world", 1))
+                                     world=(self.sp_world if sp else
+                                            getattr(model, "world", 1)))
         self.prefill_mode = prefill_mode
         self.decode_mode = decode_mode
         self.temperature = temperature
@@ -439,6 +447,12 @@ class StreamSession:
             return self._admit_paged(row, prompt, gen_budget)
         return self._admit_whole(row, prompt)
 
+    def _bucket(self, n: int) -> int:
+        """The power-of-two prompt bucket rounded up to a multiple of the
+        sequence world (the sp prefill splits S over its ranks)."""
+        w = self.engine.sp_world
+        return -(-self.engine._bucket_len(n) // w) * w
+
     def _prefill_ids(self, tokens: list, lb: int) -> torch.Tensor:
         """``tokens`` right-padded with 0 to the bucket length ``lb``."""
         return torch.tensor([tokens + [0] * (lb - len(tokens))],
@@ -457,7 +471,7 @@ class StreamSession:
         slots are overwritten by the row's own decode steps before the
         per-row mask ever exposes them."""
         eng = self.engine
-        lb = min(eng._bucket_len(len(prompt)), eng.kv.max_seq)
+        lb = min(self._bucket(len(prompt)), eng.kv.max_seq)
         lanes = [(ck[row:row + 1, :lb], cv[row:row + 1, :lb])
                  for ck, cv in self.caches]
         logits, _ = eng.model.forward(self.params,
@@ -486,13 +500,13 @@ class StreamSession:
         hashes = kv.prefix_hashes(prompt)
         k = kv.prefix_probe(prompt, hashes=hashes)
         while k > 0 and (k * kv.page_size
-                         + eng._bucket_len(L - k * kv.page_size)
+                         + self._bucket(L - k * kv.page_size)
                          > kv.max_seq):
             k -= 1
         cached = kv.admit_row(row, prompt, gen_budget=int(gen_budget or 0),
                               use_hits=k, hashes=hashes)
         suffix = prompt[cached:]
-        lb = min(eng._bucket_len(len(suffix)), kv.max_seq - cached)
+        lb = min(self._bucket(len(suffix)), kv.max_seq - cached)
         try:
             self.cur_table = kv.block_table()
             # Offset 0 is the whole-prompt prefill; a hit's suffix starts

@@ -1,11 +1,12 @@
 """KV caches (the port of ``triton_dist_tpu.models.kv_cache``): the
-contiguous :class:`KVCacheManager` (at world 1, and head-sharded over a
-rank group of W > 1) and the paged :class:`PagedKVCacheManager` (world 1)
-with its host-side block allocator.
+contiguous :class:`KVCacheManager` (at world 1, and over a rank group of
+W > 1: head-sharded for TP, sequence-sharded for SP) and the paged
+:class:`PagedKVCacheManager` (W sequence ranks) with its host-side block
+allocator.
 
 The contiguous cache is a list of per-layer ``(k, v)`` tensors of shape
 (B, T, Hkv, D); the paged cache a list of per-layer ``(pool_k, pool_v)``
-page pools of shape (P, page, Hkv, D) read through a (1, B, n_pages)
+page pools of shape (W P, page, Hkv, D) read through a (W, B, n_pages)
 block table. Unlike the JAX package, whose arrays are immutable and
 threaded through the forward, the port's forward **updates these tensors
 in place** (``layers.tp_attn._attention_core``, ``models.dense``): the
@@ -28,26 +29,26 @@ from triton_dist_tpu_torch.models.prefix_cache import PrefixCache
 
 
 class KVCacheManager:
-    """Contiguous per-layer caches. ``seq_shard`` (the sp engines' cache)
-    is accepted for the JAX signature: at world = 1 a sequence-sharded
-    cache has the same layout as a head-sharded one.
+    """Contiguous per-layer caches, global (B, T, Hkv, D) tensors at
+    every world.
 
-    ``world`` > 1: the caches are head-sharded over the ranks, JAX's
-    ``P(None, None, axis, None)``. They stay global (B, T, Hkv, D)
-    tensors; rank r's cache is the view of its Hkv / W heads (the rank
-    group's ``shard(cache, 2)``), which the attention layer writes in
-    place."""
+    ``world`` > 1: the caches are sharded over the ranks, JAX's
+    ``P(None, None, axis, None)`` (head-sharded, the TP cache: rank r's
+    cache is the view of its Hkv / W heads, the rank group's
+    ``shard(cache, 2)``) or, with ``seq_shard`` (the sp engines' cache),
+    ``P(None, axis)``: rank r holds positions [r T / W, (r + 1) T / W),
+    the view ``shard(cache, 1)``. The layers write the global tensors in
+    place, so a write lands on the rank that owns its position."""
 
     def __init__(self, num_layers: int, batch: int, max_seq: int,
                  num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
                  device=None, seq_shard: bool = False, world: int = 1):
-        if num_kv_heads % world:
+        if seq_shard and max_seq % world:
+            raise ValueError(f"{max_seq} positions do not shard over "
+                             f"{world} ranks")
+        if not seq_shard and num_kv_heads % world:
             raise ValueError(f"{num_kv_heads} kv heads do not shard over "
                              f"{world} ranks")
-        if seq_shard and world > 1:
-            raise NotImplementedError(
-                "a sequence-sharded cache at world > 1 (SP serving over "
-                "ranks) is not ported yet (ROADMAP.md, Queue A item 13)")
         self.world = world
         self.num_layers = num_layers
         self.batch, self.max_seq = batch, max_seq
@@ -87,14 +88,18 @@ class PagedKVCacheManager:
     Layout, as the flash-decode kernels read it
     (``ops.flash_decode.gqa_fwd_batch_decode_paged``):
 
-    * pools: (phys_slots_per_dev, page_size, Hkv, D) per layer for K and
-      for V, phys_slots_per_dev = slots_per_dev + 1. The last physical
-      page is the reserved SENTINEL: stream sessions point unoccupied
-      rows at it, and it lies outside the accounted pool, so the whole
-      ``slots_per_dev`` capacity stays allocatable.
-    * block table: (1, B, pages_per_seq_dev) int32; entry [0, b, i] is
-      the pool slot of row b's logical page i. The leading 1 is the JAX
-      layout's device axis, kept so the two tables compare directly.
+    * ``world`` W devices (ranks) of the sequence axis; device r backs
+      global positions [r t_loc, (r + 1) t_loc) of every row, t_loc =
+      page_size * pages_per_seq_dev, with a pool of its own.
+    * pools: (W phys_slots_per_dev, page_size, Hkv, D) per layer for K
+      and for V, device r's its rows [r phys, (r + 1) phys),
+      phys_slots_per_dev = slots_per_dev + 1. The last physical page of
+      each device is its reserved SENTINEL: stream sessions point
+      unoccupied rows at it, and it lies outside the accounted pool, so
+      the whole ``slots_per_dev`` capacity stays allocatable.
+    * block table: (W, B, pages_per_seq_dev) int32; entry [r, b, i] is
+      device r's LOCAL slot of row b's logical page r * pages_per_seq_dev
+      + i, as in the JAX layout.
 
     Two admission disciplines share the pool and never each other's
     state (:meth:`reset_pool` between them): the seq-granular
@@ -110,13 +115,13 @@ class PagedKVCacheManager:
     every change of the host table and rebuilt on the next read: a stale
     copy would send one row's writes into another row's pages."""
 
-    #: Devices on the sequence axis: the port serves world = 1.
-    world = 1
-
     def __init__(self, num_layers: int, batch: int, page_size: int,
                  pages_per_seq_dev: int, num_kv_heads: int, head_dim: int,
                  dtype=torch.bfloat16, device=None,
-                 slots_per_dev: int | None = None):
+                 slots_per_dev: int | None = None, world: int = 1):
+        if world < 1:
+            raise ValueError(f"world must be >= 1, got {world}")
+        self.world = world
         self.num_layers = num_layers
         self.batch = batch
         self.page_size = page_size
@@ -493,7 +498,7 @@ class PagedKVCacheManager:
                 "total": total}
 
     def block_table(self) -> torch.Tensor:
-        """Device copy of the (1, B, n_pages) int32 table, rebuilt after
+        """Device copy of the (W, B, n_pages) int32 table, rebuilt after
         any change of the host table (cached until the next one)."""
         if self._table_dev is None:
             self._table_dev = torch.from_numpy(self._table.copy()).to(
@@ -544,13 +549,19 @@ class PagedKVCacheManager:
     def gathered_view(pool: torch.Tensor,
                       table: torch.Tensor) -> torch.Tensor:
         """Contiguous (B, T, Hkv, D) view of one pooled layer through the
-        (1, B, n_pages) table: the plain paged decode's and the paged
-        chunked prefill's read of the pool. Positions past a row's live
-        length resolve to sentinel or stale pages that the callers'
-        kv_len masks never expose."""
-        b, n_pages = table.shape[1], table.shape[2]
-        pages = pool[table[0].long()]                 # (B, n_pages, page...)
-        return pages.reshape(b, n_pages * pool.shape[1], *pool.shape[2:])
+        (W, B, n_pages) table, T = W * n_pages * page: device r's pages
+        (its pool rows r * P + table[r]) give positions [r t_loc,
+        (r + 1) t_loc). The plain paged decode's and the paged chunked
+        prefill's read of the pool. Positions past a row's live length
+        resolve to sentinel or stale pages that the callers' kv_len masks
+        never expose."""
+        world, b, n_pages = table.shape
+        spd = pool.shape[0] // world
+        base = torch.arange(world, device=table.device)[:, None, None] * spd
+        pages = pool[table.long() + base]      # (W, B, n_pages, page, ...)
+        return pages.transpose(0, 1).reshape(b, world * n_pages
+                                             * pool.shape[1],
+                                             *pool.shape[2:])
 
     @staticmethod
     def position_to_slot_rows(table: torch.Tensor, offsets, page_size: int,

@@ -23,7 +23,8 @@ attention is TP over the same ranks. The mode choice is JAX's
 attention runs the requested mode, but in mode ``"ep"`` the fused
 ``ag_rs`` path over the ring kernels, or ``gemm_ar`` where the rows do
 not split over the ranks. ``sp_axis`` needs ``moe_parallel="tp"``, as
-in JAX. ``moe_parallel="tp"`` runs at world 1 only.
+in JAX. ``moe_parallel="tp"`` runs at world 1 only, and mode "sp" at a
+sequence world of 1 only (``sp_world``).
 """
 
 from __future__ import annotations
@@ -37,10 +38,8 @@ from triton_dist_tpu_torch.layers.tp_moe import TPMoE
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import (
     DenseLLM, _to_torch, with_f32_head)
-from triton_dist_tpu_torch.ops.flash_decode import FlashDecodeContext
 from triton_dist_tpu_torch.ops.group_gemm import grouped_expert_ffn
 from triton_dist_tpu_torch.ops.moe_utils import topk_reduce, topk_routing
-from triton_dist_tpu_torch.ops.sp_attention import SpAttentionContext
 from triton_dist_tpu_torch.runtime.device import default_device
 from triton_dist_tpu_torch.runtime.dist import create_rank_group
 
@@ -54,7 +53,7 @@ class Qwen3MoE:
     def __init__(self, config: ModelConfig, device=None,
                  fwd_mode: str = "ag_rs", impl: str = "pallas",
                  moe_parallel: str = "tp", sp_axis: str | None = None,
-                 world: int = 1):
+                 world: int = 1, sp_world: int = 1):
         if not config.is_moe:
             raise ValueError("Qwen3MoE needs an MoE config (num_experts > "
                              "0); use DenseLLM for dense ones")
@@ -68,6 +67,10 @@ class Qwen3MoE:
                 f"moe_parallel='tp' at world {world} (the ring halves of the "
                 f"grouped GEMM and the MoE reduce-scatter) is not ported "
                 f"yet (ROADMAP.md, Queue B items 10-11)")
+        if sp_world != 1:
+            raise NotImplementedError(
+                f"Qwen3MoE in mode 'sp' at sequence world {sp_world} is not "
+                f"ported yet (ROADMAP.md, Queue A item 13)")
         self.config = config
         self.device = default_device(device)
         self.fwd_mode = fwd_mode
@@ -75,9 +78,7 @@ class Qwen3MoE:
         self.sp_axis = sp_axis
         self.world = world
         self.group = create_rank_group(world, "tp", self.device)
-        if sp_axis is not None:
-            self.sp_ctx = SpAttentionContext(causal=True)
-            self.fd_ctx = FlashDecodeContext()
+        DenseLLM._init_sp(self, sp_axis, sp_world)
         c = config
         self.attn = TPAttn(c.hidden_size, c.num_attention_heads,
                            c.num_key_value_heads, c.head_dim, dtype=c.dtype,

@@ -1,5 +1,4 @@
-"""GQA flash decode at world = 1 (the port of
-``triton_dist_tpu.ops.flash_decode``).
+"""GQA flash decode (the port of ``triton_dist_tpu.ops.flash_decode``).
 
 One query position per sequence attends to its KV cache: dense rows
 (:func:`gqa_fwd_batch_decode`) or a paged pool read through a block
@@ -8,6 +7,15 @@ package's cross-rank combine merges nothing but one partial, so the
 function is the softmax attention of ``_local_partials`` (:149) and
 ``_merge`` (:194), kept here as the plain versions
 :func:`flash_decode_reference` / :func:`flash_decode_paged_reference`.
+
+At world W (a context over a ``RankGroup`` of W ranks on the one card,
+the "sp" axis), rank r holds positions [r t_loc, (r + 1) t_loc) of every
+row: the dense cache's columns there, or its own pool rows through its
+table (W, B, n_pages). The plain version
+:func:`flash_decode_world_reference` takes each rank's
+``_local_partials`` with ``first_pos = r t_loc`` (:149) and merges
+them in rank order with ``_merge`` (:194); ``impl="xla"`` is JAX's
+pmax / psum body (:433-447) over the ranks (:func:`flash_decode_xla`).
 
 The kernels are hand-written CUDA for Hopper in ``csrc/flash_decode.cu``
 (the note at its top says what bounds them and what the design does
@@ -18,7 +26,12 @@ about it):
   log-sum-exp merge of the splits (``_exchange_and_merge`` :218);
 * ``single`` replaces ``_decode_kernel`` (:262): one pass over the whole
   cache, picked by :meth:`FlashDecodeContext.resolve_variant` exactly
-  where the JAX package picks "einsum".
+  where the JAX package picks "einsum";
+* at world W, ``world_single`` and ``world_tiled`` replace the same two
+  kernels with their cross-rank ``_exchange_and_merge`` (:218): one
+  cooperative launch of ``tdt_flash_decode_world`` per call, each rank's
+  partials pushed into every peer's combine buffer and merged there in
+  rank order (:func:`flash_decode_world`).
 
 Each wrapper on a CUDA tensor launches its kernel or raises; only a
 tensor that lies on the CPU takes the plain version. ``launches`` counts
@@ -36,6 +49,8 @@ import torch
 
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import LaunchCount, num_sms
+from triton_dist_tpu_torch.runtime.dist import RankGroup
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -44,28 +59,40 @@ MAX_GROUPS = 8
 MAX_HEAD_DIM = 256
 
 #: Launches of each kernel: ``partial`` and ``single`` keyed by
-#: ("paged" | "dense", B, T), ``combine`` by (B, splits).
+#: ("paged" | "dense", B, T), ``combine`` by (B, splits); the world-W
+#: kernel under its variant, ``world_single`` or ``world_tiled``, keyed by
+#: ("paged" | "dense", W, B, t_loc).
 launches = {"partial": LaunchCount(), "combine": LaunchCount(),
-            "single": LaunchCount()}
+            "single": LaunchCount(), "world_single": LaunchCount(),
+            "world_tiled": LaunchCount()}
 
 
 @dataclasses.dataclass
 class FlashDecodeContext:
-    """The JAX context's variant rules at world = 1.
+    """The JAX context's variant rules.
 
     ``variant``: "tiled" (split-KV partial + combine), "einsum" (the
-    single-pass kernel) or "auto", which takes "einsum" for caches of at
-    most ``einsum_max_bytes`` (all rows, one device) and "tiled" above.
+    single-pass kernel) or "auto", which takes "einsum" for shards of at
+    most ``einsum_max_bytes`` (each rank's ``t_loc * Hkv * D * itemsize *
+    B`` bytes, JAX :430-431) and "tiled" above.
 
     ``paged_variant``: "direct" (the default here) reads pages through
     the block table inside the kernel; "gathered" first copies the pool
     into a contiguous (B, T, Hkv, D) view and decodes that. The JAX
     package defaults to "gathered" only because its direct kernel hit a
     TPU compiler hang (``flash_decode.py:87-99``); the port reads no
-    environment variable for it."""
+    environment variable for it.
+
+    ``group``: the ranks of the sequence axis (``None``: world 1). At
+    world W the context keeps the world-W kernel's combine buffers,
+    signals and call counter (``state``) across calls, as JAX's
+    ``pallas_call`` owns its semaphores."""
     variant: str = "auto"
     einsum_max_bytes: int = 4 * 1024 * 1024
     paged_variant: str = "direct"
+    group: RankGroup | None = None
+    state: RingState | None = dataclasses.field(default=None, init=False,
+                                                repr=False)
 
     def __post_init__(self):
         if self.variant not in ("tiled", "einsum", "auto"):
@@ -74,11 +101,39 @@ class FlashDecodeContext:
         if self.paged_variant not in ("direct", "gathered"):
             raise ValueError(f"paged_variant {self.paged_variant!r} must be "
                              f"'direct' or 'gathered'")
+        if self.group is not None:
+            self.state = RingState(self.group)
+
+    @property
+    def world_size(self) -> int:
+        return 1 if self.group is None else self.group.world
 
     def resolve_variant(self, shard_bytes: int) -> str:
         if self.variant != "auto":
             return self.variant
         return "einsum" if shard_bytes <= self.einsum_max_bytes else "tiled"
+
+
+def create_flash_decode_context(group: RankGroup | None = None,
+                                variant: str = "auto",
+                                paged_variant: str = "direct"
+                                ) -> FlashDecodeContext:
+    """The context over ``group`` (JAX ``create_flash_decode_context``
+    over a mesh axis; ``None``: world 1)."""
+    return FlashDecodeContext(variant=variant, paged_variant=paged_variant,
+                              group=group)
+
+
+def combine_peer(me: int, p: int, world: int) -> int:
+    """Peer that rank ``me``'s combine push ``p`` (1..world-1) targets
+    (JAX ``combine_peer`` :203)."""
+    return (me + p) % world
+
+
+def combine_src(me: int, p: int, world: int) -> int:
+    """Source rank ``me`` waits on at combine position ``p`` (1..world-1),
+    the mirror of :func:`combine_peer` (JAX ``combine_src`` :212)."""
+    return (me - p + world) % world
 
 
 # -- plain versions ---------------------------------------------------------
@@ -130,15 +185,68 @@ def flash_decode_reference(q: torch.Tensor, cache_k: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def _merge(a, l, m):
+    """JAX's ``_merge`` (:194): the log-sum-exp merge of partials stacked
+    on the leading (rank) axis, in that axis's order."""
+    m_star = m.amax(dim=0, keepdim=True)
+    scale = torch.exp(m - m_star)
+    num = (a * scale[..., None]).sum(dim=0)
+    den = (l * scale).sum(dim=0)
+    return num / torch.clamp(den, min=1e-20)[..., None]
+
+
+def _rank_partials(q, k, v, kv_len, world: int):
+    """Each rank's ``_local_partials`` over its t_loc = T / W positions
+    of the (B, T, Hkv, D) caches (``first_pos = r * t_loc``)."""
+    t_loc = k.shape[1] // world
+    return [_local_partials(q, k[:, r * t_loc:(r + 1) * t_loc],
+                            v[:, r * t_loc:(r + 1) * t_loc], r * t_loc,
+                            kv_len)
+            for r in range(world)]
+
+
+def flash_decode_world_reference(q: torch.Tensor, cache_k: torch.Tensor,
+                                 cache_v: torch.Tensor, kv_len,
+                                 world: int) -> torch.Tensor:
+    """Plain version of the world-W decode: each rank's partial over its
+    positions, merged in rank order (JAX ``_exchange_and_merge`` after
+    ``_local_partials``). (B, Hq, D) in q's dtype; world 1 is
+    :func:`flash_decode_reference`."""
+    if world == 1:
+        return flash_decode_reference(q, cache_k, cache_v, kv_len)
+    parts = _rank_partials(q, cache_k, cache_v, kv_len, world)
+    out = _merge(*(torch.stack([p[i] for p in parts]) for i in range(3)))
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def flash_decode_xla(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, kv_len,
+                     group: RankGroup | None) -> torch.Tensor:
+    """JAX's ``impl="xla"`` body (:433-447): each rank's partial, the
+    global max by pmax, then the psum of the rescaled numerators and
+    denominators (``RankGroup.psum``: rank order, f32)."""
+    world = 1 if group is None else group.world
+    if world == 1:
+        return flash_decode_reference(q, cache_k, cache_v, kv_len)
+    parts = _rank_partials(q, cache_k, cache_v, kv_len, world)
+    m_star = torch.stack([m for _, _, m in parts]).amax(dim=0)
+    sc = [torch.exp(m - m_star) for _, _, m in parts]
+    num = group.psum([a * s[..., None] for (a, _, _), s in zip(parts, sc)])
+    den = group.psum([l * s for (_, l, _), s in zip(parts, sc)])
+    out = num / torch.clamp(den, min=1e-20)[..., None]
+    return out.reshape(q.shape).to(q.dtype)
+
+
 def flash_decode_paged_reference(q, pool_k, pool_v, block_table,
                                  kv_len) -> torch.Tensor:
     """Plain version of the paged decode: the contiguous view rebuilt
-    through the (1, B, n_pages) block table, then
-    :func:`flash_decode_reference`."""
+    through the (W, B, n_pages) block table, then
+    :func:`flash_decode_world_reference` at world W."""
     from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
     view = PagedKVCacheManager.gathered_view
-    return flash_decode_reference(q, view(pool_k, block_table),
-                                  view(pool_v, block_table), kv_len)
+    return flash_decode_world_reference(
+        q, view(pool_k, block_table), view(pool_v, block_table), kv_len,
+        block_table.shape[0])
 
 
 def flash_decode_partials_reference(q, cache_k, cache_v, kv_len,
@@ -325,24 +433,131 @@ def _tiled(q, k, v, kv_len, table=None) -> torch.Tensor:
     return flash_decode_combine(a, l, m, q.dtype)
 
 
+@functools.cache
+def world_grid(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """Blocks the world-W kernel keeps resident on the card (the most its
+    cooperative launch takes, and the barrier words it needs)."""
+    lib = _lib()
+    out = ctypes.c_int()
+    _check(lib, lib.tdt_flash_decode_world_grid(
+        _DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype], ctypes.byref(out)))
+    return out.value
+
+
+def flash_decode_world(q, k, v, kv_len, ctx: FlashDecodeContext,
+                       variant: str, table=None,
+                       fault: bool = False) -> torch.Tensor:
+    """One launch of the world-W kernel over every rank of ``ctx.group``,
+    counted in ``launches["world_" + variant]``. k/v: the dense
+    (B, W t_loc, Hkv, D) caches, or with ``table`` (W, B, n_pages) int32
+    the (W P, page, Hkv, D) pool. ``variant``: "single" (one pass over
+    each rank's positions, ``_decode_kernel``) or "tiled" (the plan's
+    splits, ``_tiled_decode_kernel``). Returns every rank's output as one
+    (W, B, Hq, D) tensor; rank 0's is the replicated result. ``fault``
+    plants the test fault (rank 0's first push of row 0, KV head 0
+    skipped, its signal still set): a fresh context's NaN-filled combine
+    buffer then shows it."""
+    world = ctx.world_size
+    paged = table is not None
+    _check_operands(q, k, v, table[0] if paged else None)
+    _check_cuda(q, k, v)
+    lib = _lib()
+    if world < 2 or variant not in ("single", "tiled"):
+        raise ValueError(f"the world-W kernel takes world >= 2 and variant "
+                         f"'single' or 'tiled', got {world}, {variant!r}")
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    if paged:
+        if table.dim() != 3 or table.shape[0] != world or k.shape[0] % world:
+            raise ValueError(f"block table {tuple(table.shape)} and pool "
+                             f"{tuple(k.shape)} do not split over {world} "
+                             f"ranks")
+        t_loc = table.shape[2] * k.shape[1]
+        table = table.to(torch.int32).contiguous()
+    else:
+        if k.shape[1] % world:
+            raise ValueError(f"{k.shape[1]} positions do not split over "
+                             f"{world} ranks")
+        t_loc = k.shape[1] // world
+    if variant == "single":
+        splits, split_len = 1, -(-t_loc // 64) * 64
+    else:
+        splits, split_len = plan(world * b, hkv, t_loc,
+                                 num_sms(q.device.index))
+    lens = _lens(kv_len, b, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if splits > 1:
+        ws_a = torch.empty((world, b, hkv, splits, g, d), **f32)
+        ws_l = torch.empty((world, b, hkv, splits, g), **f32)
+        ws_m = torch.empty_like(ws_l)
+        ws = [ws_a.data_ptr(), ws_l.data_ptr(), ws_m.data_ptr()]
+    else:
+        ws = [None, None, None]
+    state = ctx.state
+    comb = state.workspace(world * b * hkv * g * (d + 2), torch.float32)
+    sig = state.signals("fd", world * b * hkv)
+    flags = state.signals("barrier", world_grid(q.dtype, k.dtype))
+    out = torch.empty((world, b, hq, d), dtype=q.dtype, device=q.device)
+    # The tables stay referenced until the launch is queued: a freed
+    # temporary's memory would be handed to the next one.
+    comb_tab, sig_tab = rank_table(comb, world), rank_table(sig, world)
+    epoch = state.next_epoch()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _check(lib, lib.tdt_flash_decode_world(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        table.data_ptr() if paged else None, out.data_ptr(), *ws,
+        comb_tab.data_ptr(), sig_tab.data_ptr(), flags.data_ptr(), world, b,
+        hq, hkv, d, t_loc, k.shape[1] if paged else t_loc,
+        k.shape[0] // world if paged else b, split_len, splits, d ** -0.5,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], epoch, int(fault),
+        stream))
+    launches["world_" + variant].add(("paged" if paged else "dense", world,
+                                      b, t_loc))
+    return out
+
+
 # -- entry points -----------------------------------------------------------
+def _check_impl(impl: str) -> None:
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown flash decode impl {impl!r}")
+
+
 def gqa_fwd_batch_decode(q: torch.Tensor, cache_k: torch.Tensor,
                          cache_v: torch.Tensor, kv_len,
-                         ctx: FlashDecodeContext | None = None
-                         ) -> torch.Tensor:
+                         ctx: FlashDecodeContext | None = None,
+                         impl: str = "pallas") -> torch.Tensor:
     """Decode-time GQA over dense caches (JAX ``gqa_fwd_batch_decode``).
 
-    q: (B, Hq, D); cache_k/cache_v: (B, T, Hkv, D); kv_len: live
-    positions, a scalar or (B,). Returns (B, Hq, D) in q's dtype. CUDA
-    tensors run the single-pass kernel where ``ctx.resolve_variant``
-    says "einsum" (cache of at most 4 MiB), else partial + combine; CPU
-    tensors run :func:`flash_decode_reference`."""
+    q: (B, Hq, D), replicated over the ranks; cache_k/cache_v:
+    (B, T, Hkv, D), T split over ``ctx``'s W ranks; kv_len: live
+    positions, a scalar or (B,). Returns (B, Hq, D) in q's dtype.
+
+    ``impl="xla"``: JAX's pmax / psum body in plain torch on any device.
+    ``impl="pallas"`` on CUDA tensors: at world 1 the single-pass kernel
+    where ``ctx.resolve_variant`` says "einsum" (a shard of at most 4
+    MiB), else partial + combine; at world W the world-W kernel in that
+    variant. CPU tensors run the plain version
+    (:func:`flash_decode_world_reference`)."""
     ctx = ctx or FlashDecodeContext()
+    _check_impl(impl)
     _check_operands(q, cache_k, cache_v)
-    if q.device.type == "cpu":
-        return flash_decode_reference(q, cache_k, cache_v, kv_len)
+    world = ctx.world_size
     b, t, hkv, d = cache_k.shape
-    variant = ctx.resolve_variant(t * hkv * d * cache_k.element_size() * b)
+    if t % world:
+        raise ValueError(f"{t} cache positions do not split over {world} "
+                         f"ranks")
+    if impl == "xla":
+        return flash_decode_xla(q, cache_k, cache_v, kv_len, ctx.group)
+    if q.device.type == "cpu":
+        return flash_decode_world_reference(q, cache_k, cache_v, kv_len,
+                                            world)
+    variant = ctx.resolve_variant(
+        t // world * hkv * d * cache_k.element_size() * b)
+    if world > 1:
+        return flash_decode_world(q, cache_k, cache_v, kv_len, ctx,
+                                  "single" if variant == "einsum"
+                                  else "tiled")[0]
     if variant == "einsum":
         return flash_decode_single(q, cache_k, cache_v, kv_len)
     return _tiled(q, cache_k, cache_v, kv_len)
@@ -351,30 +566,38 @@ def gqa_fwd_batch_decode(q: torch.Tensor, cache_k: torch.Tensor,
 def gqa_fwd_batch_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                                pool_v: torch.Tensor,
                                block_table: torch.Tensor, kv_len,
-                               ctx: FlashDecodeContext | None = None
-                               ) -> torch.Tensor:
-    """Paged-KV decode (JAX ``gqa_fwd_batch_decode_paged`` at w = 1).
+                               ctx: FlashDecodeContext | None = None,
+                               impl: str = "pallas") -> torch.Tensor:
+    """Paged-KV decode (JAX ``gqa_fwd_batch_decode_paged``).
 
-    pool_k/pool_v: (P, page, Hkv, D) physical pages; block_table:
-    (1, B, n_pages) int32, page i of row b at pool slot
-    ``block_table[0, b, i]``; kv_len: a scalar or (B,). Returns
-    (B, Hq, D). CUDA tensors run partial + combine reading pages through
-    the table (``paged_variant="direct"``), or decode the gathered
-    contiguous view (``"gathered"``); CPU tensors run
-    :func:`flash_decode_paged_reference`."""
+    pool_k/pool_v: (W P, page, Hkv, D) physical pages, rank r's its rows
+    [r P, (r + 1) P); block_table: (W, B, n_pages) int32, page i of row b
+    on rank r at its local slot ``block_table[r, b, i]``, rank r backing
+    positions [r t_loc, (r + 1) t_loc), t_loc = n_pages * page; kv_len: a
+    scalar or (B,). Returns (B, Hq, D). ``impl="xla"`` and
+    ``paged_variant="gathered"`` decode the gathered contiguous view (as
+    JAX); CUDA tensors otherwise run partial + combine (world 1) or the
+    world-W kernel reading pages through the table (``"direct"``); CPU
+    tensors run :func:`flash_decode_paged_reference`."""
     ctx = ctx or FlashDecodeContext()
-    if block_table.dim() != 3 or block_table.shape[0] != 1:
+    _check_impl(impl)
+    world = ctx.world_size
+    if block_table.dim() != 3 or block_table.shape[0] != world:
         raise ValueError(f"block table {tuple(block_table.shape)} is not "
-                         f"(1, B, n_pages)")
+                         f"({world}, B, n_pages)")
     _check_operands(q, pool_k, pool_v, block_table[0])
-    if q.device.type == "cpu":
-        return flash_decode_paged_reference(q, pool_k, pool_v, block_table,
-                                            kv_len)
-    if ctx.paged_variant == "gathered":
+    if impl == "xla" or ctx.paged_variant == "gathered":
         from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
         view = PagedKVCacheManager.gathered_view
         return gqa_fwd_batch_decode(q, view(pool_k, block_table),
-                                    view(pool_v, block_table), kv_len, ctx)
+                                    view(pool_v, block_table), kv_len, ctx,
+                                    impl)
+    if q.device.type == "cpu":
+        return flash_decode_paged_reference(q, pool_k, pool_v, block_table,
+                                            kv_len)
+    if world > 1:
+        return flash_decode_world(q, pool_k, pool_v, kv_len, ctx, "tiled",
+                                  block_table)[0]
     return _tiled(q, pool_k, pool_v, kv_len, block_table[0])
 
 
@@ -400,6 +623,11 @@ def _lib() -> ctypes.CDLL:
         lib.tdt_flash_decode_single.argtypes = (
             [p] * 5 + [i] * 5 + [f, i, i, p])
         lib.tdt_flash_decode_single.restype = i
+        lib.tdt_flash_decode_world_grid.argtypes = [i, i, ip]
+        lib.tdt_flash_decode_world_grid.restype = i
+        lib.tdt_flash_decode_world.argtypes = (
+            [p] * 12 + [i] * 10 + [f, i, i, ctypes.c_ulonglong, i, p])
+        lib.tdt_flash_decode_world.restype = i
         lib.tdt_flash_decode_error_string.argtypes = [i]
         lib.tdt_flash_decode_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,8 +3,9 @@
 The JAX package runs W ranks as the W devices of a ``jax.sharding.Mesh``
 and writes per-rank code with ``shard_map``: each device sees its local
 shard of a global array. The port runs W ranks in one process on one
-card. A :class:`RankGroup` names the axis (``"tp"``) and the world size,
-and gives the two halves of ``shard_map``:
+card. A :class:`RankGroup` names the axis (``"tp"``, or ``"sp"`` for the
+sequence axis, whose shards are spans of positions: ``shard(cache, 1)``)
+and the world size, and gives the two halves of ``shard_map``:
 
 * :meth:`RankGroup.shard` / :meth:`RankGroup.unshard`, the counterparts
   of an ``in_specs`` / ``out_specs`` entry ``P(axis)`` on one dimension
