@@ -196,10 +196,37 @@ without the final line:
     cache (one world-W launch each), each against its plain world-4
     version; times beside the world-1 kernels' on the same inputs.
 
+22. world-W all-gather kernels (``csrc/allgather.cu``:
+    ``tdt_all_gather_world``, ``tdt_broadcast_world``), once phase 16's
+    EP model is released: the full-mesh
+    push, the ring and the bidirectional ring, and the broadcast from
+    the first and the last rank, at W = 2, 3, 4, 8, bf16 and f32, at
+    TPMoE's decode (4 x 2048) and prefill (512 x 2048) all-gathers
+    (padded to a multiple of W as TPMoE pads them) and at 8192 x 4096:
+    every rank's copy, written into NaN-filled buffers, bit-equal to the
+    plain version, a repeat bit-identical, a push (or forward) skipped
+    with its signal still set refused; the W = 4 bf16 cases timed by the
+    profiler (the kernel alone) beside the plain version, one
+    ``Tensor.copy_`` of the same bytes and the bound.
+23. TP MoE main path: ``Qwen3MoE(moe_parallel="tp", world=4)``
+    (``AutoLLM.build(cfg, world=4)``) over phase 12's params (per-rank
+    views), served by the default engine (prefill xla_ar, decode gemm_ar)
+    and the fused one (ag_rs both) through serve (4 x 128 prompts, 16 new
+    tokens) and the server, every count set to 0 just before: per
+    prefill and decode step 48 all-gather launches in MoE mode ag_rs
+    (none in the default prefill), 192 grouped-GEMM and 192 MoE-reduce
+    launches (one a rank a layer) and attention's rings, no world-1
+    kernel; the server's replies equal to ``Engine.serve``; prefill and
+    decode-step logits through the kernels within MOE_LOGITS_ATOL of the
+    plain world-4 path with the routing held fixed; greedy agreement with
+    phase 13 (not gated); one TPMoE layer under sync debug "error"; wall
+    and device time, idle share and the all-gather's share of a decode
+    step in each mode and of a prefill.
+
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
 release, before the Qwen3-30B-A3B load), phases 17-20 after phase 11
-(before that release), phase 21 after phase 15, phase 16 after phase 13;
-the JSON line covers all eight slices.
+(before that release), phase 21 after phase 15, phase 16 after phase 13,
+phases 22-23 after phase 16; the JSON line covers all nine slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -1840,8 +1867,9 @@ def phase_moe_checks(torch, gg, mrs, agk, ag, rs, engines, cfg, params,
         ag.launch_gemm = lambda a, bs, count: ag.ag_gemm_multi_reference(
             a, bs)
         tp_attn.gemm_rs = rs.gemm_rs_reference
-        tp_moe.all_gather = lambda x, ctx=None, impl="pallas": (
-            agk.all_gather_reference(x))
+        tp_moe.all_gather = (lambda x, ctx=None, impl="pallas",
+                             stacked=False: agk.all_gather_reference(
+                                 x, 1, stacked))
         tp_moe.grouped_matmul_multi = lambda t, ws, i, e, topk=1: [
             gg.grouped_matmul_reference(t, w, i, e, topk) for w in ws]
         tp_moe.moe_reduce_rs = lambda a, w, i, wt, ctx, impl="ring": (
@@ -3725,6 +3753,432 @@ def phase_ep_mode(torch, ag, rs, a2a, cfg, model, params, square, card):
               f"{want} [{card}]", flush=True)
 
 
+# -- slice 10: tensor-parallel MoE at world 4 through the world-W all-gather --
+#: Ranks of the TP-MoE main path: each holds 8 query heads, 1 KV head and a
+#: 192-wide column shard of every expert of Qwen3-30B-A3B.
+TPM_WORLD = 4
+#: New tokens of phase 23's serves (as phase 16's).
+TPM_GEN = 16
+#: The engines of phase 23: name -> (prefill mode, decode mode).
+TPM_ENGINES = {"default": ("xla_ar", "gemm_ar"), "fused": ("ag_rs", "ag_rs")}
+#: Phase 22's worlds, and its shapes at Qwen3-30B-A3B's hidden 2048: the
+#: decode (4 tokens) and prefill (4 x 128) all-gather of TPMoE, padded to a
+#: multiple of the ranks as TPMoE pads them, and one large one.
+AGW_WORLDS = (2, 3, 4, 8)
+AGW_SHAPES = (("decode", 4, 2048), ("prefill", 512, 2048),
+              ("large", 8192, 4096))
+#: The TPU kernel each method of the world-W kernel replaces
+#: (triton_dist_tpu/ops/allgather.py line).
+AGW_REPLACES = {"full_mesh_push": 254, "ring_1d": 133, "ring_bidir": 133,
+                "broadcast": 218}
+
+
+def agw_bound_ms(world: int, chunk_bytes: int, broadcast: bool):
+    """(least ms, "bytes") of a world-W all-gather (every input chunk read
+    once, W copies of the W chunks written once) or broadcast (the root's
+    chunk read once, W copies of it written once), over HBM."""
+    moved = (1 + world) * chunk_bytes if broadcast else \
+        (world + world * world) * chunk_bytes
+    return moved / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_agw_kernels(torch, agk, rd, card: str) -> list:
+    """Phase 22: the world-W all-gather (full-mesh push, ring, bidirectional
+    ring) and broadcast (``csrc/allgather.cu``) against their plain versions
+    at W = 2, 3, 4, 8, bf16 and f32, at the shapes of :data:`AGW_SHAPES`:
+    every rank's copy written into NaN-filled buffers bit-equal to the
+    plain version (so the W copies are bit-equal), a repeat bit-identical,
+    and a push (or forward) skipped with its signal still set refused (its
+    NaN stays). Then the W = 4 bf16 decode and prefill cases timed by the
+    profiler (the kernel alone) beside the plain version, one
+    ``Tensor.copy_`` of the same bytes and the bound. Returns the JSON
+    records, ``launches`` to fill from phase 23."""
+    print("== phase 22: world-W all-gather and broadcast kernels vs their "
+          "plain versions", flush=True)
+    t0 = time.perf_counter()
+    methods = ("full_mesh_push", "ring_1d", "ring_bidir")
+    nan = float("nan")
+    n_cases = 0
+    for world in AGW_WORLDS:
+        group = rd.create_rank_group(world, device="cuda")
+        ctxs = {m: agk.create_allgather_context(
+            method=agk.AllGatherMethod(m), group=group) for m in methods}
+        bctx = agk.create_allgather_context(group=group)
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for name, m, n in AGW_SHAPES:
+                rows = -(-m // world) * world
+                x = torch.randn(rows, n, device="cuda").to(dtype)
+                want = agk.all_gather_reference(x, world, stacked=True)
+                for meth in methods:
+                    mm = agk.AllGatherMethod(meth)
+                    got = agk.launch_all_gather_world(
+                        x, ctxs[meth], mm, out=torch.full_like(want, nan))
+                    again = agk.launch_all_gather_world(x, ctxs[meth], mm)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(bits(torch, got), bits(torch, want))
+                    same = torch.equal(bits(torch, again), bits(torch, got))
+                    del got, again
+                    bad = agk.launch_all_gather_world(
+                        x, agk.create_allgather_context(method=mm,
+                                                        group=group),
+                        mm, out=torch.full_like(want, nan), fault=True)
+                    torch.cuda.synchronize()
+                    refused = bool(bad.isnan().any())
+                    del bad
+                    check(ok and same and refused,
+                          f"all-gather W={world} {meth} {dt} {name}: "
+                          f"bit-equal {ok}, repeat {same}, fault refused "
+                          f"{refused}")
+                    n_cases += 1
+                del want
+                for root in (0, world - 1):
+                    want = agk.broadcast_reference(x, root, world)
+                    out = torch.full((world, *want.shape), nan, dtype=dtype,
+                                     device="cuda")
+                    got = agk.launch_broadcast_world(x, root, bctx, out=out)
+                    again = agk.launch_broadcast_world(x, root, bctx)
+                    bad = agk.launch_broadcast_world(
+                        x, root, agk.create_allgather_context(group=group),
+                        out=torch.full_like(out, nan), fault=True)
+                    torch.cuda.synchronize()
+                    ok = all(torch.equal(bits(torch, got[r]),
+                                         bits(torch, want))
+                             for r in range(world))
+                    same = torch.equal(bits(torch, again), bits(torch, got))
+                    refused = bool(bad.isnan().any())
+                    check(ok and same and refused,
+                          f"broadcast W={world} root {root} {dt} {name}: "
+                          f"bit-equal {ok}, repeat {same}, fault refused "
+                          f"{refused}")
+                    n_cases += 1
+                    del want, out, got, again, bad
+                del x
+        torch.cuda.empty_cache()
+    print(f"world-W all-gather (full-mesh push, ring, bidirectional ring) "
+          f"and broadcast (roots 0 and W - 1) at W = {AGW_WORLDS}, bf16 and "
+          f"f32, {[s[0] for s in AGW_SHAPES]} shapes: {n_cases} cases, every"
+          f" rank's copy bit-equal to the plain version (NaN-filled "
+          f"buffers), repeats bit-identical, the skipped push (its signal "
+          f"set) refused in every case [{card}]", flush=True)
+
+    world = TPM_WORLD
+    group = rd.create_rank_group(world, device="cuda")
+    records = []
+    for name, m, n in AGW_SHAPES:
+        x = torch.randn(-(-m // world) * world, n,
+                        device="cuda").to(torch.bfloat16)
+        chunk = x.numel() * x.element_size() // world
+        for meth in methods + ("broadcast",):
+            b = meth == "broadcast"
+            ctx = agk.create_allgather_context(
+                group=group, **({} if b else
+                                {"method": agk.AllGatherMethod(meth)}))
+            out = torch.empty((world, *(x[:x.shape[0] // world].shape if b
+                                        else x.shape)),
+                              dtype=x.dtype, device="cuda")
+            src = (x[:x.shape[0] // world] if b else x).reshape(1, -1)
+
+            def kernel():
+                if b:
+                    return agk.launch_broadcast_world(x, 0, ctx)
+                return agk.launch_all_gather_world(
+                    x, ctx, agk.AllGatherMethod(meth))
+
+            def plain():
+                if b:
+                    return torch.stack([agk.broadcast_reference(x, 0, world)
+                                        for _ in range(world)])
+                return agk.all_gather_reference(x, world, stacked=True)
+
+            def library():
+                return out.view(world, -1).copy_(src.expand(world, -1))
+            ms = kernel_device_ms(torch, kernel, "gather_world")
+            bnd, by = agw_bound_ms(world, chunk, b)
+            lib_ms = device_ms(torch, library)
+            print(f"kernel all_gather_world[{meth}] W={world} bf16 {name} "
+                  f"{tuple(x.shape)}: kernel_ms={ms:.5f} copy_ms={lib_ms:.5f}"
+                  f" bound_ms={bnd:.5f} ({by}); kernel rate "
+                  f"{bnd / ms:.3f} of the HBM bound [{card}]", flush=True)
+            if name == "large":
+                continue
+            rows = x.shape[0] // world
+            records.append(({
+                "name": f"all_gather_world_{meth}[{name}]", "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/allgather.cu",
+                "replaces": f"triton_dist_tpu/ops/allgather.py:"
+                            f"{AGW_REPLACES[meth]}",
+                "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": device_ms(torch, plain),
+                "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+                "wall_ms": wall_ms(torch, kernel),
+                "shape": [world, *x.shape], "ok": True},
+                "broadcast" if b else "all_gather",
+                (meth, world, x.shape[0], x.shape[1] * x.element_size())))
+        del x
+    print(f"phase 22 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return records
+
+
+def tpm_counters(agk, gg, mrs, ag, rs, ops) -> dict:
+    """The launch counters of phase 23: the path's kernels, then the
+    world-1 kernels that must not run there."""
+    return {"all_gather": agk.all_gather_launches,
+            "group_gemm": gg.group_gemm_launches,
+            "moe_rs": mrs.moe_rs_launches,
+            "ag_ring": ag.ag_ring_launches, "rs_ring": rs.rs_ring_launches,
+            "ar_ring": rs.ar_ring_launches,
+            "ag_swiglu_ring": ag.ag_swiglu_ring_launches,
+            "ag_gemm": ag.ag_gemm_launches, "gemm_rs": rs.gemm_rs_launches,
+            "gemm_ar": ops.launches, "broadcast": agk.broadcast_launches}
+
+
+def tpm_expected(mode: str, layers: int) -> dict:
+    """Launches of one prefill or decode step in ``mode`` at world 4: per
+    layer one all-gather in MoE mode ag_rs (model modes ag_rs, gemm_ar),
+    one grouped-GEMM (gate|up) and one MoE-reduce launch per rank in every
+    mode, and attention's rings (ag_rs: AG-GEMM QKV + GEMM-RS o_proj;
+    gemm_ar: the GEMM-AR o_proj)."""
+    w = TPM_WORLD
+    out = dict.fromkeys(("all_gather", "group_gemm", "moe_rs", "ag_ring",
+                         "rs_ring", "ar_ring", "ag_swiglu_ring", "ag_gemm",
+                         "gemm_rs", "gemm_ar", "broadcast"), 0)
+    out.update(group_gemm=w * layers, moe_rs=w * layers)
+    if mode in ("ag_rs", "gemm_ar"):
+        out["all_gather"] = layers
+    if mode == "ag_rs":
+        out.update(ag_ring=layers, rs_ring=layers)
+    if mode == "gemm_ar":
+        out["ar_ring"] = layers
+    return out
+
+
+def phase_tpm_main(torch, models, counters, cfg, params, base, card: str,
+                   seed: int):
+    """Phase 23: Qwen3-30B-A3B with moe_parallel="tp" at world 4 over
+    phase 12's weights (per-rank views), served by the engines of
+    :data:`TPM_ENGINES` through serve (4 x 128 prompts, 16 new tokens)
+    and the server, every count set to 0 just before, with the launches
+    of every prefill and decode step checked against
+    :func:`tpm_expected`. Returns (model, engines, prompts, tokens by
+    engine, the launches by counter and key)."""
+    print(f"== phase 23: Qwen3-30B-A3B served with moe_parallel='tp' at "
+          f"world {TPM_WORLD} through the world-W all-gather", flush=True)
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    model = models.AutoLLM.build(cfg, world=TPM_WORLD)
+    check(model.moe_parallel == "tp" and model.moe.world == TPM_WORLD,
+          "AutoLLM did not build a world-4 TP MoE model")
+    engines = {name: models.Engine(model, batch=4, max_seq=256,
+                                   prefill_mode=pf, decode_mode=dc)
+               for name, (pf, dc) in TPM_ENGINES.items()}
+    print(f"TP MoE model over the same params (per-rank views, no copy): "
+          f"device memory {before / 2**30:.2f} GiB before, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after [{card}]",
+          flush=True)
+    square, _ = sp_prompts(torch, cfg, seed + 10)
+    for eng in engines.values():                       # warm-up
+        eng.serve(params, square, 2)
+    for c in counters.values():                        # ---- the main path
+        c.reset()
+    layers = cfg.num_hidden_layers
+    steps = TPM_GEN - 1
+    tokens = {}
+    for name, (pf, dc) in TPM_ENGINES.items():
+        eng = engines[name]
+        start = moe_counts(counters)
+        _, prefill_ms = sync_time(torch, lambda: eng.serve(params, square, 1))
+        mid = moe_counts(counters)
+        out, serve_ms = sync_time(torch, lambda: eng.serve(params, square,
+                                                           TPM_GEN))
+        end = moe_counts(counters)
+        per_prefill = {k: mid[k] - start[k] for k in mid}
+        per_step = {k: (end[k] - mid[k] - per_prefill[k]) / steps
+                    for k in end}
+        check(per_prefill == tpm_expected(pf, layers),
+              f"({name}) prefill launches {per_prefill}, expected "
+              f"{tpm_expected(pf, layers)}")
+        check(per_step == tpm_expected(dc, layers),
+              f"({name}) decode step launches {per_step}, expected "
+              f"{tpm_expected(dc, layers)}")
+        check(tuple(out.shape) == (4, 128 + TPM_GEN), f"({name}) serve shape")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "token out of vocabulary")
+        tokens[name] = out
+        decode_ms = serve_ms - prefill_ms
+        same = (out[:, 128:] == base[:, 128:128 + TPM_GEN]).float().mean()
+        print(f"tp-moe serve ({name}: prefill {pf}, decode {dc}, W="
+              f"{TPM_WORLD}): batch 4 x 128 prompt, {TPM_GEN} new tokens: "
+              f"prefill_ms={prefill_ms:.1f} decode_ms={decode_ms:.1f} "
+              f"per_step_ms={decode_ms / steps:.2f} decode_tokens_per_s="
+              f"{4 * steps / decode_ms * 1e3:.1f}; launches per prefill "
+              f"{ {k: v for k, v in per_prefill.items() if v} }, per decode "
+              f"step { {k: v for k, v in per_step.items() if v} }; greedy "
+              f"tokens equal to phase 13's world-1 default engine on "
+              f"{same.item():.3f} of positions (not gated) [{card}]",
+              flush=True)
+        from triton_dist_tpu_torch.serving.client import ChatClient
+        from triton_dist_tpu_torch.serving.server import ModelServer
+        srv = ModelServer(eng, params, host="127.0.0.1", port=0).start()
+        try:
+            with ChatClient(srv.host, srv.port, timeout=600) as client:
+                t1 = time.perf_counter()
+                reply = client.generate_ids(square, 8)
+                ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            srv.stop()
+        check("tokens" in reply, f"tp-moe server error: {reply}")
+        check(reply["tokens"] == out[:, 128:136].tolist(),
+              f"({name}) server reply differs from Engine.serve")
+        print(f"tp-moe server ({name}): 4 prompts -> 8 tokens each, equal to "
+              f"Engine.serve; {ms:.1f} ms round trip [{card}]", flush=True)
+    launches = {name: dict(c.by_shape) for name, c in counters.items()}
+    print(f"tp-moe main path launches: all_gather {launches['all_gather']}",
+          flush=True)                                  # ---- main path ends
+    check(all(k[0] == "full_mesh_push" for k in launches["all_gather"]),
+          "the TP-MoE path ran an all-gather other than the world-W push")
+    print(f"phase 23 (serving) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return model, engines, square, tokens, launches
+
+
+def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
+                     card: str) -> None:
+    """Phase 23, checks: prefill (ag_rs) and decode-step (gemm_ar, ag_rs)
+    logits through the kernels within MOE_LOGITS_ATOL of the plain
+    world-4 path (mode xla / xla_ar, the MoE's all-gather, grouped GEMM
+    and MoE-reduce through their plain versions) with the routing held
+    fixed (replayed from the kernel run, PR 4's rule); one TPMoE layer
+    under sync debug "error"; the decode steps' and the prefill's wall and
+    device time, idle share and the all-gather's share."""
+    from triton_dist_tpu_torch.layers import tp_moe
+    from triton_dist_tpu_torch.models import KVCacheManager
+    t0 = time.perf_counter()
+    ids = torch.tensor(square, device="cuda")
+    layers = cfg.num_hidden_layers
+    routing = tp_moe.topk_routing
+
+    def caches():
+        return KVCacheManager(layers, 4, 256, cfg.num_key_value_heads,
+                              cfg.head_dim, dtype=cfg.dtype, device="cuda",
+                              world=TPM_WORLD).init()
+
+    def run(modes, replay=None, tok=None):
+        """Prefill and two decode steps at position 128 in ``modes``:
+        (their last-position logits, the token fed, the routing of each
+        MoE call). ``replay``: routing to use, in call order."""
+        seen = []
+
+        def route(logits, k, norm=True):
+            out = replay.pop(0) if replay is not None else routing(logits, k,
+                                                                  norm)
+            seen.append(out)
+            return out
+        tp_moe.topk_routing = route
+        try:
+            kv = caches()
+            with torch.no_grad():
+                pre, kv = model.forward(params, ids, kv, 0, mode=modes[0])
+                if tok is None:
+                    tok = pre[:, -1].argmax(-1)[:, None]
+                steps = [model.forward(params, tok, kv, 128, mode=m)[0][:, 0]
+                         for m in modes[1:]]
+        finally:
+            tp_moe.topk_routing = routing
+        return [pre[:, -1]] + steps, tok, seen
+
+    saved = (tp_moe.all_gather, tp_moe.grouped_matmul_multi,
+             tp_moe.moe_reduce_rs)
+    got, tok, seen = run(("ag_rs", "gemm_ar", "ag_rs"))
+    tp_moe.all_gather = (lambda x, ctx=None, impl="pallas", stacked=False:
+                         agk.all_gather_reference(x, ctx.world_size, stacked))
+    tp_moe.grouped_matmul_multi = lambda t, ws, i, e, topk=1: [
+        gg.grouped_matmul_reference(t, w, i, e, topk) for w in ws]
+    tp_moe.moe_reduce_rs = lambda a, w, i, wt, ctx, impl="ring": (
+        mrs.moe_reduce_rs_world_reference(a, w, i, wt, ctx.num_experts,
+                                          ctx.world_size, impl))
+    try:
+        ref, _, _ = run(("xla", "xla_ar", "xla"), list(seen), tok)
+    finally:
+        (tp_moe.all_gather, tp_moe.grouped_matmul_multi,
+         tp_moe.moe_reduce_rs) = saved
+    for what, g, r in zip(("prefill (ag_rs vs xla) last-position",
+                           "decode step (gemm_ar vs xla_ar)",
+                           "decode step (ag_rs vs xla)"), got, ref):
+        check(bool(torch.isfinite(g).all()), f"non-finite tp-moe {what} "
+                                             f"logits")
+        err = (g - r).abs().max().item()
+        same = (g.argmax(-1) == r.argmax(-1)).float().mean().item()
+        check(err <= MOE_LOGITS_ATOL, f"tp-moe {what} logits differ by {err}")
+        print(f"tp-moe logits (W={TPM_WORLD}, routing held fixed): {what} "
+              f"logits through the kernels vs the plain world-4 path max abs"
+              f" diff {err:.4g} (tol {MOE_LOGITS_ATOL}), argmax agreement "
+              f"{same:.2f} [{card}]", flush=True)
+
+    # One TP MoE layer under sync debug "error": no host round trip.
+    layer = params["layers"][0]["moe"]
+    for m in (MOE_DECODE_M, MOE_PREFILL_M):
+        x = torch.randn((m, cfg.hidden_size), device="cuda").to(cfg.dtype)
+        model.moe(layer, x, mode="ag_rs")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = model.moe(layer, x, mode="ag_rs")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(y).all()), "non-finite TPMoE output")
+        print(f"tp-moe layer ({m} tokens, W={TPM_WORLD}, mode ag_rs) ran "
+              f"under torch.cuda.set_sync_debug_mode('error'): no host sync",
+              flush=True)
+
+    kv = caches()
+    with torch.no_grad():
+        model.forward(params, ids, kv, 0, mode="ag_rs")
+
+    def step(mode):
+        def fn():
+            with torch.no_grad():
+                return model.forward(params, ids[:, :1], kv, 128,
+                                     mode=mode)[0]
+        return fn
+
+    def prefill():
+        with torch.no_grad():
+            return model.forward(params, ids, caches(), 0, mode="ag_rs")[0]
+
+    for name, fn in (("decode step (gemm_ar)", step("gemm_ar")),
+                     ("decode step (ag_rs)", step("ag_rs")),
+                     ("prefill (ag_rs, 4 x 128)", prefill)):
+        walls = [sync_time(torch, fn)[1] for _ in range(5)]
+        wall = sorted(walls)[2]
+        rows = device_rows(torch, fn, "gather_world", n=3)
+        dev = sum(ms for _, ms in rows)
+        ag_ms = sum(ms for key, ms in rows if "gather_world" in key)
+        print(f"tp-moe {name} (W={TPM_WORLD}, batch 4, forward only): wall "
+              f"{wall:.2f} ms (median of 5), device {dev:.2f} ms, device "
+              f"idle share {1 - dev / wall:.2f}; world-W all-gather "
+              f"{ag_ms:.3f} ms ({ag_ms / dev:.3f} of device time) [{card}]",
+              flush=True)
+        for kernel, ms in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"  tp-moe {name} device time: {ms:.3f} ms "
+                  f"({ms / dev:.2f}) {kernel[:70]}", flush=True)
+    print(f"phase 23 (checks) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def agw_kernels_line(records, launches) -> list:
+    """The records of phase 22 with their launches on phase 23's path;
+    the push is the path's (AUTO's choice at W <= 4) and must have run,
+    the ring methods and the broadcast are not on it (0)."""
+    out = []
+    for rec, counter, key in records:
+        rec = dict(rec, launches=launches[counter].get(key, 0))
+        if key[0] == "full_mesh_push":
+            check(rec["launches"] > 0, f"{rec['name']} never launched on "
+                                       f"the TP-MoE path")
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3844,6 +4298,18 @@ def main() -> int:
     phase_ep_checks(torch, a2a, cfg, ep_model, params, square, card)
     phase_ep_mode(torch, ag, ops, a2a, cfg, ep_model, params, square, card)
     kernels += ep_kernels_line(a2a_records, ep_launches)
+    del ep_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    agw_records = phase_agw_kernels(torch, agk, rd, card)
+    tpm_model, tpm_engines, square, _, tpm_launches = phase_tpm_main(
+        torch, models, tpm_counters(agk, gg, mrs, ag, ops, ops), cfg, params,
+        tokens["default"], card, args.seed)
+    del tpm_engines
+    phase_tpm_checks(torch, gg, mrs, agk, cfg, tpm_model, params, square,
+                     card)
+    kernels += agw_kernels_line(agw_records, tpm_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

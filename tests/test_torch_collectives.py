@@ -134,12 +134,8 @@ def test_all_gather_refuses_the_broadcast_method_as_jax_does(mesh):
                                    world_size=2)), "Queue B item 9"),
     (lambda: rs.create_reduce_scatter_context(world_size=4).resolve_method(
         64), "Queue B item 9"),
-    (lambda: ag.broadcast(torch.ones(4, 4), 0,
-                          ag.create_allgather_context(world_size=2)),
-     "Queue B item 8"),
 ], ids=["all_reduce_world2", "all_reduce_auto_world4",
-        "reduce_scatter_world2", "reduce_scatter_auto_world4",
-        "broadcast_world2"])
+        "reduce_scatter_world2", "reduce_scatter_auto_world4"])
 def test_unported_worlds_raise_and_name_their_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

@@ -366,15 +366,15 @@ def test_ep_kv_cache_ranks_view_their_heads(models):
 def test_unported_world_modes_raise(models, jax_out):
     """Modes ag_rs and gemm_ar at world W run the rings (their logits
     within 1e-5 of JAX's, f32: every mode computes the same products);
-    what stays unported raises."""
+    TP MoE at world W builds, and ep x sp raises as JAX asserts."""
     _, _, model, params = models
     ids = torch.from_numpy(_ids()).long()
     for mode in ("ag_rs", "gemm_ar"):
         out, _ = model.forward(params, ids, _caches(model), 0, mode=mode)
         np.testing.assert_allclose(out.numpy(), jax_out["prefill"],
                                    rtol=1e-5, atol=1e-5, err_msg=mode)
-    with pytest.raises(NotImplementedError, match="Queue B items 10-11"):
-        Qwen3MoE(model.config, device="cpu", world=W)
+    tp = Qwen3MoE(model.config, device="cpu", world=W)
+    assert tp.moe_parallel == "tp" and tp.moe.world == W
     with pytest.raises(ValueError, match="moe_parallel='tp'"):
         Qwen3MoE(model.config, device="cpu", moe_parallel="ep",
                  sp_axis="sp")

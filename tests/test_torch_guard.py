@@ -735,3 +735,60 @@ def test_all_to_all_source_targets_sm90a_and_synchronises_by_signals():
     for body in (text, shmem):
         for library in ("cublas", "nccl", "nvshmem", "torch/"):
             assert library not in body.lower()  # no library exchange
+
+
+def test_tensor_world_moe_entry_points_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed calls at tensor world 4 -- the world-W
+    all-gather in every method, the broadcast, ``ag_pallas`` over it and
+    the world-W MoE-reduce -- reach a kernel build and fail there instead
+    of computing a plain version on the CPU."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops import sp_attention as sp
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for mod, name in ((ag, "all_gather_reference"),
+                      (ag, "broadcast_reference"),
+                      (mrs, "moe_reduce_rs_reference"),
+                      (mrs, "moe_reduce_rs_world_reference"),
+                      (sp, "_masked_pass")):
+        monkeypatch.setattr(mod, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    group = create_rank_group(4, device="cpu")
+    x = on_cuda(torch.zeros(8, 16, dtype=torch.bfloat16))
+    q = on_cuda(torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16))
+    sp_ctx = sp.create_sp_attention_context(
+        group=create_rank_group(4, "sp", device="cpu"))
+    act = on_cuda(torch.zeros(8, 16, dtype=torch.bfloat16))
+    wd = on_cuda(torch.zeros(3, 16, 8, dtype=torch.bfloat16))
+    ids = on_cuda(torch.zeros(8, dtype=torch.int32))
+    wts = on_cuda(torch.ones(4, 2))
+    rs_ctx = mrs.create_moe_rs_context(num_experts=3, topk=2, world_size=4)
+    calls = [("allgather", lambda m=m: ag.all_gather(
+        x, ag.create_allgather_context(method=m, group=group)))
+        for m in (ag.AllGatherMethod.AUTO, ag.AllGatherMethod.RING_1D,
+                  ag.AllGatherMethod.RING_BIDIR,
+                  ag.AllGatherMethod.FULL_MESH_PUSH)] + [
+        ("allgather", lambda: ag.broadcast(
+            x, 1, ag.create_allgather_context(group=group))),
+        ("allgather", lambda: sp.sp_ag_attention(q, q, q, sp_ctx,
+                                                 impl="ag_pallas")),
+    ] + [("moe_rs", lambda impl=impl: mrs.moe_reduce_rs(
+        act, wd, ids, wts, rs_ctx, impl=impl)) for impl in ("ring", "xla")]
+    for lib, call in calls:
+        with pytest.raises(RuntimeError, match=f"no build of {lib}"):
+            call()

@@ -6,8 +6,10 @@ and GEMM-RS kernels of ops.allgather_gemm / ops.gemm_reduce_scatter, and
 the grouped-GEMM, MoE-reduce and all-gather kernels of ops.group_gemm /
 ops.moe_reduce_rs / ops.allgather, the flash-prefill kernel of
 ops.sp_attention and the copy kernel under each world = 1 collective,
-and at sequence world W the flash-decode exchange and the ring-KV
-prefill) against their plain versions on the card (marked ``cuda``; skipped
+at sequence world W the flash-decode exchange and the ring-KV
+prefill, and at tensor world W the all-gather and broadcast kernels and
+the grouped GEMM and MoE-reduce on strided expert shards) against their
+plain versions on the card (marked ``cuda``; skipped
 without one). The CPU parity tests of
 flash decode, of AG-GEMM and of the MoE ops are in
 tests/test_torch_flash_decode.py, tests/test_torch_ag_gemm.py and
@@ -269,7 +271,8 @@ def test_flash_decode_kernels_match_plain_on_card(cuda_device, dtype, shape):
                      q, k, v, lens, p.split_len, p.splits), dtype))
         torch.cuda.synchronize()
         assert {n: c.total - before[n] for n, c in fd.launches.items()} == {
-            "partial": 2, "combine": 2, "single": 2}
+            "partial": 2, "combine": 2, "single": 2, "world_single": 0,
+            "world_tiled": 0}
         assert torch.equal(single, again[0])        # no atomics
         assert torch.equal(merged, again[1])
         want = fd.flash_decode_reference(q, k, v, lens)
@@ -1079,3 +1082,154 @@ def test_ring_prefill_kernel_matches_plain_on_card(cuda_device, dtype, s,
         fault=True)
     torch.cuda.synchronize()
     assert not bool(((bad.float() - want.float()).abs() <= lim).all())
+
+
+# -- slice 10: the world-W all-gather and broadcast (csrc/allgather.cu), the
+# grouped GEMM and MoE-reduce on strided expert shards -----------------------
+def _agw_shapes(world):
+    """TPMoE's decode (4 rows) and prefill (512) all-gather at hidden 2048,
+    padded to a multiple of the ranks as TPMoE pads them, and chunks of
+    5 f32 columns (20 bytes: the byte copies)."""
+    return [(-(-4 // world) * world, 2048), (-(-512 // world) * world, 2048),
+            (3 * world, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("method", ["full_mesh_push", "ring_1d",
+                                    "ring_bidir"])
+@pytest.mark.parametrize("world", [2, 3, 4, 8])
+def test_world_all_gather_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                       method, world):
+    """Every rank's copy bit-equal to the plain version (into NaN-filled
+    buffers: no byte left unwritten), on repeat too; a push (or forward)
+    skipped with its signal set leaves NaN, refused."""
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    group = create_rank_group(world, device=cuda_device)
+    m_ = ag.AllGatherMethod(method)
+    ctx = ag.create_allgather_context(method=m_, group=group)
+    for rows, cols in _agw_shapes(world):
+        x = torch.randn(rows, cols, device=cuda_device).to(dtype)
+        want = ag.all_gather_reference(x, world, stacked=True)
+        out = torch.full_like(want, float("nan"))
+        before = ag.all_gather_launches.total
+        got = ag.launch_all_gather_world(x, ctx, m_, out=out)
+        again = ag.all_gather(x, ctx, stacked=True)
+        one = ag.all_gather(x, ctx)
+        torch.cuda.synchronize()
+        assert ag.all_gather_launches.total == before + 3
+        assert got is out and torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(again), _bits(want))
+        assert torch.equal(_bits(one), _bits(x))
+        bad = ag.launch_all_gather_world(
+            x, ag.create_allgather_context(method=m_, group=group),
+            m_, out=torch.full_like(want, float("nan")), fault=True)
+        torch.cuda.synchronize()
+        assert bool(bad.isnan().any()) and not torch.equal(bad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world", [2, 3, 4, 8])
+def test_world_broadcast_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                      world):
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    group = create_rank_group(world, device=cuda_device)
+    ctx = ag.create_allgather_context(group=group)
+    for rows, cols in _agw_shapes(world):
+        x = torch.randn(rows, cols, device=cuda_device).to(dtype)
+        for root in (0, world - 1):
+            want = ag.broadcast_reference(x, root, world)
+            out = torch.full((world, *want.shape), float("nan"),
+                             dtype=dtype, device=cuda_device)
+            got = ag.launch_broadcast_world(x, root, ctx, out=out)
+            one = ag.broadcast(x, root, ctx)
+            torch.cuda.synchronize()
+            assert all(torch.equal(_bits(got[r]), _bits(want))
+                       for r in range(world))
+            assert torch.equal(_bits(one), _bits(want))
+            bad = ag.launch_broadcast_world(
+                x, root, ag.create_allgather_context(group=group),
+                out=torch.full_like(out, float("nan")), fault=True)
+            torch.cuda.synchronize()
+            assert bool(bad.isnan().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [4, 512], ids=["decode", "prefill"])
+def test_grouped_gemm_on_expert_shards_equals_contiguous_on_card(
+        cuda_device, dtype, t):
+    """TPMoE at W = 4 on Qwen3-30B-A3B's shapes: each rank's column shard
+    of gate / up (E, 2048, 192), a strided view, gives the bits of the same
+    shard copied contiguous; so does the MoE-reduce on a rank's columns of
+    act and row shard of w_down (E, 192, 2048)."""
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    world, topk, e, h, i = 4, 8, 128, 2048, 768
+    x, (wg, wd_t), ids = _moe_inputs(t, topk, e, h, i, None, 0.0, dtype,
+                                     cuda_device, seed=t)
+    wu = wg.flip(0).contiguous()
+    wd = wd_t.transpose(1, 2).contiguous()              # (E, I, H)
+    act = torch.randn(t * topk, i, device=cuda_device).to(dtype)
+    wts = torch.rand(t, topk, device=cuda_device)
+    loc = i // world
+    for r in range(world):
+        cols = slice(r * loc, (r + 1) * loc)
+        views = [wg[:, :, cols], wu[:, :, cols]]
+        assert not views[0].is_contiguous()
+        got = gg.grouped_matmul_multi(x, views, ids, e, topk)
+        want = gg.grouped_matmul_multi(x, [v.contiguous() for v in views],
+                                       ids, e, topk)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        a_r, wd_r = act[:, cols], wd[:, cols]
+        got = mrs.launch_moe_rs(a_r, wd_r, ids, wts, e, True)
+        want = mrs.launch_moe_rs(a_r.contiguous(), wd_r.contiguous(), ids,
+                                 wts, e, True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    p = gg.plan(t * topk, e, h, loc, torch.bfloat16, (h, i, h * i))
+    assert p.path == "mma"
+    assert gg.plan(t * topk, e, h, loc, torch.bfloat16,
+                   (h, i + 1, h * (i + 1))).path == "fma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["ring", "xla"])
+def test_world_moe_reduce_rs_matches_plain_on_card(cuda_device, impl):
+    """moe_reduce_rs at W = 4: one kernel launch a rank on its I-shard,
+    each rank's partial within the MoE-reduce limit of its plain version
+    (rounded pairs), and the result bit-equal to those partials reduced
+    in the impl's order."""
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    world, t, topk, e, i, h = 4, 512, 8, 128, 768, 2048
+    x, (w, _), ids = _moe_inputs(t, topk, e, i, h, None, 0.0,
+                                 torch.bfloat16, cuda_device, seed=3)
+    act = x.repeat_interleave(topk, 0).contiguous()
+    wts = torch.rand(t, topk, device=cuda_device)
+    group = create_rank_group(world, device=cuda_device)
+    ctx = mrs.create_moe_rs_context(num_experts=e, topk=topk,
+                                    world_size=world)
+    before = mrs.moe_rs_launches.total
+    got = mrs.moe_reduce_rs(act, w, ids, wts, ctx, impl=impl)
+    torch.cuda.synchronize()
+    assert mrs.moe_rs_launches.total == before + world
+    loc = i // world
+    parts = []
+    for r in range(world):
+        a_r, w_r = act[:, r * loc:(r + 1) * loc], w[:, r * loc:(r + 1) * loc]
+        part = mrs.launch_moe_rs(a_r, w_r, ids, wts, e, True)
+        ref = mrs.moe_reduce_rs_reference(a_r, w_r, ids, wts, e)
+        pair = mrs.grouped_matmul_reference(a_r, w_r, ids, e).float()
+        pair_mag = (pair.abs().reshape(t, topk, -1) * wts[..., None]).sum(1)
+        lim = (2.0 ** -7 * (torch.maximum(part.float().abs(),
+                                          ref.float().abs()) + pair_mag)
+               + f32_sum_atol(loc))
+        assert bool(((part.float() - ref.float()).abs() <= lim).all())
+        parts.append(part)
+    want = (mrs.ring_reduce_scatter(parts) if impl == "ring"
+            else group.psum(parts))
+    assert torch.equal(got, want)

@@ -233,12 +233,12 @@ def test_dense_refuses_an_moe_config():
     with pytest.raises(ValueError, match="DenseLLM"):
         Qwen3MoE(_tiny_config(num_experts=0, intermediate_size=96),
                  device="cpu")
-    # Expert parallelism is ported (tests/test_torch_ep_moe.py holds it
-    # against JAX); TP MoE over more than one rank is not, and raises.
+    # Expert parallelism and TP MoE over more than one rank are ported
+    # (tests/test_torch_ep_moe.py and test_torch_tp_moe_world.py hold them
+    # against JAX).
     assert Qwen3MoE(_tiny_config(), device="cpu",
                     moe_parallel="ep").moe_parallel == "ep"
-    with pytest.raises(NotImplementedError, match="Queue B items 10-11"):
-        Qwen3MoE(_tiny_config(), device="cpu", world=4)
+    assert Qwen3MoE(_tiny_config(), device="cpu", world=2).moe.world == 2
 
 
 def test_server_builds_the_moe_preset_as_qwen3_moe():

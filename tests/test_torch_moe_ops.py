@@ -271,16 +271,11 @@ def test_cpu_calls_take_the_plain_versions_and_are_not_counted():
                                torch.zeros(4, dtype=torch.int32),
                                torch.ones(2, 2),
                                mrs.create_moe_rs_context(num_experts=2,
-                                                         world_size=2)),
+                                                         world_size=2),
+                               impl="fused"),
      "Queue B item 11"),
-    (lambda: ag.all_gather(torch.ones(2, 2),
-                           ag.create_allgather_context(world_size=2)),
-     "Queue B item 8"),
-    (lambda: ag.broadcast(torch.ones(2, 2), 0, ag.create_allgather_context(
-        world_size=2)), "Queue B item 8"),
-    (lambda: ag.get_auto_all_gather_method(4, 64), "Queue B item 8"),
 ], ids=["ag_group_gemm_auto", "ag_group_gemm_world2", "moe_rs_auto",
-        "moe_rs_world2", "all_gather_world2", "broadcast", "auto_world4"])
+        "moe_rs_world2"])
 def test_unported_parts_raise_and_name_their_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

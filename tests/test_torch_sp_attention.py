@@ -152,15 +152,15 @@ def test_head_axis_only_with_ring_and_xla():
 
 def test_unported_world_raises_with_roadmap_item():
     """At world 2 the ring and the fused prefill run (held against JAX in
-    tests/test_torch_sp_world.py); what is not ported yet raises naming
-    its item: ag_pallas needs the all-gather's pushes, head_axis the 2-D
-    tp x sp attention."""
+    tests/test_torch_sp_world.py), and so does ag_pallas over the
+    all-gather; what is not ported yet raises naming its item: head_axis
+    the 2-D tp x sp attention."""
     q = torch.zeros(1, 48, 4, 16)
     ctx = sp.create_sp_attention_context(world_size=2)
     assert sp.sp_ag_attention(q, q, q, ctx, impl="ring").shape == q.shape
     assert sp.sp_ag_attention_fused(q, q, q, ctx).shape == q.shape
-    with pytest.raises(NotImplementedError, match="Queue B item 8"):
-        sp.sp_ag_attention(q, q, q, ctx, impl="ag_pallas")
+    assert torch.equal(sp.sp_ag_attention(q, q, q, ctx, impl="ag_pallas"),
+                       sp.sp_ag_attention(q, q, q, ctx, impl="xla"))
     two_d = sp.create_sp_attention_context(world_size=2, head_axis="tp")
     with pytest.raises(NotImplementedError, match="Queue A item 13"):
         sp.sp_ag_attention(q, q, q, two_d, impl="ring")

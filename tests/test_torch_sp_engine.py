@@ -211,16 +211,15 @@ def test_stream_session_paged_verbs(models, jax_tokens):
 
 
 def test_sp_attention_refuses_unported_impls():
-    """Every impl runs at world 1; at world 2 every impl but ag_pallas
-    runs, and ag_pallas (the all-gather's pushes) is not ported yet."""
+    """Every impl runs at world 1 and at world 2 (ag_pallas over the
+    world-W all-gather); an unknown impl raises."""
     q = torch.zeros((1, 4, 2, 8))
     ctx = SpAttentionContext(world_size=2)
     for impl in ("pallas", "ag_pallas", "ulysses"):
         assert sp_ag_attention(q, q, q, impl=impl).shape == q.shape
-    for impl in ("pallas", "ulysses"):
         assert sp_ag_attention(q, q, q, ctx, impl=impl).shape == q.shape
-    with pytest.raises(NotImplementedError, match="Queue B item 8"):
-        sp_ag_attention(q, q, q, ctx, impl="ag_pallas")
+    with pytest.raises(ValueError, match="impl"):
+        sp_ag_attention(q, q, q, ctx, impl="flash")
 
 
 @pytest.fixture()

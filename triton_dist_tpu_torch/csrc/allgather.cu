@@ -1,12 +1,14 @@
-// The world = 1 bodies of the collectives for Hopper (sm_90a): one copy
-// kernel. At world = 1 each of these Pallas kernels copies a buffer and
-// nothing else, so one grid-stride copy serves them all:
+// The all-gather and broadcast kernels for Hopper (sm_90a): the world = 1
+// copy that every collective's world = 1 body is, and the world-W
+// all-gather (full-mesh push, ring, bidirectional ring) and broadcast over
+// W ranks that share one card.
 //
+// World = 1: one copy kernel (`tdt_copy`). At world = 1 each of these
+// Pallas kernels copies a buffer and nothing else:
 //  * all-gather: this rank's row chunk into its slot of the gathered
-//    buffer, out[rank * rows : (rank + 1) * rows] = x, at rank 0 a copy.
-//    Replaces triton_dist_tpu/ops/allgather.py::_full_mesh_push_kernel
-//    (:254; `o_ref[pl.ds(me * rows, rows)] = x_ref`, :260-262), the kernel
-//    `all_gather(impl="pallas")` runs at world <= 2 (:84-85), and
+//    buffer, a copy at rank 0. Replaces
+//    triton_dist_tpu/ops/allgather.py::_full_mesh_push_kernel (:254;
+//    `o_ref[pl.ds(me * rows, rows)] = x_ref`, :260-262) and
 //    `_ring_ag_kernel` (:133), whose world = 1 body is the same copy;
 //  * the world = 1 bodies of the other collectives, all dst = src:
 //    - ops/allreduce.py::_one_shot_ar_kernel (:114, body :120-122),
@@ -16,27 +18,69 @@
 //      _one_shot_rs_kernel (:150, :157-159): `o = x[0 : M]`;
 //    - ops/allgather.py::_broadcast_kernel (:218, :225-229): the root's
 //      buffer.
-// The pushes to peers and the ring hops come with the multi-GPU slice.
+// A grid-stride copy in 16-byte vectors when both ends are 16-byte
+// aligned, then the tail bytes; byte copies otherwise; about eight blocks
+// per SM at most.
 //
-// Shapes on the paths: Qwen3-30B-A3B's TPMoE all-gather (bf16) x (M, 2048),
-// M = 4 at decode (16 KiB) and 512 at prefill (2 MiB); the collectives at
-// (1, 4, 4096) and (1, 512, 4096) bf16 (32 KiB and 4 MiB). What bounds it:
-// the bytes, read once and written once at 3.35 TB/s (0.01 to 2.5 us); at
-// these sizes the launch itself costs more.
+// World W (`tdt_all_gather_world`, `tdt_broadcast_world`): the ranks are W
+// slices of one card (runtime/dist.py). Rank r's input chunk is chunk r of
+// one global (W rows, ...) tensor; its output is buffer r of a symmetric
+// (W, ...) tensor, reached through a device table of base addresses
+// (shmem.cuh's tdt_peer_ptr), as a Pallas kernel reaches a peer's buffer
+// by device id. Replaces, each in one cooperative launch over every rank:
+//  * _full_mesh_push_kernel (:254): each rank copies its chunk into its
+//    own slot, then pushes it into slot `me` of every peer in JAX's order
+//    peer = me + p, p = 1..W-1 (:271-279), each push followed by its
+//    signal; then it waits for its W - 1 sources in JAX's order
+//    src = me - p (:281-292);
+//  * _ring_ag_kernel (:133): the own chunk into the own slot, then W - 1
+//    hops to the right (`bidir`: ceil((W - 1) / 2) to the right and the
+//    rest to the left, :151-152). At step s rank me forwards chunk me - s
+//    to the right (me + s to the left) once it has arrived. Signals are
+//    per chunk, as JAX's per-chunk semaphores are (:154-160): a signal of
+//    another chunk never satisfies a wait;
+//  * _broadcast_kernel (:218): the root copies its chunk into its own
+//    buffer and pushes it to root + p, p = 1..W-1 (:236-241); the peers
+//    wait (:248-250).
+// A push copies from the input chunk, which holds the bytes of the
+// pusher's own slot that JAX pushes from.
 //
-// The design: a grid-stride copy in 16-byte vectors when both ends are
-// 16-byte aligned, then the tail bytes; byte copies otherwise. About eight
-// blocks per SM at most.
+// What bounds it: bytes. A call reads each input chunk and writes W
+// copies of the gathered tensor: (W + W^2) C bytes for chunks of C bytes
+// at 3.35 TB/s. On the TP-MoE path of Qwen3-30B-A3B at W = 4 (x of
+// (4, 2048) at decode, (512, 2048) at prefill, bf16) that is 0.02 us and
+// 3.1 us; at decode the launch and the signal round trips cost more.
 //
-// Plain C entry point `tdt_copy`, loaded with ctypes. It runs on the stream
-// it is given, allocates nothing and returns cudaGetLastError().
+// The design, a simple kernel that is right first:
+//  * every copy is cut into pieces of kPiece bytes; each piece of each
+//    chunk has its own 64-bit signal in the owner's signal row, stamped
+//    with the call's epoch (never reset: a wait compares for equality);
+//  * items are dealt round-robin to all blocks of the launch, every rank's
+//    items to every block (on one card a rank owns no SMs), in one order:
+//    every copy item before any wait item, and a ring hop of step s after
+//    every item of step s - 1. A wait's producer has a smaller index, so
+//    with every block resident (the cooperative launch) the smallest
+//    unfinished item can always run: no deadlock;
+//  * a copy is 16-byte vectors, neighbouring threads on neighbouring
+//    addresses (tdt_putmem_block), then __syncthreads, a fence and one
+//    release store of the piece's signal; a wait is an acquire load loop.
+// `fault` plants the test fault: the first push (or first forward) of
+// rank 0 (the root for a broadcast) skips piece 0 and still sets its
+// signal, so a NaN-filled output keeps NaN there.
+//
+// Plain C entry points, loaded with ctypes. A call runs on the stream it is
+// given, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shmem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+// Bytes of one piece of a chunk: one copy item, one signal.
+constexpr long long kPiece = 16 * 1024;
 
 __global__ void __launch_bounds__(kThreads)
 chunk_copy(const unsigned char* __restrict__ src,
@@ -59,6 +103,236 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// -- world W --------------------------------------------------------------
+constexpr int kFullMesh = 0;
+constexpr int kRing = 1;
+constexpr int kRingBidir = 2;
+constexpr int kBroadcast = 3;
+
+struct Args {
+  const unsigned char* x;    // W chunks of `chunk` bytes, rank r's at r C
+  const long long* out_tab;  // rank r's output buffer
+  const long long* sig_tab;  // rank r's signal row
+  long long chunk;           // bytes of one rank's chunk
+  long long pieces;          // pieces of one chunk
+  unsigned long long epoch;
+  int world;
+  int method;
+  int root;                  // broadcast only
+  int n_fwd, n_bwd;          // ring hops each way
+  int fault;
+};
+
+__device__ __forceinline__ long long piece_bytes(const Args& a, long long pc) {
+  const long long left = a.chunk - pc * kPiece;
+  return left < kPiece ? left : kPiece;
+}
+
+// Rank `owner`'s signal of piece `pc` of slot `slot`.
+__device__ __forceinline__ unsigned long long* signal_of(const Args& a,
+                                                         int owner, int slot,
+                                                         long long pc) {
+  return reinterpret_cast<unsigned long long*>(
+             tdt_peer_ptr(a.sig_tab, owner)) +
+         static_cast<long long>(slot) * a.pieces + pc;
+}
+
+// Slot `slot` of rank `owner`'s output, at piece `pc`.
+__device__ __forceinline__ unsigned char* slot_of(const Args& a, int owner,
+                                                  int slot, long long pc) {
+  return tdt_peer_ptr(a.out_tab, owner) + slot * a.chunk + pc * kPiece;
+}
+
+__device__ __forceinline__ const unsigned char* input_of(const Args& a,
+                                                         int rank,
+                                                         long long pc) {
+  return a.x + rank * a.chunk + pc * kPiece;
+}
+
+// Piece `pc` from src into slot `slot` of rank `owner`, then its signal;
+// `skip` leaves the copy out and still sets the signal (the test fault).
+__device__ __forceinline__ void push(const Args& a, int owner, int slot,
+                                     long long pc, const unsigned char* src,
+                                     bool skip) {
+  unsigned long long* sig = signal_of(a, owner, slot, pc);
+  if (skip) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      tdt_signal_release(sig, a.epoch);
+    }
+    return;
+  }
+  tdt_putmem_signal_block(slot_of(a, owner, slot, pc), src,
+                          piece_bytes(a, pc), sig, a.epoch);
+}
+
+// Items of a call: copies (counted first), then waits.
+struct Counts {
+  long long copies, waits;
+};
+
+__host__ __device__ inline Counts item_counts(int method, int world,
+                                              long long pieces, int n_fwd,
+                                              int n_bwd) {
+  const long long w = world;
+  if (method == kFullMesh) return {w * w * pieces, w * (w - 1) * pieces};
+  if (method == kBroadcast) return {w * pieces, (w - 1) * pieces};
+  const long long steps = n_fwd > n_bwd ? n_fwd : n_bwd;
+  return {w * pieces + steps * 2 * w * pieces, w * (w - 1) * pieces};
+}
+
+// Copy item `it` of the full-mesh push: (p, me, piece), p = 0 the own slot.
+__device__ void full_mesh_copy(const Args& a, long long it) {
+  const int W = a.world;
+  const long long pc = it % a.pieces;
+  const int me = static_cast<int>((it / a.pieces) % W);
+  const int p = static_cast<int>(it / (a.pieces * W));
+  const unsigned char* src = input_of(a, me, pc);
+  if (p == 0) {
+    tdt_putmem_block(slot_of(a, me, me, pc), src, piece_bytes(a, pc));
+    return;
+  }
+  const int peer = (me + p) % W;
+  push(a, peer, me, pc, src, a.fault && me == 0 && p == 1 && pc == 0);
+}
+
+// Copy item `it` of the ring: the own slots first, then (step, direction,
+// me, piece) with the step outermost.
+__device__ void ring_copy(const Args& a, long long it) {
+  const int W = a.world;
+  const long long own = static_cast<long long>(W) * a.pieces;
+  if (it < own) {
+    const long long pc = it % a.pieces;
+    const int me = static_cast<int>(it / a.pieces);
+    tdt_putmem_block(slot_of(a, me, me, pc), input_of(a, me, pc),
+                     piece_bytes(a, pc));
+    return;
+  }
+  it -= own;
+  const long long pc = it % a.pieces;
+  const int me = static_cast<int>((it / a.pieces) % W);
+  const int dir = static_cast<int>((it / (a.pieces * W)) % 2);
+  const int s = static_cast<int>(it / (a.pieces * W * 2));
+  if (s >= (dir == 0 ? a.n_fwd : a.n_bwd)) return;
+  const int c = dir == 0 ? ((me - s) % W + W) % W : (me + s) % W;
+  const int dst = dir == 0 ? (me + 1) % W : (me - 1 + W) % W;
+  const unsigned char* src;
+  if (s == 0) {
+    src = input_of(a, me, pc);
+  } else {
+    // Chunk c reached rank me at the previous step: forward it only then.
+    tdt_signal_wait_until(signal_of(a, me, c, pc), a.epoch);
+    src = slot_of(a, me, c, pc);
+  }
+  push(a, dst, c, pc, src,
+       a.fault && me == 0 && s == 0 && dir == 0 && pc == 0);
+}
+
+// Copy item `it` of the broadcast: (p, piece), p = 0 the root's own buffer.
+__device__ void broadcast_copy(const Args& a, long long it) {
+  const long long pc = it % a.pieces;
+  const int p = static_cast<int>(it / a.pieces);
+  const unsigned char* src = input_of(a, a.root, pc);
+  if (p == 0) {
+    tdt_putmem_block(slot_of(a, a.root, 0, pc), src, piece_bytes(a, pc));
+    return;
+  }
+  push(a, (a.root + p) % a.world, 0, pc, src,
+       a.fault && p == 1 && pc == 0);
+}
+
+// Wait item `it`: rank me's wait for piece pc of one source, in JAX's
+// order (src = me - p; the broadcast's peers wait for the root).
+__device__ void wait_item(const Args& a, long long it) {
+  const int W = a.world;
+  const long long pc = it % a.pieces;
+  if (a.method == kBroadcast) {
+    const int me = (a.root + 1 + static_cast<int>(it / a.pieces)) % W;
+    tdt_signal_wait_until(signal_of(a, me, 0, pc), a.epoch);
+    return;
+  }
+  const int p = 1 + static_cast<int>((it / a.pieces) % (W - 1));
+  const int me = static_cast<int>(it / (a.pieces * (W - 1)));
+  tdt_signal_wait_until(signal_of(a, me, (me - p + W) % W, pc), a.epoch);
+}
+
+__global__ void __launch_bounds__(kThreads) gather_world(Args a) {
+  const Counts n = item_counts(a.method, a.world, a.pieces, a.n_fwd,
+                               a.n_bwd);
+  const long long total = n.copies + n.waits;
+  for (long long it = blockIdx.x; it < total; it += gridDim.x) {
+    if (it >= n.copies) {
+      wait_item(a, it - n.copies);
+    } else if (a.method == kFullMesh) {
+      full_mesh_copy(a, it);
+    } else if (a.method == kBroadcast) {
+      broadcast_copy(a, it);
+    } else {
+      ring_copy(a, it);
+    }
+    __syncthreads();  // the block's threads leave an item together
+  }
+}
+
+// Blocks of gather_world the card keeps resident at once.
+cudaError_t world_resident(int* out) {
+  static int cached = -1;
+  if (cached < 0) {
+    int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gather_world, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    cached = sms * per_sm;
+  }
+  *out = cached;
+  return cudaSuccess;
+}
+
+int launch_world(Args a, void* stream) {
+  int resident = 0;
+  cudaError_t err = world_resident(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Counts n = item_counts(a.method, a.world, a.pieces, a.n_fwd,
+                               a.n_bwd);
+  const long long items = n.copies + n.waits;
+  const long long grid = items < resident ? items : resident;
+  if (grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(gather_world),
+      dim3(static_cast<unsigned>(grid)), dim3(kThreads), params, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const void* x, const void* out_tab, const void* sig_tab,
+               long long chunk, int world, int method,
+               unsigned long long epoch, int fault) {
+  Args a;
+  a.x = static_cast<const unsigned char*>(x);
+  a.out_tab = static_cast<const long long*>(out_tab);
+  a.sig_tab = static_cast<const long long*>(sig_tab);
+  a.chunk = chunk;
+  a.pieces = (chunk + kPiece - 1) / kPiece;
+  a.epoch = epoch;
+  a.world = world;
+  a.method = method;
+  a.root = 0;
+  a.n_fwd = 0;
+  a.n_bwd = 0;
+  a.fault = fault;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -79,6 +353,56 @@ int tdt_copy(const void* src, void* dst, long long nbytes, int sms,
   chunk_copy<<<static_cast<unsigned>(blocks), kThreads, 0,
                static_cast<cudaStream_t>(stream)>>>(s, d, nbytes, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Signals a world-W call of `chunk_bytes` chunks needs in each rank's row:
+// W slots of one signal per piece (a broadcast uses the first slot).
+long long tdt_gather_signals(long long chunk_bytes, int world) {
+  return static_cast<long long>(world) * ((chunk_bytes + kPiece - 1) / kPiece);
+}
+
+// The all-gather over `world` ranks of one card: rank r's chunk x[r C,
+// (r + 1) C) into slot r of every rank's output buffer (W C bytes each,
+// out_tab[r] its base). method 0: full-mesh push; 1: ring; 2: bidirectional
+// ring. sig_tab[r]: rank r's row of tdt_gather_signals(...) uint64
+// signals. `epoch` must differ from every earlier call's on these signals
+// (a counter, never 0); `fault` plants the test fault. Returns a
+// cudaError_t.
+int tdt_all_gather_world(const void* x, const void* out_tab,
+                         const void* sig_tab, long long chunk_bytes,
+                         int world, int method, unsigned long long epoch,
+                         int fault, void* stream) {
+  if (x == nullptr || out_tab == nullptr || sig_tab == nullptr ||
+      chunk_bytes < 1 || world < 2 || method < kFullMesh ||
+      method > kRingBidir || epoch == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, out_tab, sig_tab, chunk_bytes, world, method, epoch,
+                     fault);
+  if (method == kRing) {
+    a.n_fwd = world - 1;
+  } else if (method == kRingBidir) {
+    a.n_fwd = world / 2;                     // ceil((W - 1) / 2)
+    a.n_bwd = world - 1 - a.n_fwd;
+  }
+  return launch_world(a, stream);
+}
+
+// The broadcast over `world` ranks of one card: rank root's chunk
+// x[root C, (root + 1) C) into every rank's output buffer (C bytes each,
+// out_tab[r] its base). Signals, epoch and fault as above. Returns a
+// cudaError_t.
+int tdt_broadcast_world(const void* x, const void* out_tab,
+                        const void* sig_tab, long long chunk_bytes, int world,
+                        int root, unsigned long long epoch, int fault,
+                        void* stream) {
+  if (x == nullptr || out_tab == nullptr || sig_tab == nullptr ||
+      chunk_bytes < 1 || world < 2 || root < 0 || root >= world ||
+      epoch == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, out_tab, sig_tab, chunk_bytes, world, kBroadcast,
+                     epoch, fault);
+  a.root = root;
+  return launch_world(a, stream);
 }
 
 // The runtime's message for an error code returned above.

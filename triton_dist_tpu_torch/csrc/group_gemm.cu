@@ -1,4 +1,4 @@
-// The grouped (per-expert) GEMM at world = 1 for Hopper (sm_90a).
+// The grouped (per-expert) GEMM for Hopper (sm_90a), one rank a call.
 //
 // Replaces triton_dist_tpu/ops/group_gemm.py::_ag_group_gemm_kernel (:139,
 // entry `_ag_group_gemm_fused`): at world = 1 its ring all-gather of
@@ -8,7 +8,10 @@
 // product that JAX leaves to `lax.ragged_dot` on this path: the
 // `grouped_matmul` of TPMoE's gate and up (group_gemm.py:44-64) and the
 // three products of `grouped_expert_ffn` (:67-87, the MoE FFN of mode
-// "sp"). The ring all-gather comes with the multi-GPU slice.
+// "sp"). Under tensor parallelism at world W, TPMoE calls it once per rank
+// on the rank's column shard of the experts, a strided view (the strides
+// note of group_gemm.cuh); the world-W ring all-gather of
+// `_ag_group_gemm_kernel` is not ported (ROADMAP.md, Queue B item 10).
 //
 // Shapes on the path (Qwen3-30B-A3B, bf16, E = 128, top-8): gate|up P x 2048
 // -> 2 x 768 and down P x 768 -> 2048, with P = 32 pairs at decode (batch
@@ -35,7 +38,8 @@ constexpr int kEpiSwiglu = 1;
 template <typename T>
 cudaError_t run(const GgPlan& p, const void* a, int a_div, const void* b0,
                 const void* b1, void* c0, void* c1, int n_b, int epi,
-                const int* sched, int P, int K, int N, cudaStream_t s) {
+                const int* sched, int P, int K, int N, long long lda,
+                long long ldb, long long b_estride, cudaStream_t s) {
   GgArgs<T, T> g = {};
   g.a = static_cast<const T*>(a);
   g.a_div = a_div;
@@ -47,6 +51,9 @@ cudaError_t run(const GgPlan& p, const void* a, int a_div, const void* b0,
   g.P = P;
   g.K = K;
   g.N = N;
+  g.lda = lda;
+  g.ldb = ldb;
+  g.b_estride = b_estride;
   if (epi == kEpiSwiglu) return run_group_product<T, T, true>(p, g, 2, s);
   return run_group_product<T, T, false>(p, g, n_b, s);
 }
@@ -56,15 +63,18 @@ cudaError_t run(const GgPlan& p, const void* a, int a_div, const void* b0,
 extern "C" {
 
 // The plan of a grouped product of P pairs over E experts, (K -> N) each,
-// dtype 0 = bfloat16, 1 = float32: *path (0: FMA kernel, 1: tensor-core
-// kernel), *m_blk (rows per tile) and *max_tiles (tiles of the grid). A call
-// needs a schedule buffer of 1 + P + 3 * max_tiles int32. Returns a
-// cudaError_t.
-int tdt_group_gemm_plan(int P, int E, int K, int N, int dtype, int* path,
+// dtype 0 = bfloat16, 1 = float32, with the strides (elements) of A's rows
+// (lda), the weights' rows (ldb) and experts (b_estride): *path (0: FMA
+// kernel, 1: tensor-core kernel), *m_blk (rows per tile) and *max_tiles
+// (tiles of the grid). A call needs a schedule buffer of 1 + P + 3 *
+// max_tiles int32. Returns a cudaError_t.
+int tdt_group_gemm_plan(int P, int E, int K, int N, int dtype, long long lda,
+                        long long ldb, long long b_estride, int* path,
                         int* m_blk, int* max_tiles) {
-  if (!gg_args_ok(P, E, K, N, dtype))
+  if (!gg_args_ok(P, E, K, N, dtype) ||
+      !gg_strides_ok(K, N, lda, ldb, b_estride))
     return static_cast<int>(cudaErrorInvalidValue);
-  const GgPlan p = gg_make_plan(P, E, K, N, dtype);
+  const GgPlan p = gg_make_plan(P, E, K, N, dtype, lda, ldb, b_estride);
   *path = p.path;
   *m_blk = p.m_blk;
   *max_tiles = p.max_tiles;
@@ -74,28 +84,32 @@ int tdt_group_gemm_plan(int P, int E, int K, int N, int dtype, int* path,
 // out_i[p] = a[p / a_div] @ b_i[ids[p]] for p < P (ids: int32, E = the
 // sentinel, run through expert E - 1). epi 0: n_b = 1 or 2 products, each
 // rounded into c_i (P, N); epi 1: silu(a @ b0) * (a @ b1) in f32, rounded
-// once into c0 (n_b must be 2). a is (P / a_div, K), b_i (E, K, N), all
-// row-major and 16-byte aligned. sched: the int32 buffer of the plan.
-// Returns a cudaError_t.
+// once into c0 (n_b must be 2). a is (P / a_div, K) with row stride lda,
+// b_i (E, K, N) with row stride ldb and expert stride b_estride (elements;
+// b0 and b1 share them), c_i contiguous; a and b_i 16-byte aligned.
+// sched: the int32 buffer of the plan. Returns a cudaError_t.
 int tdt_group_gemm(const void* a, int a_div, const int* ids, int P, int E,
                    const void* b0, const void* b1, void* c0, void* c1,
-                   int n_b, int epi, int K, int N, int* sched, int dtype,
+                   int n_b, int epi, int K, int N, long long lda,
+                   long long ldb, long long b_estride, int* sched, int dtype,
                    void* stream) {
-  if (!gg_args_ok(P, E, K, N, dtype) || a_div <= 0 || P % a_div != 0 ||
+  if (!gg_args_ok(P, E, K, N, dtype) ||
+      !gg_strides_ok(K, N, lda, ldb, b_estride) || a_div <= 0 ||
+      P % a_div != 0 ||
       ids == nullptr || sched == nullptr || !aligned16(a) || !aligned16(b0) ||
       c0 == nullptr || (epi != kEpiPlain && epi != kEpiSwiglu) ||
       n_b < 1 || n_b > 2 || (epi == kEpiSwiglu && n_b != 2) ||
       (n_b == 2 && (!aligned16(b1) || (epi == kEpiPlain && c1 == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const GgPlan p = gg_make_plan(P, E, K, N, dtype);
+  const GgPlan p = gg_make_plan(P, E, K, N, dtype, lda, ldb, b_estride);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_schedule(ids, P, E, p.m_blk, p.max_tiles, sched, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = dtype == 0
             ? run<__nv_bfloat16>(p, a, a_div, b0, b1, c0, c1, n_b, epi, sched,
-                                 P, K, N, s)
+                                 P, K, N, lda, ldb, b_estride, s)
             : run<float>(p, a, a_div, b0, b1, c0, c1, n_b, epi, sched, P, K,
-                         N, s);
+                         N, lda, ldb, b_estride, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,6 +47,15 @@
 // Each output row is stored at its pair's own index: the store address does
 // the unsort.
 //
+// Strides: A's rows and W's rows and experts are read through the strides
+// the caller gives (elements; the last dimension is contiguous), so a
+// rank's shard of the experts under tensor parallelism, W[:, :, cols] of
+// (E, K, N_all) or W[:, rows, :] of (E, K_all, N), is read as the view it
+// is. The experts of Qwen3-30B-A3B take ~57 GB of the card's 80 GB: a copy
+// per rank would not fit. Strides change addresses only, never the order
+// of a sum, so a contiguous call and a strided call of equal values give
+// equal bits.
+//
 // f32 and bf16 with K or N not a multiple of 8 take `group_fma`, a 64 x 64
 // tile of f32 FMAs over the same schedule (test configurations only).
 
@@ -199,14 +208,15 @@ __device__ __forceinline__ float gg_swiglu(float g, float u) {
 // product 1's; with SWIGLU both products feed one output (c0).
 template <typename T, typename OutT>
 struct GgArgs {
-  const T* a;          // (P / a_div, K)
+  const T* a;          // (P / a_div, K), row stride lda
   int a_div;
-  const T* b0;         // (E, K, N)
+  const T* b0;         // (E, K, N), row stride ldb, expert stride b_estride
   const T* b1;
-  OutT* c0;            // (P, N)
+  OutT* c0;            // (P, N), contiguous
   OutT* c1;
   const int* sched;
   int P, max_tiles, K, N, col_tiles;
+  long long lda, ldb, b_estride;
 };
 
 // ---------------------------------------------------------------------------
@@ -238,7 +248,7 @@ group_mma(GgArgs<gg_bf16, OutT> g) {
     prod = 1;
     n0 = (blockIdx.y - g.col_tiles) * kTcBN;
   }
-  const size_t w_off = static_cast<size_t>(tile.expert) * K * N;
+  const size_t w_off = static_cast<size_t>(tile.expert) * g.b_estride;
   const gg_bf16* __restrict__ B0 = (prod ? g.b1 : g.b0) + w_off;
   const gg_bf16* __restrict__ B1 = SWIGLU ? g.b1 + w_off : B0;
   OutT* __restrict__ C = prod ? g.c1 : g.c0;
@@ -264,7 +274,8 @@ group_mma(GgArgs<gg_bf16, OutT> g) {
       const int kk = (c % (kTcBK / 8)) * 8;
       const int ar = arow_of[r];
       const bool ok = ar >= 0 && k0 + kk < K;
-      const gg_bf16* src = ok ? A + static_cast<size_t>(ar) * K + k0 + kk : A;
+      const gg_bf16* src =
+          ok ? A + static_cast<size_t>(ar) * g.lda + k0 + kk : A;
       cp_async16(as + r * kTcLdA + kk, src, ok);
     }
 #pragma unroll
@@ -276,7 +287,7 @@ group_mma(GgArgs<gg_bf16, OutT> g) {
         const int nn = (c % (kTcBN / 8)) * 8;
         const bool ok = k0 + r < K && n0 + nn < N;
         const gg_bf16* src =
-            ok ? B + static_cast<size_t>(k0 + r) * N + n0 + nn : B;
+            ok ? B + static_cast<size_t>(k0 + r) * g.ldb + n0 + nn : B;
         cp_async16(bs + r * kTcLdB + nn, src, ok);
       }
     }
@@ -395,7 +406,7 @@ group_fma(GgArgs<T, OutT> g) {
     prod = 1;
     n0 = (blockIdx.y - g.col_tiles) * kGgFmBN;
   }
-  const size_t w_off = static_cast<size_t>(tile.expert) * K * N;
+  const size_t w_off = static_cast<size_t>(tile.expert) * g.b_estride;
   const T* __restrict__ B0 = (prod ? g.b1 : g.b0) + w_off;
   const T* __restrict__ B1 = SWIGLU ? g.b1 + w_off : B0;
   OutT* __restrict__ C = prod ? g.c1 : g.c0;
@@ -423,7 +434,7 @@ group_fma(GgArgs<T, OutT> g) {
       const int kk = e % kGgFmBK;
       const int ar = arow_of[r];
       As[kk][r] = (ar >= 0 && k0 + kk < K)
-                      ? to_f32(g.a[static_cast<size_t>(ar) * K + k0 + kk])
+                      ? to_f32(g.a[static_cast<size_t>(ar) * g.lda + k0 + kk])
                       : 0.f;
     }
 #pragma unroll
@@ -433,7 +444,7 @@ group_fma(GgArgs<T, OutT> g) {
         const int r = e / kGgFmBN;
         const int c = e % kGgFmBN;
         Bs[h][r][c] = (k0 + r < K && n0 + c < N)
-                          ? to_f32(B[static_cast<size_t>(k0 + r) * N + n0 + c])
+                          ? to_f32(B[static_cast<size_t>(k0 + r) * g.ldb + n0 + c])
                           : 0.f;
       }
     }
@@ -479,9 +490,13 @@ struct GgPlan {
   int max_tiles;  // grid.x, the worst case of live tiles
 };
 
-GgPlan gg_make_plan(int P, int E, int K, int N, int dtype) {
+// The strides (elements) of A's rows, W's rows and W's experts; the
+// tensor-core path reads 16-byte chunks, so each must be a multiple of 8.
+GgPlan gg_make_plan(int P, int E, int K, int N, int dtype, long long lda,
+                    long long ldb, long long b_estride) {
   GgPlan p;
-  p.path = (dtype == 0 && K % 8 == 0 && N % 8 == 0) ? 1 : 0;
+  p.path = (dtype == 0 && K % 8 == 0 && N % 8 == 0 && lda % 8 == 0 &&
+            ldb % 8 == 0 && b_estride % 8 == 0) ? 1 : 0;
   p.m_blk = gg_tile_rows(P, E);
   p.max_tiles = gg_max_tiles(P, E, p.m_blk);
   return p;
@@ -490,6 +505,12 @@ GgPlan gg_make_plan(int P, int E, int K, int N, int dtype) {
 bool gg_args_ok(int P, int E, int K, int N, int dtype) {
   return P > 0 && E > 0 && E <= kGgMaxExperts && K > 0 && N > 0 &&
          (dtype == 0 || dtype == 1);
+}
+
+// Strides no smaller than the rows and experts they step over.
+bool gg_strides_ok(int K, int N, long long lda, long long ldb,
+                   long long b_estride) {
+  return lda >= K && ldb >= N && b_estride >= static_cast<long long>(K) * ldb;
 }
 
 template <int MF, bool SWIGLU, typename OutT>

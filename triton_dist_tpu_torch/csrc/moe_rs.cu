@@ -1,12 +1,16 @@
-// MoE down projection + top-k reduce at world = 1 for Hopper (sm_90a):
+// MoE down projection + top-k reduce for Hopper (sm_90a), one rank a call:
 // out[m] = sum_j weights[m, j] * (act[m k + j] @ W[ids[m k + j]]).
 //
 // Replaces triton_dist_tpu/ops/moe_reduce_rs.py::_moe_rs_fused_kernel (:72;
 // its world = 1 branch :203-205 runs `chunk_gemm` into the output) and
 // computes what `moe_reduce_rs(impl="ring"|"xla")` computes at world = 1,
 // the one-shot body (:388): `grouped_matmul` of the down projection, then
-// `topk_reduce` (moe_utils.py:235-243). The ring reduce-scatter comes with
-// the multi-GPU slice. The two differ in where they round:
+// `topk_reduce` (moe_utils.py:235-243). At world W the "ring" and "xla"
+// bodies (:331-354, :326-329) call this kernel once per rank on its row
+// shard of w_down (a strided view) and sum the ranks' partials in plain
+// torch (ops/moe_reduce_rs.py); the world-W ring of the fused kernel is
+// not ported (ROADMAP.md, Queue B item 11). The two differ in where they
+// round:
 //  * round_pairs = 1 ("ring", "xla"): each pair's product rounds to the
 //    activation dtype, then the f32 weighted sum rounds once;
 //  * round_pairs = 0 ("fused"): f32 through the weighted sum, one rounding
@@ -58,7 +62,8 @@ topk_reduce_rows(const WsT* __restrict__ ws, const float* __restrict__ w,
 template <typename T, typename WsT>
 cudaError_t run(const GgPlan& p, const void* act, const void* w_down,
                 const float* weights, void* ws, void* out, const int* sched,
-                int M, int k, int I, int H, cudaStream_t s) {
+                int M, int k, int I, int H, long long lda, long long w_estride,
+                cudaStream_t s) {
   GgArgs<T, WsT> g = {};
   g.a = static_cast<const T*>(act);
   g.a_div = 1;
@@ -68,6 +73,9 @@ cudaError_t run(const GgPlan& p, const void* act, const void* w_down,
   g.P = M * k;
   g.K = I;
   g.N = H;
+  g.lda = lda;
+  g.ldb = H;
+  g.b_estride = w_estride;
   const cudaError_t err = run_group_product<T, WsT, false>(p, g, 1, s);
   if (err != cudaSuccess) return err;
   dim3 grid((H + kRedThreads - 1) / kRedThreads, M < 65535 ? M : 65535);
@@ -81,7 +89,9 @@ cudaError_t run(const GgPlan& p, const void* act, const void* w_down,
 extern "C" {
 
 // out (M, H) = sum_j weights[m, j] * (act[m k + j] @ w_down[ids[m k + j]]).
-// act (M k, I) and w_down (E, I, H) row-major, 16-byte aligned; ids (M k)
+// act (M k, I) with row stride lda and w_down (E, I, H) with contiguous
+// rows and expert stride w_estride (elements: a rank's row shard of the
+// global (E, I W, H) is a strided view), 16-byte aligned; ids (M k)
 // int32 (E = sentinel, run through expert E - 1); weights (M, k) f32. The
 // grouped down product is planned as tdt_group_gemm_plan plans P = M k
 // pairs (I -> H): sched holds 1 + M k + 3 * max_tiles int32 and ws M k H
@@ -89,27 +99,29 @@ extern "C" {
 // cudaError_t.
 int tdt_moe_rs(const void* act, const int* ids, const float* weights,
                const void* w_down, void* ws, void* out, int* sched, int M,
-               int k, int E, int I, int H, int round_pairs, int dtype,
-               void* stream) {
+               int k, int E, int I, int H, long long lda, long long w_estride,
+               int round_pairs, int dtype, void* stream) {
   if (M <= 0 || k <= 0 || !gg_args_ok(M * k, E, I, H, dtype) ||
+      !gg_strides_ok(I, H, lda, H, w_estride) ||
       ids == nullptr || weights == nullptr || ws == nullptr ||
       out == nullptr || sched == nullptr || !aligned16(act) ||
       !aligned16(w_down))
     return static_cast<int>(cudaErrorInvalidValue);
   const int P = M * k;
-  const GgPlan p = gg_make_plan(P, E, I, H, dtype);
+  const GgPlan p = gg_make_plan(P, E, I, H, dtype, lda, H, w_estride);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_schedule(ids, P, E, p.m_blk, p.max_tiles, sched, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 0) {
     using T = __nv_bfloat16;
     err = round_pairs
-              ? run<T, T>(p, act, w_down, weights, ws, out, sched, M, k, I, H, s)
+              ? run<T, T>(p, act, w_down, weights, ws, out, sched, M, k, I, H,
+                          lda, w_estride, s)
               : run<T, float>(p, act, w_down, weights, ws, out, sched, M, k, I,
-                              H, s);
+                              H, lda, w_estride, s);
   } else {
     err = run<float, float>(p, act, w_down, weights, ws, out, sched, M, k, I,
-                            H, s);
+                            H, lda, w_estride, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -3,9 +3,10 @@
 ``AutoLLM`` (the port of JAX ``models/__init__.py:27-64``) builds a
 ``DenseLLM`` or a ``Qwen3MoE`` from the config's MoE fields and loads a
 local HF checkpoint's safetensors. ``moe_parallel`` and ``world`` reach
-the MoE model (``moe_parallel="ep", world=4``: expert parallelism over
-four ranks on the one card); ``world`` reaches a dense model too (tensor
-parallelism over the ranks), which has no ``moe_parallel`` but "tp".
+the MoE model (``world=4``: tensor parallelism of the experts' widths over
+four ranks on the one card; ``moe_parallel="ep", world=4``: expert
+parallelism); ``world`` reaches a dense model too (tensor parallelism
+over the ranks), which has no ``moe_parallel`` but "tp".
 ``sp_world`` (with ``sp_axis``) splits mode "sp"'s sequence over that
 many ranks: ``AutoLLM.build(cfg, sp_axis="sp", sp_world=4)``.
 """

@@ -22,9 +22,18 @@ attention is TP over the same ranks. The mode choice is JAX's
 ``forward`` (qwen_moe.py:136-160): the MoE runs EP in every mode, and
 attention runs the requested mode, but in mode ``"ep"`` the fused
 ``ag_rs`` path over the ring kernels, or ``gemm_ar`` where the rows do
-not split over the ranks. ``sp_axis`` needs ``moe_parallel="tp"``, as
-in JAX. ``moe_parallel="tp"`` runs at world 1 only, and mode "sp" at a
-sequence world of 1 only (``sp_world``).
+not split over the ranks. ``sp_axis`` needs ``moe_parallel="tp"`` and a
+tensor-parallel world of 1, as in JAX; mode "sp" runs at a sequence world
+of 1 only (``sp_world``).
+
+Tensor parallelism (``moe_parallel="tp"``, the default) over ``world``
+ranks on the one device: attention is TP over the ranks in the requested
+mode (the ring kernels in ``ag_rs`` / ``gemm_ar``), and
+:class:`~triton_dist_tpu_torch.layers.tp_moe.TPMoE` shards every
+expert's width over them: its token all-gather runs the world-W
+all-gather kernel in MoE mode ``ag_rs`` (model modes ``gemm_ar`` and
+``ag_rs``), its grouped products read each rank's expert shard as a
+view, and its reduce-scatter is JAX's ring.
 """
 
 from __future__ import annotations
@@ -47,8 +56,9 @@ from triton_dist_tpu_torch.runtime.dist import create_rank_group
 class Qwen3MoE:
     """Qwen3-MoE decoder. ``device=None`` means the CUDA card (raises when
     there is none); ``sp_axis`` (any name) enables mode "sp";
-    ``moe_parallel="ep"`` with ``world`` W shards the experts (and the
-    attention heads) over W ranks on the device."""
+    ``world`` W shards the attention heads over W ranks on the device, and
+    the experts' widths (``moe_parallel="tp"``) or the experts themselves
+    (``moe_parallel="ep"``)."""
 
     def __init__(self, config: ModelConfig, device=None,
                  fwd_mode: str = "ag_rs", impl: str = "pallas",
@@ -59,14 +69,9 @@ class Qwen3MoE:
                              "0); use DenseLLM for dense ones")
         if moe_parallel not in ("tp", "ep"):
             raise ValueError(f"unknown moe_parallel {moe_parallel!r}")
-        if sp_axis is not None and moe_parallel != "tp":
-            raise ValueError("mode 'sp' needs moe_parallel='tp' (JAX: ep x "
-                             "sp is future work)")
-        if moe_parallel == "tp" and world != 1:
-            raise NotImplementedError(
-                f"moe_parallel='tp' at world {world} (the ring halves of the "
-                f"grouped GEMM and the MoE reduce-scatter) is not ported "
-                f"yet (ROADMAP.md, Queue B items 10-11)")
+        if sp_axis is not None and (moe_parallel != "tp" or world != 1):
+            raise ValueError("mode 'sp' needs moe_parallel='tp' at world 1 "
+                             "(JAX: a pure-sp grid; ep x sp is future work)")
         if sp_world != 1:
             raise NotImplementedError(
                 f"Qwen3MoE in mode 'sp' at sequence world {sp_world} is not "
@@ -94,7 +99,8 @@ class Qwen3MoE:
                              c.num_experts, c.num_experts_per_tok,
                              dtype=c.dtype,
                              fwd_mode=self._moe_mode(fwd_mode), impl=impl,
-                             norm_topk_prob=c.norm_topk_prob)
+                             norm_topk_prob=c.norm_topk_prob,
+                             group=self.group)
         self.rope_cache = precompute_rope_cache(
             c.head_dim, c.max_position_embeddings, c.rope_theta,
             device=self.device)

@@ -1,4 +1,4 @@
-"""Grouped (per-expert) GEMM for MoE at world = 1 (the port of
+"""Grouped (per-expert) GEMM for MoE (the port of
 ``triton_dist_tpu.ops.group_gemm``).
 
 ``grouped_matmul`` computes ``out[i] = tokens[i] @ w[expert_ids[i]]`` with
@@ -8,7 +8,9 @@ gate and up stay f32 and round once after the SwiGLU). At world = 1
 ``ag_group_gemm`` is ``grouped_matmul`` in every impl: its all-gather is
 the identity, and its Pallas kernel ``_ag_group_gemm_kernel`` (:139)
 reduces to the grouped GEMM over the tile-aligned schedule of
-:func:`align_tokens_for_tiles`.
+:func:`align_tokens_for_tiles`; at world > 1 ``ag_group_gemm`` raises
+(its ring all-gather, ROADMAP.md Queue B item 10), which no layer needs:
+``TPMoE`` runs ``grouped_matmul`` per rank, as JAX's does.
 
 On CUDA every grouped product launches the hand-written kernel of
 ``csrc/group_gemm.cu`` (the note in ``csrc/group_gemm.cuh`` says what
@@ -26,6 +28,11 @@ reads.
 row per ``topk`` consecutive pairs, pair ``i`` reading ``tokens[i //
 topk]``. The MoE layers pass their token rows this way, so the (P, K)
 expansion ``jnp.repeat`` makes is never written.
+
+The kernel reads the tokens and the weights through their strides (the
+last dimension contiguous): under tensor parallelism a rank's shard of
+the experts, ``w[:, :, cols]``, is a view of the global weights, as
+``runtime.dist`` makes every shard, and is never copied.
 """
 
 from __future__ import annotations
@@ -232,15 +239,18 @@ class Plan(NamedTuple):
 
 
 @functools.cache
-def plan(pairs: int, num_experts: int, k: int, n: int,
-         dtype: torch.dtype) -> Plan:
+def plan(pairs: int, num_experts: int, k: int, n: int, dtype: torch.dtype,
+         strides: tuple | None = None) -> Plan:
     """The kernel's plan of ``pairs`` (k -> n) products over
-    ``num_experts`` experts in ``dtype``: a function of the shape only."""
+    ``num_experts`` experts in ``dtype``, with ``strides`` (elements of a
+    token row, a weight row and an expert; default contiguous): a
+    function of the shape and strides only."""
+    lda, ldb, estride = strides or (k, n, k * n)
     lib = _lib()
     path, m_blk, tiles = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     _check(lib, lib.tdt_group_gemm_plan(pairs, num_experts, k, n,
-                                        _DTYPE_CODES[dtype],
-                                        ctypes.byref(path),
+                                        _DTYPE_CODES[dtype], lda, ldb,
+                                        estride, ctypes.byref(path),
                                         ctypes.byref(m_blk),
                                         ctypes.byref(tiles)))
     return Plan(PATHS[path.value], m_blk.value, tiles.value)
@@ -270,19 +280,20 @@ def launch_group_gemm(tokens: torch.Tensor, ws: list,
             for _ in range(1 if swiglu else len(ws))]
     if pairs == 0:
         return outs
-    p = plan(pairs, num_experts, k, n, tokens.dtype)
-    ids = expert_ids.reshape(-1).to(torch.int32).contiguous()
-    sched = schedule_buffer(pairs, p, tokens.device)
     tokens = aligned16(tokens)
     ws = [aligned16(w) for w in ws]
+    strides = (tokens.stride(0), *weight_strides(ws))
+    p = plan(pairs, num_experts, k, n, tokens.dtype, strides)
+    ids = expert_ids.reshape(-1).to(torch.int32).contiguous()
+    sched = schedule_buffer(pairs, p, tokens.device)
     b1 = ws[1].data_ptr() if len(ws) > 1 else None
     c1 = outs[1].data_ptr() if len(outs) > 1 else None
     stream = torch.cuda.current_stream(tokens.device).cuda_stream
     _check(lib, lib.tdt_group_gemm(
         tokens.data_ptr(), topk, ids.data_ptr(), pairs, num_experts,
         ws[0].data_ptr(), b1, outs[0].data_ptr(), c1, len(ws),
-        _EPI_SWIGLU if swiglu else _EPI_PLAIN, k, n, sched.data_ptr(),
-        _DTYPE_CODES[tokens.dtype], stream))
+        _EPI_SWIGLU if swiglu else _EPI_PLAIN, k, n, *strides,
+        sched.data_ptr(), _DTYPE_CODES[tokens.dtype], stream))
     group_gemm_launches.add((p.path, p.m_blk, epilogue, pairs, k,
                              tuple(w.shape[2] for w in ws)))
     return outs
@@ -310,14 +321,27 @@ def _check_operands(op: str, tokens: torch.Tensor, ws: list,
         raise ValueError(f"{op} operands on more than one device")
 
 
+def weight_strides(ws: list) -> tuple:
+    """(row stride, expert stride) in elements of the weights ``ws``,
+    which must share them and have contiguous rows (a column or row
+    shard of contiguous weights has)."""
+    st = ws[0].stride()
+    if st[2] != 1 or any(w.stride() != st for w in ws):
+        raise ValueError(f"grouped GEMM weights need contiguous rows and one "
+                         f"set of strides, got {[w.stride() for w in ws]}")
+    return st[1], st[0]
+
+
 def _check_cuda(op: str, tokens: torch.Tensor, ws: list) -> None:
-    """What the kernel takes: CUDA, bf16 or f32, contiguous."""
+    """What the kernel takes: CUDA, bf16 or f32, contiguous rows (token
+    and weight rows may be strided, :func:`weight_strides`)."""
     if tokens.device.type != "cuda":
         raise ValueError(f"{op} runs on CUDA or the CPU, not {tokens.device}")
     if tokens.dtype not in _DTYPE_CODES:
         raise ValueError(f"{op} kernel takes bf16 or f32, not {tokens.dtype}")
-    if not all(t.is_contiguous() for t in [tokens] + ws):
-        raise ValueError(f"{op} kernel needs contiguous operands")
+    if tokens.stride(1) != 1:
+        raise ValueError(f"{op} kernel needs contiguous token rows")
+    weight_strides(ws)
 
 
 def _check(lib: ctypes.CDLL, err: int) -> None:
@@ -331,10 +355,11 @@ def _lib() -> ctypes.CDLL:
     if lib.tdt_group_gemm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
-        lib.tdt_group_gemm_plan.argtypes = [i] * 5 + [ip, ip, ip]
+        ll = ctypes.c_longlong
+        lib.tdt_group_gemm_plan.argtypes = [i] * 5 + [ll] * 3 + [ip, ip, ip]
         lib.tdt_group_gemm_plan.restype = i
         lib.tdt_group_gemm.argtypes = ([p, i, p, i, i, p, p, p, p, i, i, i,
-                                        i, p, i, p])
+                                        i, ll, ll, ll, p, i, p])
         lib.tdt_group_gemm.restype = i
         lib.tdt_error_string.argtypes = [i]
         lib.tdt_error_string.restype = ctypes.c_char_p

@@ -1,9 +1,10 @@
-"""MoE down projection + top-k reduce + reduce-scatter at world = 1 (the
-port of ``triton_dist_tpu.ops.moe_reduce_rs``).
+"""MoE down projection + top-k reduce + reduce-scatter (the port of
+``triton_dist_tpu.ops.moe_reduce_rs``).
 
 ``out[t] = sum_j weights[t, j] * (act[t k + j] @ w_down[expert_ids[t k +
-j]])``. At world = 1 the reduce-scatter is the identity and the impls
-differ only in where bf16 rounds:
+j]])``, with I (act's columns, w_down's rows) sharded over the ranks and
+the result's rows scattered over them. At world = 1 the reduce-scatter is
+the identity and the impls differ only in where bf16 rounds:
 
 * ``"ring"`` and ``"xla"``: JAX's one-shot body (:388): ``grouped_matmul``
   rounds each pair's down product to the activation dtype, then
@@ -14,9 +15,27 @@ differ only in where bf16 rounds:
 
 On CUDA all three launch the hand-written kernel of ``csrc/moe_rs.cu``
 with the pair rounding on or off; a CPU tensor takes the plain version
-:func:`moe_reduce_rs_reference`. ``impl="auto"`` (the autotuner, ROADMAP
-Queue A item 19) and world > 1 (the ring reduce-scatter, Queue B item 11)
-raise ``NotImplementedError``.
+:func:`moe_reduce_rs_reference`.
+
+At world W (``world_size`` ranks, slices of one card as
+``runtime.dist`` runs them; no state is kept between calls) ``"ring"``
+and ``"xla"`` are JAX's XLA bodies; no Pallas kernel is involved. Each rank's partial (T, H) is the world = 1 computation on its
+I-shard (its columns of ``act`` and its rows of ``w_down``, both views):
+the pairs' products rounded, the top-k sum in f32, rounded, as JAX's
+``block_partial`` rounds it. Rows are independent, so each rank computes
+all of its T rows in one launch of the kernel, where JAX's ring computes
+one row block per step; the exchange of the partials is plain torch
+where JAX's is ``lax.ppermute`` / ``psum_scatter``:
+
+* ``"ring"`` (:331-354): row block ``me`` summed in f32 in JAX's ring
+  order, rank me + 1 first and rank me last, then rounded once
+  (:func:`ring_reduce_scatter`);
+* ``"xla"`` (:326-329, the one-shot ``psum_scatter``): the partials
+  summed like ``RankGroup.psum``, in f32 in rank order, rounded once.
+
+``impl="auto"`` (the autotuner, ROADMAP Queue A item 19) raises
+``NotImplementedError``, and so does ``impl="fused"`` at world > 1 (the
+fused kernel's ring reduce-scatter, Queue B item 11).
 """
 
 from __future__ import annotations
@@ -30,6 +49,7 @@ from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import LaunchCount, aligned16
 from triton_dist_tpu_torch.ops.group_gemm import (
     grouped_matmul_reference, plan, schedule_buffer)
+from triton_dist_tpu_torch.runtime.dist import RankGroup
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 #: The impls whose pair products round to the activation dtype.
@@ -42,7 +62,7 @@ moe_rs_launches = LaunchCount()
 
 @dataclasses.dataclass
 class MoEReduceRSContext:
-    """The JAX context at world = 1: axis, expert count and top-k."""
+    """The JAX context: axis, its ranks, expert count and top-k."""
     world_size: int = 1
     axis: str = "tp"
     num_experts: int = 8
@@ -72,13 +92,56 @@ def moe_reduce_rs_reference(act: torch.Tensor, w_down: torch.Tensor,
     return red.sum(dim=1).to(act.dtype)
 
 
+def ring_reduce_scatter(parts: list) -> torch.Tensor:
+    """JAX's ring reduce-scatter of the W ranks' (T, H) partials
+    (moe_reduce_rs.py:346-354): row block c of the result sums the ranks'
+    block c in f32 in the order c + 1, c + 2, ..., c (mod W), the order
+    its accumulator travels the ring, and rounds once."""
+    world = len(parts)
+    t, h = parts[0].shape
+    rows = t // world
+    stacked = torch.stack(parts).float().reshape(world, world, rows, h)
+    blocks = torch.arange(world, device=parts[0].device)
+    acc = stacked[(blocks + 1) % world, blocks]
+    for s in range(2, world + 1):
+        acc = acc + stacked[(blocks + s) % world, blocks]
+    return acc.reshape(t, h).to(parts[0].dtype)
+
+
+def moe_reduce_rs_world_reference(act: torch.Tensor, w_down: torch.Tensor,
+                                  expert_ids: torch.Tensor,
+                                  weights: torch.Tensor, num_experts: int,
+                                  world: int, impl: str = "ring"
+                                  ) -> torch.Tensor:
+    """Plain version at world W of impl "ring" or "xla": each rank's
+    partial by :func:`moe_reduce_rs_reference` on its I-shard, then the
+    impl's sum."""
+    return _reduce_ranks(
+        [moe_reduce_rs_reference(a, wd, expert_ids, weights, num_experts)
+         for a, wd in _rank_shards(act, w_down, world)], impl)
+
+
+def _rank_shards(act: torch.Tensor, w_down: torch.Tensor,
+                 world: int) -> list:
+    """Each rank's (act columns, w_down rows) of the I-shard, as views."""
+    group = RankGroup(world, device=act.device)
+    return list(zip(group.shard(act, 1), group.shard(w_down, 1)))
+
+
+def _reduce_ranks(parts: list, impl: str) -> torch.Tensor:
+    if impl == "ring":
+        return ring_reduce_scatter(parts)
+    return RankGroup(len(parts), device=parts[0].device).psum(parts)
+
+
 def moe_reduce_rs(act: torch.Tensor, w_down: torch.Tensor,
                   expert_ids: torch.Tensor, weights: torch.Tensor,
                   ctx: MoEReduceRSContext, impl: str = "ring") -> torch.Tensor:
-    """``reduce_scatter(topk_reduce(grouped_gemm(act, w_down)))`` at world
-    = 1. act: (T * topk, I); w_down: (E, I, H); expert_ids: (T * topk,)
-    with ``num_experts`` as the sentinel; weights: (T, topk). Returns (T,
-    H) in ``act.dtype``."""
+    """``reduce_scatter(topk_reduce(grouped_gemm(act, w_down)))``. act:
+    (T * topk, I); w_down: (E, I, H), I sharded over ``ctx``'s W ranks;
+    expert_ids: (T * topk,) with ``num_experts`` as the sentinel; weights:
+    (T, topk), T a multiple of W. Returns (T, H) in ``act.dtype``, rank
+    r's rows the r-th block of T / W."""
     if impl == "auto":
         raise NotImplementedError(
             "moe_reduce_rs impl='auto' measures ring against fused through "
@@ -86,12 +149,27 @@ def moe_reduce_rs(act: torch.Tensor, w_down: torch.Tensor,
             "item 19)")
     if impl not in ("ring", "xla", "fused"):
         raise ValueError(f"unknown moe_reduce_rs impl {impl!r}")
-    if ctx.world_size != 1:
+    world = ctx.world_size
+    if world != 1 and impl == "fused":
         raise NotImplementedError(
-            f"moe_reduce_rs at world {ctx.world_size} (its ring "
-            f"reduce-scatter) is not ported yet (ROADMAP.md, Queue B "
-            f"item 11)")
+            f"moe_reduce_rs impl='fused' at world {world} (the ring "
+            f"reduce-scatter of _moe_rs_fused_kernel) is not ported yet "
+            f"(ROADMAP.md, Queue B item 11)")
     _check_operands(act, w_down, expert_ids, weights)
+    if world != 1:
+        t = weights.shape[0]
+        if t % world or act.shape[1] % world:
+            raise ValueError(f"moe_reduce_rs at world {world} needs T "
+                             f"({t}) and I ({act.shape[1]}) to split over "
+                             f"the ranks")
+        if act.device.type == "cpu":
+            return moe_reduce_rs_world_reference(
+                act, w_down, expert_ids, weights, ctx.num_experts, world,
+                impl)
+        parts = [launch_moe_rs(a, wd, expert_ids, weights, ctx.num_experts,
+                               round_pairs=True)
+                 for a, wd in _rank_shards(act, w_down, world)]
+        return _reduce_ranks(parts, impl)
     round_pairs = impl in ROUNDED_IMPLS
     if act.device.type == "cpu":
         return moe_reduce_rs_reference(act, w_down, expert_ids, weights,
@@ -111,27 +189,31 @@ def launch_moe_rs(act: torch.Tensor, w_down: torch.Tensor,
     if act.dtype not in _DTYPE_CODES:
         raise ValueError(f"moe_reduce_rs kernel takes bf16 or f32, not "
                          f"{act.dtype}")
-    if not (act.is_contiguous() and w_down.is_contiguous()):
-        raise ValueError("moe_reduce_rs kernel needs contiguous operands")
+    if act.stride(1) != 1 or w_down.stride(2) != 1 or \
+            w_down.stride(1) != w_down.shape[2]:
+        raise ValueError("moe_reduce_rs kernel needs contiguous rows of act "
+                         "and w_down (a row shard of the experts has them)")
     lib = _lib()
     t, k = weights.shape
     i, h = w_down.shape[1], w_down.shape[2]
     out = torch.empty((t, h), dtype=act.dtype, device=act.device)
     if t == 0:
         return out
+    act, w_down = aligned16(act), aligned16(w_down)
     # The plan of the grouped down product: the same header plans both.
-    p = plan(t * k, num_experts, i, h, act.dtype)
+    strides = (act.stride(0), h, w_down.stride(0))
+    p = plan(t * k, num_experts, i, h, act.dtype, strides)
     ws = torch.empty((t * k, h), device=act.device,
                      dtype=act.dtype if round_pairs else torch.float32)
     ids = expert_ids.reshape(-1).to(torch.int32).contiguous()
     wts = weights.to(torch.float32).contiguous()
     sched = schedule_buffer(t * k, p, act.device)
-    act, w_down = aligned16(act), aligned16(w_down)
     stream = torch.cuda.current_stream(act.device).cuda_stream
     _check(lib, lib.tdt_moe_rs(act.data_ptr(), ids.data_ptr(), wts.data_ptr(),
                                w_down.data_ptr(), ws.data_ptr(),
                                out.data_ptr(), sched.data_ptr(), t, k,
-                               num_experts, i, h, int(round_pairs),
+                               num_experts, i, h, act.stride(0),
+                               w_down.stride(0), int(round_pairs),
                                _DTYPE_CODES[act.dtype], stream))
     moe_rs_launches.add((p.path, p.m_blk,
                          "rounded" if round_pairs else "f32", t * k, i, h))
@@ -167,7 +249,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("moe_rs")
     if lib.tdt_moe_rs.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tdt_moe_rs.argtypes = [p] * 7 + [i] * 7 + [p]
+        ll = ctypes.c_longlong
+        lib.tdt_moe_rs.argtypes = [p] * 7 + [i] * 5 + [ll, ll, i, i, p]
         lib.tdt_moe_rs.restype = i
         lib.tdt_error_string.argtypes = [i]
         lib.tdt_error_string.restype = ctypes.c_char_p

@@ -18,10 +18,11 @@ step; at world W:
 * ``"ulysses"`` (:572-615): its four all-to-alls trade the sequence
   split for a head split; rank r runs the full-sequence pass on its
   Hq / W query and Hkv / W KV heads.
-* ``"ag_pallas"`` (:621-648): at world 1 the all-gather kernel of
-  ``ops.allgather`` (``csrc/allgather.cu``) on the flattened K and V,
-  then the same pass. At world W the all-gather's pushes are not ported
-  yet (ROADMAP.md, Queue B item 8): it raises.
+* ``"ag_pallas"`` (:621-648): the all-gather kernels of
+  ``ops.allgather`` (``csrc/allgather.cu``: the copy at world 1, the
+  world-W kernel at world W) on K and V flattened to (S, B Hkv D), then
+  each rank's masked pass over its own gathered copy, its queries at
+  their global offset.
 * ``"pallas"`` (:617-619): :func:`sp_ag_attention_fused`, the fused
   kernel ``_sp_fused_kernel`` (:147). At world 1 its ring is a single
   step and what remains is a tiled causal (or full) flash prefill, the
@@ -48,7 +49,7 @@ import torch
 
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.allgather import (
-    all_gather, create_allgather_context)
+    AllGatherContext, all_gather, create_allgather_context)
 from triton_dist_tpu_torch.ops.common import LaunchCount, aligned16
 from triton_dist_tpu_torch.runtime.dist import RankGroup
 from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
@@ -79,8 +80,8 @@ class SpAttentionContext:
     ``group`` (the ranks of the sequence axis) sets ``world_size``; a
     context without one runs the plain versions at ``world_size`` on the
     CPU, and the ring kernel needs one. The context keeps the ring
-    kernel's workspaces, signals and call counter (``state``) across
-    calls."""
+    kernel's workspaces, signals and call counter (``state``) and the
+    all-gather context of ``ag_pallas`` (``ag_ctx``) across calls."""
     causal: bool = True
     axis: str = "sp"
     head_axis: str | None = None
@@ -88,6 +89,8 @@ class SpAttentionContext:
     group: RankGroup | None = None
     state: RingState | None = dataclasses.field(default=None, init=False,
                                                 repr=False)
+    ag_ctx: AllGatherContext | None = dataclasses.field(
+        default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.group is not None:
@@ -99,6 +102,9 @@ class SpAttentionContext:
         if self.world_size < 1:
             raise ValueError(f"world_size must be >= 1, got "
                              f"{self.world_size}")
+        self.ag_ctx = create_allgather_context(
+            self.axis, world_size=self.world_size,
+            group=self.group if self.world_size > 1 else None)
 
 
 def create_sp_attention_context(axis: str = "sp", causal: bool = True,
@@ -543,17 +549,17 @@ def sp_ag_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _ulysses_pass(q, k, v, ctx.causal, world)
     if impl == "pallas":
         return sp_ag_attention_fused(q, k, v, ctx)
-    if world > 1:
-        raise NotImplementedError(
-            f"impl 'ag_pallas' at world {world} needs the all-gather's "
-            f"pushes, not ported yet (ROADMAP.md, Queue B item 8)")
-    # ag_pallas: the all-gather kernel on K/V flattened to (S, B*Hkv*D).
+    # ag_pallas: the all-gather kernel on K/V flattened to (S, B*Hkv*D),
+    # every rank's copy (W, S, B*Hkv*D); rank r's queries over its own.
     b, s, hkv, d = k.shape
-    ag_ctx = create_allgather_context(ctx.axis)
-    kg, vg = (all_gather(t.transpose(0, 1).reshape(s, b * hkv * d), ag_ctx,
-                         impl="pallas").reshape(s, b, hkv, d).transpose(0, 1)
+    kg, vg = (all_gather(t.transpose(0, 1).reshape(s, b * hkv * d),
+                         ctx.ag_ctx, impl="pallas", stacked=True).reshape(
+                             world, s, b, hkv, d).transpose(1, 2)
               for t in (k, v))
-    return _masked_pass(q, kg, vg, ctx.causal)
+    s_loc = q.shape[1] // world
+    return torch.cat([_masked_pass(q[:, r * s_loc:(r + 1) * s_loc], kg[r],
+                                   vg[r], ctx.causal, r * s_loc)
+                      for r in range(world)], dim=1)
 
 
 # -- zigzag ------------------------------------------------------------------

@@ -166,13 +166,15 @@ def build_model(args, **overrides):
     """(model, params) of the command line: a local HF checkpoint
     (``--model-dir``) or :func:`preset_config` with random weights.
     ``AutoLLM`` builds a ``Qwen3MoE`` for an MoE config and a ``DenseLLM``
-    otherwise."""
+    otherwise, over ``--world`` tensor-parallel ranks on the one device
+    (JAX's server puts every device on its "tp" axis)."""
     from triton_dist_tpu_torch.models import AutoLLM
 
     if args.model_dir:
-        return AutoLLM.from_pretrained(args.model_dir, device=args.device)
+        return AutoLLM.from_pretrained(args.model_dir, device=args.device,
+                                       world=args.world)
     model = AutoLLM.build(preset_config(args, **overrides),
-                          device=args.device)
+                          device=args.device, world=args.world)
     return model, model.init(args.seed)
 
 
@@ -192,6 +194,8 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--world", type=int, default=1,
+                    help="tensor-parallel ranks on the one device")
     return ap.parse_args(argv)
 
 
