@@ -222,11 +222,29 @@ without the final line:
     phase 13 (not gated); one TPMoE layer under sync debug "error"; wall
     and device time, idle share and the all-gather's share of a decode
     step in each mode and of a prefill.
+24. world-W ring AG + grouped GEMM (``csrc/ag_group_gemm.cu``,
+    ``ag_group_gemm(impl="fused")``) on phase 12's weights, with layer
+    0's routing of phase 23's served batch (decode: 4 tokens x top-8 =
+    32 rows; prefill: 4 x 128 x 8 = 4096 rows): (a) at W = 2, 3, 4, 8,
+    bf16 and f32, on layer 0's w_gate (96-wide shards at W = 8),
+    bit-equal to impls "xla" and "ring", within the grouped GEMM's limit
+    of the plain version, repeats bit-identical, workspace canaries
+    intact, a skipped push refused, and with a quarter of the ids set to
+    the sentinel the valid rows within the limit; (c) the W = 4 bf16
+    cases timed by CUDA events around calls queued behind a GPU sleep
+    (the profiler lost records late in full runs) beside the bound, the
+    plain version, impl "xla", the world-1 kernel at the same global
+    shape and one ``torch._grouped_mm`` of the gathered, expert-sorted
+    rows against the full weights, with the workspace bytes; (b) the main path, every count set to 0 just before:
+    ``ag_group_gemm(impl="fused")`` at TP world 4 on layer 0's gate and
+    up weights at both shapes, one ring call (a schedule and a
+    cooperative launch) each and no other kernel's launch, each output
+    bit-equal to impls "xla" and "ring".
 
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
 release, before the Qwen3-30B-A3B load), phases 17-20 after phase 11
 (before that release), phase 21 after phase 15, phase 16 after phase 13,
-phases 22-23 after phase 16; the JSON line covers all nine slices.
+phases 22-24 after phase 16; the JSON line covers all ten slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -4042,14 +4060,16 @@ def phase_tpm_main(torch, models, counters, cfg, params, base, card: str,
 
 
 def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
-                     card: str) -> None:
+                     card: str) -> dict:
     """Phase 23, checks: prefill (ag_rs) and decode-step (gemm_ar, ag_rs)
     logits through the kernels within MOE_LOGITS_ATOL of the plain
     world-4 path (mode xla / xla_ar, the MoE's all-gather, grouped GEMM
     and MoE-reduce through their plain versions) with the routing held
     fixed (replayed from the kernel run, PR 4's rule); one TPMoE layer
     under sync debug "error"; the decode steps' and the prefill's wall and
-    device time, idle share and the all-gather's share."""
+    device time, idle share and the all-gather's share. Returns layer 0's
+    routing (its (T, top-k) expert ids) in the kernel run's prefill
+    (4 x 128 tokens) and first decode step (4 tokens), by shape name."""
     from triton_dist_tpu_torch.layers import tp_moe
     from triton_dist_tpu_torch.models import KVCacheManager
     t0 = time.perf_counter()
@@ -4163,6 +4183,7 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
                   f"({ms / dev:.2f}) {kernel[:70]}", flush=True)
     print(f"phase 23 (checks) took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return {"prefill": seen[0][1], "decode": seen[layers][1]}
 
 
 def agw_kernels_line(records, launches) -> list:
@@ -4178,6 +4199,286 @@ def agw_kernels_line(records, launches) -> list:
         out.append(rec)
     return out
 
+
+
+#: Phase 24's worlds and shapes: Qwen3-30B-A3B's gate|up rows at decode (4
+#: tokens x top-8 = 32) and prefill (512 x 8 = 4096), routed as phase 23's
+#: served batch was at layer 0.
+AGG_WORLDS = (2, 3, 4, 8)
+AGG_SHAPES = (("decode", MOE_DECODE_M), ("prefill", MOE_PREFILL_M))
+AGG_REPLACES = "triton_dist_tpu/ops/group_gemm.py:139"
+
+
+def agg_bound_ms(live: int, m: int, k: int, n: int, world: int,
+                 itemsize: int):
+    """(least ms, what bounds it) of one world-W ag_group_gemm call over
+    every rank (as :func:`ring_bound_ms` counts a ring): x (M, K) read
+    once, the ``live`` experts' (K, N) weights read once, the (M, N)
+    output written once, plus the ring's copies (the W - 1 chunks each
+    rank receives, written and read); 2 M K N operations over the type's
+    peak."""
+    moved = m * k + live * k * n + m * n + 2 * (world - 1) * m * k
+    by_bytes = moved * itemsize / HBM_BYTES_PER_S * 1e3
+    kind = "bf16" if itemsize == 2 else "f32"
+    by_ops = 2.0 * m * k * n / PEAK_FLOPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def queued_ms(torch, fn, n: int = 20) -> float:
+    """Device ms of one ``fn()`` call, by CUDA events around ``n`` calls
+    queued behind a GPU sleep, after a warm-up: the host enqueues the
+    calls while the card sleeps, so the events time their kernels back to
+    back on the card (launch gaps on the card included, host time not).
+    The sleep doubles until it outlasts the enqueue; a call that waits on
+    the card never fits, and fails. Phase 24 times this way because the
+    profiler lost kernel records late in full runs: its readings fell
+    below their HBM bounds there (ROADMAP.md, Queue C item C6)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 40_000_000                          # ~20 ms at ~2 GHz
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        ev[1].record()
+        for _ in range(n):
+            fn()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / n
+        cycles *= 2
+    raise SmokeFailure(f"{n} calls took longer to enqueue ({host_ms:.1f} ms)"
+                       f" than the GPU sleep ahead of them")
+
+
+def agg_error(torch, got, ref, k: int) -> tuple[float, bool]:
+    """(max |got - ref|, within the grouped GEMM's limit): bf16 as
+    :func:`moe_error`; f32 1e-5 of the larger value plus F32_ATOL."""
+    if got.dtype == torch.bfloat16:
+        return moe_error(torch, got, ref, k)
+    diff = (got - ref).abs()
+    lim = 1e-5 * torch.maximum(got.abs(), ref.abs()) + F32_ATOL
+    return diff.max().item(), bool((diff <= lim).all())
+
+
+def agg_operands(torch, cfg, routing, name: str, seed: int):
+    """(x, ids) of one shape: the served batch's tokens drawn from the
+    seed at unit scale, each repeated for its top-k pairs, and the
+    routing's expert ids, one a row."""
+    ids = routing[name].reshape(-1).to(torch.int32).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randn((ids.numel() // cfg.num_experts_per_tok,
+                          cfg.hidden_size), generator=gen, device="cuda")
+    return (tokens.to(cfg.dtype).repeat_interleave(cfg.num_experts_per_tok,
+                                                   0), ids)
+
+
+def agg_padded(torch, x, ids, world: int, e: int):
+    """(x, ids) with zero rows of sentinel id ``e`` appended up to a
+    multiple of ``world`` rows (as TPMoE pads its all-gather)."""
+    pad = -x.shape[0] % world
+    if not pad:
+        return x, ids
+    return (torch.cat([x, x.new_zeros((pad, x.shape[1]))]),
+            torch.cat([ids, ids.new_full((pad,), e)]))
+
+
+def phase_agg_kernels(torch, gg, rd, cfg, params, routing, card: str):
+    """Phase 24 (a, c): the world-W ring AG + grouped GEMM
+    (``csrc/ag_group_gemm.cu``, impl "fused") at W = 2, 3, 4, 8, bf16 and
+    f32, at the decode (32 rows) and prefill (4096 rows) shapes on layer
+    0's w_gate (E = 128, K = 2048, N = 768; 96-wide shards at W = 8) with
+    the served routing: bit-equal to impls "xla" and "ring" (the world-1
+    kernel once a rank on its strided shard), within the grouped GEMM's
+    limit of the plain version, every rank's columns bit-identical on a
+    repeat, the workspaces' NaN canaries intact and a skipped push (its
+    signal still set) refused; a quarter of the ids set to the sentinel,
+    the valid rows compared (W = 3: rows padded to a multiple of W with
+    sentinel ids, :func:`agg_padded`). Then the W = 4 bf16 cases timed on
+    the card (:func:`queued_ms`) beside the bound, impl "xla", the
+    world-1 kernel at the same global shape ("w1") and one
+    ``torch._grouped_mm`` of the gathered, expert-sorted rows against the
+    full weights, and the plain version by the profiler (``device_ms``). Returns the
+    JSON records, ``launches`` to fill from :func:`phase_agg_main`."""
+    print("== phase 24: world-W ring AG + grouped GEMM kernel vs impls xla "
+          "/ ring and its plain version", flush=True)
+    free, total = torch.cuda.mem_get_info()
+    print(f"device memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"reserved, {free / 2**30:.2f} of {total / 2**30:.2f} GiB free",
+          flush=True)
+    t0 = time.perf_counter()
+    e, k = cfg.num_experts, cfg.hidden_size
+    nan = float("nan")
+    w_bf16 = params["layers"][0]["moe"]["w_gate"]
+    n_cases = 0
+    errs = {}
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        w = w_bf16.to(dtype)
+        for name, t in AGG_SHAPES:
+            x0, ids0 = agg_operands(torch, cfg, routing, name, seed=24 + t)
+            for world in AGG_WORLDS:
+                x, ids = agg_padded(torch, x0.to(dtype), ids0, world, e)
+                dead = ids.clone()
+                dead[torch.arange(dead.numel(), device="cuda") % 4 == 3] = e
+                ctx = gg.create_ag_group_gemm_context(
+                    group=rd.create_rank_group(world, device="cuda"))
+                got = gg.ag_group_gemm(x, w, ids, e, ctx, impl="fused")
+                again = gg.ag_group_gemm(x, w, ids, e, ctx, impl="fused")
+                same = torch.equal(bits(torch, got), bits(torch, again))
+                xla = all(torch.equal(bits(torch, got), bits(
+                    torch, gg.ag_group_gemm(x, w, ids, e, ctx, impl)))
+                    for impl in ("xla", "ring"))
+                err, ok = agg_error(
+                    torch, got, gg.ag_group_gemm_reference(x, w, ids, e,
+                                                           world), k)
+                ws = gg.ring_workspace(x, ctx)
+                canary = bool(ws[:, x.numel():].isnan().all())
+                ws.fill_(nan)
+                bad = gg.launch_ag_group_gemm(x, w, ids, e, ctx, fault=True)
+                refused = bool(bad.isnan().any())
+                live = dead < e
+                sent = gg.ag_group_gemm(x, w, dead, e, ctx, impl="fused")
+                s_err, s_ok = agg_error(torch, sent[live], gg.
+                                        ag_group_gemm_reference(
+                                            x, w, dead, e, world)[live], k)
+                check(same and xla and ok and canary and refused and s_ok,
+                      f"ag_group_gemm W={world} {dt} {name}: repeat {same}, "
+                      f"bit-equal to xla / ring {xla}, max abs err {err} "
+                      f"ok {ok}, canaries {canary}, fault refused {refused}"
+                      f", sentinel rows max abs err {s_err} ok {s_ok}")
+                n_cases += 1
+                errs[(world, dt, name)] = err
+                del got, again, bad, sent, ctx, x
+        del w
+    torch.cuda.empty_cache()
+    print(f"ag_group_gemm (impl fused) at W = {AGG_WORLDS}, bf16 and f32, "
+          f"decode and prefill rows on layer 0's w_gate with the served "
+          f"routing: {n_cases} cases, each bit-equal to impls xla and ring, "
+          f"within the grouped GEMM's limit of the plain version, repeats "
+          f"bit-identical, canaries intact, the skipped push refused, "
+          f"sentinel ids' valid rows within the limit [{card}]", flush=True)
+
+    world = TPM_WORLD
+    group = rd.create_rank_group(world, device="cuda")
+    gates = [lp["moe"]["w_gate"] for lp in params["layers"][:4]]
+    records = []
+    for name, t in AGG_SHAPES:
+        x, ids = agg_operands(torch, cfg, routing, name, seed=24 + t)
+        m, n = x.shape[0], gates[0].shape[2]
+        live = int(torch.unique(ids).numel())
+        ctx = gg.create_ag_group_gemm_context(group=group)
+        nk, nw, nl = rotating(gates), rotating(gates), rotating(gates)
+        p = gg.plan(m // world, e, k, n // world, x.dtype, (k, n, k * n))
+        key = (p.path, p.m_blk, world, m, k, n // world)
+
+        def kernel():
+            return gg.ag_group_gemm(x, nk(), ids, e, ctx, impl="fused")
+        ms = queued_ms(torch, kernel)
+        xla_ms = queued_ms(torch, lambda: gg.ag_group_gemm(
+            x, nw(), ids, e, ctx, impl="xla"))
+        w1_ms = queued_ms(torch, lambda: gg.grouped_matmul(x, nw(), ids, e))
+        plain_ms = device_ms(torch, lambda: gg.ag_group_gemm_reference(
+            x, gates[0], ids, e, world), n=3)
+        order = torch.argsort(ids.long(), stable=True)
+        x_sorted = x[order].contiguous()
+        offs = torch.cumsum(torch.bincount(ids.long(), minlength=e),
+                            0).to(torch.int32)
+        lib_ms = None
+        if hasattr(torch, "_grouped_mm"):   # a yardstick, never on a path
+            lib_ms = queued_ms(torch, lambda: torch._grouped_mm(
+                x_sorted, nl(), offs=offs))
+        bnd, by = agg_bound_ms(live, m, k, n, world, x.element_size())
+        ws_bytes = ctx.state.nbytes()
+        lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
+        print(f"kernel ag_group_gemm_world W={world} bf16 {name} (M={m}, "
+              f"{live} live experts, {p.path} path, {p.m_blk}-row tiles): "
+              f"ms={ms:.5f} (2 launches a call: group_schedule, "
+              f"ag_group_gemm_kernel; and the wrapper's rank tables) "
+              f"bound_ms={bnd:.5f} ({by}) "
+              f"xla_ms={xla_ms:.5f} ({world} grouped launches) w1_ms="
+              f"{w1_ms:.5f} plain_ms={plain_ms:.5f} grouped_mm_ms={lib_txt};"
+              f" workspaces and signals {ws_bytes / 2**20:.2f} MiB; "
+              f"times by CUDA events around 20 queued calls, plain_ms by "
+              f"the profiler [{card}]", flush=True)
+        records.append(({
+            "name": f"ag_group_gemm_world[{name}]", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/ag_group_gemm.cu",
+            "replaces": AGG_REPLACES,
+            "max_abs_err": errs[(world, "bf16", name)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms, "w1_ms": w1_ms, "xla_ms": xla_ms,
+            "wall_ms": wall_ms(torch, kernel), "shape": [world, m, k, n],
+            "live_experts": live, "ok": True}, key))
+        del x, ctx
+    print(f"phase 24 (kernels) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return records
+
+
+def phase_agg_main(torch, gg, mrs, agk, rd, cfg, params, routing, card: str,
+                   seed: int) -> dict:
+    """Phase 24 (b), this slice's main path: ``ag_group_gemm(impl="fused")``
+    at TP world 4 on the gate and the up weights of one full-width layer,
+    at the decode and prefill rows with the served routing, every count
+    set to 0 just before: one ring call (schedule + cooperative launch)
+    each, no grouped-GEMM, MoE-reduce or all-gather launch; then each
+    output bit-equal to impls "xla" and "ring" and finite. Returns the
+    launches by key."""
+    t0 = time.perf_counter()
+    group = rd.create_rank_group(TPM_WORLD, device="cuda")
+    ctx = gg.create_ag_group_gemm_context(group=group)
+    moe = params["layers"][0]["moe"]
+    e = cfg.num_experts
+    operands = {name: agg_operands(torch, cfg, routing, name, seed + 240 + t)
+                for name, t in AGG_SHAPES}
+    counters = {"ag_group_gemm": gg.ag_group_gemm_launches,
+                "group_gemm": gg.group_gemm_launches,
+                "moe_rs": mrs.moe_rs_launches,
+                "all_gather": agk.all_gather_launches}
+    for c in counters.values():                        # ---- the main path
+        c.reset()
+    outs = {(name, wn): gg.ag_group_gemm(x, moe[wn], ids, e, ctx,
+                                         impl="fused")
+            for name, (x, ids) in operands.items()
+            for wn in ("w_gate", "w_up")}
+    torch.cuda.synchronize()
+    totals = {name: c.total for name, c in counters.items()}
+    launches = dict(gg.ag_group_gemm_launches.by_shape)  # ---- main path ends
+    check(totals == {"ag_group_gemm": 4, "group_gemm": 0, "moe_rs": 0,
+                     "all_gather": 0},
+          f"ag_group_gemm path launches {totals}, expected 4 ring calls")
+    for (name, wn), got in outs.items():
+        x, ids = operands[name]
+        check(bool(torch.isfinite(got).all()), f"non-finite {name} {wn}")
+        for impl in ("xla", "ring"):
+            ref = gg.ag_group_gemm(x, moe[wn], ids, e, ctx, impl=impl)
+            check(torch.equal(bits(torch, got), bits(torch, ref)),
+                  f"ag_group_gemm {name} {wn}: fused differs from {impl}")
+        print(f"ag_group_gemm path (W={TPM_WORLD}, impl fused) {name} {wn}: "
+              f"{tuple(x.shape)} x {tuple(moe[wn].shape)} -> "
+              f"{tuple(got.shape)}, bit-equal to impls xla and ring "
+              f"[{card}]", flush=True)
+    print(f"ag_group_gemm main path launches: {launches} (each call one "
+          f"group_schedule + one cooperative ag_group_gemm_kernel); phase "
+          f"24 (path) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def agg_kernels_line(records, launches) -> list:
+    """The records of phase 24 with their launches on its main path; each
+    must have run there."""
+    out = []
+    for rec, key in records:
+        rec = dict(rec, launches=launches.get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"ag_group_gemm path")
+        out.append(rec)
+    return out
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4307,9 +4608,15 @@ def main() -> int:
         torch, models, tpm_counters(agk, gg, mrs, ag, ops, ops), cfg, params,
         tokens["default"], card, args.seed)
     del tpm_engines
-    phase_tpm_checks(torch, gg, mrs, agk, cfg, tpm_model, params, square,
-                     card)
+    routing = phase_tpm_checks(torch, gg, mrs, agk, cfg, tpm_model, params,
+                               square, card)
     kernels += agw_kernels_line(agw_records, tpm_launches)
+    del tpm_model
+    agg_records = phase_agg_kernels(torch, gg, rd, cfg, params, routing,
+                                    card)
+    agg_launches = phase_agg_main(torch, gg, mrs, agk, rd, cfg, params,
+                                  routing, card, args.seed)
+    kernels += agg_kernels_line(agg_records, agg_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

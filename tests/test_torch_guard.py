@@ -382,7 +382,8 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
     assert set(_build.SOURCES) == {"gemm_ar", "flash_decode", "ag_gemm",
                                    "group_gemm", "moe_rs", "allgather",
                                    "sp_attention", "all_to_all",
-                                   "ag_gemm_ring", "gemm_rs_ring"}
+                                   "ag_gemm_ring", "gemm_rs_ring",
+                                   "ag_group_gemm"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
 
 
@@ -792,3 +793,61 @@ def test_tensor_world_moe_entry_points_on_cuda_tensors_never_take_the_plain_path
     for lib, call in calls:
         with pytest.raises(RuntimeError, match=f"no build of {lib}"):
             call()
+
+
+def test_ag_group_gemm_world_on_cuda_tensors_never_takes_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed calls of ag_group_gemm over a world-4
+    rank group reach a kernel build and fail there instead of computing
+    a plain version on the CPU: impl "fused" the ring kernel's, "xla" and
+    "ring" the grouped GEMM's (once a rank, on its shard)."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for name in ("ag_group_gemm_reference", "ag_group_gemm_ring_reference",
+                 "grouped_matmul_reference"):
+        monkeypatch.setattr(gg, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    ctx = gg.create_ag_group_gemm_context(
+        group=create_rank_group(4, device="cpu"))
+    x = on_cuda(torch.zeros(8, 16, dtype=torch.bfloat16))
+    w = on_cuda(torch.zeros(3, 16, 32, dtype=torch.bfloat16))
+    ids = on_cuda(torch.zeros(8, dtype=torch.int32))
+    for impl, lib in (("fused", "ag_group_gemm"), ("xla", "group_gemm"),
+                      ("ring", "group_gemm")):
+        with pytest.raises(RuntimeError, match=f"no build of {lib}$"):
+            gg.ag_group_gemm(x, w, ids, 3, ctx, impl=impl)
+
+
+def test_ag_group_gemm_source_targets_sm90a_through_cooperative_launches():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["ag_group_gemm"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and '#include "shmem.cuh"' in text
+    assert '#include "group_gemm.cuh"' in text   # the world-1 tile bodies
+    for entry in ("cudaLaunchCooperativeKernel", "tdt_putmem_signal_block",
+                  "tdt_signal_wait_until", "gg_mma_tile", "gg_fma_tile",
+                  "tdt_ag_group_gemm_grid", "tdt_ag_group_gemm",
+                  "tdt_error_string",
+                  "_ag_group_gemm_kernel"):     # the TPU kernel it replaces
+        assert entry in text
+    for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+        assert atomic not in text             # fixed-order sums only
+    for library in ("cublas", "cutlass::gemm::device", "torch/"):
+        assert library not in text.lower()

@@ -1233,3 +1233,74 @@ def test_world_moe_reduce_rs_matches_plain_on_card(cuda_device, impl):
     want = (mrs.ring_reduce_scatter(parts) if impl == "ring"
             else group.psum(parts))
     assert torch.equal(got, want)
+
+
+# -- tensor world W: the ring AG + grouped GEMM (csrc/ag_group_gemm.cu) ---------------
+#: (world, M, E, K, N, sentinel share) of ag_group_gemm: Qwen3-30B-A3B's
+#: gate at decode (32 rows: 4 tokens x top-8) and prefill (4096) over its
+#: 192-wide (W = 4) and 96-wide (W = 8) expert shards, W = 2 and 3, and
+#: small shapes: 128-wide shards with few experts, and the FMA tile (K and
+#: the shard width not multiples of 8) with sentinel ids.
+AGG_CASES = [(4, 32, 128, 2048, 768, 0.0), (4, 4096, 128, 2048, 768, 0.0),
+             (8, 32, 128, 2048, 768, 0.0), (8, 4096, 128, 2048, 768, 0.0),
+             (2, 512, 128, 2048, 768, 0.0), (3, 96, 16, 256, 384, 0.0),
+             (4, 72, 5, 36, 80, 0.25)]
+AGG_IDS = ["w4_decode", "w4_prefill", "w8_decode", "w8_prefill", "w2",
+           "w3_small", "w4_fma_sentinel"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", AGG_CASES, ids=AGG_IDS)
+def test_ag_group_gemm_ring_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                         case):
+    """impl "fused" at world W: one schedule + one cooperative launch a
+    call, repeats bit-identical, bit-equal to impls "xla" and "ring" (the
+    world-1 kernel once a rank on its strided shard: a row's sum does not
+    depend on its tile), within the grouped GEMM's limit of the plain
+    version, the workspaces' NaN canaries intact, and a skipped push (its
+    signal still set) refused."""
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    world, m, e, k, n, sentinel = case
+    rng = np.random.RandomState(m + k + world)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+        cuda_device, dtype)
+    w = torch.from_numpy((rng.randn(e, k, n) / np.sqrt(k)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ids = rng.randint(0, e, m)
+    ids[rng.rand(m) < sentinel] = e
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+    ctx = gg.create_ag_group_gemm_context(group=_ring_group(world,
+                                                            cuda_device))
+    before = (gg.ag_group_gemm_launches.total, gg.group_gemm_launches.total)
+    got = gg.ag_group_gemm(x, w, ids, e, ctx, impl="fused")
+    again = gg.ag_group_gemm(x, w, ids, e, ctx, impl="fused")
+    torch.cuda.synchronize()
+    assert (gg.ag_group_gemm_launches.total,
+            gg.group_gemm_launches.total) == (before[0] + 2, before[1])
+    assert torch.equal(_bits(got), _bits(again))
+    for impl in ("xla", "ring"):
+        assert torch.equal(_bits(gg.ag_group_gemm(x, w, ids, e, ctx, impl)),
+                           _bits(got))
+    assert gg.group_gemm_launches.total == before[1] + 2 * world
+    _assert_gemm_close(got, gg.ag_group_gemm_reference(x, w, ids, e, world),
+                       k)
+    ws = gg.ring_workspace(x, ctx)
+    assert bool(ws[:, m * k:].isnan().all())         # canaries intact
+    ws.fill_(float("nan"))
+    bad = gg.launch_ag_group_gemm(x, w, ids, e, ctx, fault=True)
+    torch.cuda.synchronize()
+    assert not torch.equal(_bits(bad), _bits(got))
+
+
+@pytest.mark.cuda
+def test_ag_group_gemm_ring_grid_fits_the_card(cuda_device):
+    import ctypes
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    bpr = ctypes.c_int()
+    for world in (2, 3, 4, 8):
+        for m, dtype in ((32, 0), (4096, 0), (32, 1)):
+            assert gg._agg_lib().tdt_ag_group_gemm_grid(
+                world, m // world, 128, 2048, 768, dtype,
+                ctypes.byref(bpr)) == 0
+            assert 1 <= bpr.value and world * bpr.value <= 132 * 8

@@ -27,6 +27,7 @@ from triton_dist_tpu_torch.ops import allgather as ag
 from triton_dist_tpu_torch.ops import group_gemm as gg
 from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
 from triton_dist_tpu_torch.ops import moe_utils as mu
+from triton_dist_tpu_torch.runtime.dist import create_rank_group
 
 BF16_ULP_REL = 2.0 ** -7
 
@@ -258,10 +259,12 @@ def test_cpu_calls_take_the_plain_versions_and_are_not_counted():
     (lambda: gg.ag_group_gemm(torch.ones(2, 4), torch.ones(2, 4, 4),
                               torch.zeros(2, dtype=torch.int32), 2,
                               impl="auto"), "Queue A item 19"),
-    (lambda: gg.ag_group_gemm(torch.ones(2, 4), torch.ones(2, 4, 4),
-                              torch.zeros(2, dtype=torch.int32), 2,
-                              gg.create_ag_group_gemm_context(world_size=2)),
-     "Queue B item 10"),
+    (lambda: gg.ag_group_gemm(
+        torch.ones(2, 4), torch.ones(2, 4, 4),
+        torch.zeros(2, dtype=torch.int32), 2,
+        gg.create_ag_group_gemm_context(
+            group=create_rank_group(2, device="cpu")), impl="auto"),
+     "Queue A item 19"),
     (lambda: mrs.moe_reduce_rs(torch.ones(4, 4), torch.ones(2, 4, 4),
                                torch.zeros(4, dtype=torch.int32),
                                torch.ones(2, 2),

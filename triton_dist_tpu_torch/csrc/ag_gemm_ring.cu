@@ -95,16 +95,6 @@ __device__ __forceinline__ int schedule_chunk(int me, int s, int world,
   return ((is_bwd ? me + off : me - off) % world + world) % world;
 }
 
-// Every thread of the block spins on some of `n` signals; the block goes
-// on once all hold `epoch`.
-__device__ __forceinline__ void wait_all(const unsigned long long* sig, int n,
-                                         unsigned long long epoch) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    while (tdt_signal_acquire(sig + i) != epoch) __nanosleep(64);
-  __threadfence();
-  __syncthreads();
-}
-
 template <typename T, bool MMA, bool SWIGLU>
 __global__ void __launch_bounds__(kPfThreads, 1) ag_ring_kernel(AgArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -171,7 +161,7 @@ __global__ void __launch_bounds__(kPfThreads, 1) ag_ring_kernel(AgArgs<T> a) {
     const int c = schedule_chunk(me, i / per_chunk, world, a.dirs);
     const int rt = (i % per_chunk) / col_tiles;
     const int ct = i % col_tiles;
-    wait_all(sig_me + c * P, P, a.epoch);
+    tdt_signal_wait_all(sig_me + c * P, P, a.epoch);
     int seg = 0;
 #pragma unroll
     for (int s = 1; s < kMaxSegs; ++s)

@@ -10,8 +10,9 @@
 // three products of `grouped_expert_ffn` (:67-87, the MoE FFN of mode
 // "sp"). Under tensor parallelism at world W, TPMoE calls it once per rank
 // on the rank's column shard of the experts, a strided view (the strides
-// note of group_gemm.cuh); the world-W ring all-gather of
-// `_ag_group_gemm_kernel` is not ported (ROADMAP.md, Queue B item 10).
+// note of group_gemm.cuh), and so do `ag_group_gemm`'s impls "xla" and
+// "ring"; the world-W ring all-gather of `_ag_group_gemm_kernel` with its
+// products, impl "fused", is ag_group_gemm.cu, on the same tile bodies.
 //
 // Shapes on the path (Qwen3-30B-A3B, bf16, E = 128, top-8): gate|up P x 2048
 // -> 2 x 768 and down P x 768 -> 2048, with P = 32 pairs at decode (batch

@@ -12,9 +12,11 @@
 // gathers its rows through the pair -> row index.
 //
 // Two launches per call, on the caller's stream:
-//  1. `group_schedule`, one block: the expert schedule of JAX's
-//     `align_tokens_for_tiles` (group_gemm.py:90-136) with static shapes and
-//     no host round trip. A stable counting sort of the pairs by expert
+//  1. `group_schedule`, one block per list of pairs: the expert schedule of
+//     JAX's `align_tokens_for_tiles` (group_gemm.py:90-136) with static
+//     shapes and no host round trip. A world-1 call has one list; the
+//     world-W ring (ag_group_gemm.cu) one per rank's chunk, each in its own
+//     slice of the buffer. A stable counting sort of the pairs by expert
 //     (warp-level __match_any_sync ranks, per-warp counts in shared memory,
 //     a prefix over warps and experts), then one row tile of up to m_blk
 //     pairs per (expert, m_blk chunk): its expert, first sorted row and row
@@ -44,8 +46,13 @@
 //    (n_b = 2): the column tiles of the second product follow the first's.
 //  * SwiGLU: gate and up accumulate side by side in one block (sharing each
 //    A tile), then silu(g) * u in f32 and one rounding.
-// Each output row is stored at its pair's own index: the store address does
-// the unsort.
+// Each output row is stored at its pair's own index (row stride ldc): the
+// store address does the unsort.
+//
+// The tile bodies (`gg_mma_tile`, `gg_fma_tile`) are device functions: the
+// world-1 kernels run one tile a block, the world-W ring kernel of
+// ag_group_gemm.cu runs many from its persistent blocks, so both give a row
+// the same bits.
 //
 // Strides: A's rows and W's rows and experts are read through the strides
 // the caller gives (elements; the last dimension is contiguous), so a
@@ -77,7 +84,9 @@ constexpr int kGgMaxRows = 64;           // largest m_blk
 int gg_max_tiles(int P, int E, int m_blk) {
   return (P + m_blk - 1) / m_blk + (E < P ? E : P);
 }
-int gg_sched_ints(int P, int max_tiles) { return 1 + P + 3 * max_tiles; }
+__host__ __device__ inline int gg_sched_ints(int P, int max_tiles) {
+  return 1 + P + 3 * max_tiles;
+}
 
 // Rows per tile: twice the mean pairs per expert, a power of two in
 // [16, 64]. A function of the shape only.
@@ -93,11 +102,15 @@ int gg_sched_smem(int E) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. The expert schedule (one block of 1024 threads; E <= 1024).
+// 1. The expert schedule (blocks of 1024 threads; E <= 1024). Block b sorts
+// pairs [b * P, (b + 1) * P) of `ids` into slice b of `sched` (each
+// gg_sched_ints(P, max_tiles) long), its pairs numbered from 0.
 __global__ void __launch_bounds__(kGgSchedThreads)
 group_schedule(const int* __restrict__ ids, int P, int E, int m_blk,
                int max_tiles, int* __restrict__ sched) {
   extern __shared__ int sh[];
+  ids += static_cast<size_t>(blockIdx.x) * P;
+  sched += static_cast<size_t>(blockIdx.x) * gg_sched_ints(P, max_tiles);
   int* wcnt = sh;                               // [warp][expert]
   int* cnt = wcnt + kGgSchedWarps * E;          // pairs per expert
   int* offs = cnt + E;                          // first sorted row
@@ -172,14 +185,16 @@ group_schedule(const int* __restrict__ ids, int P, int E, int m_blk,
   }
 }
 
+// The schedules of `lists` consecutive lists of P pairs, one block each.
 cudaError_t launch_schedule(const int* ids, int P, int E, int m_blk,
-                            int max_tiles, int* sched, cudaStream_t stream) {
+                            int max_tiles, int* sched, cudaStream_t stream,
+                            int lists = 1) {
   const int smem = gg_sched_smem(E);
   const cudaError_t err = cudaFuncSetAttribute(
       group_schedule, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  group_schedule<<<1, kGgSchedThreads, smem, stream>>>(ids, P, E, m_blk,
-                                                       max_tiles, sched);
+  group_schedule<<<lists, kGgSchedThreads, smem, stream>>>(ids, P, E, m_blk,
+                                                           max_tiles, sched);
   return cudaSuccess;
 }
 
@@ -212,17 +227,20 @@ struct GgArgs {
   int a_div;
   const T* b0;         // (E, K, N), row stride ldb, expert stride b_estride
   const T* b1;
-  OutT* c0;            // (P, N), contiguous
+  OutT* c0;            // (P, N), row stride ldc
   OutT* c1;
   const int* sched;
   int P, max_tiles, K, N, col_tiles;
-  long long lda, ldb, b_estride;
+  long long lda, ldb, b_estride, ldc;
 };
 
 // ---------------------------------------------------------------------------
-// 2a. Tensor-core kernel (bf16, K and N multiples of 8, operands 16-byte
-// aligned). grid = (max_tiles, column tiles), 128 threads: four warps of 16
-// columns each over MF m16 fragments of rows.
+// 2a. Tensor-core tile (bf16, K and N multiples of 8, operands 16-byte
+// aligned): row tile `tile` of the schedule by column tile `col` (of every
+// product), 128 threads: four warps of 16 columns each over MF m16
+// fragments of rows. `smem_raw`: the block's gg_mma_smem<MF, SWIGLU>() bytes
+// of dynamic shared memory. The block's shared memory must be free when it
+// starts (one tile a block, or a barrier between tiles).
 template <int MF, bool SWIGLU>
 constexpr int gg_mma_smem() {
   return kTcStages * (MF * 16 * kTcLdA + (SWIGLU ? 2 : 1) * kTcBK * kTcLdB) *
@@ -230,23 +248,23 @@ constexpr int gg_mma_smem() {
 }
 
 template <int MF, bool SWIGLU, typename OutT>
-__global__ void __launch_bounds__(kTcThreads)
-group_mma(GgArgs<gg_bf16, OutT> g) {
+__device__ __forceinline__ void gg_mma_tile(const GgArgs<gg_bf16, OutT>& g,
+                                            int tile_idx, int col,
+                                            unsigned char* smem_raw) {
   constexpr int NB = SWIGLU ? 2 : 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   gg_bf16* As = reinterpret_cast<gg_bf16*>(smem_raw);
   gg_bf16* Bs = As + kTcStages * MF * 16 * kTcLdA;  // [stage][NB][BK][LdB]
   __shared__ int pair_of[MF * 16];
   __shared__ int arow_of[MF * 16];
 
   GgTile tile;
-  if (!gg_tile(g.sched, g.P, g.max_tiles, blockIdx.x, tile)) return;
+  if (!gg_tile(g.sched, g.P, g.max_tiles, tile_idx, tile)) return;
   const int K = g.K, N = g.N;
   int prod = 0;
-  int n0 = blockIdx.y * kTcBN;
-  if (!SWIGLU && static_cast<int>(blockIdx.y) >= g.col_tiles) {
+  int n0 = col * kTcBN;
+  if (!SWIGLU && col >= g.col_tiles) {
     prod = 1;
-    n0 = (blockIdx.y - g.col_tiles) * kTcBN;
+    n0 = (col - g.col_tiles) * kTcBN;
   }
   const size_t w_off = static_cast<size_t>(tile.expert) * g.b_estride;
   const gg_bf16* __restrict__ B0 = (prod ? g.b1 : g.b0) + w_off;
@@ -374,23 +392,31 @@ group_mma(GgArgs<gg_bf16, OutT> g) {
         if (r >= tile.rows || n >= N) continue;
         float v = acc[0][mf][nf][e];
         if constexpr (SWIGLU) v = gg_swiglu(v, acc[NB - 1][mf][nf][e]);
-        C[static_cast<size_t>(pair_of[r]) * N + n] = from_f32<OutT>(v);
+        C[static_cast<size_t>(pair_of[r]) * g.ldc + n] = from_f32<OutT>(v);
       }
     }
   }
 }
 
+// The world-1 kernel: grid = (max_tiles, column tiles), one tile a block.
+template <int MF, bool SWIGLU, typename OutT>
+__global__ void __launch_bounds__(kTcThreads)
+group_mma(GgArgs<gg_bf16, OutT> g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  gg_mma_tile<MF, SWIGLU, OutT>(g, blockIdx.x, blockIdx.y, smem_raw);
+}
+
 // ---------------------------------------------------------------------------
-// 2b. FMA kernel (f32, odd shapes). grid = (max_tiles, 64-column tiles),
+// 2b. FMA tile (f32, odd shapes): row tile `tile` by 64-column tile `col`,
 // 256 threads; thread (ty, tx) owns rows ty*4..+3 and columns tx*4..+3 of a
-// 64 x 64 tile and sums K in order.
+// 64 x 64 tile and sums K in order. Shared memory as for gg_mma_tile.
 constexpr int kGgFmBN = 64;
 constexpr int kGgFmBK = 16;
 constexpr int kGgFmThreads = 256;
 
 template <typename T, bool SWIGLU, typename OutT>
-__global__ void __launch_bounds__(kGgFmThreads)
-group_fma(GgArgs<T, OutT> g) {
+__device__ __forceinline__ void gg_fma_tile(const GgArgs<T, OutT>& g,
+                                            int tile_idx, int col) {
   constexpr int NB = SWIGLU ? 2 : 1;
   __shared__ float As[kGgFmBK][kGgMaxRows + 4];    // A tile, transposed
   __shared__ float Bs[NB][kGgFmBK][kGgFmBN + 4];
@@ -398,13 +424,13 @@ group_fma(GgArgs<T, OutT> g) {
   __shared__ int arow_of[kGgMaxRows];
 
   GgTile tile;
-  if (!gg_tile(g.sched, g.P, g.max_tiles, blockIdx.x, tile)) return;
+  if (!gg_tile(g.sched, g.P, g.max_tiles, tile_idx, tile)) return;
   const int K = g.K, N = g.N;
   int prod = 0;
-  int n0 = blockIdx.y * kGgFmBN;
-  if (!SWIGLU && static_cast<int>(blockIdx.y) >= g.col_tiles) {
+  int n0 = col * kGgFmBN;
+  if (!SWIGLU && col >= g.col_tiles) {
     prod = 1;
-    n0 = (blockIdx.y - g.col_tiles) * kGgFmBN;
+    n0 = (col - g.col_tiles) * kGgFmBN;
   }
   const size_t w_off = static_cast<size_t>(tile.expert) * g.b_estride;
   const T* __restrict__ B0 = (prod ? g.b1 : g.b0) + w_off;
@@ -476,9 +502,16 @@ group_fma(GgArgs<T, OutT> g) {
       if (n >= N) continue;
       float v = acc[0][i][j];
       if constexpr (SWIGLU) v = gg_swiglu(v, acc[NB - 1][i][j]);
-      C[static_cast<size_t>(pair_of[r]) * N + n] = from_f32<OutT>(v);
+      C[static_cast<size_t>(pair_of[r]) * g.ldc + n] = from_f32<OutT>(v);
     }
   }
+}
+
+// The world-1 kernel: grid = (max_tiles, 64-column tiles), one tile a block.
+template <typename T, bool SWIGLU, typename OutT>
+__global__ void __launch_bounds__(kGgFmThreads)
+group_fma(GgArgs<T, OutT> g) {
+  gg_fma_tile<T, SWIGLU, OutT>(g, blockIdx.x, blockIdx.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -527,11 +560,12 @@ cudaError_t launch_group_mma(const GgArgs<gg_bf16, OutT>& g, int n_b,
 }
 
 // The product of a planned call, after its schedule (the operands are
-// typed by the caller; OutT is T or float).
+// typed by the caller; OutT is T or float; outputs contiguous).
 template <typename T, typename OutT, bool SWIGLU>
 cudaError_t run_group_product(const GgPlan& p, GgArgs<T, OutT> g, int n_b,
                               cudaStream_t stream) {
   g.max_tiles = p.max_tiles;
+  g.ldc = g.N;
   if constexpr (sizeof(T) == 2) {
     if (p.path == 1) {
       g.col_tiles = (g.N + kTcBN - 1) / kTcBN;

@@ -20,6 +20,9 @@
 //  * tdt_signal_wait_until    <- shmem.signal_wait_until / wait: spin
 //                                until a signal equals a value, with
 //                                acquire semantics (ld.acquire.gpu);
+//  * tdt_signal_wait_all      <- the same over n signals at once (the
+//                                pieces of one chunk), spread over the
+//                                block's threads;
 //  * tdt_barrier_all          <- barrier_all: a barrier over every block,
 //                                so every rank, of one launch.
 //
@@ -111,6 +114,16 @@ __device__ __forceinline__ void tdt_signal_wait_until(
     while (tdt_signal_acquire(sig) != value) __nanosleep(64);
     __threadfence();
   }
+  __syncthreads();
+}
+
+// Every thread of the block spins on some of `n` signals; the block goes
+// on once all of them equal `value`, with acquire semantics.
+__device__ __forceinline__ void tdt_signal_wait_all(
+    const unsigned long long* sig, int n, unsigned long long value) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    while (tdt_signal_acquire(sig + i) != value) __nanosleep(64);
+  __threadfence();
   __syncthreads();
 }
 

@@ -8,9 +8,22 @@ gate and up stay f32 and round once after the SwiGLU). At world = 1
 ``ag_group_gemm`` is ``grouped_matmul`` in every impl: its all-gather is
 the identity, and its Pallas kernel ``_ag_group_gemm_kernel`` (:139)
 reduces to the grouped GEMM over the tile-aligned schedule of
-:func:`align_tokens_for_tiles`; at world > 1 ``ag_group_gemm`` raises
-(its ring all-gather, ROADMAP.md Queue B item 10), which no layer needs:
+:func:`align_tokens_for_tiles`. No layer calls ``ag_group_gemm``:
 ``TPMoE`` runs ``grouped_matmul`` per rank, as JAX's does.
+
+At world W > 1 (a ``runtime.dist.RankGroup`` of W ranks on one card, the
+context's ``group``) ``ag_group_gemm`` takes JAX's layout (:306-403): x
+the row-sharded global (M, K), ``expert_ids`` row-sharded like it, w the
+global (E, K, N) with N column-sharded (rank r's shard is the view ``w[:,
+:, r*N/W:(r+1)*N/W]``, never copied), the result the global (M, N),
+column-sharded. Impls "xla" and "ring" are JAX's XLA bodies, plain over
+the grouped-GEMM kernel: on one card the gathered rows are the global x,
+so each rank runs the kernel once on its shard (CPU tensors:
+:func:`ag_group_gemm_reference`, :func:`ag_group_gemm_ring_reference`).
+Impl "fused" launches ``csrc/ag_group_gemm.cu``: the ring all-gather of
+the chunks inside the launch that runs every rank's grouped products
+(:func:`launch_ag_group_gemm`; CPU tensors: the ring version, whose chunk
+order the kernel keeps).
 
 On CUDA every grouped product launches the hand-written kernel of
 ``csrc/group_gemm.cu`` (the note in ``csrc/group_gemm.cuh`` says what
@@ -48,6 +61,8 @@ import torch.nn.functional as F
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import LaunchCount, aligned16
 from triton_dist_tpu_torch.ops.moe_utils import bincount
+from triton_dist_tpu_torch.runtime.dist import RankGroup
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _EPI_PLAIN, _EPI_SWIGLU = 0, 1
@@ -57,6 +72,13 @@ PATHS = ("fma", "mma")
 #: Launches of the grouped-GEMM kernel, by (path, rows per tile,
 #: "plain" | "swiglu", pairs, K, widths of the products).
 group_gemm_launches = LaunchCount()
+#: Calls of the world-W ring kernel (``csrc/ag_group_gemm.cu``: the
+#: chunks' expert schedule, then one cooperative launch over every rank),
+#: by (path, rows per tile, world, M, K, shard width).
+ag_group_gemm_launches = LaunchCount()
+#: Bytes of one piece of a travelling chunk: the grain of the ring's
+#: copies and signals.
+PIECE_BYTES = 32 * 1024
 
 
 # -- plain versions ------------------------------------------------------------
@@ -99,6 +121,50 @@ def grouped_swiglu_reference(tokens: torch.Tensor, w_gate: torch.Tensor,
     up = grouped_matmul_reference(tokens, w_up, expert_ids, num_experts,
                                   topk, torch.float32)
     return (F.silu(gate) * up).to(tokens.dtype)
+
+
+def _rank_products(x, w, world, rows_of) -> torch.Tensor:
+    """The global (M, N) of every rank's column shard of ``w``, rank r's
+    columns from ``rows_of(r, shard)`` (its (M, N / W) output)."""
+    group = RankGroup(world, device=x.device)
+    return group.unshard([rows_of(r, wr) for r, wr in
+                          enumerate(group.shard(w, 2))], 1)
+
+
+def ag_group_gemm_reference(x: torch.Tensor, w: torch.Tensor,
+                            expert_ids: torch.Tensor, num_experts: int,
+                            world: int) -> torch.Tensor:
+    """Plain version of JAX's one-shot body (:368-371) at world W: the
+    gathered rows (the global x) through :func:`grouped_matmul_reference`
+    on each rank's column shard. Returns the global (M, N)."""
+    return _rank_products(x, w, world, lambda r, wr: grouped_matmul_reference(
+        x, wr, expert_ids, num_experts))
+
+
+def ag_group_gemm_ring_reference(x: torch.Tensor, w: torch.Tensor,
+                                 expert_ids: torch.Tensor, num_experts: int,
+                                 world: int) -> torch.Tensor:
+    """Plain version of JAX's ring body (:373-396) at world W: rank ``me``
+    runs one grouped product per chunk, chunk ``src = me - s`` at step s,
+    written at rows ``src * rows`` of its (M, N / W) output.
+
+    Rows are independent and each output element is one f32 full-K sum
+    rounded once, so this computes the function of
+    :func:`ag_group_gemm_reference`. On the card, where both run the same
+    kernel per row, they give equal bits; on the CPU a BLAS may block K
+    differently for another row count, so they agree within 1e-6 (f32)."""
+    rows = x.shape[0] // world
+    ids = expert_ids.reshape(-1)
+
+    def rank(me, wr):
+        out = x.new_empty((x.shape[0], wr.shape[2]))
+        for s in range(world):
+            src = (me - s) % world
+            sl = slice(src * rows, (src + 1) * rows)
+            out[sl] = grouped_matmul_reference(x[sl], wr, ids[sl],
+                                               num_experts)
+        return out
+    return _rank_products(x, w, world, rank)
 
 
 # -- entry points ----------------------------------------------------------------
@@ -194,25 +260,43 @@ def align_tokens_for_tiles(tokens: torch.Tensor, ids: torch.Tensor,
 
 @dataclasses.dataclass
 class AGGroupGEMMContext:
-    """The JAX context at world = 1: axis name and schedule choice (JAX's
-    Pallas tile sizes belong to its TPU kernel; the Hopper kernel tiles
-    its own way)."""
-    world_size: int = 1
+    """JAX's context over a rank group (``group``; None: one rank): axis
+    name and schedule choice (JAX's Pallas tile sizes belong to its TPU
+    kernel; the Hopper kernel tiles its own way). ``state`` holds the
+    ring kernel's workspaces and signals across calls (world > 1)."""
+    group: RankGroup | None = None
     axis: str = "tp"
     ring: bool = True
+    state: RingState | None = dataclasses.field(init=False, repr=False,
+                                                default=None)
+
+    def __post_init__(self):
+        if self.group is not None and self.group.world > 1:
+            self.state = RingState(self.group)
+
+    @property
+    def world_size(self) -> int:
+        return self.group.world if self.group is not None else 1
 
 
 def create_ag_group_gemm_context(axis: str = "tp", ring: bool = True,
-                                 world_size: int = 1) -> AGGroupGEMMContext:
-    return AGGroupGEMMContext(world_size=world_size, axis=axis, ring=ring)
+                                 group: RankGroup | None = None
+                                 ) -> AGGroupGEMMContext:
+    return AGGroupGEMMContext(group=group, axis=axis, ring=ring)
 
 
 def ag_group_gemm(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor,
                   num_experts: int, ctx: AGGroupGEMMContext | None = None,
                   impl: str = "ring") -> torch.Tensor:
-    """``group_gemm(allgather(x), w)`` (JAX ``ag_group_gemm``) at world =
-    1: :func:`grouped_matmul` for impl "xla", "ring" and "fused". x: (M,
-    K) with one expert id per row; w: (E, K, N). Returns (M, N)."""
+    """``group_gemm(allgather(x), w)`` (JAX ``ag_group_gemm``). x: (M, K)
+    with one expert id per row; w: (E, K, N). Returns (M, N).
+
+    At world 1: :func:`grouped_matmul` for impl "xla", "ring" and
+    "fused". Over the context's group of W > 1 ranks: x and
+    ``expert_ids`` row-sharded, w and the result column-sharded (the
+    module note); "xla" and "ring" run the grouped-GEMM kernel once a
+    rank on its shard, "fused" the ring kernel (one cooperative launch
+    for every rank). CPU tensors take the plain versions."""
     ctx = ctx or create_ag_group_gemm_context()
     if impl == "auto":
         raise NotImplementedError(
@@ -221,11 +305,23 @@ def ag_group_gemm(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor,
             "item 19)")
     if impl not in ("xla", "ring", "fused"):
         raise ValueError(f"unknown ag_group_gemm impl {impl!r}")
-    if ctx.world_size != 1:
-        raise NotImplementedError(
-            f"ag_group_gemm at world {ctx.world_size} (its ring all-gather) "
-            f"is not ported yet (ROADMAP.md, Queue B item 10)")
-    return grouped_matmul(x, w, expert_ids, num_experts)
+    world = ctx.world_size
+    if world == 1:
+        return grouped_matmul(x, w, expert_ids, num_experts)
+    _check_operands("ag_group_gemm", x, [w], expert_ids, 1)
+    if x.shape[0] % world or w.shape[2] % world:
+        raise ValueError(f"ag_group_gemm at world {world}: {x.shape[0]} rows "
+                         f"and {w.shape[2]} columns must split over the "
+                         f"ranks")
+    if x.device.type == "cpu":
+        plain = (ag_group_gemm_reference if impl == "xla"
+                 else ag_group_gemm_ring_reference)
+        return plain(x, w, expert_ids, num_experts, world)
+    if impl == "fused":
+        return launch_ag_group_gemm(x, w, expert_ids, num_experts, ctx)
+    return ctx.group.per_rank(
+        lambda wr: grouped_matmul(x, wr, expert_ids, num_experts), w,
+        in_dims=(2,), out_dims=1)
 
 
 # -- the kernel ------------------------------------------------------------------
@@ -299,6 +395,57 @@ def launch_group_gemm(tokens: torch.Tensor, ws: list,
     return outs
 
 
+def ring_workspace(x: torch.Tensor, ctx: AGGroupGEMMContext) -> torch.Tensor:
+    """The (W, row) workspace the ring kernel uses for x: every rank's
+    (M, K) gathered rows, then the NaN canary tail (``RingState``)."""
+    return ctx.state.workspace(x.numel(), x.dtype)
+
+
+def launch_ag_group_gemm(x: torch.Tensor, w: torch.Tensor,
+                         expert_ids: torch.Tensor, num_experts: int,
+                         ctx: AGGroupGEMMContext,
+                         fault: bool = False) -> torch.Tensor:
+    """One call of ``csrc/ag_group_gemm.cu`` over every rank of
+    ``ctx.group`` (checked by the caller: M and N multiples of W): the
+    chunks' expert schedule, then one cooperative launch; counted once in
+    :data:`ag_group_gemm_launches`. x (M, K) and w (E, K, N) are CUDA,
+    bf16 or f32, contiguous. Returns the global (M, N). ``fault`` plants
+    the kernel's test fault (rank 0's first push skipped, its signal
+    still set)."""
+    _check_cuda("ag_group_gemm", x, [w])
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("ag_group_gemm kernel needs contiguous x and w")
+    lib = _agg_lib()
+    world = ctx.world_size
+    m, k = x.shape
+    e, n = w.shape[0], w.shape[2]
+    rows, n_loc = m // world, n // world
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    p = plan(rows, e, k, n_loc, x.dtype, (k, n, k * n))
+    x, w = aligned16(x), aligned16(w)
+    ids = expert_ids.reshape(-1).to(torch.int32).contiguous()
+    sched = torch.empty(world * (1 + rows + 3 * p.max_tiles),
+                        dtype=torch.int32, device=x.device)
+    chunk_bytes = rows * k * x.element_size()
+    piece = min(PIECE_BYTES, -(-chunk_bytes // 16) * 16)
+    pieces = -(-chunk_bytes // piece)
+    state = ctx.state
+    ws = ring_workspace(x, ctx)
+    sig = state.signals("agg", world * pieces)
+    # The tables stay referenced until the launch is queued: a freed
+    # temporary's memory would be handed to the next one.
+    ws_tab, sig_tab = rank_table(ws, world), rank_table(sig, world)
+    epoch = state.next_epoch()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(lib, lib.tdt_ag_group_gemm(
+        x.data_ptr(), ids.data_ptr(), w.data_ptr(), out.data_ptr(),
+        ws_tab.data_ptr(), sig_tab.data_ptr(), sched.data_ptr(), world,
+        rows, e, k, n, pieces, piece, _DTYPE_CODES[x.dtype], epoch,
+        int(fault), stream))
+    ag_group_gemm_launches.add((p.path, p.m_blk, world, m, k, n_loc))
+    return out
+
+
 def _check_operands(op: str, tokens: torch.Tensor, ws: list,
                     expert_ids: torch.Tensor, topk: int) -> None:
     if not 1 <= len(ws) <= 2:
@@ -348,6 +495,19 @@ def _check(lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         msg = lib.tdt_error_string(err).decode()
         raise RuntimeError(f"group_gemm kernel call failed: {msg} ({err})")
+
+
+def _agg_lib() -> ctypes.CDLL:
+    lib = _build.load("ag_group_gemm")
+    if lib.tdt_ag_group_gemm.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tdt_ag_group_gemm.argtypes = ([p] * 7 + [i] * 6
+                                          + [ctypes.c_longlong, i,
+                                             ctypes.c_ulonglong, i, p])
+        lib.tdt_ag_group_gemm.restype = i
+        lib.tdt_error_string.argtypes = [i]
+        lib.tdt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib() -> ctypes.CDLL:

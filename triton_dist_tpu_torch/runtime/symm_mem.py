@@ -138,6 +138,11 @@ class RingState:
                 device=self.group.device)
         return sig
 
+    def nbytes(self) -> int:
+        """Device bytes of every workspace and signal buffer made so far."""
+        return sum(b.numel() * b.element_size()
+                   for b in self._buffers.values())
+
     def next_epoch(self) -> int:
         """This call's epoch: one more than the last call's."""
         self.epoch += 1
