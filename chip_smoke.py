@@ -27,8 +27,14 @@ without the final line:
 6. kernels: one JSON line with each kernel's launches on its main path
    (gemm_ar: phases 3-4; flash decode: phase 8), error, time, plain time,
    bound and library time. Times (``ms``, ``plain_ms``, ``library_ms``)
-   are device time from the profiler; ``wall_ms`` is the kernel's time per
-   call when called back to back, host overhead included.
+   come from CUDA events around calls queued behind a GPU sleep
+   (``queued_ms``; a plain version that reads back to the host includes
+   that host time); ``wall_ms`` is the kernel's time per call when called
+   back to back, host overhead included. The profiler (CUPTI) serves only
+   step device time, idle shares and breakdowns; each of its sessions
+   prints the share of the port's launches it recorded, and one that lost
+   records is tried again (ROADMAP.md, Queue C item C6). ``--records`` runs only the check
+   of those records on phase 5's decode step, in a fresh process.
 7. flash-decode kernels: the split-KV ``partial`` (dense rows and pages
    through a block table), ``combine`` and ``single`` kernels against their
    plain versions at Qwen3-8B's decode shapes, kv_len 1, 17, 160, 1024 and
@@ -124,7 +130,7 @@ without the final line:
     fp8 path's int8 wire: live rows bit-equal, dead-chunk NaN canaries
     intact, bit-identical on repeat, a planted fault (one slab's count
     lowered by a chunk for the kernel only) refused, with its time
-    (profiler device time of the kernel alone) beside the bound, the
+    (queued CUDA events) beside the bound, the
     plain version and one ``Tensor.copy_`` of the transposed slabs. Then
     ``Qwen3MoE(moe_parallel="ep", world=4)`` over the same params (per-rank
     views, device memory printed before and after) served by
@@ -156,7 +162,7 @@ without the final line:
     canaries intact, a planted fault (rank 0's first push skipped, its
     signal still set) refused; the AG output against the world-1 kernel
     on each rank's column shard (bit-equal or not); the W = 4 cases timed
-    by the profiler beside the plain version, one ``torch.matmul`` of the
+    (queued CUDA events) beside the plain version, one ``torch.matmul`` of the
     global product, the world-1 kernel at the same global shape and the
     bound (the ring's copies counted as HBM traffic).
 18. TP main path: Qwen3-8B at W = 4, full width and depth, over the same
@@ -205,8 +211,8 @@ without the final line:
     (padded to a multiple of W as TPMoE pads them) and at 8192 x 4096:
     every rank's copy, written into NaN-filled buffers, bit-equal to the
     plain version, a repeat bit-identical, a push (or forward) skipped
-    with its signal still set refused; the W = 4 bf16 cases timed by the
-    profiler (the kernel alone) beside the plain version, one
+    with its signal still set refused; the W = 4 bf16 cases timed
+    (queued CUDA events) beside the plain version, one
     ``Tensor.copy_`` of the same bytes and the bound.
 23. TP MoE main path: ``Qwen3MoE(moe_parallel="tp", world=4)``
     (``AutoLLM.build(cfg, world=4)``) over phase 12's params (per-rank
@@ -232,7 +238,7 @@ without the final line:
     intact, a skipped push refused, and with a quarter of the ids set to
     the sentinel the valid rows within the limit; (c) the W = 4 bf16
     cases timed by CUDA events around calls queued behind a GPU sleep
-    (the profiler lost records late in full runs) beside the bound, the
+    beside the bound, the
     plain version, impl "xla", the world-1 kernel at the same global
     shape and one ``torch._grouped_mm`` of the gathered, expert-sorted
     rows against the full weights, with the workspace bytes; (b) the main path, every count set to 0 just before:
@@ -240,11 +246,29 @@ without the final line:
     up weights at both shapes, one ring call (a schedule and a
     cooperative launch) each and no other kernel's launch, each output
     bit-equal to impls "xla" and "ring".
+25. world-W fused MoE down projection + top-k reduce + ring reduce-scatter
+    (``csrc/moe_rs_ring.cu``, ``moe_reduce_rs(impl="fused")``) on phase
+    12's layer-0 w_down with layer 0's routing of phase 23's served batch
+    (decode: 4 tokens x top-8 = 32 pairs; prefill: 512 x 8 = 4096):
+    (a) at W = 2, 3, 4, 8 (W = 3: tokens padded with sentinel ids), bf16
+    and f32, within the MoE-reduce rule with W roundings
+    (``mrr_error``) of ``moe_reduce_rs_fused_world_reference``, repeats
+    bit-identical, canaries intact, a skipped push refused by that limit;
+    the W = 4 bf16 cases timed beside the bound, impl "ring", the world-1
+    kernel at the same global shape, one ``torch._grouped_mm`` of the
+    sorted pairs (the grouped product only) and the plain version;
+    (b) the main path, every count set to 0 just before: the expert half
+    of one TPMoE layer at W = 4 on layer 0's served MoE inputs, gate and
+    up through ``ag_group_gemm(impl="fused")``, the SwiGLU, the down
+    projection through ``moe_reduce_rs(impl="fused")``: 2 + 2 ring AG +
+    grouped GEMM calls and 1 + 1 MoE-reduce ring calls, no world-1
+    grouped-GEMM or MoE-reduce and no all-gather launch, each output
+    within the stated limit of ``TPMoE(world=4)``'s own forward.
 
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
 release, before the Qwen3-30B-A3B load), phases 17-20 after phase 11
 (before that release), phase 21 after phase 15, phase 16 after phase 13,
-phases 22-24 after phase 16; the JSON line covers all ten slices.
+phases 22-25 after phase 16; the JSON line covers all eleven slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -272,8 +296,14 @@ F32_ATOL = 3e-5
 #: later bf16 rounding; logits have std ~1.3 at these init scales.
 LOGITS_ATOL = 0.25
 GEN = 32
-#: Profiler sessions a timing tries before it fails: a session now and
-#: then records no kernel at all (seen at the 512-row all-gather copy).
+#: Kernels a port wrapper launches beside its one main kernel (the expert
+#: schedule, the top-k reduce, the split-K reduce); every call that a
+#: wrapper counts in its ``LaunchCount`` launches exactly one main kernel.
+PORT_HELPER_KERNELS = ("group_schedule", "topk_reduce_rows", "splitk_reduce")
+#: Profiler sessions a step reading tries: CUPTI drops kernel records now
+#: and then, more often the more records a session holds (ROADMAP.md,
+#: Queue C item C6), so a session that recorded fewer of the port's
+#: launches than its wrappers counted is printed and tried again.
 PROFILER_SESSIONS = 8
 
 
@@ -294,42 +324,135 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def device_ms(torch, fn, n: int = 20) -> float:
-    """Mean device time in ms of one ``fn()`` call: the GPU time of every
-    kernel it launches, summed by the profiler (CUPTI) over ``n`` calls
-    after one warm-up. Host overhead between launches is not in it."""
+def port_kernel_names() -> tuple:
+    """The port's main kernels: every ``__global__`` function of
+    ``triton_dist_tpu_torch/csrc`` but :data:`PORT_HELPER_KERNELS`."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(__file__).resolve().parent / \
+        "triton_dist_tpu_torch" / "csrc"
+    names = set()
+    for src in csrc.glob("*.cu*"):
+        text = src.read_text()
+        for m in re.finditer(r"__global__", text):
+            for w in re.finditer(r"(\w+)\s*\(", text[m.end():m.end() + 300]):
+                if w.group(1) not in ("__launch_bounds__", "sizeof"):
+                    names.add(w.group(1))
+                    break
+    return tuple(sorted(names - set(PORT_HELPER_KERNELS)))
+
+
+def port_launches() -> int:
+    """Calls counted so far by every ``LaunchCount`` of the port's ops."""
+    import importlib
+    import pkgutil
+    from triton_dist_tpu_torch import ops
+    from triton_dist_tpu_torch.ops.common import LaunchCount
+    total = 0
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"{ops.__name__}.{info.name}")
+        for value in vars(mod).values():
+            counts = value.values() if isinstance(value, dict) else [value]
+            total += sum(c.total for c in counts
+                         if isinstance(c, LaunchCount))
+    return total
+
+
+def port_session(torch, fn, n: int):
+    """One profiler (CUPTI) session over ``n`` ``fn()`` calls after a
+    warm-up: (the kernel rows of ``key_averages()``, records of the port's
+    main kernels, calls its wrappers counted meanwhile)."""
+    import re
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILER_SESSIONS):  # a session now and then records no
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total
-                       for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / n / 1e3
-    raise SmokeFailure(f"the profiler saw no device time in "
-                       f"{PROFILER_SESSIONS} sessions")
+    pattern = re.compile(r"\b(" + "|".join(port_kernel_names()) + r")\b")
+    before = port_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    counted = port_launches() - before
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    recorded = sum(e.count for e in events if pattern.search(e.key))
+    return events, recorded, counted
+
+
+def profiled(torch, fn, n: int = 3, what: str = "") -> list:
+    """[(kernel name, ms per call)] of one ``fn()`` call from a profiler
+    session (:func:`port_session`), for step device time, idle share and
+    breakdowns (single kernels time by :func:`queued_ms`). Each session
+    prints the share of the port's launches it recorded: records of its
+    main kernels (:func:`port_kernel_names`) over the calls its wrappers
+    counted. A session below 1.0 lost records, and another is tried, up
+    to :data:`PROFILER_SESSIONS`; if none records them all, the last one's
+    rows are returned and its figures are lower bounds (printed so)."""
+    label = f" ({what})" if what else ""
+    for attempt in range(1, PROFILER_SESSIONS + 1):
+        events, recorded, counted = port_session(torch, fn, n)
+        share = recorded / counted if counted else 1.0
+        complete = share >= 1.0
+        print(f"profiler session{label} {attempt}: {recorded} of {counted} "
+              f"port launches recorded (share {share:.4f}), "
+              f"{sum(e.count for e in events)} kernel records in all"
+              + ("" if complete or attempt < PROFILER_SESSIONS else
+                 "; no session recorded them all: its figures are lower "
+                 "bounds"), flush=True)
+        if complete:
+            break
+    return [(e.key, e.self_device_time_total / n / 1e3) for e in events]
+
+
+def device_ms(torch, fn, n: int = 3, what: str = "") -> float:
+    """Device ms of one ``fn()`` call (a decode step, a prefill): the GPU
+    time of every kernel it launches, summed by :func:`profiled`. Host
+    overhead between launches is not in it."""
+    return sum(ms for _, ms in profiled(torch, fn, n, what))
 
 
 def device_breakdown(torch, fn, n: int = 3, top: int = 8) -> list:
     """The ``top`` kernels of one ``fn()`` call by device time: [(kernel
     name cut to 70 characters, ms per call, share of the call's device
-    time)], from the profiler over ``n`` calls after one warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / n / 1e3)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    time)], from :func:`profiled`."""
+    rows = profiled(torch, fn, n, "breakdown")
     total = sum(ms for _, ms in rows) or 1.0
     rows.sort(key=lambda r: -r[1])
     return [(k[:70], ms, ms / total) for k, ms in rows[:top]]
+
+
+def queued_ms(torch, fn, n: int = 20, may_wait: bool = False) -> float:
+    """Device ms of one ``fn()`` call, by CUDA events around ``n`` calls
+    queued behind a GPU sleep, after a warm-up: the host enqueues the
+    calls while the card sleeps, so the events time their kernels back to
+    back on the card (launch gaps on the card included, host time not).
+    Every single kernel, op, library call and plain version is timed here
+    (the profiler drops kernel records now and then: ROADMAP.md, Queue C
+    item C6). The sleep doubles, up to six tries, until it outlasts the
+    enqueue. A
+    call that waits on the card (a plain version that reads counts back
+    to the host, or ``n`` calls whose launches overflow the card's launch
+    queue) never fits: it fails, or with ``may_wait`` the same
+    events time the calls back to back, the host's time between the
+    waits included."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 40_000_000                          # ~20 ms at ~2 GHz
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        ev[1].record()
+        for _ in range(n):
+            fn()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if may_wait or host_ms < 0.8 * ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / n
+        cycles *= 2
+    raise SmokeFailure(f"{n} calls took longer to enqueue ({host_ms:.1f} ms)"
+                       f" than the GPU sleep ahead of them")
 
 
 def wall_ms(torch, fn, n: int = 20) -> float:
@@ -403,13 +526,13 @@ def phase_kernel(torch, ops, card: str) -> None:
                 check(torch.equal(got, again),
                       f"gemm_ar {kind} M={m} K={k} N={n}: not deterministic")
                 nb = rotating(bs)
-                k_ms = device_ms(torch, lambda: ops.gemm_ar(a, nb()))
+                k_ms = queued_ms(torch, lambda: ops.gemm_ar(a, nb()))
                 k_wall = wall_ms(torch, lambda: ops.gemm_ar(a, nb()))
                 bf = [b.to(torch.bfloat16) for b in bs] \
                     if dtype != torch.bfloat16 else bs
                 ab = a.to(torch.bfloat16)
                 nl = rotating(bf)
-                lib_ms = device_ms(torch, lambda: torch.matmul(ab, nl()))
+                lib_ms = queued_ms(torch, lambda: torch.matmul(ab, nl()))
                 path = ("mma" if ops.plan(m, n, k, dtype, sms).tensor_cores
                         else "fma")
                 bnd, by = bound_ms(m, k, n, dtype.itemsize, kind)
@@ -591,10 +714,11 @@ def phase_kernels_line(torch, ops, params, cfg, main_launches) -> list:
                                ops.gemm_ar_reference(a, ws[0]))
         check(ok, f"{name}: max abs err {err} outside tolerance")
         nk, np_, nl = rotating(ws), rotating(ws), rotating(ws)
-        ms = device_ms(torch, lambda: ops.gemm_ar(a, nk()))
+        ms = queued_ms(torch, lambda: ops.gemm_ar(a, nk()))
         wall = wall_ms(torch, lambda: ops.gemm_ar(a, nk()))
-        plain = device_ms(torch, lambda: ops.gemm_ar_reference(a, np_()))
-        lib = device_ms(torch, lambda: torch.matmul(a, nl()))
+        plain = queued_ms(torch, lambda: ops.gemm_ar_reference(a, np_()),
+                          may_wait=True)
+        lib = queued_ms(torch, lambda: torch.matmul(a, nl()))
         bnd, by = bound_ms(4, k, n, 2, "bf16")
         out.append({
             "name": name, "route": "cuda",
@@ -1023,12 +1147,17 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
         return lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=True)
 
+    # The kernels take the lengths as a device tensor: a Python list is
+    # copied to the card on every call, which waits for the card.
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
     def paged_partial():
-        return fd.flash_decode_partial(q, pool_k, pool_v, lens, p.split_len,
-                                       p.splits, table[0])
+        return fd.flash_decode_partial(q, pool_k, pool_v, lens_t,
+                                       p.split_len, p.splits, table[0])
 
     def dense_partial():
-        return fd.flash_decode_partial(q, k, v, lens, p.split_len, p.splits)
+        return fd.flash_decode_partial(q, k, v, lens_t, p.split_len,
+                                       p.splits)
 
     parts = dense_partial()
     part_bytes = sum(x.numel() * 4 for x in parts)
@@ -1059,9 +1188,9 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
          None,
          ((part_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bytes")),
         ("flash_decode_single", "single", ("dense", FD_B, 512), 262,
-         lambda: fd.flash_decode_single(q, k5, v5, lens),
+         lambda: fd.flash_decode_single(q, k5, v5, lens_t),
          lambda: fd.flash_decode_reference(q, k5, v5, lens),
-         (fd.flash_decode_single(q, k5, v5, lens),
+         (fd.flash_decode_single(q, k5, v5, lens_t),
           fd.flash_decode_reference(q, k5, v5, lens), w5),
          library(k5, v5), attn_bound_ms(lens, 512, 2, kind, out_bytes)),
     ]
@@ -1077,10 +1206,10 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
             "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
             "replaces": f"triton_dist_tpu/ops/flash_decode.py:{line}",
             "launches": launches, "max_abs_err": err,
-            "ms": device_ms(torch, kernel),
-            "plain_ms": device_ms(torch, plain),
+            "ms": queued_ms(torch, kernel),
+            "plain_ms": queued_ms(torch, plain, may_wait=True),
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": device_ms(torch, lib) if lib else None,
+            "library_ms": queued_ms(torch, lib) if lib else None,
             "wall_ms": wall_ms(torch, kernel),
             "shape": [FD_B, FD_HQ, FD_HKV, FD_D, 160], "ok": ok})
         check(launches > 0, f"{name} never launched on the path")
@@ -1214,15 +1343,15 @@ def phase_ag_kernels(torch, ag, rs, params, cfg, card: str) -> list:
             tol = f"1 bf16 ulp + {f32_sum_atol(k):.2g}"
         check(ok, f"{name}: max abs err {err} outside tolerance ({tol})")
         nk, np_ = rotating(sets), rotating(sets)
-        ms = device_ms(torch, lambda: kernel(nk()))
+        ms = queued_ms(torch, lambda: kernel(nk()))
         wall = wall_ms(torch, lambda: kernel(nk()))
-        plain_ms = device_ms(torch, lambda: plain(np_()))
+        plain_ms = queued_ms(torch, lambda: plain(np_()), may_wait=True)
         if op == "rs":
             nl = rotating([w[0] for w in sets])
-            lib_ms = device_ms(torch, lambda: torch.matmul(a, nl()))
+            lib_ms = queued_ms(torch, lambda: torch.matmul(a, nl()))
         else:
             nl = rotating(cat[id(sets[0][0])])
-            lib_ms = device_ms(torch, lambda: torch.matmul(a, nl()))
+            lib_ms = queued_ms(torch, lambda: torch.matmul(a, nl()))
         if op == "swiglu":
             bnd, by = gemm_bound_ms(m, k, widths[:1], 2)
         else:
@@ -1651,10 +1780,11 @@ def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
             check(ok, f"{name} P={p}: max abs err {err} outside tolerance "
                       f"({tol})")
             nk, np_ = rotating(sets), rotating(sets)
-            ms = device_ms(torch, lambda: kernel(nk()))
+            ms = queued_ms(torch, lambda: kernel(nk()))
             wall = wall_ms(torch, lambda: kernel(nk()))
-            plain_ms = device_ms(torch, lambda: plain(np_()), n=3)
-            lib_ms = device_ms(torch, lib) if lib is not None else None
+            plain_ms = queued_ms(torch, lambda: plain(np_()), n=3,
+                                 may_wait=True)
+            lib_ms = queued_ms(torch, lib) if lib is not None else None
             lib_txt = (f"{lib_ms:.4f} (torch._grouped_mm"
                        f"{', no epilogue' if 'swiglu' in name else ''})"
                        if lib_ms is not None else "—")
@@ -1686,10 +1816,11 @@ def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
               f"all_gather ({m}, {h}) differs from its input")
         nbytes = x.numel() * x.element_size()
         out = torch.empty_like(x)
-        ms = device_ms(torch, lambda: agk.all_gather(x))
+        ms = queued_ms(torch, lambda: agk.all_gather(x))
         wall = wall_ms(torch, lambda: agk.all_gather(x))
-        plain_ms = device_ms(torch, lambda: agk.all_gather_reference(x))
-        lib_ms = device_ms(torch, lambda: out.copy_(x))
+        plain_ms = queued_ms(torch, lambda: agk.all_gather_reference(x),
+                             may_wait=True)
+        lib_ms = queued_ms(torch, lambda: out.copy_(x))
         bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
         print(f"kernel all_gather bf16 ({m}, {h}): equal to its input "
               f"(tol exact), repeat bit-identical; kernel_ms={ms:.4f} (wall "
@@ -2268,7 +2399,7 @@ def sp_fd_records(torch, sp, fd, cfg, card: str) -> list:
                              f"{err}, planted fault refused {not bad_ok}")
     del a, l, m, lim
     qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_ms = queued_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, kt, vt, enable_gqa=True))
     cases = [
         ("flash_decode_partial[dense, kv_len 32k]", "partial", 280,
@@ -2282,8 +2413,8 @@ def sp_fd_records(torch, sp, fd, cfg, card: str) -> list:
          (part_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, None)]
     out = []
     for name, counter, line, kernel, plain, bnd, lib in cases:
-        ms = device_ms(torch, kernel)
-        plain_ms = device_ms(torch, plain)
+        ms = queued_ms(torch, kernel)
+        plain_ms = queued_ms(torch, plain, may_wait=True)
         print(f"{name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bnd:.4f} (bytes) library_ms="
               f"{'%.4f' % lib if lib else None} splits={p.splits} "
@@ -2312,7 +2443,7 @@ def coll_records(torch, agk, ar, rs, card: str) -> list:
     nbytes = xs[0][0].numel() * xs[0].element_size()
     bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
     out = torch.empty_like(xs[0][0])
-    lib_ms = device_ms(torch, lambda: out.copy_(x()[0]))
+    lib_ms = queued_ms(torch, lambda: out.copy_(x()[0]))
     AR, RS = ar.AllReduceMethod, rs.ReduceScatterMethod
     cases = [
         ("all_reduce[one_shot]", "all_reduce", AR.ONE_SHOT, "allreduce.py:114",
@@ -2339,8 +2470,8 @@ def coll_records(torch, agk, ar, rs, card: str) -> list:
          lambda: agk.broadcast_reference(x()[0]))]
     records = []
     for name, counter, method, replaces, kernel, plain in cases:
-        ms = device_ms(torch, kernel)
-        plain_ms = device_ms(torch, plain)
+        ms = queued_ms(torch, kernel)
+        plain_ms = queued_ms(torch, plain, may_wait=True)
         print(f"kernel {name} bf16 {shape}: kernel_ms={ms:.4f} plain_ms="
               f"{plain_ms:.4f} library_ms={lib_ms:.4f} (Tensor.copy_) "
               f"bound_ms={bnd:.5f} (bytes) [{card}]", flush=True)
@@ -2406,34 +2537,6 @@ def ep_send(torch, mu, group, x, idx, num_experts: int, cap: int):
     return group.per_rank(pack, x, idx, in_dims=(0, 0), out_dims=(0, 0))
 
 
-def device_rows(torch, fn, name: str = "", n: int = 10) -> list:
-    """[(kernel name, ms per call)] of one ``fn()`` call, from the
-    profiler over ``n`` calls after a warm-up, for a session that saw a
-    kernel whose name holds ``name``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILER_SESSIONS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / n / 1e3)
-                for e in prof.key_averages() if e.self_device_time_total > 0]
-        if any(name in key for key, _ in rows):
-            return rows
-    raise SmokeFailure(f"the profiler saw no {name or 'kernel'} in "
-                       f"{PROFILER_SESSIONS} sessions")
-
-
-def kernel_device_ms(torch, fn, name: str, n: int = 10) -> float:
-    """Mean device time in ms per ``fn()`` call of the kernels whose name
-    holds ``name`` (the wrapper's small tensor ops around the launch are
-    left out)."""
-    return sum(ms for key, ms in device_rows(torch, fn, name, n)
-               if name in key)
-
-
 def bits(torch, t):
     """``t``'s bits as integers: NaN canaries compare equal."""
     return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
@@ -2497,11 +2600,11 @@ def phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card: str) -> list:
                   f"repeat {again}, planted fault refused {refused}")
             out = canvas()
             moved = send.view(world, world, cap, h).transpose(0, 1)
-            ms = kernel_device_ms(torch, lambda: a2a.fast_all_to_all(
-                send, counts, ctx, out=out), "a2a_kernel")
-            plain_ms = device_ms(torch, lambda: a2a.fast_all_to_all_reference(
-                send, counts, world, chunk, out=out), n=10)
-            lib_ms = device_ms(torch, lambda: out.view(
+            ms = queued_ms(torch, lambda: a2a.fast_all_to_all(
+                send, counts, ctx, out=out))
+            plain_ms = queued_ms(torch, lambda: a2a.fast_all_to_all_reference(
+                send, counts, world, chunk, out=out), n=10, may_wait=True)
+            lib_ms = queued_ms(torch, lambda: out.view(
                 world, world, cap, h).copy_(moved), n=10)
             bnd = 2.0 * live * h * send.element_size() / HBM_BYTES_PER_S * 1e3
             print(f"kernel all_to_all W={world} tokens {tokens} {wire}: cap "
@@ -2512,7 +2615,7 @@ def phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card: str) -> list:
                   f"bit-identical, planted fault (slab {top} count lowered "
                   f"by {chunk}) refused; kernel_ms={ms:.5f} plain_ms="
                   f"{plain_ms:.5f} bound_ms={bnd:.5f} (bytes) copy_ms="
-                  f"{lib_ms:.5f} (profiler device time) [{card}]",
+                  f"{lib_ms:.5f} (queued CUDA events) [{card}]",
                   flush=True)
             if world == EP_WORLD and wire == "bf16":
                 shape = "decode" if tokens == 4 else "prefill"
@@ -2675,7 +2778,7 @@ def phase_ep_checks(torch, a2a, cfg, model, params, square, card: str):
     for name, fn in (("decode step", step), ("prefill (4 x 128)", prefill)):
         walls = [sync_time(torch, fn)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        rows = device_rows(torch, fn, "a2a_kernel", n=3)
+        rows = profiled(torch, fn, 3, "ep step")
         dev = sum(ms for _, ms in rows)
         gg_ms = sum(ms for key, ms in rows if "group_" in key)
         a2a_ms = sum(ms for key, ms in rows if "a2a_kernel" in key)
@@ -2960,12 +3063,10 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
               f"repeat bit-identical{extra}{w1}", flush=True)
         if not timed:
             continue
-        name_k = "ag_ring_kernel" if op in ("gemm", "swiglu") else \
-            "rs_ring_kernel"
-        ms = kernel_device_ms(torch, kernel, name_k)
-        plain_ms = device_ms(torch, plain, n=5)
-        lib_ms = device_ms(torch, c["library"])
-        w1_ms = device_ms(torch, c["world1"], n=10)
+        ms = queued_ms(torch, kernel)
+        plain_ms = queued_ms(torch, plain, n=5, may_wait=True)
+        lib_ms = queued_ms(torch, c["library"])
+        w1_ms = queued_ms(torch, c["world1"], n=10)
         widths = tuple(w.shape[1] for w in ws[:1 if op == "swiglu" else 3])
         bnd, by = ring_bound_ms(op, m, k, widths, world, a.element_size())
         print(f"  {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -3151,7 +3252,7 @@ def phase_tp_checks(torch, ag, rs, model, params, square, cfg, card) -> None:
                           lambda: prefill(pf)[0])):
             walls = [sync_time(torch, fn)[1] for _ in range(5)]
             wall = sorted(walls)[2]
-            rows = device_rows(torch, fn, n=3)
+            rows = profiled(torch, fn, 3, "tp step")
             dev = sum(ms for _, ms in rows)
             ring = sum(ms for key, ms in rows if "ring_kernel" in key)
             print(f"tp {what}, engine {name}, W={TP_WORLD}, forward only: "
@@ -3492,9 +3593,9 @@ def spw_fd_records(torch, fd, rd, launches) -> list:
     1024 positions. ``library_ms``: one ``scaled_dot_product_attention``
     with the kv_len mask over the global (B, T) cache, a yardstick the
     port never calls. ``launches``: phase 20's, by key. ``ms``: the
-    profiler's time of the kernel alone (the wrapper's small tensor ops
-    around the launch, kv_len's fill and the rank tables, are left
-    out)."""
+    call's time by queued CUDA events (:func:`queued_ms`; the wrapper's
+    small tensor ops around the launch, kv_len's fill and the rank
+    tables, included)."""
     import torch.nn.functional as F
     from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
     world, dtype, kind = SPW_WORLD, torch.bfloat16, "bf16"
@@ -3538,10 +3639,10 @@ def spw_fd_records(torch, fd, rd, launches) -> list:
             "replaces": f"triton_dist_tpu/ops/flash_decode.py:"
                         f"{SPW_REPLACES[counter]}",
             "launches": launches[counter].get(key, 0), "max_abs_err": err,
-            "ms": kernel_device_ms(torch, kernel, "flash_decode_world"),
-            "plain_ms": device_ms(torch, plain),
+            "ms": queued_ms(torch, kernel),
+            "plain_ms": queued_ms(torch, plain, may_wait=True),
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": device_ms(
+            "library_ms": queued_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=mask, enable_gqa=True)),
             "wall_ms": wall_ms(torch, kernel),
@@ -3665,14 +3766,14 @@ def phase_sp_world_long(torch, layers, fd, sp, rd, cfg, full, card: str):
     dctx = fd.create_flash_decode_context(group)
     dkernel = lambda: fd.flash_decode_world(  # noqa: E731
         qn, cache[0], cache[1], t, dctx, "tiled")
-    dms = kernel_device_ms(torch, dkernel, "flash_decode_world")
-    w1_dms = kernel_device_ms(torch, lambda: fd.gqa_fwd_batch_decode(
-        qn, cache[0], cache[1], t), "flash_decode")
-    dplain = device_ms(torch, lambda: fd.flash_decode_world_reference(
-        qn, cache[0], cache[1], t, world))
+    dms = queued_ms(torch, dkernel)
+    w1_dms = queued_ms(torch, lambda: fd.gqa_fwd_batch_decode(
+        qn, cache[0], cache[1], t))
+    dplain = queued_ms(torch, lambda: fd.flash_decode_world_reference(
+        qn, cache[0], cache[1], t, world), may_wait=True)
     kq, kk, kv_ = qn[:, :, None], cache[0].transpose(1, 2), \
         cache[1].transpose(1, 2)
-    dlib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+    dlib = queued_ms(torch, lambda: F.scaled_dot_product_attention(
         kq, kk, kv_, enable_gqa=True))
     kv_bytes = 2 * t * hkv * d * 2
     exchange = 2 * world * (world - 1) * hq * (d + 2) * 4
@@ -3910,9 +4011,9 @@ def phase_agw_kernels(torch, agk, rd, card: str) -> list:
 
             def library():
                 return out.view(world, -1).copy_(src.expand(world, -1))
-            ms = kernel_device_ms(torch, kernel, "gather_world")
+            ms = queued_ms(torch, kernel)
             bnd, by = agw_bound_ms(world, chunk, b)
-            lib_ms = device_ms(torch, library)
+            lib_ms = queued_ms(torch, library)
             print(f"kernel all_gather_world[{meth}] W={world} bf16 {name} "
                   f"{tuple(x.shape)}: kernel_ms={ms:.5f} copy_ms={lib_ms:.5f}"
                   f" bound_ms={bnd:.5f} ({by}); kernel rate "
@@ -3926,7 +4027,7 @@ def phase_agw_kernels(torch, agk, rd, card: str) -> list:
                 "replaces": f"triton_dist_tpu/ops/allgather.py:"
                             f"{AGW_REPLACES[meth]}",
                 "max_abs_err": 0.0, "ms": ms,
-                "plain_ms": device_ms(torch, plain),
+                "plain_ms": queued_ms(torch, plain, may_wait=True),
                 "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
                 "wall_ms": wall_ms(torch, kernel),
                 "shape": [world, *x.shape], "ok": True},
@@ -4069,7 +4170,8 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
     under sync debug "error"; the decode steps' and the prefill's wall and
     device time, idle share and the all-gather's share. Returns layer 0's
     routing (its (T, top-k) expert ids) in the kernel run's prefill
-    (4 x 128 tokens) and first decode step (4 tokens), by shape name."""
+    (4 x 128 tokens) and first decode step (4 tokens), by shape name, and
+    layer 0's MoE inputs ((T, hidden) rows) of the same two calls."""
     from triton_dist_tpu_torch.layers import tp_moe
     from triton_dist_tpu_torch.models import KVCacheManager
     t0 = time.perf_counter()
@@ -4108,7 +4210,18 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
 
     saved = (tp_moe.all_gather, tp_moe.grouped_matmul_multi,
              tp_moe.moe_reduce_rs)
-    got, tok, seen = run(("ag_rs", "gemm_ar", "ag_rs"))
+    inputs = []                      # each MoE call's rows, in call order
+
+    def gather(x, *args, **kwargs):
+        inputs.append(x)
+        return saved[0](x, *args, **kwargs)
+    tp_moe.all_gather = gather
+    try:
+        got, tok, seen = run(("ag_rs", "gemm_ar", "ag_rs"))
+    finally:
+        tp_moe.all_gather = saved[0]
+    hidden = {"prefill": inputs[0], "decode": inputs[layers]}
+    del inputs
     tp_moe.all_gather = (lambda x, ctx=None, impl="pallas", stacked=False:
                          agk.all_gather_reference(x, ctx.world_size, stacked))
     tp_moe.grouped_matmul_multi = lambda t, ws, i, e, topk=1: [
@@ -4170,7 +4283,7 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
                      ("prefill (ag_rs, 4 x 128)", prefill)):
         walls = [sync_time(torch, fn)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        rows = device_rows(torch, fn, "gather_world", n=3)
+        rows = profiled(torch, fn, 3, "tp-moe step")
         dev = sum(ms for _, ms in rows)
         ag_ms = sum(ms for key, ms in rows if "gather_world" in key)
         print(f"tp-moe {name} (W={TPM_WORLD}, batch 4, forward only): wall "
@@ -4183,7 +4296,7 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
                   f"({ms / dev:.2f}) {kernel[:70]}", flush=True)
     print(f"phase 23 (checks) took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return {"prefill": seen[0][1], "decode": seen[layers][1]}
+    return ({"prefill": seen[0][1], "decode": seen[layers][1]}, hidden)
 
 
 def agw_kernels_line(records, launches) -> list:
@@ -4223,36 +4336,6 @@ def agg_bound_ms(live: int, m: int, k: int, n: int, world: int,
     by_ops = 2.0 * m * k * n / PEAK_FLOPS[kind] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
-
-
-def queued_ms(torch, fn, n: int = 20) -> float:
-    """Device ms of one ``fn()`` call, by CUDA events around ``n`` calls
-    queued behind a GPU sleep, after a warm-up: the host enqueues the
-    calls while the card sleeps, so the events time their kernels back to
-    back on the card (launch gaps on the card included, host time not).
-    The sleep doubles until it outlasts the enqueue; a call that waits on
-    the card never fits, and fails. Phase 24 times this way because the
-    profiler lost kernel records late in full runs: its readings fell
-    below their HBM bounds there (ROADMAP.md, Queue C item C6)."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 40_000_000                          # ~20 ms at ~2 GHz
-    for _ in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        torch.cuda._sleep(cycles)
-        t0 = time.perf_counter()
-        ev[1].record()
-        for _ in range(n):
-            fn()
-        ev[2].record()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        if host_ms < 0.8 * ev[0].elapsed_time(ev[1]):
-            return ev[1].elapsed_time(ev[2]) / n
-        cycles *= 2
-    raise SmokeFailure(f"{n} calls took longer to enqueue ({host_ms:.1f} ms)"
-                       f" than the GPU sleep ahead of them")
 
 
 def agg_error(torch, got, ref, k: int) -> tuple[float, bool]:
@@ -4302,8 +4385,7 @@ def phase_agg_kernels(torch, gg, rd, cfg, params, routing, card: str):
     the card (:func:`queued_ms`) beside the bound, impl "xla", the
     world-1 kernel at the same global shape ("w1") and one
     ``torch._grouped_mm`` of the gathered, expert-sorted rows against the
-    full weights, and the plain version by the profiler (``device_ms``). Returns the
-    JSON records, ``launches`` to fill from :func:`phase_agg_main`."""
+    full weights, and the plain version. Returns the JSON records, ``launches`` to fill from :func:`phase_agg_main`."""
     print("== phase 24: world-W ring AG + grouped GEMM kernel vs impls xla "
           "/ ring and its plain version", flush=True)
     free, total = torch.cuda.mem_get_info()
@@ -4382,8 +4464,8 @@ def phase_agg_kernels(torch, gg, rd, cfg, params, routing, card: str):
         xla_ms = queued_ms(torch, lambda: gg.ag_group_gemm(
             x, nw(), ids, e, ctx, impl="xla"))
         w1_ms = queued_ms(torch, lambda: gg.grouped_matmul(x, nw(), ids, e))
-        plain_ms = device_ms(torch, lambda: gg.ag_group_gemm_reference(
-            x, gates[0], ids, e, world), n=3)
+        plain_ms = queued_ms(torch, lambda: gg.ag_group_gemm_reference(
+            x, gates[0], ids, e, world), n=3, may_wait=True)
         order = torch.argsort(ids.long(), stable=True)
         x_sorted = x[order].contiguous()
         offs = torch.cumsum(torch.bincount(ids.long(), minlength=e),
@@ -4403,8 +4485,8 @@ def phase_agg_kernels(torch, gg, rd, cfg, params, routing, card: str):
               f"xla_ms={xla_ms:.5f} ({world} grouped launches) w1_ms="
               f"{w1_ms:.5f} plain_ms={plain_ms:.5f} grouped_mm_ms={lib_txt};"
               f" workspaces and signals {ws_bytes / 2**20:.2f} MiB; "
-              f"times by CUDA events around 20 queued calls, plain_ms by "
-              f"the profiler [{card}]", flush=True)
+              f"times by CUDA events around queued calls [{card}]",
+              flush=True)
         records.append(({
             "name": f"ag_group_gemm_world[{name}]", "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/ag_group_gemm.cu",
@@ -4480,9 +4562,401 @@ def agg_kernels_line(records, launches) -> list:
         out.append(rec)
     return out
 
+#: Phase 25: the fused MoE-reduce ring at Qwen3-30B-A3B's down projection
+#: (E = 128, I = 768, H = 2048), decode (4 tokens x top-8 = 32 pairs) and
+#: prefill (512 x 8 = 4096), routed as phase 23's served batch was at
+#: layer 0 (its layer-0 MoE inputs through layer 0's router).
+MRR_WORLDS = (2, 3, 4, 8)
+MRR_REPLACES = "triton_dist_tpu/ops/moe_reduce_rs.py:72"
+
+
+def mrr_error(torch, got, ref, mag, i_loc: int, world: int):
+    """(max |got - ref|, within the limit) of the fused ring against its
+    plain version: phase 13's MoE-reduce rule with W roundings. bf16: one
+    ulp of the larger value and of each of the W rounded values (``mag``,
+    their magnitudes summed), plus W f32 sums of I / W terms in two
+    orders (W f32_sum_atol(I / W)); f32: 1e-5 of ``mag`` plus W F32_ATOL."""
+    diff = (got.float() - ref.float()).abs()
+    if got.dtype == torch.bfloat16:
+        lim = (BF16_ULP_REL * (torch.maximum(got.float().abs(),
+                                             ref.float().abs()) + mag)
+               + world * f32_sum_atol(i_loc))
+    else:
+        lim = 1e-5 * mag + world * F32_ATOL
+    return diff.max().item(), bool((diff <= lim).all())
+
+
+def mrr_bound_ms(live: int, pairs: int, t: int, i: int, h: int, world: int,
+                 itemsize: int):
+    """(least ms, what bounds it) of one world-W fused MoE-reduce call over
+    every rank: act (pairs, I) read once, the ``live`` experts' (I, H)
+    weights read once, the (T, H) output written once, plus the ring's
+    W (W - 1) chunk partials of T / W rows (written and read); 2 pairs I
+    H operations over the type's peak."""
+    moved = pairs * i + live * i * h + t * h + 2 * (world - 1) * t * h
+    by_bytes = moved * itemsize / HBM_BYTES_PER_S * 1e3
+    kind = "bf16" if itemsize == 2 else "f32"
+    by_ops = 2.0 * pairs * i * h / PEAK_FLOPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def mrr_routing(torch, mu, cfg, params, hidden, name: str):
+    """(routing weights (T, k) f32, pair ids (T k,) int32) of layer 0's
+    router on the served batch's layer-0 MoE inputs of one shape."""
+    moe = params["layers"][0]["moe"]
+    wts, idx = mu.topk_routing(hidden[name].float() @ moe["w_router"],
+                               cfg.num_experts_per_tok, cfg.norm_topk_prob)
+    return wts, idx.reshape(-1).to(torch.int32).contiguous()
+
+
+def mrr_padded(torch, act, ids, wts, world: int, e: int):
+    """The operands with zero tokens appended up to a multiple of
+    ``world`` (zero activations and routing weights, sentinel ids), as
+    TPMoE pads its rows."""
+    t, k = wts.shape
+    pad = -t % world
+    if not pad:
+        return act, ids, wts
+    return (torch.cat([act, act.new_zeros((pad * k, act.shape[1]))]),
+            torch.cat([ids, ids.new_full((pad * k,), e)]),
+            torch.cat([wts, wts.new_zeros((pad, k))]))
+
+
+def phase_mrr_kernels(torch, mrs, mu, cfg, params, hidden, card: str):
+    """Phase 25 (a): the fused MoE-reduce ring (``csrc/moe_rs_ring.cu``,
+    ``moe_reduce_rs(impl="fused")``) at W = 2, 3, 4, 8, bf16 and f32, at
+    the decode (32 pairs) and prefill (4096 pairs) shapes on layer 0's
+    w_down with the served routing and activations drawn from the seed:
+    within :func:`mrr_error` of ``moe_reduce_rs_fused_world_reference``,
+    repeats bit-identical, the workspaces' NaN canaries intact, a skipped
+    push (its signal still set) refused by the same limit (W = 3: tokens
+    padded to a multiple of W with sentinel ids, :func:`mrr_padded`), each
+    case timed (:func:`queued_ms`) beside impl "ring" and the bound. Then
+    the W = 4 bf16 cases timed again (layers 0-3's w_down in turn) beside
+    the bound, impl "ring" at W = 4, the world-1 kernel at the same global shape ("w1"),
+    one ``torch._grouped_mm`` of the expert-sorted pairs against the full
+    w_down (the grouped product only: no single PyTorch call computes the
+    whole function) and the plain version. Returns the JSON records,
+    ``launches`` to fill from :func:`phase_mrr_main`."""
+    print("== phase 25: world-W fused MoE-reduce ring kernel vs its plain "
+          "version", flush=True)
+    t0 = time.perf_counter()
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    nan = float("nan")
+    wd_bf16 = params["layers"][0]["moe"]["w_down"]
+    i, h = wd_bf16.shape[1], wd_bf16.shape[2]
+    operands = {}
+    for name, t in AGG_SHAPES:
+        wts, ids = mrr_routing(torch, mu, cfg, params, hidden, name)
+        gen = torch.Generator(device="cuda").manual_seed(250 + t)
+        act = torch.randn((ids.numel(), i), generator=gen, device="cuda")
+        operands[name] = (act, ids, wts)
+    n_cases, errs = 0, {}
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        wd = wd_bf16.to(dtype)
+        for name, _ in AGG_SHAPES:
+            act0, ids0, wts0 = operands[name]
+            for world in MRR_WORLDS:
+                act, ids, wts = mrr_padded(torch, act0.to(dtype), ids0, wts0,
+                                           world, e)
+                ctx = mrs.create_moe_rs_context(num_experts=e, topk=k,
+                                                world_size=world)
+                got = mrs.moe_reduce_rs(act, wd, ids, wts, ctx, impl="fused")
+                again = mrs.moe_reduce_rs(act, wd, ids, wts, ctx,
+                                          impl="fused")
+                same = torch.equal(bits(torch, got), bits(torch, again))
+                ref, mag = mrs.moe_reduce_rs_fused_world_reference(
+                    act, wd, ids, wts, e, world, magnitude=True)
+                err, ok = mrr_error(torch, got, ref, mag, i // world, world)
+                prods, recv = mrs.ring_workspaces(act, wd, wts, ctx)
+                rows = wts.shape[0] // world
+                canary = (bool(prods[:, ids.numel() * h:].isnan().all())
+                          and bool(recv[:, (world - 1) * rows * h:]
+                                   .isnan().all()))
+                recv.fill_(nan)
+                bad = mrs.launch_moe_rs_ring(act, wd, ids, wts, ctx,
+                                             fault=True)
+                _, bad_ok = mrr_error(torch, bad, ref, mag, i // world,
+                                      world)
+                check(same and ok and canary and not bad_ok,
+                      f"moe_rs_ring W={world} {dt} {name}: repeat {same}, "
+                      f"max abs err {err} ok {ok}, canaries {canary}, "
+                      f"fault refused {not bad_ok}")
+                n_cases += 1
+                errs[(world, dt, name)] = err
+                # Impl "ring" launches 3 kernels and ~10 tensor ops a
+                # rank: 5 calls stay inside the card's launch queue.
+                ms = queued_ms(torch, lambda: mrs.moe_reduce_rs(
+                    act, wd, ids, wts, ctx, impl="fused"))
+                ring_ms = queued_ms(torch, lambda: mrs.moe_reduce_rs(
+                    act, wd, ids, wts, ctx, impl="ring"), n=5)
+                bnd, by = mrr_bound_ms(int(torch.unique(ids).numel()),
+                                       ids.numel(), wts.shape[0], i, h,
+                                       world, act.element_size())
+                print(f"moe_rs_ring W={world} {dt} {name}: max abs err "
+                      f"{err:.4g} ms={ms:.5f} ring_ms={ring_ms:.5f} "
+                      f"bound_ms={bnd:.5f} ({by}) [{card}]", flush=True)
+                del got, again, bad, ref, mag, ctx, prods, recv
+        del wd
+    torch.cuda.empty_cache()
+    print(f"moe_reduce_rs (impl fused) at W = {MRR_WORLDS}, bf16 and f32, "
+          f"decode and prefill pairs on layer 0's w_down with the served "
+          f"routing: {n_cases} cases within the limit of the plain version "
+          f"(bf16: 2^-7 (max(|got|, |ref|) + the W rounded values' "
+          f"magnitudes) + W f32_sum_atol(I / W); f32: 1e-5 of those "
+          f"magnitudes + W {F32_ATOL:g}), repeats bit-identical, canaries "
+          f"intact, the skipped push refused by the same limit; max abs "
+          f"err bf16 {max(v for (_, d, _), v in errs.items() if d == 'bf16'):.4g}"
+          f" [{card}]", flush=True)
+
+    world = TPM_WORLD
+    downs = [lp["moe"]["w_down"] for lp in params["layers"][:4]]
+    records = []
+    for name, _ in AGG_SHAPES:
+        act, ids, wts = operands[name]
+        act = act.to(cfg.dtype)
+        t = wts.shape[0]
+        live = int(torch.unique(ids).numel())
+        ctx = mrs.create_moe_rs_context(num_experts=e, topk=k,
+                                        world_size=world)
+        one = mrs.create_moe_rs_context(num_experts=e, topk=k)
+        nk, nr, n1, nl = (rotating(downs) for _ in range(4))
+        p = mrs.plan(t * k, e, i // world, h, act.dtype,
+                     (i, h, i * h))
+        key = (p.path, p.m_blk, world, t * k, i, h)
+
+        def kernel():
+            return mrs.moe_reduce_rs(act, nk(), ids, wts, ctx, impl="fused")
+        ms = queued_ms(torch, kernel)
+        ring_ms = queued_ms(torch, lambda: mrs.moe_reduce_rs(
+            act, nr(), ids, wts, ctx, impl="ring"), n=5)
+        w1_ms = queued_ms(torch, lambda: mrs.moe_reduce_rs(
+            act, n1(), ids, wts, one, impl="fused"))
+        plain_ms = queued_ms(torch, lambda: mrs.
+                             moe_reduce_rs_fused_world_reference(
+                                 act, downs[0], ids, wts, e, world), n=3,
+                             may_wait=True)
+        order = torch.argsort(ids.long(), stable=True)
+        act_sorted = act[order].contiguous()
+        offs = torch.cumsum(torch.bincount(ids.long(), minlength=e),
+                            0).to(torch.int32)
+        lib_ms = None
+        if hasattr(torch, "_grouped_mm"):   # a yardstick, never on a path
+            lib_ms = queued_ms(torch, lambda: torch._grouped_mm(
+                act_sorted, nl(), offs=offs))
+        bnd, by = mrr_bound_ms(live, t * k, t, i, h, world,
+                               act.element_size())
+        ws_bytes = ctx.ring_state(act.device).nbytes()
+        lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
+        print(f"kernel moe_rs_ring W={world} bf16 {name} (T={t}, {t * k} "
+              f"pairs, {live} live experts, {p.path} path, {p.m_blk}-row "
+              f"tiles): ms={ms:.5f} (2 launches a call: group_schedule, "
+              f"moe_rs_ring_kernel; and the wrapper's rank tables) "
+              f"bound_ms={bnd:.5f} ({by}) ring_ms={ring_ms:.5f} ({world} "
+              f"MoE-reduce launches and the plain ring sum) w1_ms="
+              f"{w1_ms:.5f} plain_ms={plain_ms:.5f} grouped_mm_ms={lib_txt} "
+              f"(the grouped product only); workspaces and signals "
+              f"{ws_bytes / 2**20:.2f} MiB; times by CUDA events around "
+              f"queued calls [{card}]", flush=True)
+        records.append(({
+            "name": f"moe_rs_ring[{name}]", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/moe_rs_ring.cu",
+            "replaces": MRR_REPLACES,
+            "max_abs_err": errs[(world, "bf16", name)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms, "library": "torch._grouped_mm, the "
+            "grouped product only", "w1_ms": w1_ms, "ring_ms": ring_ms,
+            "wall_ms": wall_ms(torch, kernel), "shape": [world, t, k, i, h],
+            "live_experts": live, "ok": True}, key))
+        del ctx, one
+    print(f"phase 25 (kernels) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return records
+
+
+def phase_mrr_main(torch, gg, mrs, mu, agk, rd, cfg, params, hidden,
+                   card: str) -> dict:
+    """Phase 25 (b), this slice's main path: the expert half of one
+    ``TPMoE`` layer at TP world 4 through both fused world-W kernels, on
+    layer 0's MoE inputs of the served batch (decode 4 tokens, prefill
+    512), every count set to 0 just before: layer 0's routing, gate and up
+    by ``ag_group_gemm(impl="fused")``, the SwiGLU, then
+    ``moe_reduce_rs(impl="fused")``: 2 ring AG + grouped GEMM calls and
+    one MoE-reduce ring call a shape, no world-1 grouped-GEMM or
+    MoE-reduce launch and no all-gather. Then each output against
+    ``TPMoE(world=4)``'s own forward of the layer (mode ag_rs: the
+    all-gather kernel, the grouped GEMM a rank, impl "ring"): one bf16
+    ulp of the fused ring's W rounded values and of each pair product
+    that the ring route rounds (sum_j w_j |pair_j| over the ranks), plus
+    W f32_sum_atol(I / W). Returns the ring kernel's launches by key."""
+    from triton_dist_tpu_torch.layers.tp_moe import TPMoE
+    t0 = time.perf_counter()
+    world = TPM_WORLD
+    group = rd.create_rank_group(world, device="cuda")
+    agg_ctx = gg.create_ag_group_gemm_context(group=group)
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    rs_ctx = mrs.create_moe_rs_context(num_experts=e, topk=k,
+                                       world_size=world)
+    moe = params["layers"][0]["moe"]
+    i = moe["w_down"].shape[1]
+    counters = {"ag_group_gemm": gg.ag_group_gemm_launches,
+                "moe_rs_ring": mrs.moe_rs_ring_launches,
+                "group_gemm": gg.group_gemm_launches,
+                "moe_rs": mrs.moe_rs_launches,
+                "all_gather": agk.all_gather_launches}
+    xs = {name: hidden[name] for name, _ in AGG_SHAPES}
+    for c in counters.values():                        # ---- the main path
+        c.reset()
+    outs = {}
+    for name, x in xs.items():
+        wts, idx = mu.topk_routing(x.float() @ moe["w_router"], k,
+                                   cfg.norm_topk_prob)
+        ids = idx.reshape(-1).to(torch.int32)
+        pairs = x.repeat_interleave(k, 0)
+        gate = gg.ag_group_gemm(pairs, moe["w_gate"], ids, e, agg_ctx,
+                                impl="fused")
+        up = gg.ag_group_gemm(pairs, moe["w_up"], ids, e, agg_ctx,
+                              impl="fused")
+        act = (torch.nn.functional.silu(gate.float())
+               * up.float()).to(x.dtype)
+        outs[name] = (mrs.moe_reduce_rs(act, moe["w_down"], ids, wts,
+                                        rs_ctx, impl="fused"), act, ids, wts)
+    torch.cuda.synchronize()
+    totals = {name: c.total for name, c in counters.items()}
+    launches = dict(mrs.moe_rs_ring_launches.by_shape)  # ---- main path ends
+    want = {"ag_group_gemm": 4, "moe_rs_ring": 2, "group_gemm": 0,
+            "moe_rs": 0, "all_gather": 0}
+    check(totals == want, f"TP-MoE expert path launches {totals}, expected "
+                          f"{want}")
+    layer = TPMoE(cfg.hidden_size, i, e, k, dtype=cfg.dtype,
+                  norm_topk_prob=cfg.norm_topk_prob, group=group)
+    for name, x in xs.items():
+        got, act, ids, wts = outs[name]
+        ref = layer(moe, x, mode="ag_rs")
+        _, mag = mrs.moe_reduce_rs_fused_world_reference(
+            act, moe["w_down"], ids, wts, e, world, magnitude=True)
+        pair_mag = torch.zeros_like(mag)
+        for a, wd in zip(group.shard(act, 1), group.shard(moe["w_down"], 1)):
+            pair = mrs.grouped_matmul_reference(a, wd, ids, e).float()
+            pair_mag += (pair.abs().reshape(x.shape[0], k, -1)
+                         * wts[..., None]).sum(1)
+        diff = (got.float() - ref.float()).abs()
+        lim = (BF16_ULP_REL * (torch.maximum(got.float().abs(),
+                                             ref.float().abs())
+                               + mag + pair_mag)
+               + world * f32_sum_atol(i // world))
+        check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+              f"TP-MoE expert path {name}: non-finite or shape "
+              f"{tuple(got.shape)}")
+        check(bool((diff <= lim).all()),
+              f"TP-MoE expert path {name}: fused differs from TPMoE's ring "
+              f"route by {diff.max().item()} (beyond the stated limit)")
+        print(f"TP-MoE expert path (W={world}, fused AG + grouped GEMM, "
+              f"SwiGLU, fused MoE-reduce ring) {name}: {tuple(x.shape)} -> "
+              f"{tuple(got.shape)}, max abs diff {diff.max().item():.4g} "
+              f"from TPMoE(world=4) mode ag_rs (limit: 2^-7 (max(|got|, "
+              f"|ref|) + the ring's W rounded values + sum_j w_j |pair_j|) "
+              f"+ W f32_sum_atol(I / W); {(diff > 0).float().mean().item():.3f}"
+              f" of the outputs differ) [{card}]", flush=True)
+    print(f"TP-MoE expert path launches: {totals}; moe_rs_ring by key "
+          f"{launches}; phase 25 (path) took {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    return launches
+
+
+def mrr_kernels_line(records, launches) -> list:
+    """The records of phase 25 with their launches on its main path; each
+    must have run there."""
+    out = []
+    for rec, key in records:
+        rec = dict(rec, launches=launches.get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"TP-MoE expert path")
+        out.append(rec)
+    return out
+
+
+def phase_records(torch, models, card: str, seed: int) -> None:
+    """``--records`` (ROADMAP.md, Queue C item C6), in a fresh process:
+    phase 5's decode step (Qwen3-8B, full width and depth, gemm_ar path)
+    under the profiler. (1) One step with CPU and CUDA activities: the
+    kernel records matched by correlation id to the launch calls CUPTI
+    saw, the port's main-kernel records against the calls its wrappers
+    counted, records by kernel. (2) 400 sessions of one step each, as the
+    smoke's sessions run, then 10 sessions of 20 steps: each session's
+    share of the port's launches recorded."""
+    import collections
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from triton_dist_tpu_torch.models import KVCacheManager
+    print("== records check: profiler records of a decode step", flush=True)
+    cfg = models.presets.qwen3_8b()
+    model = models.DenseLLM(cfg)
+    params = model.init(seed)
+    host = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (4, 128), generator=host).cuda()
+    caches = KVCacheManager(cfg.num_hidden_layers, 4, 1024,
+                            cfg.num_key_value_heads, cfg.head_dim,
+                            dtype=cfg.dtype, device="cuda").init()
+    with torch.no_grad():
+        logits, caches = model.forward(params, ids, caches, 0, mode="xla_ar")
+    tok = logits[:, -1].argmax(-1)[:, None]
+
+    def step():
+        with torch.no_grad():
+            model.forward(params, tok, caches, 128, mode="gemm_ar")
+    step()
+    torch.cuda.synchronize()
+    pattern = re.compile(r"\b(" + "|".join(port_kernel_names()) + r")\b")
+    before = port_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    counted = port_launches() - before
+    events = prof.profiler.kineto_results.events()
+    on_card = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type() == on_card
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    calls = [e for e in events if "LaunchKernel" in e.name()
+             or "LaunchCooperativeKernel" in e.name()]
+    kinds = {"device": sum(e.device_type() == on_card for e in events),
+             "host": sum(e.device_type() != on_card for e in events)}
+    call_ids = {e.correlation_id() for e in calls}
+    matched = sum(e.correlation_id() in call_ids for e in kernels)
+    port = [e for e in kernels if pattern.search(e.name())]
+    print(f"records (one step, CPU + CUDA activities): event kinds "
+          f"{dict(kinds)}; {len(calls)} launch calls, {len(kernels)} kernel "
+          f"records, {matched} of them matched to a launch call by "
+          f"correlation id; port main kernels {len(port)} records, "
+          f"{counted} calls counted by the wrappers [{card}]", flush=True)
+    by_name = collections.Counter(e.name()[:60] for e in kernels)
+    for name, count in by_name.most_common(12):
+        print(f"  records: {count} x {name}", flush=True)
+    by_call = collections.Counter(e.name() for e in calls)
+    print(f"  launch calls by name: {dict(by_call)}", flush=True)
+
+    def sessions(count, n):
+        shares = []
+        for _ in range(count):
+            _, recorded, counted = port_session(torch, step, n)
+            shares.append(recorded / counted)
+        low = [i for i, v in enumerate(shares) if v < 1.0]
+        return (f"min share {min(shares):.4f}, {len(low)} below 1.0"
+                + (f" (first at session {low[0]})" if low else ""))
+    t0 = time.perf_counter()
+    print(f"records: 400 sessions of 1 step: {sessions(400, 1)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"records: 10 sessions of 20 steps: {sessions(10, 20)}",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--records", action="store_true",
+                    help="only the profiler records check (ROADMAP C6)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4521,6 +4995,9 @@ def main() -> int:
     built = _build.build_all()
     print(f"build: {sorted(built)} with nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if args.records:
+        phase_records(torch, models, card, args.seed)
+        return 0
 
     phase_kernel(torch, ops, card)
     cfg, model, params, eng, prompts, base = phase_model(torch, models, ops,
@@ -4608,8 +5085,8 @@ def main() -> int:
         torch, models, tpm_counters(agk, gg, mrs, ag, ops, ops), cfg, params,
         tokens["default"], card, args.seed)
     del tpm_engines
-    routing = phase_tpm_checks(torch, gg, mrs, agk, cfg, tpm_model, params,
-                               square, card)
+    routing, hidden = phase_tpm_checks(torch, gg, mrs, agk, cfg, tpm_model,
+                                       params, square, card)
     kernels += agw_kernels_line(agw_records, tpm_launches)
     del tpm_model
     agg_records = phase_agg_kernels(torch, gg, rd, cfg, params, routing,
@@ -4617,6 +5094,11 @@ def main() -> int:
     agg_launches = phase_agg_main(torch, gg, mrs, agk, rd, cfg, params,
                                   routing, card, args.seed)
     kernels += agg_kernels_line(agg_records, agg_launches)
+    mrr_records = phase_mrr_kernels(torch, mrs, mu, cfg, params, hidden,
+                                    card)
+    mrr_launches = phase_mrr_main(torch, gg, mrs, mu, agk, rd, cfg, params,
+                                  hidden, card)
+    kernels += mrr_kernels_line(mrr_records, mrr_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -383,7 +383,7 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
                                    "group_gemm", "moe_rs", "allgather",
                                    "sp_attention", "all_to_all",
                                    "ag_gemm_ring", "gemm_rs_ring",
-                                   "ag_group_gemm"}
+                                   "ag_group_gemm", "moe_rs_ring"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
 
 
@@ -850,4 +850,61 @@ def test_ag_group_gemm_source_targets_sm90a_through_cooperative_launches():
     for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
         assert atomic not in text             # fixed-order sums only
     for library in ("cublas", "cutlass::gemm::device", "torch/"):
+        assert library not in text.lower()
+
+
+def test_moe_reduce_rs_fused_world_on_cuda_tensors_never_takes_the_plain_path(
+        monkeypatch):
+    """Without a card, a CUDA-typed ``moe_reduce_rs(impl="fused")`` over
+    world 4 reaches the ring kernel's build and fails there instead of
+    computing a plain version on the CPU."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for name in ("moe_reduce_rs_reference", "moe_reduce_rs_world_reference",
+                 "moe_reduce_rs_fused_world_reference", "_fused_partials"):
+        monkeypatch.setattr(mrs, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    ctx = mrs.create_moe_rs_context(num_experts=3, topk=2, world_size=4)
+    act = on_cuda(torch.zeros(8, 16, dtype=torch.bfloat16))
+    wd = on_cuda(torch.zeros(3, 16, 8, dtype=torch.bfloat16))
+    ids = on_cuda(torch.zeros(8, dtype=torch.int32))
+    wts = on_cuda(torch.ones(4, 2))
+    with pytest.raises(RuntimeError, match="no build of moe_rs_ring$"):
+        mrs.moe_reduce_rs(act, wd, ids, wts, ctx, impl="fused")
+    assert ctx.state is None                # nothing allocated before it
+
+
+def test_moe_rs_ring_source_targets_sm90a_through_cooperative_launches():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["moe_rs_ring"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and '#include "shmem.cuh"' in text
+    assert '#include "group_gemm.cuh"' in text   # the world-1 tile bodies
+    for entry in ("cudaLaunchCooperativeKernel", "tdt_signal_release",
+                  "tdt_signal_wait_until", "tdt_signal_wait_all",
+                  "gg_mma_tile", "gg_fma_tile", "launch_schedule",
+                  "tdt_moe_rs_ring_tile_signals", "tdt_moe_rs_ring_grid",
+                  "tdt_moe_rs_ring", "tdt_error_string",
+                  "_moe_rs_fused_kernel"):      # the TPU kernel it replaces
+        assert entry in text
+    for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+        assert atomic not in text             # fixed-order sums only
+    for library in ("cublas", "cutlass::gemm::device", "torch/", "nccl",
+                    "nvshmem"):
         assert library not in text.lower()

@@ -1304,3 +1304,89 @@ def test_ag_group_gemm_ring_grid_fits_the_card(cuda_device):
                 world, m // world, 128, 2048, 768, dtype,
                 ctypes.byref(bpr)) == 0
             assert 1 <= bpr.value and world * bpr.value <= 132 * 8
+
+
+# -- tensor world W: the fused MoE-reduce ring (csrc/moe_rs_ring.cu) ----------
+#: (world, T, E, I, H, sentinel share) of moe_reduce_rs(impl="fused"):
+#: Qwen3-30B-A3B's down projection at decode (T = W tokens, one row a
+#: chunk; 6 at W = 3) and prefill (512) over its 192-wide (W = 4) and
+#: 96-wide (W = 8) shards, W = 2 and 3, and the FMA tile (I / W and H not
+#: multiples of 8) with sentinel ids.
+MRR_CASES = [(4, 4, 128, 768, 2048, 0.0), (4, 512, 128, 768, 2048, 0.0),
+             (8, 8, 128, 768, 2048, 0.0), (8, 512, 128, 768, 2048, 0.0),
+             (2, 512, 128, 768, 2048, 0.0), (3, 6, 128, 768, 2048, 0.0),
+             (4, 8, 5, 36, 84, 0.25)]
+MRR_IDS = ["w4_decode", "w4_prefill", "w8_decode", "w8_prefill", "w2",
+           "w3_decode", "w4_fma_sentinel"]
+
+
+def _assert_moe_ring_close(got, want, mag, i_loc, world):
+    """Within the fused ring's own rounding: one ulp (bf16; f32 1e-5) of
+    each of the W values that were rounded (``mag``) and of the larger
+    result, plus W f32 sums of i_loc terms in two orders."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        lim = (BF16_ULP_REL * (torch.maximum(got.float().abs(),
+                                             want.float().abs()) + mag)
+               + world * f32_sum_atol(i_loc))
+    else:
+        lim = 1e-5 * mag + world * 3e-5
+    assert bool((diff <= lim).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", MRR_CASES, ids=MRR_IDS)
+def test_moe_rs_ring_kernel_matches_plain_on_card(cuda_device, dtype, case):
+    """impl "fused" at world W: one schedule + one cooperative launch a
+    call (no world-1 MoE-reduce launch), repeats bit-identical, within the
+    ring's rounding of the plain version, the receive slots' and product
+    workspaces' NaN canaries intact, and a skipped push (its signal still
+    set) refused."""
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    world, t, e, i, h, sentinel = case
+    topk = 8 if e >= 8 else 2
+    rng = np.random.RandomState(t + i + world)
+    act = torch.from_numpy(rng.randn(t * topk, i).astype(np.float32)).to(
+        cuda_device, dtype)
+    w = torch.from_numpy((rng.randn(e, i, h) / np.sqrt(i)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ids = rng.randint(0, e, t * topk)
+    ids[rng.rand(t * topk) < sentinel] = e
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+    wts = torch.from_numpy(rng.dirichlet(np.ones(topk), t).astype(
+        np.float32)).to(cuda_device)
+    ctx = mrs.create_moe_rs_context(num_experts=e, topk=topk,
+                                    world_size=world)
+    before = (mrs.moe_rs_ring_launches.total, mrs.moe_rs_launches.total)
+    got = mrs.moe_reduce_rs(act, w, ids, wts, ctx, impl="fused")
+    again = mrs.moe_reduce_rs(act, w, ids, wts, ctx, impl="fused")
+    torch.cuda.synchronize()
+    assert (mrs.moe_rs_ring_launches.total,
+            mrs.moe_rs_launches.total) == (before[0] + 2, before[1])
+    assert torch.equal(_bits(got), _bits(again))
+    want, mag = mrs.moe_reduce_rs_fused_world_reference(
+        act, w, ids, wts, e, world, magnitude=True)
+    _assert_moe_ring_close(got, want, mag, i // world, world)
+    prods, recv = mrs.ring_workspaces(act, w, wts, ctx)
+    assert bool(prods[:, t * topk * h:].isnan().all())    # canaries intact
+    assert bool(recv[:, (world - 1) * (t // world) * h:].isnan().all())
+    recv.fill_(float("nan"))
+    bad = mrs.launch_moe_rs_ring(act, w, ids, wts, ctx, fault=True)
+    torch.cuda.synchronize()
+    assert bool(bad.isnan().any())                        # fault refused
+
+
+@pytest.mark.cuda
+def test_moe_rs_ring_grid_fits_the_card(cuda_device):
+    import ctypes
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    bpr = ctypes.c_int()
+    i, h = 768, 2048
+    for world in (2, 3, 4, 8):
+        for pairs, dtype in ((32, 0), (4096, 0), (32, 1)):
+            assert mrs._ring_lib().tdt_moe_rs_ring_grid(
+                world, pairs, 128, i // world, h, dtype, i, h, i * h,
+                ctypes.byref(bpr)) == 0
+            assert 1 <= bpr.value and world * bpr.value <= 132 * 8

@@ -275,8 +275,8 @@ def test_cpu_calls_take_the_plain_versions_and_are_not_counted():
                                torch.ones(2, 2),
                                mrs.create_moe_rs_context(num_experts=2,
                                                          world_size=2),
-                               impl="fused"),
-     "Queue B item 11"),
+                               impl="auto"),
+     "Queue A item 19"),
 ], ids=["ag_group_gemm_auto", "ag_group_gemm_world2", "moe_rs_auto",
         "moe_rs_world2"])
 def test_unported_parts_raise_and_name_their_roadmap_item(call, match):

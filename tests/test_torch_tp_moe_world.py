@@ -7,7 +7,9 @@ CPU.
   me + 1 first, rank me last), shown on partials whose f32 sum depends on
   the order.
 * ``moe_reduce_rs`` impls "ring" and "xla" at W = 4 within 1e-5 of
-  JAX's (f32); "fused" and "auto" at world > 1 raise naming their items.
+  JAX's (f32); "fused" at W = 4 runs its plain version
+  (``tests/test_torch_moe_rs_world.py`` holds it to JAX's kernel);
+  "auto" at world > 1 raises naming its item.
 * ``TPMoE`` at W = 4 in modes ag_rs (JAX's all-gather kernel in Pallas
   interpret mode) and xla, at 8 rows and at 6 (padded to 8), within 1e-5.
 * A tiny f32 ``Qwen3MoE(moe_parallel="tp", world=4)`` (2 layers, hidden
@@ -110,11 +112,13 @@ def test_moe_reduce_rs_world4_matches_jax(impl):
         *map(_t, (act, w_down, ids, wts)), 8, W, impl))
 
 
-def test_moe_reduce_rs_world_refuses_fused_auto_and_bad_splits():
+def test_moe_reduce_rs_world_runs_fused_and_refuses_auto_and_bad_splits():
     act, w_down, ids, wts = map(_t, _moe_rs_inputs())
     ctx = mrs.create_moe_rs_context(num_experts=8, topk=2, world_size=W)
-    with pytest.raises(NotImplementedError, match="Queue B item 11"):
-        mrs.moe_reduce_rs(act, w_down, ids, wts, ctx, impl="fused")
+    got = mrs.moe_reduce_rs(act, w_down, ids, wts, ctx, impl="fused")
+    assert got.shape == (8, 24)
+    assert torch.equal(got, mrs.moe_reduce_rs_fused_world_reference(
+        act, w_down, ids, wts, 8, W))
     with pytest.raises(NotImplementedError, match="Queue A item 19"):
         mrs.moe_reduce_rs(act, w_down, ids, wts, ctx, impl="auto")
     with pytest.raises(ValueError, match="split"):

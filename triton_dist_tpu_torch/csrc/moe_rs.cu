@@ -9,8 +9,7 @@
 // bodies (:331-354, :326-329) call this kernel once per rank on its row
 // shard of w_down (a strided view) and sum the ranks' partials in plain
 // torch (ops/moe_reduce_rs.py); the world-W ring of the fused kernel is
-// not ported (ROADMAP.md, Queue B item 11). The two differ in where they
-// round:
+// moe_rs_ring.cu. The two differ in where they round:
 //  * round_pairs = 1 ("ring", "xla"): each pair's product rounds to the
 //    activation dtype, then the f32 weighted sum rounds once;
 //  * round_pairs = 0 ("fused"): f32 through the weighted sum, one rounding
