@@ -84,7 +84,7 @@ without the final line:
     tokens, 32 pairs) and prefill (512 tokens, 4096 pairs) shapes routed
     by layer 0's router: error, bit-identical repeat, device ms, plain
     ms, the bound and one ``torch._grouped_mm`` (``Tensor.copy_`` for the
-    all-gather; none for the MoE-reduce).
+    all-gather; for the MoE-reduce, the grouped product only).
 13. MoE main path: the default (prefill xla_ar, decode gemm_ar), all-ag_rs
     and paged sp engines through serve, serve_ragged (not sp),
     serve_stream and the server, with launch counts per prefill and per
@@ -264,11 +264,28 @@ without the final line:
     grouped GEMM calls and 1 + 1 MoE-reduce ring calls, no world-1
     grouped-GEMM or MoE-reduce and no all-gather launch, each output
     within the stated limit of ``TPMoE(world=4)``'s own forward.
+26. world-W reduce-scatter and all-reduce (``csrc/reduce_world.cu``),
+    while Qwen3-8B's weights are loaded: (a) ``all_reduce`` (one_shot,
+    two_shot, recursive_doubling) and ``reduce_scatter`` (ring, one_shot)
+    at W = 2, 3, 4, 8, bf16 and f32, hidden 4096, decode (4 rows; 6 at
+    W = 3, 8 at W = 8) and prefill (512 rows; 513 at W = 3) partials,
+    bit-equal to the plain versions (which round after every add, in
+    each method's order, as JAX's kernels do), every all-reduce copy
+    bit-equal, repeats and a straggling rank bit-identical, workspace
+    canaries intact, a skipped push refused; the W = 4 bf16 cases timed
+    beside the bound, one ``torch.sum(x, 0)``, impl "xla", the plain
+    version and the world-1 copy. (b) the main path, every count set to
+    0 just before: layer 0's MLP down-projection partials of the served
+    prompts at TP world 4 (decode and prefill) through ``all_reduce`` in
+    each method and ``reduce_scatter`` in both, one world-W launch a call,
+    no copy-kernel launch, each output within W bf16 ulps of the
+    partials' magnitudes of ``group.psum``.
 
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
-release, before the Qwen3-30B-A3B load), phases 17-20 after phase 11
-(before that release), phase 21 after phase 15, phase 16 after phase 13,
-phases 22-25 after phase 16; the JSON line covers all eleven slices.
+release, before the Qwen3-30B-A3B load), phases 17-20 and 26 after phase
+11 (before that release; 26 right after 18), phase 21 after phase 15,
+phase 16 after phase 13, phases 22-25 after phase 16; the JSON line
+covers all twelve slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -1743,7 +1760,8 @@ def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
                 downs, inter,
                 grouped_bound_ms(live, p, p, inter, h, 1, m,
                                  extra_bytes=p * 4),
-                None, "triton_dist_tpu/ops/moe_reduce_rs.py:72"))
+                library_grouped(act, ids, downs[:4]),
+                "triton_dist_tpu/ops/moe_reduce_rs.py:72"))
         for (name, counter, key, kernel, plain, sets, k, (bnd, by), lib,
              replaces) in cases:
             got, again = kernel(sets[0]), kernel(sets[0])
@@ -1785,8 +1803,10 @@ def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
             plain_ms = queued_ms(torch, lambda: plain(np_()), n=3,
                                  may_wait=True)
             lib_ms = queued_ms(torch, lib) if lib is not None else None
+            moe_rs = counter == "moe_rs"
             lib_txt = (f"{lib_ms:.4f} (torch._grouped_mm"
-                       f"{', no epilogue' if 'swiglu' in name else ''})"
+                       f"{', no epilogue' if 'swiglu' in name else ''}"
+                       f"{', the grouped product only' if moe_rs else ''})"
                        if lib_ms is not None else "—")
             print(f"kernel {name} bf16 P={p} ({m} tokens, {live} live "
                   f"experts, {key[0]}, {key[1]}-row tiles): max_abs_err="
@@ -2341,13 +2361,17 @@ def phase_sp_attn_main(torch, layers, sp, fd, agk, ar, rs, cfg, full,
         x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
         for method in ar.AllReduceMethod:
             ctx = ar.create_allreduce_context(method=method)
+            ran = ar.resolve_method(ctx, x.shape[1],
+                                    x[0].numel() * x.element_size())
             check(torch.equal(ar.all_reduce(x, ctx),
-                              ar.all_reduce_reference(x)),
+                              ar.all_reduce_world_reference(x, ran)),
                   f"all_reduce {method.value} {shape} differs")
         for method in rs.ReduceScatterMethod:
             ctx = rs.create_reduce_scatter_context(method=method)
             check(torch.equal(rs.reduce_scatter(x, ctx),
-                              rs.reduce_scatter_reference(x)),
+                              rs.reduce_scatter_world_reference(
+                                  x, ctx.resolve_method(
+                                      x[0].numel() * x.element_size()))),
                   f"reduce_scatter {method.value} {shape} differs")
         check(torch.equal(agk.broadcast(x[0]), agk.broadcast_reference(x[0])),
               f"broadcast {shape} differs")
@@ -2448,23 +2472,27 @@ def coll_records(torch, agk, ar, rs, card: str) -> list:
     cases = [
         ("all_reduce[one_shot]", "all_reduce", AR.ONE_SHOT, "allreduce.py:114",
          lambda: ar.all_reduce(x(), ar.create_allreduce_context(
-             method=AR.ONE_SHOT)), lambda: ar.all_reduce_reference(x())),
+             method=AR.ONE_SHOT)),
+         lambda: ar.all_reduce_world_reference(x(), AR.ONE_SHOT)),
         ("all_reduce[recursive_doubling]", "all_reduce",
          AR.RECURSIVE_DOUBLING, "allreduce.py:158",
          lambda: ar.all_reduce(x(), ar.create_allreduce_context(
              method=AR.RECURSIVE_DOUBLING)),
-         lambda: ar.all_reduce_reference(x())),
+         lambda: ar.all_reduce_world_reference(x(), AR.RECURSIVE_DOUBLING)),
         ("all_reduce[two_shot]", "all_reduce", AR.TWO_SHOT, "allreduce.py:193",
          lambda: ar.all_reduce(x(), ar.create_allreduce_context(
-             method=AR.TWO_SHOT)), lambda: ar.all_reduce_reference(x())),
+             method=AR.TWO_SHOT)),
+         lambda: ar.all_reduce_world_reference(x(), AR.TWO_SHOT)),
         ("reduce_scatter[ring]", "reduce_scatter", RS.RING,
          "reduce_scatter.py:92",
          lambda: rs.reduce_scatter(x(), rs.create_reduce_scatter_context(
-             method=RS.RING)), lambda: rs.reduce_scatter_reference(x())),
+             method=RS.RING)),
+         lambda: rs.reduce_scatter_world_reference(x(), RS.RING)),
         ("reduce_scatter[one_shot]", "reduce_scatter", RS.ONE_SHOT,
          "reduce_scatter.py:150",
          lambda: rs.reduce_scatter(x(), rs.create_reduce_scatter_context(
-             method=RS.ONE_SHOT)), lambda: rs.reduce_scatter_reference(x())),
+             method=RS.ONE_SHOT)),
+         lambda: rs.reduce_scatter_world_reference(x(), RS.ONE_SHOT)),
         ("broadcast", "broadcast", None, "allgather.py:218",
          lambda: agk.broadcast(x()[0]),
          lambda: agk.broadcast_reference(x()[0]))]
@@ -4877,6 +4905,319 @@ def mrr_kernels_line(records, launches) -> list:
     return out
 
 
+#: Phase 26: the world-W reduce-scatter and all-reduce at Qwen3-8B's
+#: hidden 4096 (TP world 4: decode 4 rows, prefill 4 x 128 = 512 rows; at
+#: W = 3 and 8, where 4 or 512 rows do not split, 6 or 8 and 513 rows).
+ARW_WORLDS = (2, 3, 4, 8)
+ARW_CASES = (("all_reduce", "one_shot"), ("all_reduce", "two_shot"),
+             ("all_reduce", "recursive_doubling"),
+             ("reduce_scatter", "ring"), ("reduce_scatter", "one_shot"))
+ARW_REPLACES = {
+    ("all_reduce", "one_shot"): "triton_dist_tpu/ops/allreduce.py:114",
+    ("all_reduce", "recursive_doubling"):
+        "triton_dist_tpu/ops/allreduce.py:158",
+    ("all_reduce", "two_shot"): "triton_dist_tpu/ops/allreduce.py:193",
+    ("reduce_scatter", "ring"): "triton_dist_tpu/ops/reduce_scatter.py:92",
+    ("reduce_scatter", "one_shot"):
+        "triton_dist_tpu/ops/reduce_scatter.py:150"}
+
+
+def arw_rows(world: int) -> dict:
+    """Phase 26's row counts at ``world``: decode and prefill."""
+    return {"decode": 4 if 4 % world == 0 else (6 if world == 3 else 8),
+            "prefill": 512 if 512 % world == 0 else 513}
+
+
+def arw_bound_ms(op: str, world: int, m: int, n: int, itemsize: int):
+    """Least ms of one call over every rank: the W partials read once and
+    the output written once (the all-reduce's W copies, the
+    reduce-scatter's one (M, N)), over HBM."""
+    out = world if op == "all_reduce" else 1
+    return (world + out) * m * n * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def arw_plain(ar, rs, x, op: str, method: str):
+    if op == "all_reduce":
+        return ar.all_reduce_world_reference(x, ar.AllReduceMethod(method))
+    return rs.reduce_scatter_world_reference(
+        x, rs.ReduceScatterMethod(method))
+
+
+def arw_context(ar, rs, op: str, method: str, group, straggler=None):
+    if op == "all_reduce":
+        return ar.create_allreduce_context(
+            method=ar.AllReduceMethod(method), group=group,
+            straggler_option=straggler)
+    return rs.create_reduce_scatter_context(
+        method=rs.ReduceScatterMethod(method), group=group)
+
+
+def arw_call(ar, rs, x, ctx, op: str, stacked: bool = True):
+    """The op's entry on ``x`` (the all-reduce stacked: every copy)."""
+    if op == "all_reduce":
+        return ar.all_reduce(x, ctx, stacked=stacked)
+    return rs.reduce_scatter(x, ctx)
+
+
+def arw_method(ar, rs, ctx, x, op: str) -> str:
+    """The method the entry runs on ``x`` (JAX's fix-ups at W = 3)."""
+    m, n = x.shape[1], x.shape[2]
+    if op == "all_reduce":
+        return ar.resolve_method(ctx, m, m * n * x.element_size()).value
+    return ctx.resolve_method(m // x.shape[0] * n * x.element_size()).value
+
+
+def phase_arw_kernels(torch, ar, rs, rd, card: str) -> list:
+    """Phase 26 (a): the world-W reduce-scatter and all-reduce
+    (``csrc/reduce_world.cu``) at W = 2, 3, 4, 8, every method, bf16 and
+    f32, at the decode and prefill rows of :func:`arw_rows` and Qwen3-8B's
+    hidden 4096, partials of rank r drawn at scale 4^r: the entry's output
+    (every rank's copy of the all-reduce) and a launch into a NaN-filled
+    buffer bit-equal to the plain version, a repeat bit-identical, every
+    copy bit-equal, the workspace's NaN canaries (row tails, a one-shot
+    rank's own stage slot) intact, a straggling rank (JAX's
+    straggler_option) changing no bit, and a skipped push (its signal
+    still set) over a NaN-filled workspace refused. Then the W = 4 bf16
+    cases timed (:func:`queued_ms`, each call on the next of 8 inputs:
+    128 MiB at prefill, more than the L2) beside the bound, one
+    ``torch.sum(x, 0)``, impl "xla", the plain version and the world-1
+    copy at the same per-rank shape. Returns the JSON records with their
+    launch keys, ``launches`` to fill from :func:`phase_arw_main`."""
+    print("== phase 26: world-W reduce-scatter and all-reduce kernels vs "
+          "their plain versions", flush=True)
+    t0 = time.perf_counter()
+    n, nan, cases = 4096, float("nan"), 0
+    for world in ARW_WORLDS:
+        group = rd.create_rank_group(world, device="cuda")
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for name, m in arw_rows(world).items():
+                gen = torch.Generator(device="cuda").manual_seed(260 + m)
+                scale = 4.0 ** torch.arange(world, device="cuda")
+                x = (torch.randn((world, m, n), generator=gen, device="cuda")
+                     * scale[:, None, None]).to(dtype)
+                for op, asked in ARW_CASES:
+                    ctx = arw_context(ar, rs, op, asked, group)
+                    method = arw_method(ar, rs, ctx, x, op)
+                    want = arw_plain(ar, rs, x, op, method)
+                    got = arw_call(ar, rs, x, ctx, op)
+                    shape = tuple(got.shape)
+                    out = rs.launch_reduce_world(
+                        x, ctx, op, method,
+                        out=torch.full(shape, nan, dtype=dtype,
+                                       device="cuda"))
+                    straggler = (world - 1, 100_000)
+                    if op == "all_reduce":         # JAX's straggler_option
+                        ctx.straggler_option = straggler
+                        late = arw_call(ar, rs, x, ctx, op)
+                        ctx.straggler_option = None
+                    else:
+                        late = rs.launch_reduce_world(x, ctx, op, method,
+                                                      straggler=straggler)
+                    copies = list(got) if op == "all_reduce" else [got]
+                    exact = all(torch.equal(bits(torch, c), bits(torch, want))
+                                for c in copies)
+                    same = (torch.equal(bits(torch, out), bits(torch, got))
+                            and torch.equal(bits(torch, late),
+                                            bits(torch, got)))
+                    kind = rs.KINDS[(op, method)]
+                    ws, _ = rs.world_buffers(x, ctx.state, kind)
+                    live = rs._lib().tdt_reduce_world_workspace(kind, world,
+                                                                m * n)
+                    canary = bool(ws[:, live:].isnan().all())
+                    if method == "one_shot":
+                        unit = live // world
+                        canary = canary and all(
+                            bool(ws[r, r * unit:(r + 1) * unit].isnan().all())
+                            for r in range(world))
+                    ws.fill_(nan)
+                    bad = rs.launch_reduce_world(x, ctx, op, method,
+                                                 fault=True)
+                    refused = bool(bad.isnan().any())
+                    check(exact and same and canary and refused,
+                          f"{op} W={world} {asked} (ran {method}) {dt} {name}"
+                          f" ({m} rows): bit-equal {exact}, repeat / "
+                          f"straggler {same}, canaries {canary}, fault "
+                          f"refused {refused}")
+                    cases += 1
+                    del ctx, ws, got, out, late, bad, want
+                del x
+    torch.cuda.empty_cache()
+    print(f"world-W all_reduce (one_shot, two_shot, recursive_doubling) and "
+          f"reduce_scatter (ring, one_shot) at W = {ARW_WORLDS}, bf16 and "
+          f"f32, N = {n}, rows {[arw_rows(w) for w in ARW_WORLDS]} (W = 3: "
+          f"recursive doubling runs one-shot, two-shot runs one-shot on 513 "
+          f"rows, JAX's rules): {cases} cases bit-equal to the plain "
+          f"versions, every copy, repeats and a straggling rank bit-identical"
+          f", canaries intact, a skipped push refused "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+
+    world = TP_WORLD
+    group = rd.create_rank_group(world, device="cuda")
+    records = []
+    for name, m in arw_rows(world).items():
+        xs = [torch.randn((world, m, n), device="cuda").bfloat16()
+              for _ in range(8)]
+        nxt = rotating(xs)
+        lib_ms = queued_ms(torch, lambda: torch.sum(nxt(), 0))
+        for op, method in ARW_CASES:
+            ctx = arw_context(ar, rs, op, method, group)
+            one = arw_context(ar, rs, op, method, None)
+            check(arw_method(ar, rs, ctx, xs[0], op) == method,
+                  f"{op} {method} at W={world} {name} runs another method")
+            ms = queued_ms(torch, lambda: arw_call(ar, rs, nxt(), ctx, op,
+                                                   stacked=False))
+            xla_ms = queued_ms(torch, lambda: (
+                ar.all_reduce(nxt(), ctx, impl="xla") if op == "all_reduce"
+                else rs.reduce_scatter(nxt(), ctx, impl="xla")))
+            plain_ms = queued_ms(torch, lambda: arw_plain(ar, rs, nxt(), op,
+                                                          method),
+                                 may_wait=True)
+            w1_ms = queued_ms(torch, lambda: arw_call(ar, rs, nxt()[:1], one,
+                                                      op, stacked=False))
+            bnd = arw_bound_ms(op, world, m, n, 2)
+            grid, resident = rs.world_grid(xs[0], op, method)
+            print(f"kernel {op}_world[{method}] W={world} bf16 {name} "
+                  f"({world}, {m}, {n}): ms={ms:.5f} bound_ms={bnd:.5f} "
+                  f"(bytes) torch_sum_ms={lib_ms:.5f} xla_ms={xla_ms:.5f} "
+                  f"plain_ms={plain_ms:.5f} w1_ms={w1_ms:.5f} (the world-1 "
+                  f"copy of one ({m}, {n}) partial); grid {grid} of "
+                  f"{resident} resident blocks; times by CUDA events around "
+                  f"queued calls [{card}]", flush=True)
+            records.append(({
+                "name": f"{op}_world[{method},{name}]", "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/reduce_world.cu",
+                "replaces": ARW_REPLACES[(op, method)],
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms,
+                "library": "torch.sum(x, 0)", "xla_ms": xla_ms,
+                "w1_ms": w1_ms,
+                "wall_ms": wall_ms(torch, lambda: arw_call(
+                    ar, rs, xs[0], ctx, op, stacked=False)),
+                "shape": [world, m, n], "ok": True},
+                (op, (method, world, m, n, "bfloat16"))))
+            del ctx, one
+        del xs
+    torch.cuda.empty_cache()
+    print(f"phase 26 (kernels) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return records
+
+
+def phase_arw_main(torch, ar, rs, agk, rd, cfg, model, params, square,
+                   card: str) -> dict:
+    """Phase 26 (b), this slice's main path: layer 0 of Qwen3-8B at TP
+    world 4. Its MLP inputs of the served prompts (4 x 128 = 512 prefill
+    rows through the world-4 model in mode "xla", then the 4 rows of the
+    first decode step) make each rank's down-projection partial as
+    ``TPMLP._xla_fwd``'s body computes it (gate and up column shards in
+    f32, the SwiGLU rounded once, the down row shard's product rounded),
+    stacked to (4, M, 4096); their ``group.psum`` must equal the layer's
+    own mode-"xla" output. Every count set to 0 just before: the decode
+    and prefill partials through ``all_reduce(impl="pallas")`` in each
+    method and through ``reduce_scatter(impl="pallas")`` in both, one
+    world-W launch a call and no copy-kernel or all-gather launch; each
+    output within W bf16 ulps of the partials' magnitudes summed
+    (2^-7 W sum_r |p_r|: it rounds W - 1 times, the psum once) of
+    ``group.psum``. Returns the launches by op and key."""
+    t0 = time.perf_counter()
+    world = TP_WORLD
+    group = rd.create_rank_group(world, device="cuda")
+    from triton_dist_tpu_torch.models import KVCacheManager
+    layer0 = params["layers"][0]
+    seen = []
+    ffn = model._ffn
+
+    def spy(lp, h, mode):
+        if lp is layer0:
+            seen.append(h)
+        return ffn(lp, h, mode)
+    model._ffn = spy
+    try:
+        ids = torch.tensor(square, device="cuda")
+        kv = KVCacheManager(cfg.num_hidden_layers, 4, 1024,
+                            cfg.num_key_value_heads, cfg.head_dim,
+                            dtype=cfg.dtype, device="cuda",
+                            world=world).init()
+        with torch.no_grad():
+            logits, kv = model.forward(params, ids, kv, 0, mode="xla")
+            tok = logits[:, -1].argmax(-1)[:, None]
+            model.forward(params, tok, kv, ids.shape[1], mode="xla")
+    finally:
+        del model._ffn
+    hidden = {"prefill": seen[0], "decode": seen[1]}
+    mlp = layer0["mlp"]
+    shards = [group.shard(mlp["w_gate"], 1), group.shard(mlp["w_up"], 1),
+              group.shard(mlp["w_down"], 0)]
+    partials = {}
+    for name, h in hidden.items():
+        parts = []
+        for r in range(world):
+            hf = h.float()
+            act = (torch.nn.functional.silu(hf @ shards[0][r].float())
+                   * (hf @ shards[1][r].float())).to(h.dtype)
+            parts.append((act.float() @ shards[2][r].float()).to(h.dtype))
+        partials[name] = torch.stack(parts)
+        ref = group.psum(parts)
+        check(torch.equal(ref, model.mlp(mlp, h, mode="xla")),
+              f"layer-0 {name} partials: their psum is not TPMLP's xla "
+              f"forward")
+    counters = {"all_reduce": ar.all_reduce_launches,
+                "reduce_scatter": rs.reduce_scatter_launches,
+                "all_gather": agk.all_gather_launches,
+                "broadcast": agk.broadcast_launches}
+    for c in counters.values():                        # ---- the main path
+        c.reset()
+    outs = []
+    for name, x in partials.items():
+        for op, method in ARW_CASES:
+            ctx = arw_context(ar, rs, op, method, group)
+            outs.append((name, op, method,
+                         arw_call(ar, rs, x, ctx, op, stacked=False)))
+    torch.cuda.synchronize()
+    totals = {k: c.total for k, c in counters.items()}
+    launches = {op: dict(counters[op].by_shape)
+                for op in ("all_reduce", "reduce_scatter")}
+    want = {"all_reduce": 6, "reduce_scatter": 4, "all_gather": 0,
+            "broadcast": 0}                            # ---- main path ends
+    check(totals == want, f"layer-0 collective path launches {totals}, "
+                          f"expected {want}")
+    check(all(len(key) == 5 and key[1] == world
+              for counts in launches.values() for key in counts),
+          f"a world-1 copy ran on the world-{world} path: {launches}")
+    for name, op, method, got in outs:
+        x = partials[name]
+        ref = group.psum(list(x))
+        parts_abs = x.float().abs().sum(0)
+        diff = (got.float() - ref.float()).abs()
+        share = (diff / (BF16_ULP_REL * world * parts_abs + 1e-30)).max()
+        check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+              f"{op} {method} {name}: non-finite or shape "
+              f"{tuple(got.shape)}")
+        check(share.item() <= 1.0,
+              f"{op} {method} {name}: differs from group.psum by "
+              f"{diff.max().item()} (beyond 2^-7 W sum_r |p_r|)")
+        print(f"layer-0 MLP partials (W={world}) {name} {tuple(x.shape)} "
+              f"through {op} ({method}): max abs diff from group.psum "
+              f"{diff.max().item():.4g}, largest share of the limit "
+              f"{share.item():.3f}, {(diff > 0).float().mean().item():.3f} "
+              f"of the outputs differ [{card}]", flush=True)
+    print(f"phase 26 path launches {totals}; by key {launches}; phase 26 "
+          f"(path) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def arw_kernels_line(records, launches) -> list:
+    """The records of phase 26 with their launches on its main path; each
+    must have run there."""
+    out = []
+    for rec, (op, key) in records:
+        rec = dict(rec, launches=launches[op].get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"layer-0 collective path")
+        out.append(rec)
+    return out
+
+
 def phase_records(torch, models, card: str, seed: int) -> None:
     """``--records`` (ROADMAP.md, Queue C item C6), in a fresh process:
     phase 5's decode step (Qwen3-8B, full width and depth, gemm_ar path)
@@ -5023,9 +5364,12 @@ def main() -> int:
     tp_model, ring_launches = phase_tp_main(torch, models, ag, ops, ops, cfg,
                                             params, base, card)
     phase_tp_checks(torch, ag, ops, tp_model, params, base[0], cfg, card)
-    del tp_model
     print(f"phase 17 took {t18 - t17:.1f} s, phase 18 "
           f"{time.perf_counter() - t18:.1f} s", flush=True)
+    arw_records = phase_arw_kernels(torch, ar, rs, rd, card)
+    arw_launches = phase_arw_main(torch, ar, rs, agk, rd, cfg, tp_model,
+                                  params, base[0], card)
+    del tp_model
     phase_sp_world_kernels(torch, fd, sp, rd, cfg, card)
     spw_launches, spw_engines = phase_sp_world_main(
         torch, models, fd, sp, ops, cfg, params, square, sp_tokens, card)
@@ -5035,6 +5379,7 @@ def main() -> int:
     kernels += phase_fd_kernels_line(torch, fd, fd_launches)
     kernels += ag_kernels_line(ag_records, ag_launches)
     kernels += ring_kernels_line(ring_records, ring_launches)
+    kernels += arw_kernels_line(arw_records, arw_launches)
     kernels += spw_fd_records(torch, fd, rd, spw_launches)
     del cfg, model, params, eng, prompts, base
     gc.collect()

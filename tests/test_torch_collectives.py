@@ -8,6 +8,9 @@ interpret mode) and ``impl="xla"``, and through the port, whose CPU path
 is the plain version of its copy kernel. At world = 1 every one of them
 is a copy, so the results are equal, bit for bit, in f32 and bf16. The
 copy kernel itself runs only on the card (``tests/test_torch_kernels.py``).
+World W is held to JAX in ``tests/test_torch_collectives_world.py``; here
+a world-2 call of each op runs its plain version and AUTO at world 4
+picks JAX's method.
 """
 
 import jax
@@ -124,21 +127,50 @@ def test_all_gather_refuses_the_broadcast_method_as_jax_does(mesh):
             method=ag.AllGatherMethod.BROADCAST))
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda: ar.all_reduce(torch.ones(2, 4, 4),
-                           ar.create_allreduce_context(world_size=2)),
-     "Queue B item 7"),
-    (lambda: ar.get_auto_allreduce_method(4, 64), "Queue B item 7"),
-    (lambda: rs.reduce_scatter(torch.ones(2, 4, 4),
-                               rs.create_reduce_scatter_context(
-                                   world_size=2)), "Queue B item 9"),
-    (lambda: rs.create_reduce_scatter_context(world_size=4).resolve_method(
-        64), "Queue B item 9"),
-], ids=["all_reduce_world2", "all_reduce_auto_world4",
-        "reduce_scatter_world2", "reduce_scatter_auto_world4"])
-def test_unported_worlds_raise_and_name_their_roadmap_item(call, match):
-    with pytest.raises(NotImplementedError, match=match):
-        call()
+def _world_cases(jspec):
+    """(got, want) pairs at world > 1: the CPU calls against their plain
+    versions, AUTO at world 4 against JAX's choice under one spec."""
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 4, 4).astype(
+        np.float32)).bfloat16()
+    jrs_ctx = jrs.ReduceScatterContext(
+        Mesh(np.array(jax.devices()[:4]), ("tp",)), "tp")
+    return {
+        "all_reduce_world2": lambda: (
+            ar.all_reduce(x, ar.create_allreduce_context(world_size=2)),
+            ar.all_reduce_world_reference(x, ar.AllReduceMethod.ONE_SHOT)),
+        "all_reduce_auto_world4": lambda: (
+            ar.get_auto_allreduce_method(4, 64).value,
+            jar.get_auto_allreduce_method(4, 64, jspec).value),
+        "reduce_scatter_world2": lambda: (
+            rs.reduce_scatter(x, rs.create_reduce_scatter_context(
+                world_size=2)),
+            rs.reduce_scatter_world_reference(
+                x, rs.ReduceScatterMethod.ONE_SHOT)),
+        "reduce_scatter_auto_world4": lambda: (
+            rs.create_reduce_scatter_context(world_size=4).resolve_method(
+                64).value,
+            jrs_ctx.resolve_method(64).value),
+    }
+
+
+@pytest.mark.parametrize("case", ["all_reduce_world2",
+                                  "all_reduce_auto_world4",
+                                  "reduce_scatter_world2",
+                                  "reduce_scatter_auto_world4"])
+def test_world_calls_run_their_plain_versions_and_auto_matches_jax(
+        case, monkeypatch):
+    from triton_dist_tpu.tools import perf_model as jpm
+    from triton_dist_tpu_torch.tools import perf_model as pm
+    spec = pm.H100_ONE_CARD
+    jspec = jpm.ChipSpec(spec.name, spec.bf16_tflops, spec.hbm_gbps,
+                         spec.ici_gbps_per_link, spec.ici_links)
+    # JAX's reduce-scatter choice reads its chip table.
+    monkeypatch.setattr(jpm, "get_chip_spec", lambda device=None: jspec)
+    got, want = _world_cases(jspec)[case]()
+    if isinstance(got, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    else:
+        assert got == want
 
 
 def test_bad_operands_raise():

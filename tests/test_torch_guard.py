@@ -383,7 +383,8 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
                                    "group_gemm", "moe_rs", "allgather",
                                    "sp_attention", "all_to_all",
                                    "ag_gemm_ring", "gemm_rs_ring",
-                                   "ag_group_gemm", "moe_rs_ring"}
+                                   "ag_group_gemm", "moe_rs_ring",
+                                   "reduce_world"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
 
 
@@ -492,8 +493,8 @@ def test_sp_attention_and_collectives_on_cuda_tensors_never_take_the_plain_path(
                       (sp, "_masked_pass"),
                       (ag, "all_gather_reference"),
                       (ag, "broadcast_reference"),
-                      (ar, "all_reduce_reference"),
-                      (rs, "reduce_scatter_reference"),
+                      (ar, "all_reduce_world_reference"),
+                      (rs, "reduce_scatter_world_reference"),
                       (fd, "flash_decode_reference")):
         monkeypatch.setattr(mod, name, lambda *_, **__: pytest.fail(
             "CUDA call took the plain version"))
@@ -907,4 +908,72 @@ def test_moe_rs_ring_source_targets_sm90a_through_cooperative_launches():
         assert atomic not in text             # fixed-order sums only
     for library in ("cublas", "cutlass::gemm::device", "torch/", "nccl",
                     "nvshmem"):
+        assert library not in text.lower()
+
+
+def test_world_collectives_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed world-4 calls of all_reduce (every
+    method) and reduce_scatter (every method) over a rank group reach the
+    world-W kernel's build and fail there instead of computing a plain
+    version on the CPU; a world-4 context without a group raises
+    ValueError first."""
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for mod, name in ((ar, "all_reduce_world_reference"),
+                      (rs, "reduce_scatter_world_reference")):
+        monkeypatch.setattr(mod, name, lambda *_, **__: pytest.fail(
+            "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    group = create_rank_group(4, device="cpu")
+    x = on_cuda(torch.zeros(4, 8, 64, dtype=torch.bfloat16))
+    calls = [lambda m=m: ar.all_reduce(x, ar.create_allreduce_context(
+        method=m, group=group)) for m in ar.AllReduceMethod]
+    calls += [lambda m=m: rs.reduce_scatter(
+        x, rs.create_reduce_scatter_context(method=m, group=group))
+        for m in rs.ReduceScatterMethod]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no build of reduce_world$"):
+            call()
+    with pytest.raises(ValueError, match="group"):
+        ar.all_reduce(x, ar.create_allreduce_context(world_size=4))
+    with pytest.raises(ValueError, match="group"):
+        rs.reduce_scatter(x, rs.create_reduce_scatter_context(world_size=4))
+
+
+def test_reduce_world_source_targets_sm90a_through_cooperative_launches():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["reduce_world"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and '#include "shmem.cuh"' in text
+    for entry in ("cudaLaunchCooperativeKernel", "tdt_signal_release",
+                  "tdt_signal_wait_until", "tdt_signal_acquire",
+                  "tdt_reduce_world_signals", "tdt_reduce_world_workspace",
+                  "tdt_reduce_world_grid", "tdt_reduce_scatter_world",
+                  "tdt_all_reduce_world", "tdt_error_string",
+                  # the TPU kernels it replaces
+                  "_ring_rs_kernel", "_one_shot_rs_kernel",
+                  "_one_shot_ar_kernel", "_recursive_doubling_ar_kernel",
+                  "_two_shot_ar_kernel"):
+        assert entry in text
+    for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+        assert atomic not in text             # fixed-order sums only
+    for library in ("cublas", "cutlass", "torch/", "nccl", "nvshmem"):
         assert library not in text.lower()

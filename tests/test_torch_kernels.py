@@ -1390,3 +1390,112 @@ def test_moe_rs_ring_grid_fits_the_card(cuda_device):
                 world, pairs, 128, i // world, h, dtype, i, h, i * h,
                 ctypes.byref(bpr)) == 0
             assert 1 <= bpr.value and world * bpr.value <= 132 * 8
+
+
+# -- slice 13: the world-W reduce-scatter and all-reduce (csrc/reduce_world.cu)
+RW_CASES = [("reduce_scatter", "ring"), ("reduce_scatter", "one_shot"),
+            ("all_reduce", "one_shot"), ("all_reduce", "two_shot"),
+            ("all_reduce", "recursive_doubling")]
+
+
+def _rw_partials(world, m, n, dtype, device, seed):
+    """(W, m, n) partials, rank r's at scale 4^r: the methods' rounding
+    points differ."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((world, m, n), generator=gen, device=device)
+    scale = 4.0 ** torch.arange(world, device=device, dtype=torch.float32)
+    return (x * scale[:, None, None]).to(dtype)
+
+
+def _rw_plain(x, op, method):
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    if op == "reduce_scatter":
+        return rs.reduce_scatter_world_reference(
+            x, rs.ReduceScatterMethod(method))
+    return ar.all_reduce_world_reference(x, ar.AllReduceMethod(method))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("op,method", RW_CASES)
+@pytest.mark.parametrize("world", [2, 3, 4, 8])
+def test_world_reduce_kernel_matches_plain_on_card(cuda_device, dtype, op,
+                                                   method, world):
+    """Every output (every rank's copy for the all-reduce), written into
+    NaN-filled buffers, bit-equal to the plain version; repeats
+    bit-identical; the workspace's canaries (the tail of each row, and a
+    one-shot rank's own stage slot) intact; a straggling rank changes no
+    bit; a skipped push (its signal set) over a NaN-filled workspace
+    shows in the output. Shapes: one row a rank, Qwen3-8B's 4096 wide; 32
+    rows a rank; 15-element chunks (the element-by-element path). At
+    W = 3 recursive doubling runs one-shot, as JAX's rule says."""
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    group = create_rank_group(world, device=cuda_device)
+    if op == "reduce_scatter":
+        ctx = rs.create_reduce_scatter_context(
+            method=rs.ReduceScatterMethod(method), group=group)
+        entry, count = rs.reduce_scatter, rs.reduce_scatter_launches
+    else:
+        ctx = ar.create_allreduce_context(
+            method=ar.AllReduceMethod(method), group=group)
+        entry, count = ar.all_reduce, ar.all_reduce_launches
+    if method == "recursive_doubling" and world == 3:
+        x = _rw_partials(world, 6, 64, dtype, cuda_device, 0)
+        key = ("one_shot", world, 6, 64, str(dtype).removeprefix("torch."))
+        before = count.by_shape[key]
+        got = entry(x, ctx)
+        torch.cuda.synchronize()
+        assert count.by_shape[key] == before + 1
+        assert torch.equal(_bits(got), _bits(_rw_plain(x, op, "one_shot")))
+        return
+    kind = rs.KINDS[(op, method)]
+    for i, (m, n) in enumerate([(world, 4096), (32 * world, 4096),
+                                (3 * world, 5)]):
+        x = _rw_partials(world, m, n, dtype, cuda_device, seed=world + i)
+        want = _rw_plain(x, op, method)
+        shape = (m, n) if op == "reduce_scatter" else (world, m, n)
+        out = torch.full(shape, float("nan"), dtype=dtype,
+                         device=cuda_device)
+        got = rs.launch_reduce_world(x, ctx, op, method, out=out)
+        before = count.total
+        again = (entry(x, ctx) if op == "reduce_scatter"
+                 else entry(x, ctx, stacked=True))
+        late = rs.launch_reduce_world(x, ctx, op, method,
+                                      straggler=(world - 1, 200_000))
+        torch.cuda.synchronize()
+        assert count.total == before + 1
+        copies = [got] if op == "reduce_scatter" else list(got)
+        assert got is out
+        assert all(torch.equal(_bits(c), _bits(want)) for c in copies)
+        assert torch.equal(_bits(again), _bits(got))
+        assert torch.equal(_bits(late), _bits(got))
+        ws, _ = rs.world_buffers(x, ctx.state, kind)
+        live = rs._lib().tdt_reduce_world_workspace(kind, world, m * n)
+        assert bool(ws[:, live:].isnan().all())           # canaries intact
+        if method == "one_shot":                          # own stage slots
+            unit = live // world
+            assert all(bool(ws[r, r * unit:(r + 1) * unit].isnan().all())
+                       for r in range(world))
+        ws.fill_(float("nan"))
+        bad = rs.launch_reduce_world(x, ctx, op, method, fault=True)
+        torch.cuda.synchronize()
+        assert bool(bad.isnan().any())                    # fault refused
+
+
+@pytest.mark.cuda
+def test_world_reduce_grid_fits_the_card(cuda_device):
+    """The launch is one block an item, never more than the card holds at
+    once (the cooperative launch fails otherwise)."""
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for world in (2, 4, 8):
+        for m in (4 * world, 512 * world):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.empty((world, m, 4096), dtype=dtype,
+                                device=cuda_device)
+                for op, method in RW_CASES:
+                    grid, resident = rs.world_grid(x, op, method)
+                    assert 1 <= grid <= resident <= 32 * sms

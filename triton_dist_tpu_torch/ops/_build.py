@@ -35,7 +35,8 @@ SOURCES = {"gemm_ar": CSRC_DIR / "gemm_ar.cu",
            "ag_gemm_ring": CSRC_DIR / "ag_gemm_ring.cu",
            "gemm_rs_ring": CSRC_DIR / "gemm_rs_ring.cu",
            "ag_group_gemm": CSRC_DIR / "ag_group_gemm.cu",
-           "moe_rs_ring": CSRC_DIR / "moe_rs_ring.cu"}
+           "moe_rs_ring": CSRC_DIR / "moe_rs_ring.cu",
+           "reduce_world": CSRC_DIR / "reduce_world.cu"}
 #: The headers the sources include (``csrc/*.cuh``).
 HEADERS = sorted(CSRC_DIR.glob("*.cuh"))
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")

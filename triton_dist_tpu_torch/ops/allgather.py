@@ -103,21 +103,26 @@ class AllGatherContext:
                                                 repr=False)
 
     def __post_init__(self):
-        if self.group is not None:
-            if self.world_size not in (1, self.group.world):
-                raise ValueError(f"world_size {self.world_size} and a group "
-                                 f"of {self.group.world} ranks disagree")
-            self.world_size = self.group.world
-            self.state = RingState(self.group)
-        if self.world_size < 1:
-            raise ValueError(f"world_size must be >= 1, got "
-                             f"{self.world_size}")
+        self.state = world_state(self, self.group)
 
     def resolve_method(self, nbytes_per_rank: int) -> AllGatherMethod:
         if self.method is AllGatherMethod.AUTO:
             return get_auto_all_gather_method(self.world_size,
                                               nbytes_per_rank)
         return self.method
+
+
+def world_state(ctx, group: RankGroup | None) -> RingState | None:
+    """A collective context's world-W kernel state over ``group``, which
+    sets ``ctx.world_size`` (``None``: no state, the plain versions)."""
+    if group is not None:
+        if ctx.world_size not in (1, group.world):
+            raise ValueError(f"world_size {ctx.world_size} and a group of "
+                             f"{group.world} ranks disagree")
+        ctx.world_size = group.world
+    if ctx.world_size < 1:
+        raise ValueError(f"world_size must be >= 1, got {ctx.world_size}")
+    return RingState(group) if group is not None else None
 
 
 def create_allgather_context(axis: str = "tp",
