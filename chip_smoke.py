@@ -280,12 +280,34 @@ without the final line:
     each method and ``reduce_scatter`` in both, one world-W launch a call,
     no copy-kernel launch, each output within W bf16 ulps of the
     partials' magnitudes of ``group.psum``.
+27. the pipeline shift and the KV ship hop (``csrc/p2p.cu``), while
+    Qwen3-8B's weights are loaded: (a) ``pp_shift(impl="pallas")`` and
+    ``symm_ship`` at W = 2, 3, 4, 8 and delta in {1, -1, W + 1,
+    -(W + 2)}, on the decode hop (W x 4, 4096) and the prefill hop
+    (W x 512, 4096) in bf16 and f32, one Qwen3-8B KV block as bytes
+    (4,718,592) and a W x 37-byte payload: both entries, a launch into a
+    NaN- (0xFF-) filled buffer and a repeat bit-equal to the plain roll, a
+    skipped piece (its signal still set) refused; the W = 4 cases timed
+    beside the bound (2 W C bytes), one ``torch.roll(x.view(W, -1), 1,
+    0)`` and the plain version. (b) the main path, every count set to 0
+    just before: Qwen3-8B as a 4-stage pipeline,
+    ``pipeline_forward(impl="pallas")`` over ``RankGroup(4, "pp")``,
+    stage s running layers 9s..9s+8 through ``DenseLLM.decoder_layer``
+    in mode ag_rs with fresh caches, on phase 3's 4 x 128 prompts: 4
+    shift launches, logits bit-equal to ``DenseLLM.forward``'s prefill,
+    wall time beside the sequential prefill's (not gated); ``CommOp``
+    sends the decode rows once (one launch, bit-equal). (c) a paged sp
+    engine serves one prompt (8 blocks of 16); each block packed from its
+    pools (``pack_block``), shipped by +1 (JAX's rotation of the W
+    shards) and back by -1 through ``symm_ship`` over ``RankGroup(4,
+    "tp")``: 16 launches, the bytes and ``unpack_block``'s pages equal to
+    the pool's.
 
 Phases 7-15 run between phases 5 and 6 (14-15 after the Qwen3-8B
-release, before the Qwen3-30B-A3B load), phases 17-20 and 26 after phase
-11 (before that release; 26 right after 18), phase 21 after phase 15,
-phase 16 after phase 13, phases 22-25 after phase 16; the JSON line
-covers all twelve slices.
+release, before the Qwen3-30B-A3B load), phases 17-20, 26 and 27 after
+phase 11 (before that release; 26 right after 18, 27 right after 26),
+phase 21 after phase 15, phase 16 after phase 13, phases 22-25 after
+phase 16; the JSON line covers all thirteen slices.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits with code 2 and prints no result.
@@ -5218,6 +5240,306 @@ def arw_kernels_line(records, launches) -> list:
     return out
 
 
+# -- phase 27: the pipeline shift and the KV ship hop (csrc/p2p.cu) ---------
+P2P_WORLDS = (2, 3, 4, 8)
+#: Qwen3-8B's layers split into this many pipeline stages in phase 27.
+PP_STAGES = 4
+#: Bytes of one Qwen3-8B KV block as ``pack_block`` writes it: 36 layers x
+#: (k, v) x (16, 8, 128) f32.
+KV_BLOCK_BYTES = 36 * 2 * 16 * 8 * 128 * 4
+P2P_REPLACES = {"pp_shift": "triton_dist_tpu/ops/p2p.py:70",
+                "symm_ship": "triton_dist_tpu/serving/kv_stream.py:151"}
+
+
+def p2p_deltas(world: int) -> tuple:
+    """Phase 27's deltas: one hop each way, and beyond the world each way
+    (the ``span`` rule of ``shift_partners``)."""
+    return 1, -1, world + 1, -(world + 2)
+
+
+def p2p_inputs(torch, world: int, gen) -> dict:
+    """Phase 27 (a)'s inputs at ``world``: Qwen3-8B's decode hop (4 rows of
+    4096 a rank) and prefill hop (512 rows) in bf16 and f32, one KV block
+    as bytes and a W x 37-byte payload (shards off 16-byte alignment)."""
+    out = {}
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for name, rows in (("decode", 4), ("prefill", 512)):
+            out[f"{name}_{dt}"] = torch.randn(
+                (world * rows, 4096), generator=gen, device="cuda").to(dtype)
+    for name, n in (("kv_block", KV_BLOCK_BYTES), ("bytes37", world * 37)):
+        out[name] = torch.randint(0, 255, (n,), generator=gen, device="cuda",
+                                  dtype=torch.uint8)
+    return out
+
+
+def p2p_bound_ms(x) -> float:
+    """Least ms of one hop: every rank's block read once and written once
+    (2 W C bytes), over HBM."""
+    return 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+
+
+def phase_p2p_kernels(torch, p2p, ks, rd, card: str) -> list:
+    """Phase 27 (a): the shift kernel (``csrc/p2p.cu``) behind ``pp_shift``
+    and ``symm_ship`` at W = 2, 3, 4, 8 and every delta of
+    :func:`p2p_deltas`, on the inputs of :func:`p2p_inputs`: both entries,
+    a launch into a NaN-filled (0xFF-filled for bytes) buffer and a repeat
+    bit-equal to the plain roll, and rank 0's first piece skipped (its
+    signal still set) refused. Then the W = 4 cases timed
+    (:func:`queued_ms`) beside the bound, one ``torch.roll(x.view(W, -1),
+    delta, 0)`` and the plain version. Returns the JSON records of the
+    main path's shapes with their launch keys (entry, key)."""
+    print("== phase 27: the pipeline shift and the KV ship hop vs the plain "
+          "roll", flush=True)
+    t0 = time.perf_counter()
+    cases = 0
+    for world in P2P_WORLDS:
+        gen = torch.Generator(device="cuda").manual_seed(270 + world)
+        ctx = p2p.create_p2p_context(rd.create_rank_group(world, "pp",
+                                                          device="cuda"))
+        ship = rd.create_rank_group(world, "tp", device="cuda")
+        for name, x in p2p_inputs(torch, world, gen).items():
+            fill = 255 if x.dtype == torch.uint8 else float("nan")
+            for delta in p2p_deltas(world):
+                want = p2p.pp_shift_reference(x, world, delta)
+                got = p2p.pp_shift(x, ctx, delta=delta)
+                shipped = ks.symm_ship(x, ship, delta=delta)
+                into = p2p.launch_shift(x, ctx, delta, p2p.pp_shift_launches,
+                                        out=torch.full_like(x, fill))
+                again = p2p.pp_shift(x, ctx, delta=delta)
+                bad = p2p.launch_shift(x, ctx, delta, p2p.pp_shift_launches,
+                                       out=torch.full_like(x, fill),
+                                       fault=True)
+                exact = all(torch.equal(bits(torch, t), bits(torch, want))
+                            for t in (got, shipped, into, again))
+                refused = not torch.equal(bits(torch, bad), bits(torch, want))
+                check(exact and refused,
+                      f"shift W={world} {name} delta={delta}: bit-equal "
+                      f"{exact}, fault refused {refused}")
+                cases += 1
+                del want, got, shipped, into, again, bad
+        del ctx
+    torch.cuda.empty_cache()
+    print(f"shift kernel through pp_shift and symm_ship at W = {P2P_WORLDS},"
+          f" deltas (1, -1, W + 1, -(W + 2)), decode / prefill hops bf16 and "
+          f"f32, a KV block and W x 37 bytes: {cases} cases bit-equal to the "
+          f"plain roll (into NaN- / 0xFF-filled buffers, repeats), a skipped "
+          f"piece refused ({time.perf_counter() - t0:.1f} s) [{card}]",
+          flush=True)
+
+    world = TP_WORLD
+    ctx = p2p.create_p2p_context(rd.create_rank_group(world, "pp",
+                                                      device="cuda"))
+    ship = rd.create_rank_group(world, "tp", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(279)
+    records = []
+    for name, x in p2p_inputs(torch, world, gen).items():
+        if name == "bytes37":
+            continue
+        entry = "symm_ship" if name == "kv_block" else "pp_shift"
+        if entry == "symm_ship":
+            def call():
+                return ks.symm_ship(x, ship, delta=1)
+        else:
+            def call():
+                return p2p.pp_shift(x, ctx, delta=1)
+        ms = queued_ms(torch, call)
+        plain_ms = queued_ms(torch, lambda: p2p.pp_shift_reference(x, world,
+                                                                   1))
+        lib_ms = queued_ms(torch, lambda: torch.roll(x.view(world, -1), 1, 0))
+        bnd = p2p_bound_ms(x)
+        grid, resident = p2p.shift_grid(x, world)
+        chunk = x.numel() * x.element_size() // world
+        rows = x.shape[0] // world
+        print(f"kernel {entry}[{name}] W={world} {tuple(x.shape)} "
+              f"{str(x.dtype).removeprefix('torch.')}: ms={ms:.5f} "
+              f"bound_ms={bnd:.5f} (bytes) torch_roll_ms={lib_ms:.5f} "
+              f"plain_ms={plain_ms:.5f}; grid {grid} of {resident} resident "
+              f"blocks, {p2p._lib().tdt_shift_signals(chunk, world)} pieces "
+              f"a rank; times by CUDA events around queued calls [{card}]",
+              flush=True)
+        if name.endswith("_f32"):                  # off the main path
+            continue
+        records.append(({
+            "name": f"{entry}[{name.removesuffix('_bf16')}]",
+            "route": "cuda", "source": "triton_dist_tpu_torch/csrc/p2p.cu",
+            "replaces": P2P_REPLACES[entry], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
+            "library_ms": lib_ms, "library": "torch.roll(x.view(W, -1), 1, 0)",
+            "wall_ms": wall_ms(torch, call),
+            "shape": list(x.shape), "ok": True},
+            (entry, (world, rows, chunk // rows))))
+    del ctx
+    torch.cuda.empty_cache()
+    print(f"phase 27 (kernels) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return records
+
+
+def phase_p2p_main(torch, models, p2p, ks, lp, rd, cfg, model, params,
+                   square, card: str) -> dict:
+    """Phase 27 (b, c), this slice's main path, every count set to 0 just
+    before: (b) Qwen3-8B (phase 3's params) as a 4-stage pipeline,
+    ``pipeline_forward(stage_fn, x, group=RankGroup(4, "pp"),
+    impl="pallas")``, stage s running decoder layers 9s..9s+8 through
+    ``DenseLLM.decoder_layer`` in mode ag_rs (the world-1 kernels) with
+    fresh contiguous caches on every call, on phase 3's 4 x 128 prompts
+    embedded (rank 0's block; the others zeros): exactly 4 shift launches,
+    and the final norm and f32 LM head of rank 0's block bit-equal to
+    ``DenseLLM.forward``'s prefill logits in mode ag_rs; its wall time
+    beside the sequential prefill's (not gated); then ``CommOp`` sends and
+    receives the decode rows (W x 4, 4096) once, bit-equal to the plain
+    roll. (c) a world-1 paged sp engine (page 16) serves one of the
+    prompts (128 tokens: 8 blocks); ``pack_block`` packs each block from
+    its pools over all 36 layers, ``symm_ship(group=RankGroup(4, "tp"))``
+    moves it by +1 (equal to the plain rotation, JAX's semantics) and back
+    by -1: 16 launches, the round trip's bytes equal to the packed bytes
+    and ``unpack_block`` of them equal to the pool's pages. Returns the
+    launches by entry and key."""
+    t0 = time.perf_counter()
+    world = PP_STAGES
+    group = rd.create_rank_group(world, "pp", device="cuda")
+    ids = torch.tensor(square, device="cuda")
+    b, s = ids.shape
+    layers = cfg.num_hidden_layers
+    per = layers // world
+
+    def caches(n):
+        return models.KVCacheManager(n, b, s, cfg.num_key_value_heads,
+                                     cfg.head_dim, dtype=cfg.dtype,
+                                     device="cuda").init()
+
+    pos = torch.arange(s, device="cuda")[None].expand(b, s)
+
+    def stage_fn(stage, h):
+        kv = caches(per)
+        for i, layer in enumerate(params["layers"][stage * per:
+                                                   (stage + 1) * per]):
+            h = model.decoder_layer(layer, h, pos, kv[i], 0, "ag_rs")
+        return h
+
+    from triton_dist_tpu_torch.layers.common import rms_norm
+    x = params["embed"][ids].reshape(b * s, cfg.hidden_size)
+    x0 = torch.cat([x, x.new_zeros(((world - 1) * b * s, cfg.hidden_size))])
+
+    def pipelined():
+        h = lp.pipeline_forward(stage_fn, x0, group, impl="pallas")
+        out = rms_norm(h[:b * s], params["final_norm"], cfg.rms_norm_eps)
+        return (out.float() @ params["lm_head_f32"].t()).reshape(
+            b, s, cfg.vocab_size)
+
+    def sequential():
+        return model.forward(params, ids, caches(layers), 0,
+                             mode="ag_rs")[0]
+
+    sp_model = models.DenseLLM(cfg, sp_axis="sp")
+    eng = models.Engine(sp_model, batch=1, max_seq=1024, prefill_mode="sp",
+                        decode_mode="sp", paged=True, page_size=FD_PAGE)
+    with torch.no_grad():
+        sequential()                                   # warm-up
+        pipelined()
+        eng.serve(params, [square[0]], 1)
+        counters = {"pp_shift": p2p.pp_shift_launches,
+                    "symm_ship": ks.symm_ship_launches}
+        for c in counters.values():                    # ---- the main path
+            c.reset()
+        want, seq_ms = sync_time(torch, sequential)
+        got, pipe_ms = sync_time(torch, pipelined)
+        check(p2p.pp_shift_launches.total == world
+              and ks.symm_ship_launches.total == 0,
+              f"pipeline: {p2p.pp_shift_launches.total} shift and "
+              f"{ks.symm_ship_launches.total} ship launches, expected "
+              f"{world} and 0")
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"pipeline logits non-finite or shape {tuple(got.shape)}")
+        same = torch.equal(got, want)
+        diff = (got - want).abs().max().item()
+        check(same, f"pipeline logits differ from the sequential prefill by "
+                    f"{diff}")
+        print(f"Qwen3-8B as a {world}-stage pipeline ({per} layers a stage, "
+              f"mode ag_rs, 4 x 128 prompts): logits {tuple(got.shape)} "
+              f"bit-equal to DenseLLM.forward's prefill; {world} shift "
+              f"launches; wall {pipe_ms:.1f} ms against the sequential "
+              f"prefill's {seq_ms:.1f} ms ({pipe_ms / seq_ms:.2f}x: every "
+              f"tick runs all {world} stages, as JAX's does) [{card}]",
+              flush=True)
+        del want, got
+        op = lp.CommOp(group=group)
+        rows = torch.randn((world * 4, cfg.hidden_size),
+                           device="cuda").to(cfg.dtype)
+        op.send(rows)
+        check(torch.equal(bits(torch, op.recv()), bits(
+            torch, p2p.pp_shift_reference(rows, world, 1))),
+            "CommOp's hop differs from the plain roll")
+        check(p2p.pp_shift_launches.total == world + 1,
+              f"CommOp: {p2p.pp_shift_launches.total - world} launches")
+        print(f"CommOp: the decode rows {tuple(rows.shape)} sent and "
+              f"received through one launch, bit-equal to the plain roll",
+              flush=True)
+
+        seen = []
+        forward = sp_model.forward
+
+        def spy(*args, **kw):
+            seen.append(args[2])
+            return forward(*args, **kw)
+        sp_model.forward = spy
+        try:
+            eng.serve(params, [square[0]], 1)
+        finally:
+            del sp_model.forward
+        pools = seen[0]
+        table = eng.kv.block_table()
+        n_blocks = ks.block_span(len(square[0]), eng.kv.page_size)
+        ship = rd.create_rank_group(world, "tp", device="cuda")
+        shape = pools[0][0].shape[1:]
+        for j, s_ in ks.ship_schedule(n_blocks, 0):
+            slot = int(table[0, 0, j])
+            pages = [(pk[slot], pv[slot]) for pk, pv in pools]
+            data = ks.pack_block(pages)
+            check(len(data) == layers * 2 * shape.numel() * 4,
+                  f"block {j}: {len(data)} packed bytes")
+            staged = torch.frombuffer(bytearray(data), dtype=torch.uint8
+                                      ).to("cuda")
+            moved = ks.symm_ship(staged, ship, delta=1)
+            back = ks.symm_ship(moved, ship, delta=-1)
+            check(torch.equal(moved, p2p.pp_shift_reference(staged, world,
+                                                            1)),
+                  f"block {j} (seq {s_}): the hop is not JAX's rotation")
+            back_bytes = back.cpu().numpy().tobytes()
+            check(back_bytes == data, f"block {j}: round trip changed bytes")
+            for (k, v), (pk, pv) in zip(ks.unpack_block(back_bytes, layers,
+                                                        shape), pages):
+                check(torch.equal(k, pk.float().cpu())
+                      and torch.equal(v, pv.float().cpu()),
+                      f"block {j}: unpacked pages differ from the pool's")
+        torch.cuda.synchronize()
+        check(ks.symm_ship_launches.total == 2 * n_blocks and n_blocks == 8,
+              f"KV ship: {ks.symm_ship_launches.total} launches for "
+              f"{n_blocks} blocks")
+        print(f"KV ship: a served 128-token prompt's {n_blocks} blocks of "
+              f"{len(data)} bytes packed from the paged pools, shipped "
+              f"by +1 (JAX's rotation of the {world} shards) and back by -1 "
+              f"through {ks.symm_ship_launches.total} launches, bytes and "
+              f"unpacked pages equal to the pool's [{card}]", flush=True)
+    launches = {k: dict(c.by_shape) for k, c in counters.items()}
+    print(f"phase 27 path launches {launches}; phase 27 (path) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del eng, sp_model
+    return launches
+
+
+def p2p_kernels_line(records, launches) -> list:
+    """The records of phase 27 with their launches on its main path; each
+    must have run there."""
+    out = []
+    for rec, (entry, key) in records:
+        rec = dict(rec, launches=launches[entry].get(key, 0))
+        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
+                                   f"pipeline / KV ship path")
+        out.append(rec)
+    return out
+
+
 def phase_records(torch, models, card: str, seed: int) -> None:
     """``--records`` (ROADMAP.md, Queue C item C6), in a fresh process:
     phase 5's decode step (Qwen3-8B, full width and depth, gemm_ar path)
@@ -5319,6 +5641,9 @@ def main() -> int:
     from triton_dist_tpu_torch.ops import all_to_all as a2a
     from triton_dist_tpu_torch.ops import moe_utils as mu
     from triton_dist_tpu_torch.runtime import dist as rd
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.layers import p2p as pipe
+    from triton_dist_tpu_torch.serving import kv_stream as kvs
 
     print("== phase 1: setup", flush=True)
     card = card_line()
@@ -5370,6 +5695,11 @@ def main() -> int:
     arw_launches = phase_arw_main(torch, ar, rs, agk, rd, cfg, tp_model,
                                   params, base[0], card)
     del tp_model
+    t27 = time.perf_counter()
+    p2p_records = phase_p2p_kernels(torch, p2p, kvs, rd, card)
+    p2p_launches = phase_p2p_main(torch, models, p2p, kvs, pipe, rd, cfg,
+                                  model, params, base[0], card)
+    print(f"phase 27 took {time.perf_counter() - t27:.1f} s", flush=True)
     phase_sp_world_kernels(torch, fd, sp, rd, cfg, card)
     spw_launches, spw_engines = phase_sp_world_main(
         torch, models, fd, sp, ops, cfg, params, square, sp_tokens, card)
@@ -5380,6 +5710,7 @@ def main() -> int:
     kernels += ag_kernels_line(ag_records, ag_launches)
     kernels += ring_kernels_line(ring_records, ring_launches)
     kernels += arw_kernels_line(arw_records, arw_launches)
+    kernels += p2p_kernels_line(p2p_records, p2p_launches)
     kernels += spw_fd_records(torch, fd, rd, spw_launches)
     del cfg, model, params, eng, prompts, base
     gc.collect()

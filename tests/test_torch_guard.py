@@ -384,7 +384,7 @@ def test_build_dir_and_sources_are_set_up_for_git_and_packaging():
                                    "sp_attention", "all_to_all",
                                    "ag_gemm_ring", "gemm_rs_ring",
                                    "ag_group_gemm", "moe_rs_ring",
-                                   "reduce_world"}
+                                   "reduce_world", "p2p"}
     assert set(_build.SOURCES.values()) == set(_build.CSRC_DIR.glob("*.cu"))
 
 
@@ -976,4 +976,74 @@ def test_reduce_world_source_targets_sm90a_through_cooperative_launches():
     for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
         assert atomic not in text             # fixed-order sums only
     for library in ("cublas", "cutlass", "torch/", "nccl", "nvshmem"):
+        assert library not in text.lower()
+
+
+def test_p2p_entry_points_on_cuda_tensors_never_take_the_plain_path(
+        monkeypatch):
+    """Without a card, CUDA-typed world-4 calls of pp_shift (impl
+    "pallas"), CommOp.send, pipeline_forward(impl="pallas") and
+    symm_ship reach the shift kernel's build and fail there instead of
+    rolling the blocks on the CPU; impl "xla" is the plain roll by
+    design, and a context without a group raises ValueError first."""
+    from triton_dist_tpu_torch.layers import p2p as lp
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    from triton_dist_tpu_torch.serving import kv_stream as ks
+
+    def on_cuda(t):
+        """A CPU tensor that reports the CUDA device."""
+        class CudaView(torch.Tensor):
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+        return t.as_subclass(CudaView)
+
+    for mod in (p2p, ks):
+        monkeypatch.setattr(mod, "pp_shift_reference",
+                            lambda *_, **__: pytest.fail(
+                                "CUDA call took the plain version"))
+
+    def refuse(name):
+        raise RuntimeError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load", refuse)
+    group = create_rank_group(4, "pp", device="cpu")
+    ctx = p2p.create_p2p_context(group)
+    x = on_cuda(torch.zeros(16, 64, dtype=torch.bfloat16))
+    payload = on_cuda(torch.zeros(4 * 37, dtype=torch.uint8))
+    calls = [lambda: p2p.pp_shift(x, ctx),
+             lambda: p2p.pp_shift(x, ctx, delta=-6),
+             lambda: lp.CommOp(group=group).send(x),
+             lambda: lp.pipeline_forward(lambda r, h: h, x, group,
+                                         impl="pallas"),
+             lambda: ks.symm_ship(payload, create_rank_group(
+                 4, "tp", device="cpu"))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no build of p2p$"):
+            call()
+    assert ctx.state is None                 # nothing allocated before it
+    with pytest.raises(ValueError, match="group"):
+        p2p.pp_shift(x, p2p.create_p2p_context(world_size=4))
+
+
+def test_p2p_source_targets_sm90a_through_a_cooperative_launch():
+    from triton_dist_tpu_torch.ops import _build
+    src = _build.SOURCES["p2p"]
+    assert src.is_file() and src.is_relative_to(PACKAGE)
+    cmd = _build.nvcc_command(src, pathlib.Path("/tmp/out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    text = src.read_text()
+    assert 'extern "C"' in text and '#include "shmem.cuh"' in text
+    for entry in ("cudaLaunchCooperativeKernel", "tdt_putmem_signal_block",
+                  "tdt_signal_release", "tdt_signal_wait_until",
+                  "tdt_peer_ptr", "tdt_shift_signals", "tdt_shift_grid",
+                  "tdt_shift_world", "tdt_error_string",
+                  # the TPU kernels it replaces
+                  "_shift_kernel", "_ship_kernel"):
+        assert entry in text
+    for atomic in ("atomicAdd", "atomicMax", "atomicCAS", "atomicExch"):
+        assert atomic not in text
+    for library in ("cublas", "cutlass", "torch/", "nccl", "nvshmem",
+                    "cudamemcpy"):
         assert library not in text.lower()

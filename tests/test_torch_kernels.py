@@ -1499,3 +1499,141 @@ def test_world_reduce_grid_fits_the_card(cuda_device):
                 for op, method in RW_CASES:
                     grid, resident = rs.world_grid(x, op, method)
                     assert 1 <= grid <= resident <= 32 * sms
+
+
+# -- slice 14: the pipeline shift and the KV ship hop (csrc/p2p.cu) ---------
+P2P_WORLDS = [2, 3, 4, 8]
+
+
+def _p2p_deltas(world):
+    return (1, -1, world + 1, -(world + 2))
+
+
+def _p2p_inputs(world, dtype, device, seed):
+    """Inputs of the shift at ``world``: Qwen3-8B's decode rows (4 a rank,
+    4096 wide) and a small odd block for floats; for bytes a W x 37-byte
+    payload (unaligned shards) and a W x 4096-byte one."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.uint8:
+        return [torch.randint(0, 255, (world * n,), generator=gen,
+                              device=device, dtype=torch.uint8)
+                for n in (37, 4096)]
+    return [torch.randn((world * rows, cols), generator=gen, device=device
+                        ).to(dtype) for rows, cols in ((4, 4096), (3, 5))]
+
+
+def _p2p_fill(dtype):
+    return 255 if dtype == torch.uint8 else float("nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.uint8])
+@pytest.mark.parametrize("world", P2P_WORLDS)
+def test_shift_kernel_matches_plain_on_card(cuda_device, dtype, world):
+    """pp_shift(impl="pallas") and symm_ship, and a launch into a
+    NaN-filled (0xFF-filled for bytes) buffer, bit-equal to the plain roll
+    for delta in {1, -1, W + 1, -(W + 2)}; a repeat bit-identical; one
+    launch counted a call, in the entry's own counter; rank 0's first
+    piece skipped (its signal still set) shows in the output."""
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    from triton_dist_tpu_torch.serving import kv_stream as ks
+    group = create_rank_group(world, "pp", device=cuda_device)
+    ship_group = create_rank_group(world, "tp", device=cuda_device)
+    ctx = p2p.create_p2p_context(group)
+    for i, x in enumerate(_p2p_inputs(world, dtype, cuda_device, world)):
+        for delta in _p2p_deltas(world):
+            want = p2p.pp_shift_reference(x, world, delta)
+            out = torch.full_like(x, _p2p_fill(dtype))
+            before = (p2p.pp_shift_launches.total,
+                      ks.symm_ship_launches.total)
+            got = p2p.pp_shift(x, ctx, delta=delta)
+            again = p2p.pp_shift(x, ctx, delta=delta)
+            shipped = ks.symm_ship(x, ship_group, delta=delta)
+            into = p2p.launch_shift(x, ctx, delta, p2p.pp_shift_launches,
+                                    out=out)
+            torch.cuda.synchronize()
+            assert (p2p.pp_shift_launches.total - before[0],
+                    ks.symm_ship_launches.total - before[1]) == (3, 1)
+            assert into is out
+            for t in (got, again, shipped, into):
+                assert torch.equal(_bits(t), _bits(want)), (i, delta)
+            bad = p2p.launch_shift(x, ctx, delta, p2p.pp_shift_launches,
+                                   out=torch.full_like(x, _p2p_fill(dtype)),
+                                   fault=True)
+            torch.cuda.synchronize()
+            assert not torch.equal(_bits(bad), _bits(want))    # refused
+
+
+@pytest.mark.cuda
+def test_shift_kernel_at_the_main_path_sizes_on_card(cuda_device):
+    """The prefill hop (512 rows of 4096 bf16 a rank) and one Qwen3-8B KV
+    block as bytes (36 x 2 x (16, 8, 128) f32 = 4,718,592 bytes) at
+    W = 4, bit-equal to the plain roll, with the grid spread over the
+    card."""
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    from triton_dist_tpu_torch.serving import kv_stream as ks
+    world = 4
+    group = create_rank_group(world, "pp", device=cuda_device)
+    ctx = p2p.create_p2p_context(group)
+    x = torch.randn((world * 512, 4096), device=cuda_device).bfloat16()
+    block = torch.randint(0, 255, (36 * 2 * 16 * 8 * 128 * 4,),
+                          device=cuda_device, dtype=torch.uint8)
+    for t, ship in ((x, False), (block, True)):
+        for delta in (1, -1):
+            got = (ks.symm_ship(t, create_rank_group(world, "tp",
+                                                     device=cuda_device),
+                                delta) if ship
+                   else p2p.pp_shift(t, ctx, delta))
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(
+                p2p.pp_shift_reference(t, world, delta)))
+        grid, resident = p2p.shift_grid(t, world)
+        assert grid == resident
+
+
+@pytest.mark.cuda
+def test_shift_grid_fits_the_card(cuda_device):
+    """One block an item (W x pieces pushes and as many waits), never more
+    than the card holds at once; at the decode hop every push item has a
+    block of its own."""
+    from triton_dist_tpu_torch.ops import p2p
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for world in P2P_WORLDS:
+        for n in (37, 4 * 4096 * 2, 512 * 4096 * 2, 4718592 // 4):
+            x = torch.empty((world * n,), dtype=torch.uint8,
+                            device=cuda_device)
+            grid, resident = p2p.shift_grid(x, world)
+            assert 1 <= grid <= resident <= 32 * sms
+            pieces = p2p._lib().tdt_shift_signals(n, world)
+            assert grid == min(2 * world * pieces, resident)
+
+
+@pytest.mark.cuda
+def test_pipeline_forward_and_comm_op_on_card(cuda_device):
+    """pipeline_forward(impl="pallas") launches the shift once a tick and
+    equals impl "xla" bit for bit; CommOp sends and receives through one
+    launch each."""
+    from triton_dist_tpu_torch.layers import p2p as lp
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    world = 4
+    group = create_rank_group(world, "pp", device=cuda_device)
+    x = torch.randn((world * 8, 256), device=cuda_device).bfloat16()
+
+    def stage(i, h):
+        return h * 2 + (i + 1)
+
+    before = p2p.pp_shift_launches.total
+    got = lp.pipeline_forward(stage, x, group, impl="pallas")
+    torch.cuda.synchronize()
+    assert p2p.pp_shift_launches.total - before == world
+    assert torch.equal(_bits(got), _bits(lp.pipeline_forward(
+        stage, x, group, impl="xla")))
+    op = lp.CommOp(group=group)
+    op.send(x, delta=-1)
+    assert torch.equal(_bits(op.recv()), _bits(
+        p2p.pp_shift_reference(x, world, -1)))
+    assert p2p.pp_shift_launches.total - before == world + 1

@@ -182,17 +182,28 @@ class DenseLLM:
 
         x = params["embed"][input_ids].reshape(b * s, c.hidden_size)
         for lp, cache in zip(params["layers"], kv_caches):
-            h = rms_norm(x, lp["ln_attn"], c.rms_norm_eps)
-            a, _ = self.attn(lp["attn"], h, position_ids, self.rope_cache,
-                             cache, offset, mode=attn_mode,
-                             kv_start=kv_start)
-            x = x + a
-            h = rms_norm(x, lp["ln_mlp"], c.rms_norm_eps)
-            x = x + self._ffn(lp, h, mode)
+            x = self.decoder_layer(lp, x, position_ids, cache, offset, mode,
+                                   kv_start)
 
         x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
         logits = x.float() @ params["lm_head_f32"].t()
         return logits.reshape(b, s, c.vocab_size), kv_caches
+
+    def decoder_layer(self, lp: dict, x: torch.Tensor, position_ids,
+                      cache, offset, mode: str, kv_start=None) -> torch.Tensor:
+        """One decoder layer of :meth:`forward` on (B * S, H) rows ``x``:
+        norm, attention (writing ``cache`` in place at ``offset``),
+        residual, norm, FFN in model mode ``mode``, residual. A pipeline
+        stage (``layers.p2p.pipeline_forward``) runs its layers through
+        this, so it computes what the sequential forward computes."""
+        c = self.config
+        attn_mode = self._attn_mode(mode, x.shape[0])
+        h = rms_norm(x, lp["ln_attn"], c.rms_norm_eps)
+        a, _ = self.attn(lp["attn"], h, position_ids, self.rope_cache,
+                         cache, offset, mode=attn_mode, kv_start=kv_start)
+        x = x + a
+        h = rms_norm(x, lp["ln_mlp"], c.rms_norm_eps)
+        return x + self._ffn(lp, h, mode)
 
     # -- sequence-parallel forward (mode "sp") -------------------------------
     def forward_sp(self, params: dict, input_ids: torch.Tensor, kv_caches,

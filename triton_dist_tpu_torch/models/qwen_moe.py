@@ -147,6 +147,7 @@ class Qwen3MoE:
 
     # -- forward: the dense model's, with the MoE FFN ------------------------
     forward = DenseLLM.forward
+    decoder_layer = DenseLLM.decoder_layer
     forward_sp = DenseLLM.forward_sp
     _paged_scatter = staticmethod(DenseLLM._paged_scatter)
 

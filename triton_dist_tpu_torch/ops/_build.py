@@ -36,7 +36,8 @@ SOURCES = {"gemm_ar": CSRC_DIR / "gemm_ar.cu",
            "gemm_rs_ring": CSRC_DIR / "gemm_rs_ring.cu",
            "ag_group_gemm": CSRC_DIR / "ag_group_gemm.cu",
            "moe_rs_ring": CSRC_DIR / "moe_rs_ring.cu",
-           "reduce_world": CSRC_DIR / "reduce_world.cu"}
+           "reduce_world": CSRC_DIR / "reduce_world.cu",
+           "p2p": CSRC_DIR / "p2p.cu"}
 #: The headers the sources include (``csrc/*.cuh``).
 HEADERS = sorted(CSRC_DIR.glob("*.cuh"))
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
