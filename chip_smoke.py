@@ -155,7 +155,10 @@ without the final line:
     AG-GEMM (QKV, gate|up), AG-SwiGLU, GEMM-RS (o_proj, down) and GEMM-AR
     at prefill (M = 512) and decode (M = 4, gemm_ar padding where W does
     not divide it) shapes, W = 2, 3, 4, 8, ring_dirs 1 and 2, bf16 and
-    f32 (smaller shapes): AG within the GEMM limits (``gemm_error``,
+    f32 (smaller shapes), and the o_proj at M = 1, 64 and 65 (W = 4): RS /
+    AR of at most 64 padded rows through the decode body ("stream"), the
+    others through the tile (the body printed and checked), the products'
+    NaN canaries too; AG within the GEMM limits (``gemm_error``,
     ``swiglu_error``), RS / AR within the ring's own rounding (W ulps of
     the sum of the partials' magnitudes, share printed), bit-identical on
     repeat, GEMM-AR's W per-rank buffers bit-equal, the workspaces' NaN
@@ -164,7 +167,12 @@ without the final line:
     on each rank's column shard (bit-equal or not); the W = 4 cases timed
     (queued CUDA events) beside the plain version, one ``torch.matmul`` of the
     global product, the world-1 kernel at the same global shape and the
-    bound (the ring's copies counted as HBM traffic).
+    bound (the ring's copies counted as HBM traffic); a decode body's
+    ``exchange_ms`` is its time less the world-1 kernel's, which streams
+    the same bytes of B once (printed, without a record, for the bf16
+    decode cases at the other worlds too). Each record names the JAX
+    variant that
+    ``ring_plan`` picks for its shape.
 18. TP main path: Qwen3-8B at W = 4, full width and depth, over the same
     params (per-rank views), served by three engines -- (xla_ar, gemm_ar)
     (JAX ``tdt-serve``'s default at world W), (ag_rs, gemm_ar) and (ag_rs,
@@ -2861,12 +2869,14 @@ TP_GEN = 16
 #: the JAX server's default engine at world W (Engine's defaults).
 TP_ENGINES = {"tdt-serve": ("xla_ar", "gemm_ar"),
               "reference": ("ag_rs", "gemm_ar"), "fused": ("ag_rs", "ag_rs")}
-#: The JAX kernels the ring kernels replace, by op.
+#: The JAX kernels the ring kernels replace, by op; for rs / ar by the
+#: variant ``ring_plan`` picks (JAX's choice for the call's shape).
 RING_REPLACES = {
     "gemm": "triton_dist_tpu/ops/allgather_gemm.py:265",
     "swiglu": "triton_dist_tpu/ops/allgather_gemm.py:954",
-    "rs": "triton_dist_tpu/ops/gemm_reduce_scatter.py:353",
-    "ar": "triton_dist_tpu/ops/gemm_reduce_scatter.py:353"}
+    "vmem": "triton_dist_tpu/ops/gemm_reduce_scatter.py:249",
+    "hbm": "triton_dist_tpu/ops/gemm_reduce_scatter.py:353",
+    "hbm_kt": "triton_dist_tpu/ops/gemm_reduce_scatter.py:533"}
 RING_SOURCES = {"gemm": "ag_gemm_ring.cu", "swiglu": "ag_gemm_ring.cu",
                 "rs": "gemm_rs_ring.cu", "ar": "gemm_rs_ring.cu"}
 
@@ -2962,8 +2972,10 @@ def ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a):
     plan = rs.ring_plan(mp, k // world, n, a.element_size(), world, dirs,
                         op == "ar")
     check(plan.variant != "xla", f"{op} at {m}x{k}x{n}: no ring (JAX psum)")
-    key = (rs.ring_path(a.dtype, k // world, n, plan.split), world,
+    key = (rs.ring_path(a.dtype, mp, k // world, n, plan.split), world,
            mp // world, k // world, n)
+    check((key[0] == "stream") == (mp <= rs.DECODE_MAX_M),
+          f"{op} at {m}x{k}x{n} W={world}: body {key[0]} for {mp} rows")
 
     def kernel(fault=False):
         out = rs.launch_ring(ap, b, ctx, plan.split, op == "ar", fault=fault)
@@ -2976,9 +2988,14 @@ def ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a):
 
     def world1():
         return [rs.gemm_ar(a, b) if op == "ar" else rs.gemm_rs(a, b)]
+    sizes = rs._ring_sizes(a.dtype, key[0], world, mp // world, k // world,
+                           n, plan.split,
+                           torch.cuda.get_device_properties(
+                               0).multi_processor_count)
     return dict(ctx=ctx, kernel=kernel, plain=plain, shard=None,
                 world1=world1, library=lambda: torch.matmul(a, b), key=key,
-                live=(world - 1) * (mp // world) * n, plan=plan, padded=ap)
+                live=(world - 1) * (mp // world) * n, plan=plan, padded=ap,
+                products=sizes.ws)
 
 
 def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
@@ -3037,6 +3054,20 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
          False, False),
         ("gemm_rs_ring[f32]", "rs", 4, 64, small(512, 512), 2, False, True),
         ("gemm_ar_ring[f32]", "ar", 4, 4, small(384, 512), 1, False, True),
+        # The decode body's edges at the o_proj (M = 65: the tile), W = 2,
+        # and f32 at W = 2, 3, 8. At M = 1 rank 0's first pushes carry
+        # padding rows only (chunks 3 and 1), so no planted fault shows.
+        ("gemm_ar_ring[o_proj M=1]", "ar", 4, 1, o_proj, 2, False, False),
+        ("gemm_rs_ring[o_proj M=64]", "rs", 4, 64, o_proj, 2, False, True),
+        ("gemm_ar_ring[o_proj M=65]", "ar", 4, 65, o_proj, 2, False, True),
+        ("gemm_rs_ring[decode o_proj W=2]", "rs", 2, 4, o_proj, 2, False,
+         True),
+        ("gemm_ar_ring[f32 W=2]", "ar", 2, 3, small(512, 512), 2, False,
+         True),
+        ("gemm_rs_ring[f32 W=3]", "rs", 3, 6, small(384, 256), 2, False,
+         True),
+        ("gemm_ar_ring[f32 W=8]", "ar", 8, 4, small(512, 512), 2, False,
+         True),
     ]
     records = []
     for name, op, world, m, ws, dirs, timed, fault in cases:
@@ -3075,6 +3106,11 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
         workspace = c["ctx"].state.workspace(c["live"], dtype)
         check(bool(workspace[:, c["live"]:].isnan().all()),
               f"{name}: a workspace canary was overwritten")
+        if c.get("products"):                # the decode body's f32 products
+            prods = c["ctx"].state.workspace(c["products"], torch.float32,
+                                             "products")
+            check(bool(prods[:, c["products"]:].isnan().all()),
+                  f"{name}: a products canary was overwritten")
         extra += ", canaries intact"
         if fault:
             workspace.fill_(float("nan"))
@@ -3111,6 +3147,13 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
               f" max_abs_err={err:.3g} (tol {tol}"
               f"{'' if share is None else f', share {share:.3f}'}) ok, "
               f"repeat bit-identical{extra}{w1}", flush=True)
+        if not timed and key[0] == "stream" and m == 4 and \
+                dtype == torch.bfloat16:
+            # The decode body's exchange at other worlds (no record).
+            ms, w1_ms = queued_ms(torch, kernel), queued_ms(torch,
+                                                           c["world1"])
+            print(f"  {name}: kernel_ms={ms:.4f} world1_ms={w1_ms:.4f} "
+                  f"exchange_ms={ms - w1_ms:.4f} [{card}]", flush=True)
         if not timed:
             continue
         ms = queued_ms(torch, kernel)
@@ -3119,15 +3162,21 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
         w1_ms = queued_ms(torch, c["world1"], n=10)
         widths = tuple(w.shape[1] for w in ws[:1 if op == "swiglu" else 3])
         bnd, by = ring_bound_ms(op, m, k, widths, world, a.element_size())
+        exchange = ""
+        if key[0] == "stream":
+            exchange = (f" exchange_ms={ms - w1_ms:.4f} (kernel_ms - "
+                        f"world1_ms: both stream B once)")
         print(f"  {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (one torch.matmul of the global "
               f"product{', gate|up' if op == 'swiglu' else ''}, no exchange)"
               f" world1_ms={w1_ms:.4f} (the world-1 kernel on the same global"
-              f" shape) bound_ms={bnd:.4f} ({by}) [{card}]", flush=True)
+              f" shape) bound_ms={bnd:.4f} ({by}){exchange} [{card}]",
+              flush=True)
+        replaces = RING_REPLACES[c["plan"].variant if c["plan"] else op]
         records.append(({
             "name": name, "route": "cuda",
             "source": f"triton_dist_tpu_torch/csrc/{RING_SOURCES[op]}",
-            "replaces": RING_REPLACES[op], "launches": 0,
+            "replaces": replaces, "body": key[0], "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
             "world1_ms": w1_ms, "world": world, "ring_dirs": dirs,

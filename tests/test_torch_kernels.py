@@ -847,11 +847,16 @@ AG_RING_CASES = [(4, 512, 4096, (4096, 1024, 1024), 2),
                  (4, 512, 4096, (4096, 1024, 1024), 1),
                  (3, 96, 72, (24, 48), 2)]
 #: (world, M, K, N, ring_dirs) of the RS / AR ring: Qwen3-8B's o_proj and
-#: down at prefill and decode, W = 2 / 3 / 8, one direction, odd shapes.
+#: down at prefill and decode (M <= 64: the decode body; M = 68: the tile),
+#: W = 2 / 3 / 8, one direction, odd shapes.
 RS_RING_CASES = [(4, 512, 4096, 4096, 2), (4, 512, 12288, 4096, 2),
                  (4, 4, 12288, 4096, 2), (2, 512, 4096, 4096, 2),
                  (3, 384, 12288, 4096, 2), (8, 512, 4096, 4096, 2),
-                 (4, 512, 4096, 4096, 1), (3, 6, 96, 40, 2)]
+                 (4, 512, 4096, 4096, 1), (3, 6, 96, 40, 2),
+                 (4, 4, 4096, 4096, 2), (8, 8, 4096, 4096, 2),
+                 (4, 64, 4096, 4096, 2), (4, 68, 4096, 4096, 2)]
+#: GEMM-AR only: M does not split over the ranks (padded to 6).
+AR_RING_CASES = [(3, 5, 12288, 4096, 2)]
 
 
 def _ring_group(world, device):
@@ -932,15 +937,20 @@ def test_ag_swiglu_ring_kernel_matches_plain_on_card(cuda_device, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("world,m,k,n,dirs", RS_RING_CASES)
-@pytest.mark.parametrize("op", ["gemm_rs", "gemm_ar"])
+@pytest.mark.parametrize("op,world,m,k,n,dirs", [
+    (op,) + case for case in RS_RING_CASES for op in ("gemm_rs", "gemm_ar")]
+    + [("gemm_ar",) + case for case in AR_RING_CASES])
 def test_rs_ring_kernel_matches_plain_on_card(cuda_device, dtype, world, m,
                                               k, n, dirs, op):
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
     (a, (b,)) = _ag_inputs(m, k, (n,), dtype, cuda_device, seed=m + n)
     ctx = rs.GEMMReduceScatterContext(_ring_group(world, cuda_device), dirs)
     ar = op == "gemm_ar"
-    plan = rs.ring_plan(m, k // world, n, a.element_size(), world, dirs, ar)
+    mp = m + (-m % world)                    # gemm_ar pads M
+    ap = torch.cat([a, a.new_zeros((mp - m, k))]) if mp > m else a
+    plan = rs.ring_plan(mp, k // world, n, a.element_size(), world, dirs, ar)
+    path = rs.ring_path(dtype, mp, k // world, n, plan.split)
+    assert (path == "stream") == (mp <= rs.DECODE_MAX_M)
     count = rs.ar_ring_launches if ar else rs.rs_ring_launches
     before = count.total
     entry = getattr(rs, op)(a, b, ctx.group, ctx=ctx)
@@ -951,25 +961,70 @@ def test_rs_ring_kernel_matches_plain_on_card(cuda_device, dtype, world, m,
     else:
         assert count.total == before + 1
     # The kernel itself at the plan's split (at the psum fallback too).
-    got = rs.launch_ring(a, b, ctx, plan.split, ar)
-    again = rs.launch_ring(a, b, ctx, plan.split, ar)
+    key = (path, world, mp // world, k // world, n)
+    keyed = count.by_shape[key]
+    got = rs.launch_ring(ap, b, ctx, plan.split, ar)
+    again = rs.launch_ring(ap, b, ctx, plan.split, ar)
     torch.cuda.synchronize()
+    assert count.by_shape[key] == keyed + 2
     assert torch.equal(got, again)
     if ar:                                   # every rank's copy
         assert all(torch.equal(got[0], got[r]) for r in range(world))
-        got = got[0]
+        got = got[0, :m]
     if plan.variant != "xla":
         assert torch.equal(entry, got)
     ref = (rs.gemm_ar_ring_reference if ar
            else rs.gemm_rs_ring_reference)(a, b, world, plan.split)
-    _assert_ring_close(got, ref, a, b, world)
-    live = (world - 1) * (m // world) * n
+    _assert_ring_close(got, ref, ap, b, world)
+    live = (world - 1) * (mp // world) * n
     slabs = ctx.state.workspace(live, dtype)
     assert bool(slabs[:, live:].isnan().all())     # canaries intact
+    if path == "stream":                     # the f32 products' workspace
+        size = rs._ring_sizes(dtype, path, world, mp // world, k // world, n,
+                              plan.split, torch.cuda.get_device_properties(
+                                  cuda_device).multi_processor_count)
+        ws = ctx.state.workspace(size.ws, torch.float32, "products")
+        assert bool(ws[:, size.ws:].isnan().all())
     # A planted fault: rank 0's first pushes skipped, signals still set.
     slabs.fill_(float("nan"))
-    bad = rs.launch_ring(a, b, ctx, plan.split, ar, fault=True)
-    assert not torch.equal(bad[0] if ar else bad, got)
+    bad = rs.launch_ring(ap, b, ctx, plan.split, ar, fault=True)
+    assert not torch.equal(bad[0, :m] if ar else bad, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["gemm_rs", "gemm_ar"])
+@pytest.mark.parametrize("k", [4096, 12288])
+def test_rs_ring_decode_is_the_ring_over_world1_partials(cuda_device, op, k):
+    """At W = 4 in bf16, Qwen3-8B's decode o_proj (K = 4096) and down (K =
+    12288): the ring kernel's output bit-equal to the ring's order and
+    roundings applied in torch to the world-1 gemm_ar kernel's partial of
+    each rank's shard (the decode body runs the world-1 bodies on each
+    shard with its split count)."""
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+    world, m, n = 4, 4, 4096
+    (a, (b,)) = _ag_inputs(m, k, (n,), torch.bfloat16, cuda_device, seed=k)
+    ctx = rs.GEMMReduceScatterContext(_ring_group(world, cuda_device))
+    ar = op == "gemm_ar"
+    kl = k // world
+    plan = rs.ring_plan(m, kl, n, 2, world, 2, ar)
+    assert rs.ring_path(torch.bfloat16, m, kl, n, plan.split) == "stream"
+    got = getattr(rs, op)(a, b, ctx.group, ctx=ctx)
+    parts = torch.stack([rs.gemm_ar(a[:, r * kl:(r + 1) * kl].contiguous(),
+                                    b[r * kl:(r + 1) * kl])
+                         for r in range(world)])     # (W, M, N), rounded
+    rows = m // world
+    parts = parts.reshape(world, world, rows, n)
+    chunks = torch.arange(world, device=cuda_device)
+    want = torch.empty((world, rows, n), dtype=a.dtype, device=cuda_device)
+    for c0, c1, d in ((0, plan.split, 1), (plan.split, n, -1)):
+        def part(j):     # rank c + j * d's partial of every chunk c
+            return parts[(chunks + j * d) % world, chunks][..., c0:c1]
+        acc = part(1)
+        for j in list(range(2, world)) + [0]:
+            acc = (acc.float() + part(j).float()).to(a.dtype)
+        want[..., c0:c1] = acc
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.reshape(m, n))
 
 
 @pytest.mark.cuda
@@ -982,9 +1037,12 @@ def test_ring_grids_fit_the_card(cuda_device):
         assert ag._ring_lib().tdt_ag_ring_grid(0, 0, 1, world,
                                                ctypes.byref(out)) == 0
         assert 1 <= out.value and world * out.value <= 132 * 8
-        assert rs._ring_lib().tdt_rs_ring_grid(0, 1, world,
-                                               ctypes.byref(out)) == 0
-        assert 1 <= out.value
+        # The tensor-core tile (path 1) and the decode body (path 2) at
+        # Qwen3-8B's o_proj, one row a chunk.
+        for path, rows in ((1, 128), (2, 1)):
+            assert rs._ring_lib().tdt_rs_ring_grid(
+                0, path, world, rows, 1024, 4096, ctypes.byref(out)) == 0
+            assert 1 <= out.value
 
 
 # -- sequence world W: the flash-decode exchange and the ring-KV prefill --------------

@@ -161,6 +161,26 @@ def test_ring_plan_at_qwen3_8b_w4():
             rs.RingPlan("hbm", 2, 2048)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [1, 4, 5, 63, 64, 65, 512])
+def test_ring_path_streams_calls_of_at_most_64_padded_rows(dtype, world, m):
+    """The ring kernel's decode body ("stream") exactly when the padded M
+    (gemm_ar pads M to a multiple of W) is at most DECODE_MAX_M = 64, the
+    world-1 plans' rule, in every dtype and at any K per rank and N; above
+    it the tile, tensor cores ("mma") for bf16 with K per rank, N and the
+    split multiples of 8, else "fma". It depends on dtype and shape only."""
+    assert rs.DECODE_MAX_M == 64
+    padded = m + (-m % world)
+    for k_loc, n in ((1024, 4096), (3072, 4096), (1001, 40)):
+        split = rs.ring_plan(padded, k_loc, n, dtype.itemsize, world, 2,
+                             True).split
+        tile = ("mma" if dtype == torch.bfloat16 and k_loc % 8 == 0
+                and n % 8 == 0 and split % 8 == 0 else "fma")
+        want = "stream" if padded <= 64 else tile
+        assert rs.ring_path(dtype, padded, k_loc, n, split) == want
+
+
 # -- GEMM-RS / GEMM-AR ---------------------------------------------------------------
 def _rs_operands(m, k, n, seed):
     rng = np.random.RandomState(seed)

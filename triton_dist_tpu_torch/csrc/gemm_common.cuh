@@ -1,16 +1,20 @@
 // Pieces shared by the port's GEMM kernels for Hopper (sm_90a):
-// gemm_ar.cu (GEMM-AR at world = 1) and ag_gemm.cu (AG-GEMM, AG-SwiGLU and
-// the GEMM of GEMM-RS at world = 1).
+// gemm_ar.cu (GEMM-AR at world = 1), ag_gemm.cu (AG-GEMM, AG-SwiGLU and
+// the GEMM of GEMM-RS at world = 1) and gemm_rs_ring.cu (GEMM-RS / GEMM-AR
+// at world W, whose decode body runs the two small-M bodies below).
 //
 //  * conversions, cp.async, ldmatrix and mma.sync m16n8k16 (bf16 in, f32
 //    accumulate) wrappers;
 //  * `Segs`: up to three products C_i = A @ B_i that share A, each with its
 //    own B pointer, output pointer and width, laid side by side as one
 //    concatenated width (a block finds its product from its column tile);
-//  * `stream_mma`: the B-streaming tensor-core kernel of small-M (decode)
-//    products, with the split-K count `splitk_count` and the fixed-order
-//    split reduce `splitk_reduce`. gemm_ar runs it with one product,
-//    ag_gemm's decode plan with up to three.
+//  * the small-M (decode) products and their plan (`stream_plan`: body,
+//    tiles, the split-K count `splitk_count`): `stream_mma_block`, the
+//    B-streaming tensor-core body, and `fma_stream_block`, its FMA
+//    counterpart (f32 and odd bf16 shapes), each one block's work;
+//    `stream_mma`, the kernel of the tensor-core body, and the fixed-order
+//    split reduce `splitk_reduce`. gemm_ar runs them with one product,
+//    ag_gemm's decode plan `stream_mma` with up to three.
 //
 // Every sum has a fixed order and there are no atomics: equal inputs give
 // equal bits from run to run.
@@ -194,19 +198,22 @@ void reduce_splits(const float* W, const Segs<T>& segs, int M, int splits,
 }
 
 // ---------------------------------------------------------------------------
-// B-streaming tensor-core kernel (bf16, every n[i] % 8 == 0, K % 8 == 0;
-// operands 16-byte aligned), for M <= 64.
+// B-streaming tensor-core body (bf16, every n[i] % 8 == 0, K % 8 == 0;
+// operands 16-byte aligned), for M <= 64: one block's work, 128 threads.
 //
-// grid = (column tiles of all products, ceil(M / 64), splits), 128 threads.
-// A block holds up to 64 rows of A (MF m16 fragments) and one 64-column
-// tile of one product's B; each of its four warps owns 16 columns and runs
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) over the block's K slice. A
-// 4-stage cp.async pipeline keeps three 64-row chunks of B (and A) in
-// flight while the fourth is multiplied, so B streams from HBM once for
-// every row of the tile. Each output element has exactly one owner thread,
-// summing its K slice in a fixed order. With one split it writes C
-// directly, otherwise its f32 partial goes to ws[z, m, col] over the
-// concatenated width.
+// The block computes column tile `tile` of the concatenated width, rows
+// [mt * 64, mt * 64 + 64) and K rows [z * k_per_split, (z + 1) *
+// k_per_split) of A (row stride lda) times B. It holds up to 64 rows of A
+// (MF m16 fragments) and one 64-column tile of one product's B; each of
+// its four warps owns 16 columns and runs mma.sync m16n8k16 (bf16 in, f32
+// accumulate) over the block's K slice. A 4-stage cp.async pipeline keeps
+// three 64-row chunks of B (and A) in flight while the fourth is
+// multiplied, so B streams from HBM once for every row of the tile. Each
+// output element has exactly one owner thread, summing its K slice in a
+// fixed order. `direct` (one split): it writes C rounded; otherwise its
+// f32 partial goes to ws[z, m, col] over the concatenated width. A caller
+// that runs the body for more than one item syncs the block between
+// them (the stages' shared memory is reused).
 constexpr int kTcBN = 64;                 // columns per block
 constexpr int kTcBM = 64;                 // rows of A per block (4 x m16)
 constexpr int kTcBK = 64;                 // K per pipeline stage
@@ -222,20 +229,20 @@ constexpr int stream_smem_bytes() {
 }
 
 template <int MF>
-__global__ void __launch_bounds__(kTcThreads)
-stream_mma(const __nv_bfloat16* __restrict__ A, Segs<__nv_bfloat16> segs,
-           float* __restrict__ ws, int M, int K, int k_per_split,
-           int splits) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__device__ __forceinline__ void stream_mma_block(
+    const __nv_bfloat16* __restrict__ A, long long lda,
+    const Segs<__nv_bfloat16>& segs, float* __restrict__ ws, int M, int K,
+    int k_per_split, bool direct, int tile, int mt, int z,
+    unsigned char* smem_raw) {
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Bs = As + kTcStages * MF * 16 * kTcLdA;
 
-  const int seg = seg_of_tile(segs, blockIdx.x);
+  const int seg = seg_of_tile(segs, tile);
   const __nv_bfloat16* __restrict__ B = seg_field(segs.b, seg);
   const int N = seg_field(segs.n, seg);
-  const int n0 = (blockIdx.x - seg_field(segs.tile0, seg)) * kTcBN;
-  const int m0 = blockIdx.y * kTcBM;
-  const int k_begin = blockIdx.z * k_per_split;
+  const int n0 = (tile - seg_field(segs.tile0, seg)) * kTcBN;
+  const int m0 = mt * kTcBM;
+  const int k_begin = z * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
   const int nk = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK : 0;
   const int tid = threadIdx.x;
@@ -254,7 +261,7 @@ stream_mma(const __nv_bfloat16* __restrict__ A, Segs<__nv_bfloat16> segs,
       const int kk = (c % (kTcBK / 8)) * 8;
       const bool ok = m0 + r < M && k0 + kk < k_end;
       const __nv_bfloat16* src =
-          ok ? A + static_cast<size_t>(m0 + r) * K + k0 + kk : A;
+          ok ? A + static_cast<size_t>(m0 + r) * lda + k0 + kk : A;
       cp_async16(as + r * kTcLdA + kk, src, ok);
     }
     for (int c = tid; c < kTcBK * (kTcBN / 8); c += kTcThreads) {
@@ -341,16 +348,222 @@ stream_mma(const __nv_bfloat16* __restrict__ A, Segs<__nv_bfloat16> segs,
         const int m = m0 + mf * 16 + g + (e >> 1) * 8;
         const int n = n0 + warp * 16 + nf * 8 + 2 * t + (e & 1);
         if (m >= M || n >= N) continue;
-        if (splits == 1) {
+        if (direct) {
           C[static_cast<size_t>(m) * N + n] =
               from_f32<__nv_bfloat16>(acc[mf][nf][e]);
         } else {
-          ws[(static_cast<size_t>(blockIdx.z) * M + m) * ncat + col0 + n] =
+          ws[(static_cast<size_t>(z) * M + m) * ncat + col0 + n] =
               acc[mf][nf][e];
         }
       }
     }
   }
+}
+
+// grid = (column tiles of all products, ceil(M / 64), splits): one block
+// per item of the body above.
+template <int MF>
+__global__ void __launch_bounds__(kTcThreads)
+stream_mma(const __nv_bfloat16* __restrict__ A, Segs<__nv_bfloat16> segs,
+           float* __restrict__ ws, int M, int K, int k_per_split,
+           int splits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  stream_mma_block<MF>(A, K, segs, ws, M, K, k_per_split, splits == 1,
+                       blockIdx.x, blockIdx.y, blockIdx.z, smem_raw);
+}
+
+// ---------------------------------------------------------------------------
+// The FMA body (f32, and bf16 at shapes the tensor-core body does not
+// take): one block of 256 threads computes rows [mt * BM, mt * BM + BM)
+// (BM = 1, 2, 4 or 8, all held in registers) and columns [tile * 64,
+// tile * 64 + 64) over K rows [z * k_per_split, (z + 1) * k_per_split).
+// Eight neighbouring threads read one 16-byte row segment of the 64-column
+// tile of B, four rows in flight per thread, and multiply it into every
+// row of the tile; the K lanes are then folded in a fixed order (shuffles,
+// then the warps in order). `direct` (one split): C rounded; otherwise
+// the f32 partial goes to ws[z, m, n]. `vec`: B's row segments are
+// 16-byte aligned (N % 8 == 0 and B aligned).
+constexpr int kFaBN = 64;                 // columns per block
+constexpr int kFaCPT = 8;                 // columns per thread (16 B of bf16)
+constexpr int kFaCG = kFaBN / kFaCPT;     // column groups per block row
+constexpr int kFaThreads = 256;
+constexpr int kFaKL = kFaThreads / kFaCG; // K lanes per block (32)
+constexpr int kFaWarps = kFaThreads / 32;
+constexpr int kFaUnroll = 4;              // rows of B in flight per thread
+
+// Loads kFaCPT consecutive elements of one row of B as f32; elements past
+// `valid` read as 0. `vec` says the row segment is 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void fa_load_cols(const T* __restrict__ p,
+                                             int valid, bool vec,
+                                             float (&v)[kFaCPT]) {
+  if (vec && valid == kFaCPT) {
+    if constexpr (sizeof(T) == 2) {
+      uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kFaCPT / 2; ++j) {
+        float2 f = __bfloat1622float2(h[j]);
+        v[2 * j] = f.x;
+        v[2 * j + 1] = f.y;
+      }
+    } else {
+      const float4* q = reinterpret_cast<const float4*>(p);
+      float4 lo = __ldg(q);
+      float4 hi = __ldg(q + 1);
+      v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kFaCPT; ++j) v[j] = j < valid ? to_f32(p[j]) : 0.f;
+  }
+}
+
+template <typename T, int BM>
+__device__ __forceinline__ void fma_stream_block(
+    const T* __restrict__ A, long long lda, const T* __restrict__ B,
+    T* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
+    int k_per_split, bool direct, bool vec, int tile, int mt, int z) {
+  __shared__ float red[kFaWarps][BM][kFaBN];
+
+  const int n0 = tile * kFaBN;
+  const int m0 = mt * BM;
+  const int k_begin = z * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int cg = threadIdx.x % kFaCG;
+  const int kl = threadIdx.x / kFaCG;
+  const int col = n0 + cg * kFaCPT;
+  const int valid = max(0, min(kFaCPT, N - col));
+  const int rows = min(BM, M - m0);
+  const T* a_rows = A + static_cast<size_t>(m0) * lda;
+
+  float acc[BM][kFaCPT];
+#pragma unroll
+  for (int i = 0; i < BM; ++i)
+#pragma unroll
+    for (int j = 0; j < kFaCPT; ++j) acc[i][j] = 0.f;
+
+  if (valid > 0) {
+    int k = k_begin + kl;
+    for (; k + (kFaUnroll - 1) * kFaKL < k_end; k += kFaUnroll * kFaKL) {
+      float bv[kFaUnroll][kFaCPT];
+#pragma unroll
+      for (int u = 0; u < kFaUnroll; ++u)
+        fa_load_cols(B + static_cast<size_t>(k + u * kFaKL) * N + col, valid,
+                     vec, bv[u]);
+#pragma unroll
+      for (int u = 0; u < kFaUnroll; ++u) {
+#pragma unroll
+        for (int i = 0; i < BM; ++i) {
+          const float a = i < rows
+              ? to_f32(a_rows[static_cast<size_t>(i) * lda + k + u * kFaKL])
+              : 0.f;
+#pragma unroll
+          for (int j = 0; j < kFaCPT; ++j)
+            acc[i][j] = fmaf(a, bv[u][j], acc[i][j]);
+        }
+      }
+    }
+    for (; k < k_end; k += kFaKL) {
+      float bv[kFaCPT];
+      fa_load_cols(B + static_cast<size_t>(k) * N + col, valid, vec, bv);
+#pragma unroll
+      for (int i = 0; i < BM; ++i) {
+        const float a =
+            i < rows ? to_f32(a_rows[static_cast<size_t>(i) * lda + k]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < kFaCPT; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+      }
+    }
+  }
+
+  // A warp holds 4 K lanes of all 8 column groups (lane = 8 * klane + cg):
+  // fold them with a fixed shuffle pattern, then lanes 0..7 publish.
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < BM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kFaCPT; ++j) {
+      float v = acc[i][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[i][j] = v;
+    }
+  }
+  if (lane < kFaCG) {
+#pragma unroll
+    for (int i = 0; i < BM; ++i)
+#pragma unroll
+      for (int j = 0; j < kFaCPT; ++j)
+        red[warp][i][lane * kFaCPT + j] = acc[i][j];
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < BM * kFaBN; idx += kFaThreads) {
+    const int i = idx / kFaBN;
+    const int c = idx % kFaBN;
+    const int m = m0 + i;
+    const int n = n0 + c;
+    if (m >= M || n >= N) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kFaWarps; ++w) s += red[w][i][c];
+    if (direct) {
+      C[static_cast<size_t>(m) * N + n] = from_f32<T>(s);
+    } else {
+      ws[(static_cast<size_t>(z) * M + m) * N + n] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The plan of one small-M product C = A @ B, (M, K) x (K, N), on a card
+// with `sms` SMs: the tensor-core body for bf16 with N and K multiples of
+// 8, else the FMA body; its rows per tile (64, or BM = 1, 2, 4 or 8), the
+// output tiles, the K splits (splitk_count) and each split's K rows (a
+// multiple of the pipeline's 64 on the tensor-core body). A function of
+// the dtype (0: bf16, 1: f32), the shape and the card only, so equal
+// inputs sum in the same order; gemm_ar.cu plans its world-1 launches with
+// it and gemm_rs_ring.cu each rank's product of its decode body.
+struct StreamPlan {
+  int mma;          // 1: stream_mma_block, 0: fma_stream_block
+  int bm;           // rows per tile
+  int col_tiles;
+  int row_tiles;
+  int splits;
+  int k_per_split;
+};
+
+// Whether the tensor-core body takes the product: bf16 (dtype 0) with N and
+// K multiples of 8.
+inline bool stream_mma_ok(int dtype, int N, int K) {
+  return dtype == 0 && N % 8 == 0 && K % 8 == 0;
+}
+
+// Rows of A one FMA block holds for M rows.
+inline int fma_rows(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8; }
+
+// m16 fragments of A one tensor-core block holds for M rows.
+inline int stream_frags(int M) { return M <= 16 ? 1 : M <= 32 ? 2 : 4; }
+
+// K rows of one split. Each tensor-core split starts on a multiple of
+// kTcBK, so the pipeline's chunks never straddle two splits.
+inline int stream_k_per_split(int K, int splits, int mma) {
+  const int k = (K + splits - 1) / splits;
+  return mma ? (k + kTcBK - 1) / kTcBK * kTcBK : k;
+}
+
+inline StreamPlan stream_plan(int M, int N, int K, int sms, int dtype) {
+  StreamPlan p;
+  p.mma = stream_mma_ok(dtype, N, K) ? 1 : 0;
+  p.bm = p.mma ? kTcBM : fma_rows(M);
+  p.col_tiles = (N + (p.mma ? kTcBN : kFaBN) - 1) / (p.mma ? kTcBN : kFaBN);
+  p.row_tiles = (M + p.bm - 1) / p.bm;
+  p.splits = splitk_count(p.col_tiles * p.row_tiles, K, sms);
+  p.k_per_split = stream_k_per_split(K, p.splits, p.mma);
+  return p;
 }
 
 template <int MF>
@@ -363,9 +576,7 @@ cudaError_t launch_stream(const __nv_bfloat16* a,
   const cudaError_t err = cudaFuncSetAttribute(
       stream_mma<MF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  // Each split starts on a multiple of kTcBK, so chunks never straddle it.
-  int k_per_split = (K + splits - 1) / splits;
-  k_per_split = (k_per_split + kTcBK - 1) / kTcBK * kTcBK;
+  const int k_per_split = stream_k_per_split(K, splits, 1);
   dim3 grid(segs.tile0[segs.count], (M + kTcBM - 1) / kTcBM, splits);
   stream_mma<MF><<<grid, kTcThreads, smem, stream>>>(a, segs, ws, M, K,
                                                      k_per_split, splits);
@@ -378,9 +589,11 @@ cudaError_t run_stream(const __nv_bfloat16* A, const Segs<__nv_bfloat16>& segs,
                        float* W, int M, int K, int splits,
                        cudaStream_t stream) {
   cudaError_t err;
-  if (M <= 16) err = launch_stream<1>(A, segs, W, M, K, splits, stream);
-  else if (M <= 32) err = launch_stream<2>(A, segs, W, M, K, splits, stream);
-  else err = launch_stream<4>(A, segs, W, M, K, splits, stream);
+  switch (stream_frags(M)) {
+    case 1: err = launch_stream<1>(A, segs, W, M, K, splits, stream); break;
+    case 2: err = launch_stream<2>(A, segs, W, M, K, splits, stream); break;
+    default: err = launch_stream<4>(A, segs, W, M, K, splits, stream);
+  }
   if (err != cudaSuccess) return err;
   if (splits > 1) reduce_splits<__nv_bfloat16>(W, segs, M, splits, stream);
   return cudaSuccess;

@@ -21,7 +21,8 @@
 // every partial rounded to the output dtype, and every running sum too
 // (JAX: `send_buf[s] = part + recv_buf[s - 1]`, :301-318).
 //
-// The design, the Pallas kernel's protocol on one card:
+// The design, the Pallas kernel's protocol on one card (the tile body; the
+// decode body below keeps its grid, signals, order and fault hook):
 //  * Grid: `bpr` blocks for each rank, launched cooperatively (all blocks
 //    resident), `bpr` from this kernel's occupancy (tdt_rs_ring_grid); a
 //    launch that does not fit fails.
@@ -45,13 +46,42 @@
 //  * `fault` (a test hook): rank 0's step-0 pushes skip their stores and
 //    still release their signals; the output must then be wrong.
 //
-// What bounds it (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s): the partial
-// products, 2 * M * K * N operations over all ranks, bound by operations at
-// Qwen3-8B's prefill (M = 512) and by the bytes of B at decode (M = 4);
-// the ring moves (W - 1) * M * N partial sums through HBM (the ranks share
-// the card's memory: no interconnect is measured). Tiles are tiles.cuh's:
-// tensor cores for bf16 with kl, N and the split multiples of 8, FMAs
-// otherwise; decode shapes run the 128-row tile with most rows masked.
+// Two bodies, picked by the padded M (the port's ring_path; the rule of
+// gemm_ar.cu's and ag_gemm.cu's world-1 plans):
+//
+// * Decode, M <= 64 (`rs_stream_ring_kernel`, every dtype). What bounds it (H100
+//   SXM: 3.35 TB/s): the bytes of B, 32 MB for Qwen3-8B's o_proj and 96 MB
+//   for its down projection, so 0.010 / 0.030 ms, plus the exchange's fixed
+//   cost on one card (the launch and W - 1 dependent hops of signals, about
+//   0.01-0.02 ms whatever the bytes). The tile body below read each rank's
+//   shard of B once per ring step (W times) through a 128-row tile with
+//   one live row. This body reads it once, and runs the ring on the
+//   results, in three phases of one launch:
+//   - phase 0, the products: rank r's partial of all M rows, P_r = A_r @
+//     B_r, with gemm_common.cuh's small-M bodies (`stream_mma_block` on the
+//     tensor cores for bf16 with kl and N multiples of 8, else
+//     `fma_stream_block`), planned by `stream_plan` on the rank's own
+//     shape: the K splits of the world-1 kernel on that shard. Items are
+//     (column tile, row tile, split); each writes its f32 partial into the
+//     rank's workspace and releases its own signal. The products do not
+//     depend on the ring, so computing them first loses nothing.
+//   - phase 1, the ring, in pieces of 64 columns of a chunk (a chunk is one
+//     row at Qwen3-8B's decode, so a step has 64 pieces): step s's item
+//     waits for its product tiles, sums their splits in split order and
+//     rounds once (gemm_ar.cu's split reduce: JAX's `partial_chunk`, so
+//     rank r's partial is the world-1 kernel's bits on its shard), then
+//     (s > 0) waits for the travelling sum in its slab s - 1, adds it in
+//     f32, rounds and pushes into the neighbour's slab s, as above.
+//   - GEMM-AR: the last step stores the reduced piece into every rank's
+//     buffer at once. The copies are exact, so this is the ring
+//     all-gather's result without its W - 1 dependent hops.
+// * Prefill, M > 64 (`rs_ring_kernel`): the partial products, 2 * M * K * N
+//   operations, bound it by operations at Qwen3-8B's prefill (M = 512);
+//   the ring moves (W - 1) * M * N partial sums through HBM (the ranks
+//   share the card's memory: no interconnect is measured). Tiles are
+//   tiles.cuh's: tensor cores for bf16 with kl, N and the split multiples
+//   of 8, FMAs otherwise, computed chunk by chunk in the ring's order as
+//   above, with the all-gather epilogue's hops.
 //
 // Plain C entry points, loaded with ctypes. A launch runs on the stream it
 // is given, allocates nothing and returns a cudaError_t.
@@ -64,16 +94,28 @@
 
 namespace {
 
+// Body of a launch: the tiles (0: FMA, 1: tensor cores) or the decode body.
+constexpr int kPathFma = 0;
+constexpr int kPathMma = 1;
+constexpr int kPathStream = 2;
+constexpr int kStreamMaxM = 64;            // padded M of the decode body
+constexpr int kStreamMaxRows = kStreamMaxM / 2;  // rows of a chunk, W >= 2
+constexpr int kPieceCols = 64;             // columns of a decode ring piece
+static_assert(kTcBN == kPieceCols && kFaBN == kPieceCols,
+              "a decode piece's columns lie in the products' 64-wide tiles");
+
 template <typename T>
 struct RsArgs {
   const T* a;                 // (M, K) global, column-sharded
   const T* b;                 // (K, N) global, row-sharded
-  T* out;                     // GEMM-RS: (M, N) global, row-sharded
+  T* out;                     // GEMM-RS: (M, N) global, row-sharded;
+                              // GEMM-AR: (W, M, N), rank r's buffer row r
   const long long* slab_tab;  // (W,) rank slabs, (W - 1, rows, N) each
-  const long long* sig_tab;   // (W,) rank signals, (W - 1, tiles) each
-  const long long* out_tab;   // GEMM-AR: (W,) rank outputs, (M, N) each
-  const long long* ag_tab;    // GEMM-AR: (W,) rank signals, (W, tiles) each
+  const long long* sig_tab;   // (W,) rank signals (tdt_rs_ring_tiles)
+  const long long* ws_tab;    // decode: (W,) rank f32 products, (splits, M, N)
+  const long long* ag_tab;    // GEMM-AR tiles: (W,) rank signals, (W, tiles)
   int world, rows, K, kl, N, split, ag, bpr, fault;
+  int splits, k_per_split;    // decode: the products' stream_plan
   unsigned long long epoch;
 };
 
@@ -133,6 +175,7 @@ __device__ __forceinline__ void release_after_block(unsigned long long* sig,
   }
 }
 
+// The tile body (prefill). Signals of a rank: (W - 1, tiles) ring steps.
 template <typename T, bool MMA>
 __global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -200,7 +243,7 @@ __global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
       run_tile<T, MMA, BN, false>(tile, smem_raw,
                                   RsEpi<T>{recv, a.out + at, N});
     } else {
-      T* own = reinterpret_cast<T*>(tdt_peer_ptr(a.out_tab, me));
+      T* own = a.out + static_cast<long long>(me) * world * slab;
       run_tile<T, MMA, BN, false>(tile, smem_raw, RsEpi<T>{recv, own + at, N});
       unsigned long long* ag_me = reinterpret_cast<unsigned long long*>(
           tdt_peer_ptr(a.ag_tab, me));
@@ -211,11 +254,11 @@ __global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
 
   // GEMM-AR: the ring all-gather; item (hop, row tile, column tile). Hop h
   // forwards chunk (me - h) from my buffer to my right neighbour's.
-  T* own = reinterpret_cast<T*>(tdt_peer_ptr(a.out_tab, me));
+  T* own = a.out + static_cast<long long>(me) * world * slab;
   const unsigned long long* ag_me =
       reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.ag_tab, me));
   const int right = (me + 1) % world;
-  T* right_out = reinterpret_cast<T*>(tdt_peer_ptr(a.out_tab, right));
+  T* right_out = a.out + static_cast<long long>(right) * world * slab;
   unsigned long long* ag_right =
       reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.ag_tab, right));
   for (int i = j; i < (world - 1) * tiles; i += a.bpr) {
@@ -235,17 +278,155 @@ __global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
   }
 }
 
-template <typename T, bool MMA>
-int smem_of() {
-  if constexpr (MMA) return tile_smem_bytes<kPfBN, false>();
-  return 0;
+// The decode body (M = W * rows <= kStreamMaxM). R: the m16 fragments of
+// stream_mma_block (MMA) or the rows of fma_stream_block. Signals of a
+// rank: its product items (column tile, row tile, split), then (W - 1,
+// pieces) ring steps.
+template <typename T, bool MMA, int R>
+__global__ void __launch_bounds__(MMA ? kTcThreads : kFaThreads)
+rs_stream_ring_kernel(RsArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kThreads = MMA ? kTcThreads : kFaThreads;
+  constexpr int kBM = MMA ? kTcBM : R;
+  constexpr int kPer = kStreamMaxRows * kPieceCols / kThreads;
+  const int world = a.world;
+  const int me = tdt_rank(a.bpr);
+  const int j = static_cast<int>(blockIdx.x) % a.bpr;
+  const int N = a.N;
+  const int M = world * a.rows;
+  const int col_tiles = (N + kPieceCols - 1) / kPieceCols;
+  const int per_col = (M + kBM - 1) / kBM * a.splits;
+  const int prods = col_tiles * per_col;
+  unsigned long long* sig_me =
+      reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
+  float* ws = reinterpret_cast<float*>(tdt_peer_ptr(a.ws_tab, me));
+  const T* A = a.a + static_cast<long long>(me) * a.kl;
+  const T* B = a.b + static_cast<long long>(me) * a.kl * N;
+
+  // Phase 0: my f32 partial of all M rows; item (column tile, row tile,
+  // split), into ws[split, m, n].
+  for (int i = j; i < prods; i += a.bpr) {
+    const int t = i / per_col;
+    const int mt = i % per_col / a.splits;
+    const int z = i % a.splits;
+    __syncthreads();                       // the last item's smem is free
+    if constexpr (MMA) {
+      Segs<bf16> segs = {};
+      segs.b[0] = B;
+      segs.n[0] = N;
+      segs.col0[1] = N;
+      segs.tile0[1] = col_tiles;
+      segs.count = 1;
+      stream_mma_block<R>(A, a.K, segs, ws, M, a.kl, a.k_per_split, false, t,
+                          mt, z, smem_raw);
+    } else {
+      const bool vec = N % kFaCPT == 0 &&
+                       (reinterpret_cast<uintptr_t>(B) & 15) == 0;
+      fma_stream_block<T, R>(A, a.K, B, nullptr, ws, M, N, a.kl,
+                             a.k_per_split, false, vec, t, mt, z);
+    }
+    release_after_block(sig_me + i, a.epoch);
+  }
+
+  // Phase 1: the ring, step by step; item (step, piece of the chunk).
+  const int ct0 = (a.split + kPieceCols - 1) / kPieceCols;
+  const int pieces = ct0 + (N - a.split + kPieceCols - 1) / kPieceCols;
+  const long long slab = static_cast<long long>(a.rows) * N;
+  const long long mn = static_cast<long long>(M) * N;
+  const T* slab_me = reinterpret_cast<const T*>(tdt_peer_ptr(a.slab_tab, me));
+  for (int i = j; i < world * pieces; i += a.bpr) {
+    const int s = i / pieces;
+    const int p = i % pieces;
+    const bool fwd = p < ct0;
+    const int col0 = fwd ? p * kPieceCols : a.split + (p - ct0) * kPieceCols;
+    const int cols = min(kPieceCols, (fwd ? a.split : N) - col0);
+    const bool last = s == world - 1;
+    const int d = fwd ? 1 : world - 1;          // +1 or -1, mod world
+    const int c = last ? me : (me + (world - d) * (s + 1)) % world;
+    const int n_el = a.rows * cols;
+    // My partial of the piece, before any wait on the neighbour: the splits
+    // of its product tiles summed in split order, rounded once.
+    const int t0 = col0 / kPieceCols;
+    const int t1 = (col0 + cols - 1) / kPieceCols;
+    tdt_signal_wait_all(sig_me + t0 * per_col, (t1 - t0 + 1) * per_col,
+                        a.epoch);
+    float part[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int e = threadIdx.x + q * kThreads;
+      if (e < n_el) {
+        const float* w = ws + static_cast<long long>(c * a.rows + e / cols) *
+                                  N + col0 + e % cols;
+        float v = w[0];
+        if (a.splits > 1) {
+          v = 0.f;
+          for (int z = 0; z < a.splits; ++z) v += w[z * mn];
+        }
+        part[q] = to_f32(from_f32<T>(v));
+      }
+    }
+    const T* recv = nullptr;
+    if (s > 0) {
+      tdt_signal_wait_until(sig_me + prods + (s - 1) * pieces + p, a.epoch);
+      recv = slab_me + (s - 1) * slab;
+    }
+    const int peer = (me + d) % world;
+    if (!(a.fault && me == 0 && s == 0)) {
+      T* dst = last ? (a.ag ? nullptr : a.out + c * slab)
+                    : reinterpret_cast<T*>(tdt_peer_ptr(a.slab_tab, peer)) +
+                          s * slab;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int e = threadIdx.x + q * kThreads;
+        if (e < n_el) {
+          const long long at =
+              static_cast<long long>(e / cols) * N + col0 + e % cols;
+          float v = part[q];
+          if (recv != nullptr) v = v + to_f32(recv[at]);
+          const T x = from_f32<T>(v);
+          if (dst != nullptr) {
+            dst[at] = x;
+          } else {                         // GEMM-AR: every rank's buffer
+            for (int r = 0; r < world; ++r)
+              a.out[(static_cast<long long>(r) * world + c) * slab + at] = x;
+          }
+        }
+      }
+    }
+    if (!last)
+      release_after_block(reinterpret_cast<unsigned long long*>(
+                              tdt_peer_ptr(a.sig_tab, peer)) +
+                              prods + s * pieces + p,
+                          a.epoch);
+  }
 }
 
-template <typename T, bool MMA>
+// A kernel of this file with its block size and dynamic shared memory.
+template <typename T_, bool MMA>
+struct TileKernel {
+  using T = T_;
+  static constexpr int threads = kPfThreads;
+  static constexpr int smem = MMA ? tile_smem_bytes<kPfBN, false>() : 0;
+  static const void* fn() {
+    return reinterpret_cast<const void*>(rs_ring_kernel<T, MMA>);
+  }
+};
+
+template <typename T_, bool MMA, int R>
+struct StreamKernel {
+  using T = T_;
+  static constexpr int threads = MMA ? kTcThreads : kFaThreads;
+  static constexpr int smem = MMA ? stream_smem_bytes<R>() : 0;
+  static const void* fn() {
+    return reinterpret_cast<const void*>(rs_stream_ring_kernel<T, MMA, R>);
+  }
+};
+
+// Blocks of kernel K resident at once on the current device.
+template <typename K>
 cudaError_t resident(int* out) {
   static int cached = -1;
   if (cached < 0) {
-    const int smem = smem_of<T, MMA>();
     int dev = 0, sms = 0, per_sm = 0, coop = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -253,12 +434,12 @@ cudaError_t resident(int* out) {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(rs_ring_kernel<T, MMA>,
+      err = cudaFuncSetAttribute(K::fn(),
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+                                 K::smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, rs_ring_kernel<T, MMA>, kPfThreads, smem);
+          &per_sm, K::fn(), K::threads, K::smem);
     if (err != cudaSuccess) return err;
     if (!coop) return cudaErrorNotSupported;
     cached = sms * per_sm;
@@ -267,48 +448,76 @@ cudaError_t resident(int* out) {
   return cudaSuccess;
 }
 
-cudaError_t resident_of(int dtype, int mma, int* out) {
-  if (dtype == 0)
-    return mma ? resident<bf16, true>(out) : resident<bf16, false>(out);
-  return resident<float, false>(out);
-}
-
-template <typename T, bool MMA>
-cudaError_t launch(const RsArgs<T>& a, cudaStream_t stream) {
-  const int smem = smem_of<T, MMA>();
+template <typename K>
+cudaError_t launch(const RsArgs<typename K::T>& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      rs_ring_kernel<T, MMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, K::smem);
   if (err != cudaSuccess) return err;
-  void* params[] = {const_cast<RsArgs<T>*>(&a)};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(rs_ring_kernel<T, MMA>),
-      dim3(a.world * a.bpr), dim3(kPfThreads), params, smem, stream);
+  void* params[] = {const_cast<RsArgs<typename K::T>*>(&a)};
+  err = cudaLaunchCooperativeKernel(K::fn(), dim3(a.world * a.bpr),
+                                    dim3(K::threads), params, K::smem,
+                                    stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t run(int mma, RsArgs<T> a, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    if (mma) return launch<T, true>(a, stream);
+// Calls f with the kernel (a TileKernel or StreamKernel value) that runs a
+// launch of `path` in dtype (0: bf16, 1: f32) over M = world * rows rows,
+// kl columns of A per rank and n of B; the decode body's variant is the
+// one gemm_ar.cu's world-1 plan runs on a rank's shard.
+template <typename F>
+cudaError_t with_kernel(int dtype, int path, int M, int kl, int n, F&& f) {
+  if (path != kPathStream) {
+    if (dtype == 0)
+      return path == kPathMma ? f(TileKernel<bf16, true>{})
+                              : f(TileKernel<bf16, false>{});
+    return f(TileKernel<float, false>{});
   }
-  return launch<T, false>(a, stream);
+  if (stream_mma_ok(dtype, n, kl)) {
+    switch (stream_frags(M)) {
+      case 1: return f(StreamKernel<bf16, true, 1>{});
+      case 2: return f(StreamKernel<bf16, true, 2>{});
+      default: return f(StreamKernel<bf16, true, 4>{});
+    }
+  }
+  switch (fma_rows(M)) {
+    case 1: return dtype == 0 ? f(StreamKernel<bf16, false, 1>{})
+                              : f(StreamKernel<float, false, 1>{});
+    case 2: return dtype == 0 ? f(StreamKernel<bf16, false, 2>{})
+                              : f(StreamKernel<float, false, 2>{});
+    case 4: return dtype == 0 ? f(StreamKernel<bf16, false, 4>{})
+                              : f(StreamKernel<float, false, 4>{});
+    default: return dtype == 0 ? f(StreamKernel<bf16, false, 8>{})
+                               : f(StreamKernel<float, false, 8>{});
+  }
+}
+
+bool path_ok(int dtype, int path, int world, int rows, int kl, int n,
+             int split) {
+  if (world < 2 || rows < 1 || kl < 1 || n < 1 || split < 0 || split > n ||
+      (dtype != 0 && dtype != 1))
+    return false;
+  if (path == kPathStream) return world * rows <= kStreamMaxM;
+  if (path == kPathMma)
+    return dtype == 0 && kl % 8 == 0 && n % 8 == 0 && split % 8 == 0;
+  return path == kPathFma;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks per rank of a `world`-rank launch in dtype (0: bf16, 1: f32) on
-// the tensor-core path (`mma`, bf16 only) or the FMA path. Returns a
-// cudaError_t.
-int tdt_rs_ring_grid(int dtype, int mma, int world, int* bpr) {
-  if (world < 2 || bpr == nullptr || (dtype != 0 && dtype != 1) ||
-      (mma && dtype != 0))
+// Blocks per rank of a `world`-rank launch of `path` (0: FMA tile, 1:
+// tensor-core tile, 2: decode body) in dtype (0: bf16, 1: f32) over rows
+// rows a chunk, kl columns of A a rank and n of B. Returns a cudaError_t.
+int tdt_rs_ring_grid(int dtype, int path, int world, int rows, int kl, int n,
+                     int* bpr) {
+  if (bpr == nullptr || !path_ok(dtype, path, world, rows, kl, n, 0))
     return static_cast<int>(cudaErrorInvalidValue);
   int res = 0;
-  const cudaError_t err = resident_of(dtype, mma, &res);
+  const cudaError_t err =
+      with_kernel(dtype, path, world * rows, kl, n,
+                  [&](auto k) { return resident<decltype(k)>(&res); });
   if (err != cudaSuccess) return static_cast<int>(err);
   if (res / world < 1)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -316,64 +525,88 @@ int tdt_rs_ring_grid(int dtype, int mma, int world, int* bpr) {
   return static_cast<int>(cudaSuccess);
 }
 
-// The number of (row tile, column tile) pairs of one chunk: the signal
-// count of one step. Returns a cudaError_t.
-int tdt_rs_ring_tiles(int mma, int rows, int n, int split, int* tiles) {
-  if (rows < 1 || n < 1 || split < 0 || split > n || tiles == nullptr)
+// The sizes of one launch on a card with `sms` SMs: *pieces, the signals
+// of one ring step (the tiles of a chunk; decode: its 64-column pieces);
+// *prods, the product signals of a rank (decode: column tiles x row tiles
+// x K splits; tiles: 0); *ws, the f32 workspace of a rank (decode: splits
+// x M x n; tiles: 0). A rank needs prods + (world - 1) * pieces signals,
+// and the tile body's GEMM-AR world * pieces more. Returns a cudaError_t.
+int tdt_rs_ring_tiles(int dtype, int path, int world, int rows, int kl,
+                      int n, int split, int sms, int* pieces, int* prods,
+                      long long* ws) {
+  if (pieces == nullptr || prods == nullptr || ws == nullptr || sms < 1 ||
+      !path_ok(dtype, path, world, rows, kl, n, split))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bm = mma ? kPfBM : kFmBM;
-  const int bn = mma ? kPfBN : kFmBN;
-  *tiles = ((rows + bm - 1) / bm) *
-           ((split + bn - 1) / bn + (n - split + bn - 1) / bn);
+  if (path == kPathStream) {
+    const int M = world * rows;
+    const StreamPlan sp = stream_plan(M, n, kl, sms, dtype);
+    *pieces = (split + kPieceCols - 1) / kPieceCols +
+              (n - split + kPieceCols - 1) / kPieceCols;
+    *prods = sp.col_tiles * sp.row_tiles * sp.splits;
+    *ws = static_cast<long long>(sp.splits) * M * n;
+  } else {
+    const int bm = path == kPathMma ? kPfBM : kFmBM;
+    const int bn = path == kPathMma ? kPfBN : kFmBN;
+    *pieces = ((rows + bm - 1) / bm) *
+              ((split + bn - 1) / bn + (n - split + bn - 1) / bn);
+    *prods = 0;
+    *ws = 0;
+  }
   return static_cast<int>(cudaSuccess);
 }
 
-// One launch over every rank: a (M, world * kl) column-sharded, b
-// (world * kl, n) row-sharded, M = world * rows; columns [0, split) ride
+// One launch of `path` over every rank: a (M, world * kl) column-sharded,
+// b (world * kl, n) row-sharded, M = world * rows; columns [0, split) ride
 // the forward ring, [split, n) the mirrored one. slab_tab / sig_tab: each
-// rank's (world - 1, rows, n) slabs and (world - 1, tiles) signals. ag = 0:
-// the row-sharded result goes to out (M, n). ag = 1 (GEMM-AR): out_tab /
-// ag_tab are each rank's (M, n) output and (world, tiles) signals, and
-// every rank's output ends holding the whole reduced result. Returns a
-// cudaError_t.
-int tdt_rs_ring(int dtype, int mma, const void* a, const void* b, void* out,
-                const void* slab_tab, const void* sig_tab,
-                const void* out_tab, const void* ag_tab, int ag, int world,
-                int rows, int kl, int n, int split, unsigned long long epoch,
-                int fault, void* stream) {
-  if (a == nullptr || b == nullptr || slab_tab == nullptr ||
-      sig_tab == nullptr || rows < 1 || kl < 1 || n < 1 || split < 0 ||
-      split > n || epoch == 0 ||
-      (ag ? out_tab == nullptr || ag_tab == nullptr : out == nullptr) ||
-      (mma && (kl % 8 != 0 || n % 8 != 0 || split % 8 != 0)))
+// rank's (world - 1, rows, n) slabs and its signals (tdt_rs_ring_tiles);
+// ws_tab (decode body): each rank's f32 workspace. ag = 0: the row-sharded
+// result goes to out (M, n). ag = 1 (GEMM-AR): out (world, M, n) holds
+// each rank's output, and every one ends holding the whole reduced result;
+// ag_tab (tile body only) each rank's (world, tiles) signals. `sms`: the
+// card's SMs, as tdt_rs_ring_tiles was given. Returns a cudaError_t.
+int tdt_rs_ring(int dtype, int path, const void* a, const void* b, void* out,
+                const void* slab_tab, const void* sig_tab, const void* ws_tab,
+                const void* ag_tab, int ag, int world,
+                int rows, int kl, int n, int split, int sms,
+                unsigned long long epoch, int fault, void* stream) {
+  const bool stream_path = path == kPathStream;
+  if (a == nullptr || b == nullptr || out == nullptr || slab_tab == nullptr ||
+      sig_tab == nullptr || epoch == 0 || sms < 1 ||
+      !path_ok(dtype, path, world, rows, kl, n, split) ||
+      (stream_path && ws_tab == nullptr) ||
+      (ag && !stream_path && ag_tab == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int bpr = 0;
-  const int err = tdt_rs_ring_grid(dtype, mma, world, &bpr);
+  const int err = tdt_rs_ring_grid(dtype, path, world, rows, kl, n, &bpr);
   if (err != 0) return err;
+  const int M = world * rows;
+  const StreamPlan sp = stream_plan(M, n, kl, sms, dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0) {
-    RsArgs<bf16> args = {static_cast<const bf16*>(a),
-                         static_cast<const bf16*>(b), static_cast<bf16*>(out),
-                         static_cast<const long long*>(slab_tab),
-                         static_cast<const long long*>(sig_tab),
-                         static_cast<const long long*>(out_tab),
-                         static_cast<const long long*>(ag_tab),
-                         world, rows, world * kl, kl, n, split, ag, bpr,
-                         fault, epoch};
-    e = run<bf16>(mma, args, s);
-  } else {
-    RsArgs<float> args = {static_cast<const float*>(a),
-                          static_cast<const float*>(b),
-                          static_cast<float*>(out),
-                          static_cast<const long long*>(slab_tab),
-                          static_cast<const long long*>(sig_tab),
-                          static_cast<const long long*>(out_tab),
-                          static_cast<const long long*>(ag_tab),
-                          world, rows, world * kl, kl, n, split, ag, bpr,
-                          fault, epoch};
-    e = run<float>(mma, args, s);
-  }
+  const cudaError_t e = with_kernel(dtype, path, M, kl, n, [&](auto k) {
+    using K = decltype(k);
+    using T = typename K::T;
+    RsArgs<T> args = {};
+    args.a = static_cast<const T*>(a);
+    args.b = static_cast<const T*>(b);
+    args.out = static_cast<T*>(out);
+    args.slab_tab = static_cast<const long long*>(slab_tab);
+    args.sig_tab = static_cast<const long long*>(sig_tab);
+    args.ws_tab = static_cast<const long long*>(ws_tab);
+    args.ag_tab = static_cast<const long long*>(ag_tab);
+    args.world = world;
+    args.rows = rows;
+    args.K = world * kl;
+    args.kl = kl;
+    args.N = n;
+    args.split = split;
+    args.ag = ag;
+    args.bpr = bpr;
+    args.fault = fault;
+    args.splits = sp.splits;
+    args.k_per_split = sp.k_per_split;
+    args.epoch = epoch;
+    return launch<K>(args, s);
+  });
   return static_cast<int>(e);
 }
 

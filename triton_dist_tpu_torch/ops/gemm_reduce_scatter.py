@@ -15,7 +15,12 @@ At world W > 1 (a ``runtime.dist.RankGroup`` of W ranks on one card)
 ``impl="pallas"`` runs the ring: ``csrc/gemm_rs_ring.cu``, one
 cooperative launch over every rank, the counterpart of the three Pallas
 kernels' ring reduce-scatter and (``gemm_ar``) its ring all-gather
-epilogue. The ring's sum order and roundings are JAX's, not a psum's:
+epilogue. It has two bodies (:func:`ring_path`): calls of at most
+:data:`DECODE_MAX_M` padded rows (decode) stream each rank's shard of
+``b`` once through the world-1 kernel's split-K bodies, then run the
+ring on the rounded partials; larger calls run the tiles chunk by chunk
+in the ring's order. The ring's sum order and roundings are JAX's, not a
+psum's:
 :func:`gemm_rs_ring_reference` repeats them, and :func:`ring_plan`, a
 copy of JAX's variant and block choice, says where the two ring
 directions split the columns. Where JAX's ``gemm_ar`` falls back to its
@@ -43,7 +48,7 @@ from triton_dist_tpu_torch.ops.allgather_gemm import DEFAULT_VMEM_BUDGET
 from triton_dist_tpu_torch.ops.common import (
     LaunchCount, aligned16, check_ring_dirs, num_sms)
 from triton_dist_tpu_torch.runtime.dist import RankGroup
-from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
+from triton_dist_tpu_torch.runtime.symm_mem import RingState
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 #: Largest M that ``gemm_rs`` sends to the B-streaming gemm_ar kernel.
@@ -56,7 +61,9 @@ launches = LaunchCount()
 #: kernel (M <= 64), "prefill" / "fma" the AG-GEMM kernel's plans.
 gemm_rs_launches = LaunchCount()
 #: Launches of the ring kernel by ``gemm_rs`` at world W > 1, by (path,
-#: world, rows, K per rank, N); path "mma" (tensor cores) or "fma".
+#: world, rows, K per rank, N); path (:func:`ring_path`) "stream" (the
+#: decode body, padded M <= 64), else the tile, "mma" (tensor cores) or
+#: "fma".
 rs_ring_launches = LaunchCount()
 #: Launches of the ring kernel with its all-gather epilogue by ``gemm_ar``
 #: at world W > 1, keyed as :data:`rs_ring_launches`.
@@ -371,21 +378,42 @@ def _ring(op: str, a: torch.Tensor, b: torch.Tensor,
     return out[0, :m] if ag else out
 
 
-def ring_path(dtype: torch.dtype, k_loc: int, n: int, split: int) -> str:
-    """The ring kernel's tile: "mma" (tensor cores: bf16 with K per rank,
-    N and the split multiples of 8) or "fma"."""
+#: The ring kernel's bodies, by :func:`ring_path`'s name.
+_RING_PATHS = {"fma": 0, "mma": 1, "stream": 2}
+
+
+def ring_path(dtype: torch.dtype, m: int, k_loc: int, n: int,
+              split: int) -> str:
+    """The ring kernel's body for a call of (padded) ``m`` rows: "stream"
+    (the decode body, every dtype) for m <= :data:`DECODE_MAX_M`, the rule
+    of the world-1 plans; above it the tile, "mma" (tensor cores: bf16 with
+    K per rank, N and the split multiples of 8) or "fma"."""
+    if m <= DECODE_MAX_M:
+        return "stream"
     mma = (dtype == torch.bfloat16 and k_loc % 8 == 0 and n % 8 == 0
            and split % 8 == 0)
     return "mma" if mma else "fma"
 
 
+class RingSizes(NamedTuple):
+    """The state one ring launch needs (``csrc/gemm_rs_ring.cu``'s
+    ``tdt_rs_ring_tiles``): ``pieces`` signals a ring step, ``prods`` the
+    product signals of a rank (decode body), ``ws`` its f32 workspace's
+    elements (decode body)."""
+    pieces: int
+    prods: int
+    ws: int
+
+
 @functools.cache
-def _ring_tiles(mma: bool, rows: int, n: int, split: int) -> int:
+def _ring_sizes(dtype: torch.dtype, path: str, world: int, rows: int,
+                k_loc: int, n: int, split: int, sms: int) -> RingSizes:
     lib = _ring_lib()
-    out = ctypes.c_int()
-    _check(lib, lib.tdt_rs_ring_tiles(int(mma), rows, n, split,
-                                      ctypes.byref(out)))
-    return out.value
+    pieces, prods, ws = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    _check(lib, lib.tdt_rs_ring_tiles(
+        _DTYPE_CODES[dtype], _RING_PATHS[path], world, rows, k_loc, n, split,
+        sms, ctypes.byref(pieces), ctypes.byref(prods), ctypes.byref(ws)))
+    return RingSizes(pieces.value, prods.value, ws.value)
 
 
 def launch_ring(a: torch.Tensor, b: torch.Tensor,
@@ -394,8 +422,9 @@ def launch_ring(a: torch.Tensor, b: torch.Tensor,
                 ) -> torch.Tensor:
     """One launch of ``csrc/gemm_rs_ring.cu`` over every rank of
     ``ctx.group``, counted in :data:`rs_ring_launches` (or, with the
-    all-gather epilogue, :data:`ar_ring_launches`). a (M, K) and b (K, N)
-    are the global tensors (contiguous, CUDA, bf16 or f32), M and K
+    all-gather epilogue, :data:`ar_ring_launches`) under (path, world,
+    rows, K per rank, N), the path :func:`ring_path`'s. a (M, K) and b (K,
+    N) are the global tensors (contiguous, CUDA, bf16 or f32), M and K
     multiples of W. Returns the row-sharded (M, N) result, or with the
     epilogue every rank's (M, N) buffer as one (W, M, N) tensor (rank 0's
     is the replicated result). ``fault`` plants the test fault of the
@@ -405,36 +434,33 @@ def launch_ring(a: torch.Tensor, b: torch.Tensor,
     m, k = a.shape
     n = b.shape[1]
     rows, kl = m // world, k // world
-    path = ring_path(a.dtype, kl, n, split)
-    mma = path == "mma"
-    tiles = _ring_tiles(mma, rows, n, split)
+    path = ring_path(a.dtype, m, kl, n, split)
+    sms = num_sms(a.device.index)
+    size = _ring_sizes(a.dtype, path, world, rows, kl, n, split, sms)
     state = ctx.state
-    slabs = state.workspace((world - 1) * rows * n, a.dtype)
-    sig = state.signals("rs", (world - 1) * tiles)
+    # The state's tables are made once (RingState.table): a launch queues
+    # no kernel but its own.
+    slab_tab = state.table(state.workspace((world - 1) * rows * n, a.dtype))
+    sig_tab = state.table(state.signals(
+        "rs", size.prods + (world - 1) * size.pieces))
+    ws_tab = (state.table(state.workspace(size.ws, torch.float32,
+                                          "products")) if size.ws else None)
+    ag_tab = (state.table(state.signals("ag", world * size.pieces))
+              if all_gather_epilogue and path != "stream" else None)
     a, b = aligned16(a), aligned16(b)
-    if all_gather_epilogue:
-        out = torch.empty((world, m, n), dtype=a.dtype, device=a.device)
-        out_tab = rank_table(out, world)
-        ag_sig = state.signals("ag", world * tiles)
-        ag_tab = rank_table(ag_sig, world)
-        out_ptr = None
-    else:
-        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-        out_tab = ag_tab = None
-        out_ptr = out.data_ptr()
-    # The tables stay referenced until the launch is queued: a freed
-    # temporary's memory would be handed to the next one.
-    slab_tab, sig_tab = rank_table(slabs, world), rank_table(sig, world)
+    out = torch.empty((world, m, n) if all_gather_epilogue else (m, n),
+                      dtype=a.dtype, device=a.device)
     epoch = state.next_epoch()
     lib = _ring_lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
     _check(lib, lib.tdt_rs_ring(
-        _DTYPE_CODES[a.dtype], int(mma), a.data_ptr(), b.data_ptr(), out_ptr,
-        slab_tab.data_ptr(), sig_tab.data_ptr(),
-        out_tab.data_ptr() if out_tab is not None else None,
-        ag_tab.data_ptr() if ag_tab is not None else None,
-        int(all_gather_epilogue), world, rows, kl, n, split, epoch,
-        int(fault), stream))
+        _DTYPE_CODES[a.dtype], _RING_PATHS[path], a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), slab_tab.data_ptr(), sig_tab.data_ptr(),
+        ptr(ws_tab), ptr(ag_tab), int(all_gather_epilogue), world, rows, kl,
+        n, split, sms, epoch, int(fault), stream))
     count = ar_ring_launches if all_gather_epilogue else rs_ring_launches
     count.add((path, world, rows, kl, n))
     return out
@@ -445,11 +471,13 @@ def _ring_lib() -> ctypes.CDLL:
     if lib.tdt_rs_ring.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
-        lib.tdt_rs_ring_grid.argtypes = [i, i, i, ip]
+        lib.tdt_rs_ring_grid.argtypes = [i] * 6 + [ip]
         lib.tdt_rs_ring_grid.restype = i
-        lib.tdt_rs_ring_tiles.argtypes = [i, i, i, i, ip]
+        lib.tdt_rs_ring_tiles.argtypes = [i] * 8 + [ip, ip,
+                                                    ctypes.POINTER(
+                                                        ctypes.c_longlong)]
         lib.tdt_rs_ring_tiles.restype = i
-        lib.tdt_rs_ring.argtypes = ([i, i] + [p] * 7 + [i] * 6
+        lib.tdt_rs_ring.argtypes = ([i, i] + [p] * 7 + [i] * 7
                                     + [ctypes.c_ulonglong, i, p])
         lib.tdt_rs_ring.restype = i
         lib.tdt_error_string.argtypes = [i]

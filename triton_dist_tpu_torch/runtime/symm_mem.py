@@ -115,11 +115,13 @@ class RingState:
         self.group = group
         self.epoch = 0
         self._buffers: dict = {}
+        self._tables: dict = {}
 
-    def workspace(self, numel: int, dtype: torch.dtype) -> torch.Tensor:
-        """The (W, row) workspace of ``numel`` live elements per rank; its
-        rank table is ``rank_table(ws, W)``."""
-        key = ("ws", numel, dtype)
+    def workspace(self, numel: int, dtype: torch.dtype,
+                  role: str = "ws") -> torch.Tensor:
+        """The (W, row) workspace of ``role`` with ``numel`` live elements
+        per rank; its rank table is ``rank_table(ws, W)``."""
+        key = (role, numel, dtype)
         ws = self._buffers.get(key)
         if ws is None:
             row = -(-numel // CANARY) * CANARY + CANARY
@@ -137,6 +139,16 @@ class RingState:
                 (self.group.world, count), dtype=torch.int64,
                 device=self.group.device)
         return sig
+
+    def table(self, buf: torch.Tensor) -> torch.Tensor:
+        """``rank_table(buf, W)`` of one of this state's workspaces or
+        signal buffers, made at its first call: the buffers never move,
+        so a launch needs no kernel to rebuild it."""
+        key = (buf.data_ptr(), buf.shape, buf.dtype)
+        tab = self._tables.get(key)
+        if tab is None:
+            tab = self._tables[key] = rank_table(buf, self.group.world)
+        return tab
 
     def nbytes(self) -> int:
         """Device bytes of every workspace and signal buffer made so far."""
