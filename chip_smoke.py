@@ -155,22 +155,28 @@ without the final line:
     AG-GEMM (QKV, gate|up), AG-SwiGLU, GEMM-RS (o_proj, down) and GEMM-AR
     at prefill (M = 512) and decode (M = 4, gemm_ar padding where W does
     not divide it) shapes, W = 2, 3, 4, 8, ring_dirs 1 and 2, bf16 and
-    f32 (smaller shapes), and the o_proj at M = 1, 64 and 65 (W = 4): RS /
-    AR of at most 64 padded rows through the decode body ("stream"), the
-    others through the tile (the body printed and checked), the products'
-    NaN canaries too; AG within the GEMM limits (``gemm_error``,
-    ``swiglu_error``), RS / AR within the ring's own rounding (W ulps of
-    the sum of the partials' magnitudes, share printed), bit-identical on
-    repeat, GEMM-AR's W per-rank buffers bit-equal, the workspaces' NaN
-    canaries intact, a planted fault (rank 0's first push skipped, its
-    signal still set) refused; the AG output against the world-1 kernel
-    on each rank's column shard (bit-equal or not); the W = 4 cases timed
+    f32 (smaller shapes), the o_proj at M = 1, 64 and 65 (W = 4), the AG
+    decode QKV at W = 2, 8 and one direction, gate|up at W = 3 (M = 6),
+    QKV at M = 68 and Qwen3-30B-A3B's QKV at decode: RS / AR of at most
+    64 padded rows and bf16 AG-GEMM of at most 64 rows through the decode
+    bodies ("stream"), the others through the tile (the body printed and
+    checked), the products' NaN canaries too; AG within the GEMM limits
+    (``gemm_error``, ``swiglu_error``), RS / AR within the ring's own
+    rounding (W ulps of the sum of the partials' magnitudes, share
+    printed), bit-identical on repeat, GEMM-AR's W per-rank buffers
+    bit-equal, the workspaces' NaN canaries intact, a planted fault (AG:
+    rank 0's first push skipped; RS / AR: the step-0 pushes of chunk 0;
+    their signals still set) refused; the AG output against the world-1
+    kernel on each rank's column shard (checked bit-equal for the decode
+    body, printed at prefill); the W = 4 cases timed
     (queued CUDA events) beside the plain version, one ``torch.matmul`` of the
     global product, the world-1 kernel at the same global shape and the
     bound (the ring's copies counted as HBM traffic); a decode body's
     ``exchange_ms`` is its time less the world-1 kernel's, which streams
-    the same bytes of B once (printed, without a record, for the bf16
-    decode cases at the other worlds too). Each record names the JAX
+    the same bytes of B once (printed,
+    without a record, for the bf16 decode cases at the other worlds and
+    shapes too, AG's with its bound and library time). Each record names
+    the JAX
     variant that
     ``ring_plan`` picks for its shape.
 18. TP main path: Qwen3-8B at W = 4, full width and depth, over the same
@@ -179,8 +185,8 @@ without the final line:
     ag_rs) -- through serve (4 x 128, 16 new tokens), serve_stream and the
     server, every count set to 0 just before: per ag_rs prefill 36
     AG-GEMM, 36 AG-SwiGLU and 72 GEMM-RS ring launches, per decode step 72
-    GEMM-AR (gemm_ar) or 72 AG-GEMM + 72 GEMM-RS (ag_rs) ring launches, no
-    world-1 kernel; prefill and decode-step logits through the rings
+    GEMM-AR (gemm_ar) or 72 AG-GEMM (each keyed "stream", the decode
+    body) + 72 GEMM-RS (ag_rs) ring launches, no world-1 kernel; prefill and decode-step logits through the rings
     within 0.25 of the same world-4 model's plain modes (xla / xla_ar);
     one layer in each fused mode under sync debug "error"; greedy
     agreement with phase 3 (not gated); wall and device time, idle share
@@ -426,13 +432,19 @@ def port_session(torch, fn, n: int):
 
 
 def profiled(torch, fn, n: int = 3, what: str = "") -> list:
-    """[(kernel name, ms per call)] of one ``fn()`` call from a profiler
-    session (:func:`port_session`), for step device time, idle share and
-    breakdowns (single kernels time by :func:`queued_ms`). Each session
-    prints the share of the port's launches it recorded: records of its
-    main kernels (:func:`port_kernel_names`) over the calls its wrappers
-    counted. A session below 1.0 lost records, and another is tried, up
-    to :data:`PROFILER_SESSIONS`; if none records them all, the last one's
+    """The rows of :func:`profiled_rows`."""
+    return profiled_rows(torch, fn, n, what)[0]
+
+
+def profiled_rows(torch, fn, n: int = 3, what: str = "") -> tuple:
+    """([(kernel name, ms per call)] of one ``fn()`` call from a profiler
+    session (:func:`port_session`), whether that session recorded every
+    port launch), for step device time, idle share and breakdowns (single
+    kernels time by :func:`queued_ms`). Each session prints the share of
+    the port's launches it recorded: records of its main kernels
+    (:func:`port_kernel_names`) over the calls its wrappers counted. A
+    session below 1.0 lost records, and another is tried, up to
+    :data:`PROFILER_SESSIONS`; if none records them all, the last one's
     rows are returned and its figures are lower bounds (printed so)."""
     label = f" ({what})" if what else ""
     for attempt in range(1, PROFILER_SESSIONS + 1):
@@ -447,7 +459,8 @@ def profiled(torch, fn, n: int = 3, what: str = "") -> list:
                  "bounds"), flush=True)
         if complete:
             break
-    return [(e.key, e.self_device_time_total / n / 1e3) for e in events]
+    return ([(e.key, e.self_device_time_total / n / 1e3) for e in events],
+            complete)
 
 
 def device_ms(torch, fn, n: int = 3, what: str = "") -> float:
@@ -2879,6 +2892,8 @@ RING_REPLACES = {
     "hbm_kt": "triton_dist_tpu/ops/gemm_reduce_scatter.py:533"}
 RING_SOURCES = {"gemm": "ag_gemm_ring.cu", "swiglu": "ag_gemm_ring.cu",
                 "rs": "gemm_rs_ring.cu", "ar": "gemm_rs_ring.cu"}
+#: The AG ring's body for each world-1 plan of one rank's shard.
+AG_RING_BODY = {"decode": "stream", "prefill": "mma", "fma": "fma"}
 
 
 def ring_error(torch, got, ref, parts_abs, k: int, world: int):
@@ -2923,15 +2938,22 @@ def ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a):
     plain, shard (the world-1 kernel on rank r's column shard, AG only),
     world1 (the world-1 kernel at the same global shape), library (one
     torch.matmul of the global product), key (the launch key), live (the
-    workspace's live elements per rank) and plan (rs / ar)."""
+    workspace's live elements per rank), products (the decode bodies' f32
+    products per rank, 0 if none) and plan (rs / ar). AG's body is checked
+    against the world-1 kernel's plan of one rank's shard."""
     group = rd.create_rank_group(world)
     k = a.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if op in ("gemm", "swiglu"):
         ctx = ag.AllGatherGEMMContext(group, ring_dirs=dirs)
         widths = ((ws[0].shape[1],) if op == "swiglu"
                   else tuple(w.shape[1] for w in ws))
         shards = tuple(n // world for n in widths)
-        key = (ag.ring_path(a.dtype, k, shards), world, m, k, shards)
+        key = (ag.ring_path(a.dtype, m, k, shards, op), world, m, k, shards)
+        w1_path = ag.plan(op, m, shards, k, a.dtype, sms).path
+        check(key[0] == AG_RING_BODY[w1_path],
+              f"ag ring at {m}x{k}x{shards} W={world}: body {key[0]}, the "
+              f"world-1 plan of a shard {w1_path}")
 
         def cols(w, r):
             n = w.shape[1] // world
@@ -2957,9 +2979,11 @@ def ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a):
             def world1():
                 return [ag.launch_swiglu(a, ws[0], ws[1], None, None)]
         cat = torch.cat(ws, dim=1)
+        sizes = ag._ring_sizes(op, a.dtype, key[0], world, m // world, k,
+                               shards, sms)
         return dict(
             ctx=ctx, plain=plain, shard=shard, world1=world1, key=key,
-            live=m * k, plan=None,
+            live=m * k, plan=None, products=sizes.ws,
             kernel=lambda fault=False: ag.launch_ag_ring(op, a, ws, ctx,
                                                          fault=fault),
             library=lambda: torch.matmul(a, cat))
@@ -2989,9 +3013,7 @@ def ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a):
     def world1():
         return [rs.gemm_ar(a, b) if op == "ar" else rs.gemm_rs(a, b)]
     sizes = rs._ring_sizes(a.dtype, key[0], world, mp // world, k // world,
-                           n, plan.split,
-                           torch.cuda.get_device_properties(
-                               0).multi_processor_count)
+                           n, plan.split, sms)
     return dict(ctx=ctx, kernel=kernel, plain=plain, shard=None,
                 world1=world1, library=lambda: torch.matmul(a, b), key=key,
                 live=(world - 1) * (mp // world) * n, plan=plan, padded=ap,
@@ -3007,7 +3029,10 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
     a planted fault (one hop's push skipped, its signal still set)
     refused. The W = 4, dirs 2, bf16 cases at the main path's shapes are
     timed and returned as JSON records, ``launches`` to fill from phase
-    18."""
+    18. The decode bodies' cases (launch key "stream") print their
+    exchange_ms (kernel_ms - world1_ms: both stream B once), and AG's are
+    bit-equal to the world-1 kernel
+    on the gathered A and each rank's column shard."""
     print("== phase 17: ring AG-GEMM / AG-SwiGLU / GEMM-RS / GEMM-AR kernels "
           "vs their plain ring versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -3025,9 +3050,9 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
         ("ag_gemm_ring[prefill qkv]", "gemm", 4, 512, qkv, 2, True, True),
         ("ag_swiglu_ring[prefill]", "swiglu", 4, 512, gate_up, 2, True,
          True),
-        ("ag_gemm_ring[decode qkv]", "gemm", 4, 4, qkv, 2, True, False),
+        ("ag_gemm_ring[decode qkv]", "gemm", 4, 4, qkv, 2, True, True),
         ("ag_gemm_ring[decode gate|up]", "gemm", 4, 4, gate_up, 2, True,
-         False),
+         True),
         ("gemm_rs_ring[prefill o_proj]", "rs", 4, 512, o_proj, 2, True, True),
         ("gemm_rs_ring[prefill down]", "rs", 4, 512, down, 2, True, False),
         ("gemm_rs_ring[decode o_proj]", "rs", 4, 4, o_proj, 2, True, False),
@@ -3055,9 +3080,9 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
         ("gemm_rs_ring[f32]", "rs", 4, 64, small(512, 512), 2, False, True),
         ("gemm_ar_ring[f32]", "ar", 4, 4, small(384, 512), 1, False, True),
         # The decode body's edges at the o_proj (M = 65: the tile), W = 2,
-        # and f32 at W = 2, 3, 8. At M = 1 rank 0's first pushes carry
-        # padding rows only (chunks 3 and 1), so no planted fault shows.
-        ("gemm_ar_ring[o_proj M=1]", "ar", 4, 1, o_proj, 2, False, False),
+        # and f32 at W = 2, 3, 8. The planted fault skips the pushes of
+        # chunk 0, which holds the one live row at M = 1.
+        ("gemm_ar_ring[o_proj M=1]", "ar", 4, 1, o_proj, 2, False, True),
         ("gemm_rs_ring[o_proj M=64]", "rs", 4, 64, o_proj, 2, False, True),
         ("gemm_ar_ring[o_proj M=65]", "ar", 4, 65, o_proj, 2, False, True),
         ("gemm_rs_ring[decode o_proj W=2]", "rs", 2, 4, o_proj, 2, False,
@@ -3068,6 +3093,18 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
          True),
         ("gemm_ar_ring[f32 W=8]", "ar", 8, 4, small(512, 512), 2, False,
          True),
+        # The AG decode body at W = 2, 8 (QKV) and 3 (gate|up: 4096 does
+        # not split 3 ways), M a multiple of W, one direction; M = 68 takes
+        # the tile; Qwen3-30B-A3B's attention QKV (TP-MoE and EP mode "ep").
+        ("ag_gemm_ring[decode qkv W=2]", "gemm", 2, 4, qkv, 2, False, True),
+        ("ag_gemm_ring[decode qkv W=8]", "gemm", 8, 8, qkv, 2, False, True),
+        ("ag_gemm_ring[decode gate|up W=3]", "gemm", 3, 6, gate_up, 2, False,
+         True),
+        ("ag_gemm_ring[decode qkv dirs 1]", "gemm", 4, 4, qkv, 1, False,
+         True),
+        ("ag_gemm_ring[qkv M=68]", "gemm", 4, 68, qkv, 2, False, True),
+        ("ag_gemm_ring[tp-moe decode qkv]", "gemm", 4, 4,
+         small(2048, 4096, 512, 512, dtype=torch.bfloat16), 2, False, True),
     ]
     records = []
     for name, op, world, m, ws, dirs, timed, fault in cases:
@@ -3106,7 +3143,7 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
         workspace = c["ctx"].state.workspace(c["live"], dtype)
         check(bool(workspace[:, c["live"]:].isnan().all()),
               f"{name}: a workspace canary was overwritten")
-        if c.get("products"):                # the decode body's f32 products
+        if c["products"]:                    # the decode bodies' f32 products
             prods = c["ctx"].state.workspace(c["products"], torch.float32,
                                              "products")
             check(bool(prods[:, c["products"]:].isnan().all()),
@@ -3134,34 +3171,41 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
                   f"{name}: differs after the fault")
             extra += ", planted fault refused"
         w1 = ""
-        if op in ("gemm", "swiglu") and timed:
+        if op in ("gemm", "swiglu") and (timed or key[0] == "stream"):
             same = all(torch.equal(
                 g[:, r * (g.shape[1] // world):(r + 1) * (g.shape[1] // world)],
                 x) for r in range(world) for g, x in zip(got, c["shard"](r)))
+            if key[0] == "stream":
+                check(same, f"{name}: not bit-equal to the world-1 kernel on "
+                            f"the gathered A and each rank's column shard")
             w1 = (f"; equal to the world-1 kernel on the gathered A and each"
-                  f" rank's column shard: {same} (bit-equal where both run "
-                  f"tiles.cuh's tile: the world-1 prefill plan; the decode "
-                  f"plan streams B with split K)")
+                  f" rank's column shard: {same} (both run the decode plan's"
+                  f" stream body, or tiles.cuh's tile at prefill)")
         print(f"kernel {name} {str(dtype)[6:]} W={world} dirs={dirs} M={m} "
               f"K={k} N={'|'.join(str(w.shape[1]) for w in ws)} ({key[0]}):"
               f" max_abs_err={err:.3g} (tol {tol}"
               f"{'' if share is None else f', share {share:.3f}'}) ok, "
               f"repeat bit-identical{extra}{w1}", flush=True)
-        if not timed and key[0] == "stream" and m == 4 and \
+        widths = tuple(w.shape[1] for w in ws[:1 if op == "swiglu" else 3])
+        bnd, by = ring_bound_ms(op, m, k, widths, world, a.element_size())
+        if not timed and key[0] == "stream" and m <= 8 and \
                 dtype == torch.bfloat16:
-            # The decode body's exchange at other worlds (no record).
+            # The decode body's exchange at other worlds and shapes (no
+            # record).
             ms, w1_ms = queued_ms(torch, kernel), queued_ms(torch,
                                                            c["world1"])
+            more = ""
+            if op == "gemm":
+                more = (f" library_ms={queued_ms(torch, c['library']):.4f} "
+                        f"bound_ms={bnd:.4f} ({by})")
             print(f"  {name}: kernel_ms={ms:.4f} world1_ms={w1_ms:.4f} "
-                  f"exchange_ms={ms - w1_ms:.4f} [{card}]", flush=True)
+                  f"exchange_ms={ms - w1_ms:.4f}{more} [{card}]", flush=True)
         if not timed:
             continue
         ms = queued_ms(torch, kernel)
         plain_ms = queued_ms(torch, plain, n=5, may_wait=True)
         lib_ms = queued_ms(torch, c["library"])
         w1_ms = queued_ms(torch, c["world1"], n=10)
-        widths = tuple(w.shape[1] for w in ws[:1 if op == "swiglu" else 3])
-        bnd, by = ring_bound_ms(op, m, k, widths, world, a.element_size())
         exchange = ""
         if key[0] == "stream":
             exchange = (f" exchange_ms={ms - w1_ms:.4f} (kernel_ms - "
@@ -3183,6 +3227,12 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
             "shape": [m, k, list(widths)], "tol_share": share, "ok": ok},
             op, key))
     return records
+
+
+def ag_stream_launches(ag) -> int:
+    """AG ring launches so far that ran the decode body."""
+    return sum(n for key, n in ag.ag_ring_launches.by_shape.items()
+               if key[0] == "stream")
 
 
 def ring_counts(ag, rs) -> dict:
@@ -3240,11 +3290,16 @@ def phase_tp_main(torch, models, ag, rs, ops, cfg, params, base, card):
         check(got == per_prefill, f"({name}) prefill launches {got}, "
                                   f"expected {per_prefill}")
         before = ring_counts(ag, rs)
+        streamed = ag_stream_launches(ag)
         out, serve_ms = sync_time(
             torch, lambda: eng.serve(params, square, TP_GEN))
         got = {k: v - before[k] for k, v in ring_counts(ag, rs).items()}
         want = {k: per_prefill[k] + steps * per_step[k] for k in got}
         check(got == want, f"({name}) serve launches {got}, expected {want}")
+        streamed = ag_stream_launches(ag) - streamed
+        check(streamed == steps * per_step["ag_ring"],
+              f"({name}) {streamed} AG ring launches keyed 'stream', "
+              f"expected every decode step's {per_step['ag_ring']}")
         check(tuple(out.shape) == (4, 128 + TP_GEN), f"({name}) serve shape")
         check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
               "token out of vocabulary")
@@ -3351,14 +3406,16 @@ def phase_tp_checks(torch, ag, rs, model, params, square, cfg, card) -> None:
                           lambda: prefill(pf)[0])):
             walls = [sync_time(torch, fn)[1] for _ in range(5)]
             wall = sorted(walls)[2]
-            rows = profiled(torch, fn, 3, "tp step")
+            rows, whole = profiled_rows(torch, fn, 3, "tp step")
             dev = sum(ms for _, ms in rows)
             ring = sum(ms for key, ms in rows if "ring_kernel" in key)
+            ge, le = ("", "") if whole else (">= ", "<= ")
             print(f"tp {what}, engine {name}, W={TP_WORLD}, forward only: "
-                  f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, "
-                  f"device idle share {1 - dev / wall:.2f}; ring kernels "
-                  f"{ring:.3f} ms ({ring / dev:.2f} of device time) [{card}]",
-                  flush=True)
+                  f"wall {wall:.2f} ms (median of 5), device {ge}{dev:.2f} "
+                  f"ms, device idle share {le}{1 - dev / wall:.2f}; ring "
+                  f"kernels {ge}{ring:.3f} ms ({ring / dev:.2f} of device "
+                  f"time{'' if whole else ', from a session that lost records'}"
+                  f") [{card}]", flush=True)
             for kernel, ms in sorted(rows, key=lambda r: -r[1])[:6]:
                 print(f"  tp {what} device time: {ms:.3f} ms "
                       f"({ms / dev:.2f}) {kernel[:70]}", flush=True)
@@ -4382,14 +4439,17 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
                      ("prefill (ag_rs, 4 x 128)", prefill)):
         walls = [sync_time(torch, fn)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        rows = profiled(torch, fn, 3, "tp-moe step")
+        rows, whole = profiled_rows(torch, fn, 3, "tp-moe step")
         dev = sum(ms for _, ms in rows)
         ag_ms = sum(ms for key, ms in rows if "gather_world" in key)
+        ring = sum(ms for key, ms in rows if "ag_stream_ring_kernel" in key
+                   or "ag_ring_kernel" in key)
+        ge, le = ("", "") if whole else (">= ", "<= ")
         print(f"tp-moe {name} (W={TPM_WORLD}, batch 4, forward only): wall "
-              f"{wall:.2f} ms (median of 5), device {dev:.2f} ms, device "
-              f"idle share {1 - dev / wall:.2f}; world-W all-gather "
-              f"{ag_ms:.3f} ms ({ag_ms / dev:.3f} of device time) [{card}]",
-              flush=True)
+              f"{wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, device "
+              f"idle share {le}{1 - dev / wall:.2f}; world-W all-gather "
+              f"{ag_ms:.3f} ms ({ag_ms / dev:.3f} of device time); AG-GEMM "
+              f"ring {ge}{ring:.3f} ms [{card}]", flush=True)
         for kernel, ms in sorted(rows, key=lambda r: -r[1])[:8]:
             print(f"  tp-moe {name} device time: {ms:.3f} ms "
                   f"({ms / dev:.2f}) {kernel[:70]}", flush=True)

@@ -283,7 +283,8 @@ def test_ring_entry_points_on_cuda_tensors_never_take_the_plain_path(
 def test_ring_sources_target_sm90a_through_cooperative_launches():
     from triton_dist_tpu_torch.ops import _build
     for name, entries, kernels in (
-            ("ag_gemm_ring", ("tdt_ag_ring_grid", "tdt_ag_ring"),
+            ("ag_gemm_ring", ("tdt_ag_ring_grid", "tdt_ag_ring_sizes",
+                              "tdt_ag_ring"),
              ("_ag_gemm_kernel", "_ag_gemm_hbm_nb_kernel",
               "_ag_gemm_hbm_kernel", "_ag_swiglu_hbm_kernel")),
             ("gemm_rs_ring", ("tdt_rs_ring_grid", "tdt_rs_ring_tiles",

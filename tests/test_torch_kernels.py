@@ -840,12 +840,19 @@ def test_all_to_all_grid_fits_the_card(cuda_device):
 # -- slice 7: the ring kernels (csrc/ag_gemm_ring.cu, csrc/gemm_rs_ring.cu) --
 #: (world, M, K, widths, ring_dirs) of the AG ring: Qwen3-8B's prefill QKV
 #: and decode gate|up at W = 4, W = 2 / 8, one direction, odd shapes (the
-#: FMA tile).
+#: FMA tile); bf16 M <= 64 runs the decode body, so Qwen3-8B's decode QKV
+#: at M = W and 64, W = 2 and 8, too.
 AG_RING_CASES = [(4, 512, 4096, (4096, 1024, 1024), 2),
                  (4, 4, 4096, (12288, 12288), 2),
                  (2, 512, 4096, (4096,), 2), (8, 64, 512, (1024, 256), 2),
                  (4, 512, 4096, (4096, 1024, 1024), 1),
-                 (3, 96, 72, (24, 48), 2)]
+                 (3, 96, 72, (24, 48), 2),
+                 (2, 2, 4096, (4096, 1024, 1024), 2),
+                 (2, 64, 4096, (4096, 1024, 1024), 2),
+                 (8, 8, 4096, (4096, 1024, 1024), 2),
+                 (8, 64, 4096, (4096, 1024, 1024), 2)]
+#: The AG ring's body for each world-1 plan of one rank's shard.
+_AG_RING_BODY = {"decode": "stream", "prefill": "mma", "fma": "fma"}
 #: (world, M, K, N, ring_dirs) of the RS / AR ring: Qwen3-8B's o_proj and
 #: down at prefill and decode (M <= 64: the decode body; M = 68: the tile),
 #: W = 2 / 3 / 8, one direction, odd shapes.
@@ -855,8 +862,9 @@ RS_RING_CASES = [(4, 512, 4096, 4096, 2), (4, 512, 12288, 4096, 2),
                  (4, 512, 4096, 4096, 1), (3, 6, 96, 40, 2),
                  (4, 4, 4096, 4096, 2), (8, 8, 4096, 4096, 2),
                  (4, 64, 4096, 4096, 2), (4, 68, 4096, 4096, 2)]
-#: GEMM-AR only: M does not split over the ranks (padded to 6).
-AR_RING_CASES = [(3, 5, 12288, 4096, 2)]
+#: GEMM-AR only: M does not split over the ranks (padded to 6; and M = 1,
+#: padded to 4, whose one live row the planted fault reaches).
+AR_RING_CASES = [(3, 5, 12288, 4096, 2), (4, 1, 4096, 4096, 2)]
 
 
 def _ring_group(world, device):
@@ -883,17 +891,39 @@ def test_ag_ring_kernel_matches_plain_on_card(cuda_device, dtype, world, m,
     from triton_dist_tpu_torch.ops import allgather_gemm as ag
     a, bs = _ag_inputs(m, k, widths, dtype, cuda_device, seed=m + k + world)
     ctx = ag.AllGatherGEMMContext(_ring_group(world, cuda_device), dirs)
-    before = ag.ag_ring_launches.total
+    shards = tuple(n // world for n in widths)
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    path = ag.ring_path(dtype, m, k, shards)
+    # The body is the world-1 kernel's plan of one rank's shard.
+    assert path == _AG_RING_BODY[ag.plan("gemm", m, shards, k, dtype,
+                                         sms).path]
+    key = (path, world, m, k, shards)
+    before, keyed = ag.ag_ring_launches.total, ag.ag_ring_launches.by_shape[key]
     got = ag.ag_gemm_multi(a, bs, ctx.group, ctx=ctx)
     again = ag.ag_gemm_multi(a, bs, ctx.group, ctx=ctx)
     torch.cuda.synchronize()
     assert ag.ag_ring_launches.total == before + 2
+    assert ag.ag_ring_launches.by_shape[key] == keyed + 2
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     for x, want in zip(got, ag.ag_gemm_multi_ring_reference(a, bs, world,
                                                             dirs)):
         _assert_gemm_close(x, want, k)
     ws = ctx.state.workspace(m * k, dtype)
     assert bool(ws[:, m * k:].isnan().all())       # canaries intact
+    size = ag._ring_sizes("gemm", dtype, path, world, m // world, k, shards,
+                          sms)
+    if size.ws:                              # the decode body's f32 products
+        prods = ctx.state.workspace(size.ws, torch.float32, "products")
+        assert bool(prods[:, size.ws:].isnan().all())
+    if path == "stream":
+        # Each rank's columns: the world-1 kernel's decode plan on the
+        # gathered A and that rank's column shard, bit for bit.
+        for r in range(world):
+            cols = [b[:, r * n:(r + 1) * n].contiguous()
+                    for b, n in zip(bs, shards)]
+            for x, y, n in zip(got, ag.ag_gemm_multi(a, cols), shards):
+                assert torch.equal(x[:, r * n:(r + 1) * n], y)
     # A planted fault: rank 0's first push skipped, its signal still set.
     ws.fill_(float("nan"))
     bad = ag.launch_ag_ring("gemm", a, bs, ctx, fault=True)
@@ -985,7 +1015,8 @@ def test_rs_ring_kernel_matches_plain_on_card(cuda_device, dtype, world, m,
                                   cuda_device).multi_processor_count)
         ws = ctx.state.workspace(size.ws, torch.float32, "products")
         assert bool(ws[:, size.ws:].isnan().all())
-    # A planted fault: rank 0's first pushes skipped, signals still set.
+    # A planted fault: the step-0 pushes of chunk 0 (row 0, live at any
+    # M) skipped, their signals still set.
     slabs.fill_(float("nan"))
     bad = rs.launch_ring(ap, b, ctx, plan.split, ar, fault=True)
     assert not torch.equal(bad[0, :m] if ar else bad, got)
@@ -1028,15 +1059,52 @@ def test_rs_ring_decode_is_the_ring_over_world1_partials(cuda_device, op, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("world", range(2, 9))
+def test_ag_ring_path_is_the_world1_plan_of_a_shard(cuda_device, world):
+    """ring_path against csrc/ag_plan.cuh's make_plan itself (through
+    tdt_ag_gemm_plan), over the CPU test's shapes, both ops and dtypes;
+    the ring kernel's sizes entry refuses the decode body wherever that
+    plan is not the decode plan."""
+    import ctypes
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    prods, ws = ctypes.c_int(), ctypes.c_longlong()
+    for op in ("gemm", "swiglu"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in sorted({world, 4 * world, 64 - 64 % world, 64 + world,
+                             512 - 512 % world}):
+                for k, widths in ((4096, (4096, 1024, 1024)),
+                                  (4096, (12288, 12288)), (72, (24, 48)),
+                                  (100, (64,)), (2048, (4096, 512))):
+                    shards = tuple(n // world for n in widths)
+                    if op == "swiglu":
+                        shards = shards[:1]
+                    w1 = ag.plan(op, m, shards, k, dtype, sms).path
+                    path = ag.ring_path(dtype, m, k, shards, op)
+                    assert path == _AG_RING_BODY[w1]
+                    n = list(shards) + [0] * (3 - len(shards))
+                    err = ag._ring_lib().tdt_ag_ring_sizes(
+                        {"gemm": 0, "swiglu": 1}[op],
+                        0 if dtype == torch.bfloat16 else 1,
+                        ag.RING_PATHS["stream"], world, m // world, k,
+                        len(shards), *n, sms, ctypes.byref(prods),
+                        ctypes.byref(ws))
+                    assert (err == 0) == (w1 == "decode")
+
+
+@pytest.mark.cuda
 def test_ring_grids_fit_the_card(cuda_device):
     import ctypes
     from triton_dist_tpu_torch.ops import allgather_gemm as ag
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
     out = ctypes.c_int()
     for world in (2, 3, 4, 8):
-        assert ag._ring_lib().tdt_ag_ring_grid(0, 0, 1, world,
-                                               ctypes.byref(out)) == 0
-        assert 1 <= out.value and world * out.value <= 132 * 8
+        # The tensor-core tile (path 1) at 128 rows a rank, and the decode
+        # body (path 2) at M = W and at the largest multiple of W up to 64.
+        for path, m in ((1, 128 * world), (2, world), (2, 64 - 64 % world)):
+            assert ag._ring_lib().tdt_ag_ring_grid(
+                0, 0, path, world, m, ctypes.byref(out)) == 0
+            assert 1 <= out.value and world * out.value <= 132 * 8
         # The tensor-core tile (path 1) and the decode body (path 2) at
         # Qwen3-8B's o_proj, one row a chunk.
         for path, rows in ((1, 128), (2, 1)):

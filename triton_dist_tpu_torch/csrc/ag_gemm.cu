@@ -25,7 +25,7 @@
 //   decode M = 4: QKV 15.0 us, gate|up 60.1 us (bytes of B).
 //
 // What the design does about it. Three kernels, picked by dtype and shape
-// only (make_plan, exported as tdt_ag_gemm_plan):
+// only (ag_plan.cuh's make_plan, exported as tdt_ag_gemm_plan):
 //  * Prefill plan, bf16 with K and every width a multiple of 8 and M > 64
 //    (or any M for SwiGLU): `tile_mma`, the tensor cores through mma.sync
 //    m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix. A block computes a
@@ -56,12 +56,10 @@
 // loaded with ctypes. A launch runs on the stream it is given, allocates
 // nothing and returns cudaGetLastError().
 
+#include "ag_plan.cuh"
 #include "tiles.cuh"
 
 namespace {
-
-constexpr int kOpGemm = 0;
-constexpr int kOpSwiglu = 1;
 
 // ---------------------------------------------------------------------------
 // Prefill: the tensor-core tile of tiles.cuh, one tile per block.
@@ -145,53 +143,6 @@ void launch_tile_fma(const T* a, const Segs<T>& segs, const T* bu,
   dim3 grid(segs.tile0[segs.count], (M + kFmBM - 1) / kFmBM);
   tile_fma<T, SWIGLU><<<grid, kFmThreads, 0, stream>>>(a, segs, bu, bias_g,
                                                         bias_u, M, K);
-}
-
-// ---------------------------------------------------------------------------
-// How one call is launched. The path depends on the op, the dtype and the
-// shape only, never on where the operands lie, so equal inputs give equal
-// bits.
-struct Plan {
-  int path;    // 0: tile_fma, 1: stream_mma (decode), 2: tile_mma (prefill)
-  int tiles;   // output tiles (blocks of one split)
-  int splits;  // K splits (stream_mma only)
-};
-
-// Column tile width and row tile height of a path.
-int tile_cols(int path, int op) {
-  return path == 0 ? kFmBN
-         : path == 1 ? kTcBN
-         : op == kOpSwiglu ? kPfBNSwiglu : kPfBN;
-}
-int tile_rows(int path) {
-  return path == 0 ? kFmBM : path == 1 ? kTcBM : kPfBM;
-}
-
-bool plan_args_ok(int op, int M, int count, const int* n, int K, int sms,
-                  int dtype) {
-  // K = 0 is a product of zeros (plus the SwiGLU biases).
-  if (M <= 0 || K < 0 || sms <= 0 || (dtype != 0 && dtype != 1))
-    return false;
-  if (op == kOpSwiglu ? count != 1 : (op != kOpGemm || count < 1 ||
-                                      count > kMaxSegs))
-    return false;
-  for (int i = 0; i < count; ++i)
-    if (n[i] <= 0) return false;
-  return true;
-}
-
-Plan make_plan(int op, int M, int count, const int* n, int K, int sms,
-               int dtype) {
-  bool tc = dtype == 0 && K % 8 == 0;
-  for (int i = 0; i < count; ++i) tc = tc && n[i] % 8 == 0;
-  Plan p;
-  p.path = !tc ? 0 : (op == kOpGemm && M <= kTcBM) ? 1 : 2;
-  const int bn = tile_cols(p.path, op);
-  int col_tiles = 0;
-  for (int i = 0; i < count; ++i) col_tiles += (n[i] + bn - 1) / bn;
-  p.tiles = col_tiles * ((M + tile_rows(p.path) - 1) / tile_rows(p.path));
-  p.splits = p.path == 1 ? splitk_count(p.tiles, K, sms) : 1;
-  return p;
 }
 
 template <typename T>

@@ -1,7 +1,9 @@
 // Pieces shared by the port's GEMM kernels for Hopper (sm_90a):
 // gemm_ar.cu (GEMM-AR at world = 1), ag_gemm.cu (AG-GEMM, AG-SwiGLU and
-// the GEMM of GEMM-RS at world = 1) and gemm_rs_ring.cu (GEMM-RS / GEMM-AR
-// at world W, whose decode body runs the two small-M bodies below).
+// the GEMM of GEMM-RS at world = 1), gemm_rs_ring.cu (GEMM-RS / GEMM-AR
+// at world W, whose decode body runs the two small-M bodies below) and
+// ag_gemm_ring.cu (AG-GEMM at world W, whose decode body runs the
+// tensor-core one on each rank's column shard).
 //
 //  * conversions, cp.async, ldmatrix and mma.sync m16n8k16 (bf16 in, f32
 //    accumulate) wrappers;
@@ -14,7 +16,8 @@
 //    counterpart (f32 and odd bf16 shapes), each one block's work;
 //    `stream_mma`, the kernel of the tensor-core body, and the fixed-order
 //    split reduce `splitk_reduce`. gemm_ar runs them with one product,
-//    ag_gemm's decode plan `stream_mma` with up to three.
+//    ag_gemm's decode plan `stream_mma` with up to three, and the AG ring
+//    `stream_mma_block` with B-first prologue (`kBFirst`).
 //
 // Every sum has a fixed order and there are no atomics: equal inputs give
 // equal bits from run to run.
@@ -85,9 +88,10 @@ bool aligned16(const void* p) {
 
 // ---------------------------------------------------------------------------
 // Products that share A: C_i (M, n[i]) = A (M, K) @ B_i (K, n[i]), all
-// row-major. Product i owns columns [col0[i], col0[i+1]) of the
-// concatenated width and column tiles [tile0[i], tile0[i+1]) of a kernel
-// whose tiles are `bn` wide.
+// row-major, B_i and C_i with row stride ld[i] (n[i], or a wider tensor's
+// when they are a column shard of it). Product i owns columns [col0[i],
+// col0[i+1]) of the concatenated width and column tiles [tile0[i],
+// tile0[i+1]) of a kernel whose tiles are `bn` wide.
 constexpr int kMaxSegs = 3;
 
 template <typename T>
@@ -95,6 +99,7 @@ struct Segs {
   const T* b[kMaxSegs];
   T* c[kMaxSegs];
   int n[kMaxSegs];
+  int ld[kMaxSegs];
   int col0[kMaxSegs + 1];
   int tile0[kMaxSegs + 1];
   int count;
@@ -109,6 +114,7 @@ Segs<T> make_segs(int count, const T* const* b, T* const* c, const int* n,
     s.b[i] = b[i];
     s.c[i] = c[i];
     s.n[i] = n[i];
+    s.ld[i] = n[i];
     s.col0[i + 1] = s.col0[i] + n[i];
     s.tile0[i + 1] = s.tile0[i] + (n[i] + bn - 1) / bn;
   }
@@ -214,6 +220,11 @@ void reduce_splits(const float* W, const Segs<T>& segs, int M, int splits,
 // f32 partial goes to ws[z, m, col] over the concatenated width. A caller
 // that runs the body for more than one item syncs the block between
 // them (the stages' shared memory is reused).
+//
+// kBFirst (a compile-time variant of the prologue, for an A that other
+// blocks are still writing): the first stages' copies of B are issued,
+// then `ready()` (every thread of the block calls it; it returns once A
+// may be read), then A's. The sums do not change.
 constexpr int kTcBN = 64;                 // columns per block
 constexpr int kTcBM = 64;                 // rows of A per block (4 x m16)
 constexpr int kTcBK = 64;                 // K per pipeline stage
@@ -228,18 +239,24 @@ constexpr int stream_smem_bytes() {
          static_cast<int>(sizeof(__nv_bfloat16));
 }
 
-template <int MF>
+// The `ready` of a block whose A is in place before it starts.
+struct NoWait {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+template <int MF, bool kBFirst = false, class Ready = NoWait>
 __device__ __forceinline__ void stream_mma_block(
     const __nv_bfloat16* __restrict__ A, long long lda,
     const Segs<__nv_bfloat16>& segs, float* __restrict__ ws, int M, int K,
     int k_per_split, bool direct, int tile, int mt, int z,
-    unsigned char* smem_raw) {
+    unsigned char* smem_raw, const Ready& ready = Ready{}) {
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Bs = As + kTcStages * MF * 16 * kTcLdA;
 
   const int seg = seg_of_tile(segs, tile);
   const __nv_bfloat16* __restrict__ B = seg_field(segs.b, seg);
   const int N = seg_field(segs.n, seg);
+  const long long ldn = seg_field(segs.ld, seg);
   const int n0 = (tile - seg_field(segs.tile0, seg)) * kTcBN;
   const int m0 = mt * kTcBM;
   const int k_begin = z * k_per_split;
@@ -252,10 +269,9 @@ __device__ __forceinline__ void stream_mma_block(
   // Stage `kc` of this block's K slice into pipeline slot `slot`. Chunks of
   // 8 elements past M, N or the slice end are zero-filled (N and K are
   // multiples of 8 and the slice starts on a multiple of 64).
-  auto load_stage = [&](int slot, int kc) {
+  auto load_a = [&](int slot, int kc) {
     const int k0 = k_begin + kc * kTcBK;
     __nv_bfloat16* as = As + slot * MF * 16 * kTcLdA;
-    __nv_bfloat16* bs = Bs + slot * kTcBK * kTcLdB;
     for (int c = tid; c < MF * 16 * (kTcBK / 8); c += kTcThreads) {
       const int r = c / (kTcBK / 8);
       const int kk = (c % (kTcBK / 8)) * 8;
@@ -264,14 +280,22 @@ __device__ __forceinline__ void stream_mma_block(
           ok ? A + static_cast<size_t>(m0 + r) * lda + k0 + kk : A;
       cp_async16(as + r * kTcLdA + kk, src, ok);
     }
+  };
+  auto load_b = [&](int slot, int kc) {
+    const int k0 = k_begin + kc * kTcBK;
+    __nv_bfloat16* bs = Bs + slot * kTcBK * kTcLdB;
     for (int c = tid; c < kTcBK * (kTcBN / 8); c += kTcThreads) {
       const int r = c / (kTcBN / 8);
       const int nn = (c % (kTcBN / 8)) * 8;
       const bool ok = k0 + r < k_end && n0 + nn < N;
       const __nv_bfloat16* src =
-          ok ? B + static_cast<size_t>(k0 + r) * N + n0 + nn : B;
+          ok ? B + static_cast<size_t>(k0 + r) * ldn + n0 + nn : B;
       cp_async16(bs + r * kTcLdB + nn, src, ok);
     }
+  };
+  auto load_stage = [&](int slot, int kc) {
+    load_a(slot, kc);
+    load_b(slot, kc);
   };
 
   float acc[MF][2][4];
@@ -282,10 +306,24 @@ __device__ __forceinline__ void stream_mma_block(
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
+  if constexpr (kBFirst) {
+    // B's stages join the first commit group, so stage s's group still
+    // holds all of stage s and the waits below count the same.
 #pragma unroll
-  for (int s = 0; s < kTcStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+    for (int s = 0; s < kTcStages - 1; ++s)
+      if (s < nk) load_b(s, s);
+    ready();
+#pragma unroll
+    for (int s = 0; s < kTcStages - 1; ++s) {
+      if (s < nk) load_a(s, s);
+      cp_async_commit();
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kTcStages - 1; ++s) {
+      if (s < nk) load_stage(s, s);
+      cp_async_commit();
+    }
   }
   for (int kc = 0; kc < nk; ++kc) {
     cp_async_wait<kTcStages - 2>();
@@ -349,7 +387,7 @@ __device__ __forceinline__ void stream_mma_block(
         const int n = n0 + warp * 16 + nf * 8 + 2 * t + (e & 1);
         if (m >= M || n >= N) continue;
         if (direct) {
-          C[static_cast<size_t>(m) * N + n] =
+          C[static_cast<size_t>(m) * ldn + n] =
               from_f32<__nv_bfloat16>(acc[mf][nf][e]);
         } else {
           ws[(static_cast<size_t>(z) * M + m) * ncat + col0 + n] =

@@ -43,8 +43,10 @@
 //    wait only needs items earlier in every block's order: no deadlock.
 //  * Signals hold the call's epoch, waits compare for equality; stream
 //    order separates calls (the slabs are reused).
-//  * `fault` (a test hook): rank 0's step-0 pushes skip their stores and
-//    still release their signals; the output must then be wrong.
+//  * `fault` (a test hook): the step-0 pushes of chunk 0 (rank 1's
+//    forward, rank W - 1's mirrored one) skip their stores and still
+//    release their signals; the output must then be wrong. Chunk 0 holds
+//    row 0, which is live at any M (GEMM-AR pads M at the end).
 //
 // Two bodies, picked by the padded M (the port's ring_path; the rule of
 // gemm_ar.cu's and ag_gemm.cu's world-1 plans):
@@ -233,7 +235,7 @@ __global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
                s * slab + static_cast<long long>(row0) * N + col0;
       unsigned long long* sig = reinterpret_cast<unsigned long long*>(
           tdt_peer_ptr(a.sig_tab, peer)) + s * tiles + t;
-      if (a.fault && me == 0 && s == 0) {
+      if (a.fault && s == 0 && c == 0) {
         release_after_block(sig, a.epoch);
         continue;
       }
@@ -314,6 +316,7 @@ rs_stream_ring_kernel(RsArgs<T> a) {
       Segs<bf16> segs = {};
       segs.b[0] = B;
       segs.n[0] = N;
+      segs.ld[0] = N;
       segs.col0[1] = N;
       segs.tile0[1] = col_tiles;
       segs.count = 1;
@@ -371,7 +374,7 @@ rs_stream_ring_kernel(RsArgs<T> a) {
       recv = slab_me + (s - 1) * slab;
     }
     const int peer = (me + d) % world;
-    if (!(a.fault && me == 0 && s == 0)) {
+    if (!(a.fault && s == 0 && c == 0)) {
       T* dst = last ? (a.ag ? nullptr : a.out + c * slab)
                     : reinterpret_cast<T*>(tdt_peer_ptr(a.slab_tab, peer)) +
                           s * slab;

@@ -28,7 +28,9 @@ Each output row block is one chunk's full-K product, so the ring's order
 does not change the numbers: the plain ring versions
 (:func:`ag_gemm_multi_ring_reference`, :func:`ag_swiglu_ring_reference`)
 take the chunks in ``ring_chunk_schedule`` order and equal the gathered
-product.
+product. At decode shapes (:func:`ring_path` "stream") the kernel
+gathers every chunk first and streams each rank's column shard of B
+once, with the world-1 kernel's decode plan on that shard.
 
 On a CUDA tensor each entry point launches its kernel or raises; only
 tensors that lie on the CPU take the plain versions
@@ -50,7 +52,7 @@ from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import (
     LaunchCount, aligned16, check_ring_dirs, num_sms, ring_chunk_schedule)
 from triton_dist_tpu_torch.runtime.dist import RankGroup
-from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
+from triton_dist_tpu_torch.runtime.symm_mem import RingState
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _OP_GEMM, _OP_SWIGLU = 0, 1
@@ -60,6 +62,9 @@ _OP_GEMM, _OP_SWIGLU = 0, 1
 PATHS = ("fma", "decode", "prefill")
 #: Products one ``ag_gemm_multi`` launch takes.
 MAX_PRODUCTS = 3
+#: Largest M of the world-1 decode plan (``csrc/ag_gemm.cu``), and of the
+#: B-streaming bodies of ``gemm_rs`` and of both ring kernels.
+DECODE_MAX_M = 64
 
 #: JAX's soft VMEM budget of the default path
 #: (``triton_dist_tpu/ops/common.py`` DEFAULT_VMEM_BUDGET).
@@ -70,7 +75,8 @@ ag_gemm_launches = LaunchCount()
 #: Launches of the fused AG-SwiGLU kernel, by (plan, K, (width,)).
 ag_swiglu_launches = LaunchCount()
 #: Launches of the ring kernel by ``ag_gemm_multi`` at world W > 1, by
-#: (path, world, M, K, shard widths); path "mma" (tensor cores) or "fma".
+#: (body, world, M, K, shard widths); body :func:`ring_path`'s, "stream"
+#: (the decode body), "mma" (tensor-core tiles) or "fma".
 ag_ring_launches = LaunchCount()
 #: Launches of the ring kernel's fused SwiGLU by ``ag_swiglu`` at world
 #: W > 1, keyed as :data:`ag_ring_launches`.
@@ -384,12 +390,49 @@ class AllGatherGEMMContext:
         return self.group.world
 
 
-def ring_path(dtype: torch.dtype, k: int, widths) -> str:
-    """The ring kernel's tile: "mma" (tensor cores: bf16 with K and every
-    shard width multiples of 8) or "fma"."""
+#: The ring kernels' bodies (``csrc/ag_gemm_ring.cu``,
+#: ``csrc/gemm_rs_ring.cu``), by the name their ``ring_path`` gives.
+RING_PATHS = {"fma": 0, "mma": 1, "stream": 2}
+
+
+def ring_path(dtype: torch.dtype, m: int, k: int, widths,
+              op: str = "gemm") -> str:
+    """The ring kernel's body for an (m, k) activation and shard widths
+    ``widths``: "stream" (the decode body) for op "gemm" in bf16 with K
+    and every shard width multiples of 8 and m <= :data:`DECODE_MAX_M`,
+    where the world-1 kernel on one rank's shard runs its decode plan;
+    else the tile, "mma" (tensor cores: bf16 with K and every shard width
+    multiples of 8) or "fma". It depends on op, dtype and shape only. The
+    kernel takes the body's rule and its K splits from the world-1 plan of
+    one rank's shard (``csrc/ag_plan.cuh``), and refuses a body that this
+    plan does not give."""
     mma = (dtype == torch.bfloat16 and k % 8 == 0
            and all(n % 8 == 0 for n in widths))
+    if mma and op == "gemm" and m <= DECODE_MAX_M:
+        return "stream"
     return "mma" if mma else "fma"
+
+
+class RingSizes(NamedTuple):
+    """The state one ring launch needs beyond its chunk signals
+    (``csrc/ag_gemm_ring.cu``'s ``tdt_ag_ring_sizes``): ``prods``, the
+    product signals of a rank, and ``ws``, its f32 products workspace's
+    elements (the decode body with more than one K split; else 0)."""
+    prods: int
+    ws: int
+
+
+@functools.cache
+def _ring_sizes(op: str, dtype: torch.dtype, path: str, world: int,
+                rows: int, k: int, widths: tuple, sms: int) -> RingSizes:
+    lib = _ring_lib()
+    n = list(widths) + [0] * (MAX_PRODUCTS - len(widths))
+    prods, ws = ctypes.c_int(), ctypes.c_longlong()
+    _check(lib, lib.tdt_ag_ring_sizes(
+        {"gemm": _OP_GEMM, "swiglu": _OP_SWIGLU}[op], _DTYPE_CODES[dtype],
+        RING_PATHS[path], world, rows, k, len(widths), *n, sms,
+        ctypes.byref(prods), ctypes.byref(ws)))
+    return RingSizes(prods.value, ws.value)
 
 
 def launch_ag_ring(op: str, a: torch.Tensor, bs: list,
@@ -399,11 +442,11 @@ def launch_ag_ring(op: str, a: torch.Tensor, bs: list,
     ``ctx.group``: op "gemm" (``bs`` one to three weights, counted in
     :data:`ag_ring_launches`) or "swiglu" (``bs`` = [w_gate, w_up] and
     optional ``biases`` (b_gate, b_up), counted in
-    :data:`ag_swiglu_ring_launches`). a (M, K), the weights and the
-    outputs are the global tensors (contiguous, CUDA, bf16 or f32), M and
-    every width multiples of W. Returns the list of outputs. ``fault``
-    plants the test fault of the kernel (rank 0's first push to the right
-    skipped, its signal still set)."""
+    :data:`ag_swiglu_ring_launches`), the body :func:`ring_path`'s. a (M,
+    K), the weights and the outputs are the global tensors (contiguous,
+    CUDA, bf16 or f32), M and every width multiples of W. Returns the list
+    of outputs. ``fault`` plants the test fault of the kernel (rank 0's
+    first push to the right skipped, its signal still set)."""
     _check_cuda(f"ag_{op} ring", a, list(bs) + list(biases))
     lib = _ring_lib()
     world = ctx.world_size
@@ -412,15 +455,22 @@ def launch_ag_ring(op: str, a: torch.Tensor, bs: list,
     swiglu = op == "swiglu"
     outs_w = [bs[0].shape[1]] if swiglu else [b.shape[1] for b in bs]
     widths = tuple(n // world for n in outs_w)
-    path = ring_path(a.dtype, k, widths)
+    path = ring_path(a.dtype, m, k, widths, op)
+    sms = num_sms(a.device.index)
+    size = _ring_sizes(op, a.dtype, path, world, rows, k, widths, sms)
     outs = [torch.empty((m, n), dtype=a.dtype, device=a.device)
             for n in outs_w]
     chunk_bytes = rows * k * a.element_size()
     piece = min(PIECE_BYTES, -(-chunk_bytes // 16) * 16)
     pieces = -(-chunk_bytes // piece)
     state = ctx.state
-    ws = state.workspace(m * k, a.dtype)
-    sig = state.signals("ag", world * pieces)
+    # The state's tables are made once (RingState.table): a launch queues
+    # no kernel but its own.
+    ws_tab = state.table(state.workspace(m * k, a.dtype))
+    sig_tab = state.table(state.signals("ag", world * pieces + size.prods))
+    prod_tab = (state.table(state.workspace(size.ws, torch.float32,
+                                            "products"))
+                if size.ws else None)
     a = aligned16(a)
     bs = [aligned16(b) for b in bs]
     if swiglu:
@@ -436,17 +486,14 @@ def launch_ag_ring(op: str, a: torch.Tensor, bs: list,
     bias_ptrs = ([t.data_ptr() for t in biases] if biases
                  else [None, None])
     n_loc = list(widths) + [0] * (MAX_PRODUCTS - len(widths))
-    # The tables stay referenced until the launch is queued: a freed
-    # temporary's memory would be handed to the next one.
-    ws_tab, sig_tab = rank_table(ws, world), rank_table(sig, world)
     epoch = state.next_epoch()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _check(lib, lib.tdt_ag_ring(
         _OP_SWIGLU if swiglu else _OP_GEMM, _DTYPE_CODES[a.dtype],
-        int(path == "mma"), a.data_ptr(), ws_tab.data_ptr(),
-        sig_tab.data_ptr(), n_b, *b_ptrs, *c_ptrs, *n_loc,
-        u_ptr, *bias_ptrs, world, rows, k, pieces, piece, ctx.ring_dirs,
-        epoch, int(fault), stream))
+        RING_PATHS[path], a.data_ptr(), ws_tab.data_ptr(),
+        sig_tab.data_ptr(), prod_tab.data_ptr() if size.ws else None, n_b,
+        *b_ptrs, *c_ptrs, *n_loc, u_ptr, *bias_ptrs, world, rows, k, pieces,
+        piece, ctx.ring_dirs, sms, epoch, int(fault), stream))
     count = ag_swiglu_ring_launches if swiglu else ag_ring_launches
     count.add((path, world, m, k, widths))
     return outs
@@ -456,11 +503,14 @@ def _ring_lib() -> ctypes.CDLL:
     lib = _build.load("ag_gemm_ring")
     if lib.tdt_ag_ring.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tdt_ag_ring_grid.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.tdt_ag_ring_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.tdt_ag_ring_grid.restype = i
-        lib.tdt_ag_ring.argtypes = ([i, i, i, p, p, p, i] + [p] * 6
+        lib.tdt_ag_ring_sizes.argtypes = [i] * 11 + [
+            ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
+        lib.tdt_ag_ring_sizes.restype = i
+        lib.tdt_ag_ring.argtypes = ([i, i, i, p, p, p, p, i] + [p] * 6
                                     + [i] * 3 + [p] * 3 + [i] * 4
-                                    + [ctypes.c_longlong, i,
+                                    + [ctypes.c_longlong, i, i,
                                        ctypes.c_ulonglong, i, p])
         lib.tdt_ag_ring.restype = i
         lib.tdt_error_string.argtypes = [i]

@@ -44,15 +44,14 @@ import torch
 
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops import allgather_gemm
-from triton_dist_tpu_torch.ops.allgather_gemm import DEFAULT_VMEM_BUDGET
+from triton_dist_tpu_torch.ops.allgather_gemm import (
+    DECODE_MAX_M, DEFAULT_VMEM_BUDGET, RING_PATHS)
 from triton_dist_tpu_torch.ops.common import (
     LaunchCount, aligned16, check_ring_dirs, num_sms)
 from triton_dist_tpu_torch.runtime.dist import RankGroup
 from triton_dist_tpu_torch.runtime.symm_mem import RingState
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-#: Largest M that ``gemm_rs`` sends to the B-streaming gemm_ar kernel.
-DECODE_MAX_M = 64
 
 #: Launches of the gemm_ar kernel by ``gemm_ar``, by the (K, N) of ``b``
 #: (CPU calls do not count).
@@ -378,10 +377,6 @@ def _ring(op: str, a: torch.Tensor, b: torch.Tensor,
     return out[0, :m] if ag else out
 
 
-#: The ring kernel's bodies, by :func:`ring_path`'s name.
-_RING_PATHS = {"fma": 0, "mma": 1, "stream": 2}
-
-
 def ring_path(dtype: torch.dtype, m: int, k_loc: int, n: int,
               split: int) -> str:
     """The ring kernel's body for a call of (padded) ``m`` rows: "stream"
@@ -411,7 +406,7 @@ def _ring_sizes(dtype: torch.dtype, path: str, world: int, rows: int,
     lib = _ring_lib()
     pieces, prods, ws = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     _check(lib, lib.tdt_rs_ring_tiles(
-        _DTYPE_CODES[dtype], _RING_PATHS[path], world, rows, k_loc, n, split,
+        _DTYPE_CODES[dtype], RING_PATHS[path], world, rows, k_loc, n, split,
         sms, ctypes.byref(pieces), ctypes.byref(prods), ctypes.byref(ws)))
     return RingSizes(pieces.value, prods.value, ws.value)
 
@@ -428,7 +423,8 @@ def launch_ring(a: torch.Tensor, b: torch.Tensor,
     multiples of W. Returns the row-sharded (M, N) result, or with the
     epilogue every rank's (M, N) buffer as one (W, M, N) tensor (rank 0's
     is the replicated result). ``fault`` plants the test fault of the
-    kernel (rank 0's first pushes skipped, their signals still set)."""
+    kernel (the step-0 pushes of chunk 0, which holds row 0, skipped,
+    their signals still set)."""
     allgather_gemm._check_cuda("gemm_rs ring", a, [b])
     world = ctx.world_size
     m, k = a.shape
@@ -457,7 +453,7 @@ def launch_ring(a: torch.Tensor, b: torch.Tensor,
     def ptr(t):
         return t.data_ptr() if t is not None else None
     _check(lib, lib.tdt_rs_ring(
-        _DTYPE_CODES[a.dtype], _RING_PATHS[path], a.data_ptr(), b.data_ptr(),
+        _DTYPE_CODES[a.dtype], RING_PATHS[path], a.data_ptr(), b.data_ptr(),
         out.data_ptr(), slab_tab.data_ptr(), sig_tab.data_ptr(),
         ptr(ws_tab), ptr(ag_tab), int(all_gather_epilogue), world, rows, kl,
         n, split, sms, epoch, int(fault), stream))
