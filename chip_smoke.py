@@ -36,18 +36,22 @@ without the final line:
    records is tried again (ROADMAP.md, Queue C item C6). ``--records`` runs only the check
    of those records on phase 5's decode step, in a fresh process.
 7. flash-decode kernels: the split-KV ``partial`` (dense rows and pages
-   through a block table), ``combine`` and ``single`` kernels against their
-   plain versions at Qwen3-8B's decode shapes, kv_len 1, 17, 160, 1024 and
+   through a block table), the fused ``tiled`` launch (the partial with
+   its merge tail), ``combine`` and ``single`` against their plain
+   versions at Qwen3-8B's decode shapes, kv_len 1, 17, 160, 1024 and
    ragged, bf16 and f32, with the stated tolerance (bf16: 2^-7 |out| +
    2^-8 sum_j (p_j / l)|v_j|, the weight rule of phases 14-15); repeats
-   must give the same bits, and paged and dense addressing of the same
-   rows too; a planted fault (one split dropped before the combine, at
-   kv_len 160 and 1024) must fail that limit.
+   must give the same bits, paged and dense addressing of the same rows
+   too, and the fused launch the bits of the standalone combine of the
+   partials; a planted fault (one split left out of the merge, by the
+   standalone combine and by the fused launch, at kv_len 160 and 1024)
+   must fail that limit.
 8. sp main path (flash decode's): Qwen3-8B served in mode "sp" by three
    engines, (a) paged (page 16), (b) contiguous with max_seq 1024 (the
-   split kernel) and (c) contiguous with max_seq 512 (the single-pass
-   kernel), 4 x 128-token prompts for 32 tokens each: flash-decode launches
-   per decode step must be 36 x 2 (a, b) or 36 x 1 (c), gemm_ar launches 0,
+   split kernel with its merge) and (c) contiguous with max_seq 512 (the
+   single-pass kernel), 4 x 128-token prompts for 32 tokens each:
+   flash-decode launches per decode step must be 36 (one a layer, the
+   standalone combine never), gemm_ar launches 0,
    and (a) and (b) the same tokens; then 6 prompts sharing a 64-token
    prefix streamed through a 24-page pool (a'), with prefix hits and a
    clean block audit, and the server over (a) (uniform prompts -> serve,
@@ -112,13 +116,14 @@ without the final line:
     ``SpAttentionLayer(impl="pallas")`` prefill of the 32k prompt (one
     kernel launch, equal to phase 14's output), ``SpFlashDecodeLayer``
     over a cache of 32768 + 32 positions filled by ``append``, then 32
-    append-then-decode steps (partial + combine per step) each against
+    append-then-decode steps (one fused launch per step) each against
     ``flash_decode_reference`` (2^-7 |out| + 2^-8 sum_j (p_j / l) |v_j|); ``sp_ag_attention`` in xla, ulysses and
     ag_pallas (the all-gather kernel) equal to ring, and pallas within
     tolerance, at S = 4096; every all_reduce and reduce_scatter method
     and broadcast at (1, 4, 4096) and (1, 512, 4096) bf16 equal to their
-    plain versions; then the flash-decode kernels at kv_len 32800 (with a
-    planted fault, one split dropped, refused by the same limit) and the
+    plain versions; then the flash-decode kernels at kv_len 32800 (the
+    fused launch bit-equal to partial + standalone combine, its planted
+    fault, one split left out, refused by the same limit) and the
     copy kernel under each collective are timed for the JSON line.
 
 16. expert parallelism (this slice's main path), on phase 12's
@@ -463,11 +468,20 @@ def profiled_rows(torch, fn, n: int = 3, what: str = "") -> tuple:
             complete)
 
 
-def device_ms(torch, fn, n: int = 3, what: str = "") -> float:
-    """Device ms of one ``fn()`` call (a decode step, a prefill): the GPU
-    time of every kernel it launches, summed by :func:`profiled`. Host
-    overhead between launches is not in it."""
-    return sum(ms for _, ms in profiled(torch, fn, n, what))
+def device_ms(torch, fn, n: int = 3, what: str = "") -> tuple:
+    """(device ms of one ``fn()`` call (a decode step, a prefill): the GPU
+    time of every kernel it launches, summed by :func:`profiled_rows`;
+    the prefixes of that time and of an idle share taken from it:
+    ``bound_marks``). Host overhead between launches is not in it."""
+    rows, whole = profiled_rows(torch, fn, n, what)
+    return (sum(ms for _, ms in rows), *bound_marks(whole))
+
+
+def bound_marks(whole: bool) -> tuple:
+    """("", "") when the profiler session recorded every port launch, else
+    (">= ", "<= "): the device time it gives is then a lower bound and an
+    idle share from it an upper bound (ROADMAP.md, Queue C item C6)."""
+    return ("", "") if whole else (">= ", "<= ")
 
 
 def device_breakdown(torch, fn, n: int = 3, top: int = 8) -> list:
@@ -752,10 +766,10 @@ def phase_logits(torch, ops, model, params, prompts, cfg,
             model.forward(params, tok, caches, 128, mode="gemm_ar")
     walls = [sync_time(torch, step)[1] for _ in range(5)]
     wall = sorted(walls)[2]
-    dev = device_ms(torch, step, n=3)
+    dev, ge, le = device_ms(torch, step, n=3)
     print(f"decode step (batch 4, max_seq 1024, forward only): wall "
-          f"{wall:.2f} ms (median of 5), device {dev:.2f} ms, device idle "
-          f"share {1 - dev / wall:.2f} [{card}]", flush=True)
+          f"{wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, device "
+          f"idle share {le}{1 - dev / wall:.2f} [{card}]", flush=True)
 
 
 def phase_kernels_line(torch, ops, params, cfg, main_launches) -> list:
@@ -800,9 +814,10 @@ FD_LENS = (1, 17, 160, 1024, (1, 17, 160, 1024))
 #: The three sp engines: (a) paged, (b) contiguous with a shard of 8 MiB
 #: (the split kernel, dense rows), (c) contiguous with a shard of 4 MiB
 #: (the single-pass kernel): name -> (max_seq, Engine options, flash-decode
-#: launches per layer of a decode step).
-SP_ENGINES = {"a": (1024, {"paged": True, "page_size": FD_PAGE}, 2),
-              "b": (1024, {}, 2),
+#: launches per layer of a decode step: the fused tiled launch or the
+#: single-pass one).
+SP_ENGINES = {"a": (1024, {"paged": True, "page_size": FD_PAGE}, 1),
+              "b": (1024, {}, 1),
               "c": (512, {}, 1)}
 #: Block pool of the stream phase: 24 pages hold two of its requests at a
 #: time (each needs 7-13), so admission waits for retirements.
@@ -877,7 +892,7 @@ def phase_flash_kernels(torch, fd, card: str) -> None:
         pool_k, pool_v, table = fd_paged(torch, k, v)
         k5, v5 = k[:, :512].contiguous(), v[:, :512].contiguous()
         p = fd.plan(FD_B, FD_HKV, 1024, sms)
-        errs = {"partial": 0.0, "combine": 0.0, "single": 0.0}
+        errs = {"partial": 0.0, "combine": 0.0, "single": 0.0, "tiled": 0.0}
         faults = []
         for lens in FD_LENS:
             lens = list(lens) if isinstance(lens, tuple) else lens
@@ -892,10 +907,15 @@ def phase_flash_kernels(torch, fd, card: str) -> None:
                                                 table=table[0])
                 runs.append((dense, paged,
                              fd.flash_decode_combine(*dense, dtype),
-                             fd.flash_decode_single(q, k5, v5, lens)))
+                             fd.flash_decode_single(q, k5, v5, lens),
+                             fd.flash_decode_tiled(q, k, v, lens,
+                                                   p.split_len, p.splits),
+                             fd.flash_decode_tiled(q, pool_k, pool_v, lens,
+                                                   p.split_len, p.splits,
+                                                   table[0])))
             torch.cuda.synchronize()
-            (dense, paged, merged, single), again = runs
-            flat = [t for r in runs for t in (*r[0], *r[1], r[2], r[3])]
+            (dense, paged, merged, single, fused, fused_paged), again = runs
+            flat = [t for r in runs for t in (*r[0], *r[1], *r[2:])]
             half = len(flat) // 2
             check(all(torch.equal(a, b)
                       for a, b in zip(flat[:half], flat[half:])),
@@ -903,6 +923,12 @@ def phase_flash_kernels(torch, fd, card: str) -> None:
             check(all(torch.equal(a, b) for a, b in zip(dense, paged)),
                   f"flash decode {kind} kv_len {lens}: paged and dense "
                   f"partials differ")
+            # The fused launch merges with the standalone combine's code:
+            # the same bits, dense and paged.
+            check(torch.equal(fused, merged)
+                  and torch.equal(fused_paged, merged),
+                  f"flash decode {kind} kv_len {lens}: the fused launch "
+                  f"differs from partial + combine")
             # partial: both partials merged by the plain combine.
             plain = fd.flash_decode_partials_reference(q, k, v, lens,
                                                        p.split_len, p.splits)
@@ -923,28 +949,35 @@ def phase_flash_kernels(torch, fd, card: str) -> None:
             check(ok, f"single {kind} kv_len {lens}: err {err}")
             errs["single"] = max(errs["single"], err)
             want = fd.flash_decode_reference(q, k, v, lens)
-            err, ok = fd_error(torch, merged, want, w)
-            check(ok, f"partial+combine {kind} kv_len {lens}: err {err}")
+            err, ok = fd_error(torch, fused, want, w)
+            check(ok, f"tiled {kind} kv_len {lens}: err {err}")
+            errs["tiled"] = max(errs["tiled"], err)
             if lens in (160, 1024):
                 # Phase 8's kv_len (160) and the full cache: the same
-                # limit must refuse a combine that lost one split.
+                # limit must refuse a merge that lost one split, in the
+                # standalone combine and in the fused launch.
                 bad, drop = drop_split(dense, lens, p.split_len)
                 bad_err, bad_ok = fd_error(
                     torch, fd.flash_decode_combine(*bad, dtype), want, w)
-                check(not bad_ok, f"flash decode {kind} kv_len {lens}: a "
-                                  f"dropped split passed ({bad_err})")
+                f_err, f_ok = fd_error(torch, fd.flash_decode_tiled(
+                    q, pool_k, pool_v, lens, p.split_len, p.splits,
+                    table[0], fault=drop), want, w)
+                check(not bad_ok and not f_ok,
+                      f"flash decode {kind} kv_len {lens}: a dropped split "
+                      f"passed (combine {bad_err}, fused {f_err})")
                 faults.append(f"kv_len {lens}: split {drop} dropped, err "
-                              f"{bad_err:.3g}")
+                              f"{bad_err:.3g} (fused launch {f_err:.3g})")
         tol = ("1e-5" if dtype == torch.float32 else
                "2^-7 |out| + 2^-8 sum_j (p_j/l)|v_j|")
         print(f"kernel flash_decode {kind} B={FD_B} Hq={FD_HQ} Hkv={FD_HKV} "
               f"D={FD_D}, kv_len {list(FD_LENS)}: "
               f"partial (T=1024 dense and paged, {p.splits} splits of "
               f"{p.split_len}) max_abs_err={errs['partial']:.3g}, combine "
-              f"{errs['combine']:.3g}, single (T=512) {errs['single']:.3g} "
-              f"(tol {tol}); repeats bit-identical, paged == dense bits; "
-              f"planted faults refused: {'; '.join(faults)} [{card}]",
-              flush=True)
+              f"{errs['combine']:.3g}, fused tiled {errs['tiled']:.3g}, "
+              f"single (T=512) {errs['single']:.3g} (tol {tol}); repeats "
+              f"bit-identical, paged == dense bits, fused launch == "
+              f"partial + combine bits; planted faults refused: "
+              f"{'; '.join(faults)} [{card}]", flush=True)
 
 
 def sp_prompts(torch, cfg, seed: int):
@@ -1028,17 +1061,22 @@ def phase_sp_main(torch, models, ops, fd, cfg, params, card: str,
           and audit["free"] + audit["evictable"] == audit["total"],
           f"block audit not clean: {audit}")
     launched = fd_total() - before
-    check(launched > 0 and launched % (2 * layers) == 0,
+    check(launched > 0 and launched % layers == 0,
           f"stream flash-decode launches {launched}")
     print(f"sp serve_stream (a': paged, {STREAM_SLOTS}-block pool): 6 "
           f"prompts sharing a {PREFIX_LEN}-token prefix through 4 rows, "
           f"{GEN} new tokens in {stream_ms:.1f} ms; decode steps "
-          f"{launched // (2 * layers)}; prefix {stats}; audit {audit} "
+          f"{launched // layers}; prefix {stats}; audit {audit} "
           f"[{card}]", flush=True)
 
     phase_sp_server(torch, engines["a"], params, square, stream, card)
     fd_launches = {n: dict(c.by_shape) for n, c in fd.launches.items()}
     check(ops.launches.total == 0, "gemm_ar launched on the sp path")
+    # The merge runs in the partial's own launch: the standalone combine
+    # never does on the path (phase 7 and the records hold the fused
+    # launch bit-equal to partial + combine).
+    check(not fd_launches["combine"], f"the standalone combine launched on "
+                                      f"the sp path: {fd_launches}")
     print(f"sp main path: gemm_ar launches 0; flash-decode launches "
           f"{fd_launches}", flush=True)               # ---- main path ends
     for t in list(tokens.values()) + [torch.tensor(r) for r in res]:
@@ -1130,10 +1168,10 @@ def phase_sp_checks(torch, fd, engines, params, square, stream,
         fn = sp_step(torch, engines[name], params, square)
         walls = [sync_time(torch, fn)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        dev = device_ms(torch, fn, n=3)
+        dev, ge, le = device_ms(torch, fn, n=3)
         print(f"sp decode step ({name}, forward only): wall {wall:.2f} ms "
-              f"(median of 5), device {dev:.2f} ms, device idle share "
-              f"{1 - dev / wall:.2f} [{card}]", flush=True)
+              f"(median of 5), device {ge}{dev:.2f} ms, device idle share "
+              f"{le}{1 - dev / wall:.2f} [{card}]", flush=True)
 
     # A prefix-hit admission against a cold one of the same prompt: the
     # hit prefills only the suffix over the cached prefix pages.
@@ -1184,9 +1222,13 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
     """The JSON records of the flash-decode kernels at the main path's
     shapes: bf16, batch 4, kv_len 160 (the last decode step of a 128-token
     prompt and 32 new tokens), engine (a)'s pool, (b)'s and (c)'s caches.
-    ``library_ms``: one ``scaled_dot_product_attention`` with the kv_len
-    mask over the contiguous (B, T) view, a yardstick the port never
-    calls (the combine pass has none)."""
+    The partial rows time the path's call, the partial kernel with its
+    merge tail in one launch (``flash_decode_tiled``), first held bit-equal
+    to the partial alone plus the standalone combine; the combine row is
+    that standalone kernel, off the path (0 launches). ``library_ms``: one
+    ``scaled_dot_product_attention`` with the kv_len mask over the
+    contiguous (B, T) view, a yardstick the port never calls (the combine
+    has none)."""
     import torch.nn.functional as F
     from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
     view = PagedKVCacheManager.gathered_view
@@ -1210,17 +1252,23 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
     # The kernels take the lengths as a device tensor: a Python list is
     # copied to the card on every call, which waits for the card.
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ctx = fd.FlashDecodeContext()      # its tickets serve every call
 
-    def paged_partial():
-        return fd.flash_decode_partial(q, pool_k, pool_v, lens_t,
-                                       p.split_len, p.splits, table[0])
+    def paged_tiled():
+        return fd.flash_decode_tiled(q, pool_k, pool_v, lens_t, p.split_len,
+                                     p.splits, table[0], ctx=ctx)
 
-    def dense_partial():
-        return fd.flash_decode_partial(q, k, v, lens_t, p.split_len,
-                                       p.splits)
+    def dense_tiled():
+        return fd.flash_decode_tiled(q, k, v, lens_t, p.split_len, p.splits,
+                                     ctx=ctx)
 
-    parts = dense_partial()
+    parts = fd.flash_decode_partial(q, k, v, lens_t, p.split_len, p.splits)
     part_bytes = sum(x.numel() * 4 for x in parts)
+    merged = fd.flash_decode_combine(*parts, dtype)
+    check(torch.equal(paged_tiled(), merged)
+          and torch.equal(dense_tiled(), merged),
+          "the fused tiled launch differs from partial + combine at kv_len "
+          "160")
     ref = fd.flash_decode_reference(q, k, v, lens)
     w, w5 = fd_weight(fd, q, k, v, lens), fd_weight(fd, q, k5, v5, lens)
     merge = fd.flash_decode_combine_reference
@@ -1228,23 +1276,21 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
     # (kernel result, plain result, weight of the tolerance), library, bound
     cases = [
         ("flash_decode_partial[paged]", "partial", ("paged", FD_B, 1024),
-         280, paged_partial,
-         lambda: fd.flash_decode_partials_reference(
-             q, view(pool_k, table), view(pool_v, table), lens,
-             p.split_len, p.splits),
-         (merge(*paged_partial(), dtype), ref, w),
+         280, paged_tiled,
+         lambda: fd.flash_decode_paged_reference(q, pool_k, pool_v, table,
+                                                 lens),
+         (paged_tiled(), ref, w),
          library(view(pool_k, table), view(pool_v, table)),
-         attn_bound_ms(lens, 1024, 2, kind, part_bytes)),
+         attn_bound_ms(lens, 1024, 2, kind, out_bytes)),
         ("flash_decode_partial[dense]", "partial", ("dense", FD_B, 1024),
-         280, dense_partial,
-         lambda: fd.flash_decode_partials_reference(
-             q, k, v, lens, p.split_len, p.splits),
-         (merge(*parts, dtype), ref, w), library(k, v),
-         attn_bound_ms(lens, 1024, 2, kind, part_bytes)),
+         280, dense_tiled,
+         lambda: fd.flash_decode_reference(q, k, v, lens),
+         (dense_tiled(), ref, w), library(k, v),
+         attn_bound_ms(lens, 1024, 2, kind, out_bytes)),
         ("flash_decode_combine", "combine", None, 218,
          lambda: fd.flash_decode_combine(*parts, dtype),
          lambda: merge(*parts, dtype),
-         (fd.flash_decode_combine(*parts, dtype), merge(*parts, dtype), w),
+         (merged, merge(*parts, dtype), w),
          None,
          ((part_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bytes")),
         ("flash_decode_single", "single", ("dense", FD_B, 512), 262,
@@ -1261,7 +1307,7 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
         check(ok, f"{name}: max abs err {err} outside tolerance")
         launches = (fd_launches[counter].get(key, 0) if key is not None
                     else sum(fd_launches[counter].values()))
-        out.append({
+        rec = {
             "name": name, "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
             "replaces": f"triton_dist_tpu/ops/flash_decode.py:{line}",
@@ -1271,8 +1317,19 @@ def phase_fd_kernels_line(torch, fd, fd_launches) -> list:
             "bound_ms": bnd, "bound_by": by,
             "library_ms": queued_ms(torch, lib) if lib else None,
             "wall_ms": wall_ms(torch, kernel),
-            "shape": [FD_B, FD_HQ, FD_HKV, FD_D, 160], "ok": ok})
-        check(launches > 0, f"{name} never launched on the path")
+            "shape": [FD_B, FD_HQ, FD_HKV, FD_D, 160], "ok": ok}
+        if counter == "combine":
+            rec["path"] = ("off the path: its merge runs in the partial's "
+                           "launch, bit-equal")
+            check(launches == 0, f"{name} launched on the path")
+        else:
+            check(launches > 0, f"{name} never launched on the path")
+        out.append(rec)
+        print(f"kernel {name} bf16 kv_len 160: kernel_ms={rec['ms']:.5f} "
+              f"plain_ms={rec['plain_ms']:.4f} library_ms="
+              f"{rec['library_ms'] and round(rec['library_ms'], 5)} "
+              f"bound_ms={bnd:.5f} ({by}) launches={launches} "
+              f"max_abs_err={err:.3e}", flush=True)
     return out
 
 
@@ -1617,14 +1674,14 @@ def phase_ag_checks(torch, ag, engines, params, square, cfg,
                 model.forward(params, tok, caches, 128, mode=dc)
         walls = [sync_time(torch, step)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        dev = device_ms(torch, step, n=3)
+        dev, ge, le = device_ms(torch, step, n=3)
         _, pre_wall = sync_time(torch, prefill)
-        pre_dev = device_ms(torch, prefill, n=3)
+        pre_dev, pre_ge, _ = device_ms(torch, prefill, n=3)
         print(f"ag_rs decode step ({name}: mode {dc}, batch 4, forward "
-              f"only): wall {wall:.2f} ms (median of 5), device {dev:.2f} "
-              f"ms, device idle share {1 - dev / wall:.2f}; prefill "
-              f"forward wall {pre_wall:.2f} ms, device {pre_dev:.2f} ms "
-              f"[{card}]", flush=True)
+              f"only): wall {wall:.2f} ms (median of 5), device {ge}"
+              f"{dev:.2f} ms, device idle share {le}{1 - dev / wall:.2f}; "
+              f"prefill forward wall {pre_wall:.2f} ms, device "
+              f"{pre_ge}{pre_dev:.2f} ms [{card}]", flush=True)
 
 
 def ag_kernels_line(records, launches) -> list:
@@ -2156,10 +2213,11 @@ def phase_moe_checks(torch, gg, mrs, agk, ag, rs, engines, cfg, params,
                                          mode=dc)[0]
         walls = [sync_time(torch, fn)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        dev = device_ms(torch, fn, n=3)
+        dev, ge, le = device_ms(torch, fn, n=3)
         print(f"moe decode step ({name}: mode {dc}, batch 4, forward only): "
-              f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, device"
-              f" idle share {1 - dev / wall:.2f} [{card}]", flush=True)
+              f"wall {wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, "
+              f"device idle share {le}{1 - dev / wall:.2f} [{card}]",
+              flush=True)
         for kernel, ms, share in device_breakdown(torch, fn):
             print(f"  moe decode step ({name}) device time: {ms:.3f} ms "
                   f"({share:.2f}) {kernel}", flush=True)
@@ -2372,11 +2430,12 @@ def phase_sp_attn_main(torch, layers, sp, fd, agk, ar, rs, cfg, full,
         worst, share = max(worst, err), max(share, used)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    check(per_step == {2}, f"decode steps launched {per_step} flash-decode "
-                           f"kernels, not partial + combine")
+    check(per_step == {1} and fd.launches["combine"].total == 0,
+          f"decode steps launched {per_step} flash-decode kernels, not the "
+          f"one fused launch")
     print(f"SpFlashDecodeLayer: {SP_DECODE} append + decode steps over the "
-          f"{SP_S}-position cache (max_seq {SP_S + SP_DECODE}), 2 launches "
-          f"per step (partial + combine), max_abs_err vs "
+          f"{SP_S}-position cache (max_seq {SP_S + SP_DECODE}), 1 launch "
+          f"per step (the partial with its merge), max_abs_err vs "
           f"flash_decode_reference {worst:.3e} (tol 2^-7 max|out| + 2^-8 "
           f"sum_j (p_j/l)|v_j|, largest share used {share:.3f}), wall "
           f"{decode_s * 1e3 / SP_DECODE:.2f} ms per step incl. the plain "
@@ -2431,7 +2490,11 @@ def phase_sp_attn_main(torch, layers, sp, fd, agk, ar, rs, cfg, full,
 def sp_fd_records(torch, sp, fd, cfg, card: str) -> list:
     """The flash-decode kernels at the decode steps' last shape (kv_len
     SP_S + SP_DECODE over a cache of that many positions), with
-    ``launches`` to fill from phase 15."""
+    ``launches`` to fill from phase 15: the path's fused launch (the
+    partial with its merge tail), held bit-equal to the partial plus the
+    standalone combine and, with one split left out of its merge (the
+    planted fault), refused by the weight rule; and the standalone
+    combine, off the path."""
     import torch.nn.functional as F
     hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
@@ -2446,34 +2509,38 @@ def sp_fd_records(torch, sp, fd, cfg, card: str) -> list:
     part_bytes = sum(x.numel() * 4 for x in parts)
     q_bytes = out_bytes = hq * d * 2
     kv_bytes = 2 * t * hkv * d * 2
-    got = fd.flash_decode_combine(*parts, torch.bfloat16)
+    got = fd.flash_decode_tiled(q, k, v, t, p.split_len, p.splits)
+    same = torch.equal(got, fd.flash_decode_combine(*parts, torch.bfloat16))
     want = fd.flash_decode_reference(q, k, v, t)
     lim = sp.bf16_attention_limit(got, want, fd_weight(fd, q, k, v, t))
     err, ok, used = sp_error(got, want, lim)
-    # A planted fault: the middle split's partial dropped before the
-    # combine kernel; the same limit must refuse it.
-    a, l, m = (x.clone() for x in parts)
+    # A planted fault: the middle split left out of the fused launch's
+    # merge; the same limit must refuse it.
     drop = p.splits // 2
-    a[:, :, drop], l[:, :, drop], m[:, :, drop] = 0.0, 0.0, -1e30
     bad_err, bad_ok, bad_used = sp_error(
-        fd.flash_decode_combine(a, l, m, torch.bfloat16), want, lim)
-    print(f"flash decode at kv_len {t}: max_abs_err={err:.3e} (tol 2^-7 "
-          f"max|out| + 2^-8 sum_j (p_j/l)|v_j|, largest share used "
-          f"{used:.3f}) ok={ok}; planted fault (split {drop} of {p.splits} "
-          f"dropped): max_abs_err={bad_err:.3e}, share {bad_used:.3f}, "
-          f"refused={not bad_ok} [{card}]", flush=True)
-    check(ok and not bad_ok, f"flash decode at kv_len {t}: max abs err "
-                             f"{err}, planted fault refused {not bad_ok}")
-    del a, l, m, lim
+        fd.flash_decode_tiled(q, k, v, t, p.split_len, p.splits, fault=drop),
+        want, lim)
+    print(f"flash decode at kv_len {t} (one fused launch, {p.splits} splits "
+          f"of {p.split_len}): max_abs_err={err:.3e} (tol 2^-7 max|out| + "
+          f"2^-8 sum_j (p_j/l)|v_j|, largest share used {used:.3f}) "
+          f"ok={ok}; bit-equal to partial + standalone combine: {same}; "
+          f"planted fault (split {drop} left out of the fused merge): "
+          f"max_abs_err={bad_err:.3e}, share {bad_used:.3f}, refused="
+          f"{not bad_ok} [{card}]", flush=True)
+    check(ok and same and not bad_ok,
+          f"flash decode at kv_len {t}: max abs err {err}, bit-equal to "
+          f"partial + combine {same}, planted fault refused {not bad_ok}")
+    del lim
     qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     lib_ms = queued_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, kt, vt, enable_gqa=True))
+    ctx = fd.FlashDecodeContext()      # its tickets serve every call
     cases = [
         ("flash_decode_partial[dense, kv_len 32k]", "partial", 280,
-         lambda: fd.flash_decode_partial(q, k, v, t, p.split_len, p.splits),
-         lambda: fd.flash_decode_partials_reference(q, k, v, t, p.split_len,
-                                                    p.splits),
-         (q_bytes + kv_bytes + part_bytes) / HBM_BYTES_PER_S * 1e3, lib_ms),
+         lambda: fd.flash_decode_tiled(q, k, v, t, p.split_len, p.splits,
+                                       ctx=ctx),
+         lambda: fd.flash_decode_reference(q, k, v, t),
+         (q_bytes + kv_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, lib_ms),
         ("flash_decode_combine[kv_len 32k]", "combine", 218,
          lambda: fd.flash_decode_combine(*parts, torch.bfloat16),
          lambda: fd.flash_decode_combine_reference(*parts, torch.bfloat16),
@@ -2482,19 +2549,23 @@ def sp_fd_records(torch, sp, fd, cfg, card: str) -> list:
     for name, counter, line, kernel, plain, bnd, lib in cases:
         ms = queued_ms(torch, kernel)
         plain_ms = queued_ms(torch, plain, may_wait=True)
-        print(f"{name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bnd:.4f} (bytes) library_ms="
-              f"{'%.4f' % lib if lib else None} splits={p.splits} "
+        print(f"{name}: kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd:.5f} (bytes) library_ms="
+              f"{'%.5f' % lib if lib else None} splits={p.splits} "
               f"[{card}]", flush=True)
-        out.append(({
+        rec = {
             "name": name, "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
             "replaces": f"triton_dist_tpu/ops/flash_decode.py:{line}",
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
             "library_ms": lib, "wall_ms": wall_ms(torch, kernel),
-            "shape": [1, hq, hkv, d, t], "ok": ok},
-            f"flash_decode_{counter}", None))
+            "shape": [1, hq, hkv, d, t], "ok": ok}
+        if counter == "combine":
+            rec["path"] = ("off the path: its merge runs in the partial's "
+                           "launch, bit-equal")
+        out.append((rec, f"flash_decode_{counter}",
+                    "off_path" if counter == "combine" else None))
     return out
 
 
@@ -2560,16 +2631,20 @@ def coll_records(torch, agk, ar, rs, card: str) -> list:
 def sp_kernels_line(records, launches) -> list:
     """The records with their launches on phase 15's path: a record's key
     is a method (summed over shapes), ``None`` (every launch of the
-    counter) or the sp_attention record's own."""
+    counter), the sp_attention record's own or "off_path" (a kernel the
+    path must not launch: its count must be 0)."""
     out = []
     for rec, counter, method in records:
         counts = launches[counter]
-        if method is None:
+        if method in (None, "off_path"):
             n = sum(counts.values())
         else:
             n = sum(c for key, c in counts.items() if key[0] == method.value)
         rec = dict(rec, launches=n)
-        check(n > 0, f"{rec['name']} never launched on the sp path")
+        if method == "off_path":
+            check(n == 0, f"{rec['name']} launched on the sp path")
+        else:
+            check(n > 0, f"{rec['name']} never launched on the sp path")
         out.append(rec)
     return out
 
@@ -2849,15 +2924,17 @@ def phase_ep_checks(torch, a2a, cfg, model, params, square, card: str):
     for name, fn in (("decode step", step), ("prefill (4 x 128)", prefill)):
         walls = [sync_time(torch, fn)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        rows = profiled(torch, fn, 3, "ep step")
+        rows, whole = profiled_rows(torch, fn, 3, "ep step")
+        ge, le = bound_marks(whole)
         dev = sum(ms for _, ms in rows)
         gg_ms = sum(ms for key, ms in rows if "group_" in key)
         a2a_ms = sum(ms for key, ms in rows if "a2a_kernel" in key)
         print(f"ep {name} (W={EP_WORLD}, mode xla, batch 4, forward only): "
-              f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, device"
-              f" idle share {1 - dev / wall:.2f}; grouped GEMM {gg_ms:.3f} "
-              f"ms ({gg_ms / dev:.2f} of device time), all-to-all "
-              f"{a2a_ms:.3f} ms ({a2a_ms / dev:.3f}) [{card}]", flush=True)
+              f"wall {wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, "
+              f"device idle share {le}{1 - dev / wall:.2f}; grouped GEMM "
+              f"{ge}{gg_ms:.3f} ms ({gg_ms / dev:.2f} of device time), "
+              f"all-to-all {ge}{a2a_ms:.3f} ms ({a2a_ms / dev:.3f}) "
+              f"[{card}]", flush=True)
         for kernel, ms in sorted(rows, key=lambda r: -r[1])[:8]:
             print(f"  ep {name} device time: {ms:.3f} ms ({ms / dev:.2f}) "
                   f"{kernel[:70]}", flush=True)
@@ -3409,7 +3486,7 @@ def phase_tp_checks(torch, ag, rs, model, params, square, cfg, card) -> None:
             rows, whole = profiled_rows(torch, fn, 3, "tp step")
             dev = sum(ms for _, ms in rows)
             ring = sum(ms for key, ms in rows if "ring_kernel" in key)
-            ge, le = ("", "") if whole else (">= ", "<= ")
+            ge, le = bound_marks(whole)
             print(f"tp {what}, engine {name}, W={TP_WORLD}, forward only: "
                   f"wall {wall:.2f} ms (median of 5), device {ge}{dev:.2f} "
                   f"ms, device idle share {le}{1 - dev / wall:.2f}; ring "
@@ -3716,12 +3793,13 @@ def phase_sp_world_main(torch, models, fd, sp, ops, cfg, params, square,
                                   f"differ from the plain decode by {err}")
         walls = [sync_time(torch, step)[1] for _ in range(5)]
         wall = sorted(walls)[2]
-        dev = device_ms(torch, step, n=3)
+        dev, ge, le = device_ms(torch, step, n=3)
         print(f"sp decode step ({name}, W={SPW_WORLD}, forward only): "
               f"logits vs the plain world-{SPW_WORLD} decode max abs diff "
               f"{err:.4g} (tol {LOGITS_ATOL}), argmax agreement {agree:.2f}; "
-              f"wall {wall:.2f} ms (median of 5), device {dev:.2f} ms, "
-              f"device idle share {1 - dev / wall:.2f} [{card}]", flush=True)
+              f"wall {wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, "
+              f"device idle share {le}{1 - dev / wall:.2f} [{card}]",
+              flush=True)
     print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, engines
 
@@ -3750,8 +3828,9 @@ def spw_fd_records(torch, fd, rd, launches) -> list:
     with the kv_len mask over the global (B, T) cache, a yardstick the
     port never calls. ``launches``: phase 20's, by key. ``ms``: the
     call's time by queued CUDA events (:func:`queued_ms`; the wrapper's
-    small tensor ops around the launch, kv_len's fill and the rank
-    tables, included)."""
+    small tensor ops around the launch included). ``w1_ms``: the world-1
+    call of the same variant on the global dense cache; ``exchange_ms``:
+    ms − w1_ms."""
     import torch.nn.functional as F
     from triton_dist_tpu_torch.models.kv_cache import PagedKVCacheManager
     world, dtype, kind = SPW_WORLD, torch.bfloat16, "bf16"
@@ -3789,13 +3868,18 @@ def spw_fd_records(torch, fd, rd, launches) -> list:
         counter = "world_" + variant
         key = ("paged" if paged else "dense", world, FD_B, t // world)
         bnd, by = spw_decode_bound(160 * FD_B, FD_B, world, 2, kind)
+        w1_ctx = fd.FlashDecodeContext(
+            variant="einsum" if variant == "single" else "tiled")
+        ms = queued_ms(torch, kernel)
+        w1_ms = queued_ms(torch, lambda: fd.gqa_fwd_batch_decode(
+            q, k, v, lens, w1_ctx))
         out.append({
             "name": name, "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
             "replaces": f"triton_dist_tpu/ops/flash_decode.py:"
                         f"{SPW_REPLACES[counter]}",
             "launches": launches[counter].get(key, 0), "max_abs_err": err,
-            "ms": queued_ms(torch, kernel),
+            "ms": ms, "w1_ms": w1_ms, "exchange_ms": ms - w1_ms,
             "plain_ms": queued_ms(torch, plain, may_wait=True),
             "bound_ms": bnd, "bound_by": by,
             "library_ms": queued_ms(
@@ -3806,7 +3890,8 @@ def spw_fd_records(torch, fd, rd, launches) -> list:
         check(out[-1]["launches"] > 0, f"{name} never launched on the "
                                        f"world-{SPW_WORLD} path")
         print(f"kernel {name} W={world} bf16 kv_len 160 of {t}: "
-              f"kernel_ms={out[-1]['ms']:.4f} plain_ms="
+              f"kernel_ms={ms:.5f} w1_ms={w1_ms:.5f} exchange_ms="
+              f"{ms - w1_ms:.5f} plain_ms="
               f"{out[-1]['plain_ms']:.4f} library_ms="
               f"{out[-1]['library_ms']:.4f} bound_ms={bnd:.5f} ({by}) "
               f"launches={out[-1]['launches']} max_abs_err={err:.3e}",
@@ -3923,8 +4008,9 @@ def phase_sp_world_long(torch, layers, fd, sp, rd, cfg, full, card: str):
     dkernel = lambda: fd.flash_decode_world(  # noqa: E731
         qn, cache[0], cache[1], t, dctx, "tiled")
     dms = queued_ms(torch, dkernel)
+    w1_ctx = fd.FlashDecodeContext()
     w1_dms = queued_ms(torch, lambda: fd.gqa_fwd_batch_decode(
-        qn, cache[0], cache[1], t))
+        qn, cache[0], cache[1], t, w1_ctx))
     dplain = queued_ms(torch, lambda: fd.flash_decode_world_reference(
         qn, cache[0], cache[1], t, world), may_wait=True)
     kq, kk, kv_ = qn[:, :, None], cache[0].transpose(1, 2), \
@@ -3941,7 +4027,8 @@ def phase_sp_world_long(torch, layers, fd, sp, rd, cfg, full, card: str):
         "source": "triton_dist_tpu_torch/csrc/flash_decode.cu",
         "replaces": "triton_dist_tpu/ops/flash_decode.py:280",
         "launches": sum(launches["world_tiled"].values()),
-        "max_abs_err": worst, "ms": dms, "plain_ms": dplain,
+        "max_abs_err": worst, "ms": dms, "w1_ms": w1_dms,
+        "exchange_ms": dms - w1_dms, "plain_ms": dplain,
         "bound_ms": dbnd, "bound_by": "bytes", "library_ms": dlib,
         "wall_ms": wall_ms(torch, dkernel),
         "shape": [world, 1, hq, hkv, d, t], "ok": True}
@@ -3949,8 +4036,8 @@ def phase_sp_world_long(torch, layers, fd, sp, rd, cfg, full, card: str):
           f"over the split {SP_S}-position cache, 1 world-W launch each, "
           f"max_abs_err vs the plain world-{world} decode {worst:.3e} "
           f"(largest share of the weight rule {share:.3f}); a step's kernel "
-          f"{dms:.4f} ms device (world 1's partial + combine on the same "
-          f"cache: {w1_dms:.4f} ms), plain "
+          f"{dms:.5f} ms device (world 1's fused launch on the same "
+          f"cache: {w1_dms:.5f} ms, exchange_ms {dms - w1_dms:.5f}), plain "
           f"{dplain:.4f}, SDPA {dlib:.4f}, bound {dbnd:.4f} ms (bytes) "
           f"[{card}]", flush=True)
     print(f"phase 21 took {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4444,7 +4531,7 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
         ag_ms = sum(ms for key, ms in rows if "gather_world" in key)
         ring = sum(ms for key, ms in rows if "ag_stream_ring_kernel" in key
                    or "ag_ring_kernel" in key)
-        ge, le = ("", "") if whole else (">= ", "<= ")
+        ge, le = bound_marks(whole)
         print(f"tp-moe {name} (W={TPM_WORLD}, batch 4, forward only): wall "
               f"{wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, device "
               f"idle share {le}{1 - dev / wall:.2f}; world-W all-gather "

@@ -116,6 +116,52 @@ def test_partials_and_combine_compose_to_the_reference(dtype, split_len,
                                atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("split_len,splits", [(16, 3), (64, 1)])
+def test_fused_tiled_call_matches_jax_tiled_kernel(mesh, paged, split_len,
+                                                   splits):
+    """The one-launch tiled call (partial kernel + its merge tail) on the
+    CPU: JAX's ``_tiled_decode_kernel`` within 1e-5, and bit-equal to the
+    combine of the partials, as the card's fused launch must be."""
+    q, k, v = _inputs(4)
+    pool_k, pool_v, table = _paged(k, v, seed=5)
+    ctx = jfd.create_flash_decode_context(mesh, "sp", variant="tiled",
+                                          t_blk=16)
+    want = jfd.gqa_fwd_batch_decode(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.asarray(LENS,
+                                                                jnp.int32),
+                                    ctx, impl="pallas")
+    kk, vv, tab = (_t(pool_k, pool_v, table[0]) if paged
+                   else (*_t(k, v), None))
+    before = {n: c.total for n, c in fd.launches.items()}
+    got = fd.flash_decode_tiled(_t(q)[0], kk, vv, LENS, split_len, splits,
+                                tab)
+    assert {n: c.total for n, c in fd.launches.items()} == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    parts = fd.flash_decode_partial(_t(q)[0], kk, vv, LENS, split_len,
+                                    splits, tab)
+    assert torch.equal(got, fd.flash_decode_combine(*parts, torch.float32))
+
+
+@pytest.mark.parametrize("fault", [0, 1, 2])
+def test_fused_tiled_fault_leaves_one_split_out(fault):
+    """The planted fault of the fused call: the merge leaves split
+    ``fault`` out, as the partials with that split emptied; rows whose
+    live positions reach the split move, the others keep their bits."""
+    q, k, v = _t(*_inputs(6))
+    good = fd.flash_decode_tiled(q, k, v, LENS, 16, 3)
+    bad = fd.flash_decode_tiled(q, k, v, LENS, 16, 3, fault=fault)
+    a, l, m = (x.clone() for x in fd.flash_decode_partial(q, k, v, LENS, 16,
+                                                          3))
+    a[:, :, fault], l[:, :, fault], m[:, :, fault] = 0.0, 0.0, -1e30
+    assert torch.equal(bad, fd.flash_decode_combine(a, l, m, torch.float32))
+    for row, n in enumerate(LENS):
+        assert torch.equal(bad[row], good[row]) == (n <= 16 * fault)
+    with pytest.raises(ValueError, match="fault split"):
+        fd.flash_decode_tiled(q, k, v, LENS, 16, 3, fault=3)
+
+
 def test_cpu_wrappers_are_the_plain_versions_and_not_counted():
     q, k, v = _t(*_inputs(4))
     pool_k, pool_v, table = _t(*_paged(k.numpy(), v.numpy()))
@@ -131,6 +177,9 @@ def test_cpu_wrappers_are_the_plain_versions_and_not_counted():
     for got, want in zip(paged, parts):
         assert torch.equal(got, want)
     assert torch.equal(fd.flash_decode_combine(*parts, torch.float32),
+                       fd.flash_decode_combine_reference(*parts,
+                                                         torch.float32))
+    assert torch.equal(fd.flash_decode_tiled(q, k, v, LENS, 16, 3),
                        fd.flash_decode_combine_reference(*parts,
                                                          torch.float32))
     for ctx in (fd.FlashDecodeContext(variant="tiled"),

@@ -204,24 +204,32 @@ def test_gemm_ar_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
 
 
 # -- flash decode (triton_dist_tpu_torch.ops.flash_decode) --------------------
-# Qwen3-8B's decode shapes (B = 4, 32 query / 8 KV heads of dim 128) and a
-# small odd one. Tolerances (kernel vs plain version on the same inputs):
-# f32 within 1e-5 (sums in another order). bf16: the kernel rounds each
-# probability p_j to bf16 against its 64-position chunk's running max, the
-# plain version against the row's final max, so p_j moves by up to 2^-8 of
-# itself on each side; both outputs then round to bf16 once. The limit is
-# the port's ``bf16_attention_limit`` (ops/sp_attention.py): one bf16 ulp
-# of the output plus 2^-8 sum_j (p_j / l)|v_j|, the sum taken by the plain
-# decode over |v|. A combine that lost one split must fail it.
-FD_SHAPES = [(4, 32, 8, 128, 1024), (3, 8, 2, 16, 48)]
+# Qwen3-8B's decode shapes (B = 4, 32 query / 8 KV heads of dim 128), a
+# small odd one, G = 1 at D = 64 and G = 8 at D = 256 (the bf16 body's
+# three tile widths), over every type pair (q, cache). Tolerances (kernel
+# vs plain version on the same inputs): f32 outputs within 1e-5 (sums in
+# another order). bf16: the kernel rounds each probability p_j to bf16
+# against its warp's running max, the plain version against the row's
+# final max, so p_j moves by up to 2^-8 of itself on each side; both
+# outputs then round to bf16 once. The limit is the port's
+# ``bf16_attention_limit`` (ops/sp_attention.py): one bf16 ulp of the
+# output plus 2^-8 sum_j (p_j / l)|v_j|, the sum taken by the plain decode
+# over |v|. A merge that lost one split must fail it.
+FD_SHAPES = [(4, 32, 8, 128, 1024), (3, 8, 2, 16, 48), (2, 8, 8, 64, 300),
+             (2, 32, 4, 256, 700)]
+FD_IDS = ["qwen3_8b", "small", "g1_d64", "g8_d256"]
+FD_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+            (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+FD_PAIR_IDS = ["bf16", "f32", "f32_q", "f32_cache"]
 
 
-def _fd_inputs(b, hq, hkv, d, t, dtype, device, seed=0):
+def _fd_inputs(b, hq, hkv, d, t, dtype, device, seed=0, kv_dtype=None):
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(b, hq, d).astype(np.float32))
     k = torch.from_numpy(rng.randn(b, t, hkv, d).astype(np.float32))
     v = torch.from_numpy(rng.randn(b, t, hkv, d).astype(np.float32))
-    return [x.to(device, dtype) for x in (q, k, v)]
+    kv_dtype = kv_dtype or dtype
+    return [q.to(device, dtype)] + [x.to(device, kv_dtype) for x in (k, v)]
 
 
 def _fd_weight(q, k, v, lens):
@@ -249,65 +257,94 @@ def _fd_assert_close(got, want, weight):
 
 
 def _fd_lens(b, t):
-    return [1, 17, 160, t, [min(x, t) for x in (1, 17, 160, 1024, 5)][:b]]
+    """kv_len 0, 1, a ragged 17, lengths across several 64-position tiles
+    (none a multiple of 64 but t), the full cache, and mixed rows."""
+    return [0, 1, 17, 160, min(333, t), t,
+            [min(x, t) for x in (0, 17, 333, 1024, 5)][:b]]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", FD_SHAPES, ids=["qwen3_8b", "small"])
-def test_flash_decode_kernels_match_plain_on_card(cuda_device, dtype, shape):
+@pytest.mark.parametrize("pair", FD_PAIRS, ids=FD_PAIR_IDS)
+@pytest.mark.parametrize("shape", FD_SHAPES, ids=FD_IDS)
+def test_flash_decode_kernels_match_plain_on_card(cuda_device, pair, shape):
+    """single, partial, combine and the fused tiled launch against their
+    plain versions; the fused launch bit-equal to the standalone combine
+    of the partials; every kernel bit-identical on repeat; a merge that
+    lost one split (standalone, or the fused launch's planted fault)
+    refused."""
     from triton_dist_tpu_torch.ops import flash_decode as fd
     b, hq, hkv, d, t = shape
-    q, k, v = _fd_inputs(b, hq, hkv, d, t, dtype, cuda_device)
+    dtype, kv_dtype = pair
+    q, k, v = _fd_inputs(b, hq, hkv, d, t, dtype, cuda_device,
+                         kv_dtype=kv_dtype)
     p = fd.plan(b, hkv, t, 132)
     for lens in _fd_lens(b, t):
         before = {n: c.total for n, c in fd.launches.items()}
-        single = fd.flash_decode_single(q, k, v, lens)
-        parts = fd.flash_decode_partial(q, k, v, lens, p.split_len,
-                                        p.splits)
-        merged = fd.flash_decode_combine(*parts, dtype)
-        again = (fd.flash_decode_single(q, k, v, lens),
-                 fd.flash_decode_combine(*fd.flash_decode_partial(
-                     q, k, v, lens, p.split_len, p.splits), dtype))
+        runs = []
+        for _ in range(2):
+            parts = fd.flash_decode_partial(q, k, v, lens, p.split_len,
+                                            p.splits)
+            runs.append((fd.flash_decode_single(q, k, v, lens), *parts,
+                         fd.flash_decode_combine(*parts, dtype),
+                         fd.flash_decode_tiled(q, k, v, lens, p.split_len,
+                                               p.splits)))
         torch.cuda.synchronize()
         assert {n: c.total - before[n] for n, c in fd.launches.items()} == {
-            "partial": 2, "combine": 2, "single": 2, "world_single": 0,
+            "partial": 4, "combine": 2, "single": 2, "world_single": 0,
             "world_tiled": 0}
-        assert torch.equal(single, again[0])        # no atomics
-        assert torch.equal(merged, again[1])
+        for x, y in zip(*runs):                     # no atomics in a sum
+            assert torch.equal(x, y)
+        single, a, l, m, merged, fused = runs[0]
+        assert torch.equal(fused, merged)           # one merge function
         want = fd.flash_decode_reference(q, k, v, lens)
         w = _fd_weight(q, k, v, lens)
         _fd_assert_close(single, want, w)
-        _fd_assert_close(merged, want, w)
+        _fd_assert_close(fused, want, w)
         # The combine kernel against its plain version on the same
         # partials, and the partials against theirs.
         _fd_assert_close(merged, fd.flash_decode_combine_reference(
-            *parts, dtype), w)
+            a, l, m, dtype), w)
         ref_parts = fd.flash_decode_partials_reference(q, k, v, lens,
                                                        p.split_len, p.splits)
-        _fd_assert_close(fd.flash_decode_combine_reference(*parts, dtype),
+        _fd_assert_close(fd.flash_decode_combine_reference(a, l, m, dtype),
                          fd.flash_decode_combine_reference(*ref_parts,
                                                            dtype), w)
-        torch.testing.assert_close(parts[2], ref_parts[2], rtol=1e-5,
-                                   atol=1e-5)
-        # A planted fault: the split that holds the shortest row's last
-        # position dropped before the combine; the limit must refuse it.
-        a, l, m = (x.clone() for x in parts)
-        last = min(lens) if isinstance(lens, list) else lens
-        drop = min((min(last, t) - 1) // p.split_len, p.splits - 1)
-        a[:, :, drop], l[:, :, drop], m[:, :, drop] = 0.0, 0.0, -1e30
-        assert not _fd_close(fd.flash_decode_combine(a, l, m, dtype), want,
-                             w)
+        torch.testing.assert_close(m, ref_parts[2], rtol=1e-5, atol=1e-5)
+        zero = torch.tensor(lens, device=cuda_device) == 0
+        assert not fused[zero].float().any()        # kv_len 0 gives 0
+        assert not single[zero].float().any()
+        # Planted faults: the split that holds the shortest live row's last
+        # position left out of the merge, by the standalone combine and by
+        # the fused launch; the limit must refuse both.
+        live = [n for n in (lens if isinstance(lens, list) else [lens])
+                if n > 0]
+        if not live:
+            continue
+        drop = min((min(live) - 1) // p.split_len, p.splits - 1)
+        a2, l2, m2 = (x.clone() for x in (a, l, m))
+        a2[:, :, drop], l2[:, :, drop], m2[:, :, drop] = 0.0, 0.0, -1e30
+        assert not _fd_close(fd.flash_decode_combine(a2, l2, m2, dtype),
+                             want, w)
+        bad = fd.flash_decode_tiled(q, k, v, lens, p.split_len, p.splits,
+                                    fault=drop)
+        assert not _fd_close(bad, want, w)
+        # The tickets are back at 0: the next call merges as before.
+        assert torch.equal(fd.flash_decode_tiled(q, k, v, lens, p.split_len,
+                                                 p.splits), fused)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page", [16, 128], ids=["page16", "page128"])
 def test_flash_decode_paged_kernel_reads_through_the_table(cuda_device,
-                                                           dtype):
+                                                           dtype, page):
+    """Pages smaller and larger than the 64-position tile, read through
+    the table by the fused launch: the same bits as the dense rows and
+    the gathered copy; corrupt table entries clamped into the pool."""
     from triton_dist_tpu_torch.ops import flash_decode as fd
-    b, hq, hkv, d, page, n_pages = 4, 32, 8, 128, 16, 64
-    q, k, v = _fd_inputs(b, hq, hkv, d, page * n_pages, dtype, cuda_device,
-                         seed=1)
+    b, hq, hkv, d, t = 4, 32, 8, 128, 1024
+    n_pages = t // page
+    q, k, v = _fd_inputs(b, hq, hkv, d, t, dtype, cuda_device, seed=1)
     slots = torch.randperm(b * n_pages + 1,
                            generator=torch.Generator().manual_seed(0))
     table = slots[:b * n_pages].reshape(1, b, n_pages).to(torch.int32)
@@ -318,6 +355,7 @@ def test_flash_decode_paged_kernel_reads_through_the_table(cuda_device,
     pool_k[idx] = k.reshape(b * n_pages, page, hkv, d)
     pool_v[idx] = v.reshape(b * n_pages, page, hkv, d)
     table = table.to(cuda_device)
+    before = fd.launches["partial"].total
     for lens in _fd_lens(b, page * n_pages):
         got = fd.gqa_fwd_batch_decode_paged(q, pool_k, pool_v, table, lens)
         assert torch.equal(got, fd.gqa_fwd_batch_decode_paged(
@@ -331,23 +369,34 @@ def test_flash_decode_paged_kernel_reads_through_the_table(cuda_device,
             fd.FlashDecodeContext(paged_variant="gathered")))
         _fd_assert_close(got, fd.flash_decode_paged_reference(
             q, pool_k, pool_v, table, lens), _fd_weight(q, k, v, lens))
-    # A table entry past the pool is clamped into it, never read past it.
+    # One fused launch a call, no standalone combine.
+    assert fd.launches["partial"].total - before == 4 * len(
+        _fd_lens(b, t))
+    # Table entries past the pool, or negative, are clamped into it, never
+    # read past it.
     bad = table.clone()
     bad[0, 0, 0] = 1 << 20
-    out = fd.gqa_fwd_batch_decode_paged(q, pool_k, pool_v, bad, 16)
+    bad[0, 1, 1] = -7
+    out = fd.gqa_fwd_batch_decode_paged(q, pool_k, pool_v, bad, t)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
+    assert torch.equal(out[2:], fd.gqa_fwd_batch_decode(
+        q, k, v, t, fd.FlashDecodeContext(variant="tiled"))[2:])
 
 
 @pytest.mark.cuda
 def test_flash_decode_plan_fills_the_card(cuda_device):
+    """The most splits of whole 64-position tiles that keep rows x splits
+    within one wave of one block an SM."""
     from triton_dist_tpu_torch.ops import flash_decode as fd
-    for b, hkv, t in ((4, 8, 1024), (1, 8, 4096), (64, 8, 512), (3, 2, 48)):
+    for b, hkv, t in ((4, 8, 1024), (1, 8, 4096), (64, 8, 512), (3, 2, 48),
+                      (1, 8, 32800), (4, 8, 8200)):
         p = fd.plan(b, hkv, t, 132)
         assert p.split_len % 64 == 0
         assert (p.splits - 1) * p.split_len < t <= p.splits * p.split_len
-        assert p.splits == 1 or b * hkv * p.splits <= 4 * 132
-    assert fd.plan(4, 8, 1024, 132) == fd.Plan(8, 128)
+        assert p.splits == 1 or b * hkv * p.splits <= 132
+    assert fd.plan(4, 8, 1024, 132) == fd.Plan(4, 256)
+    assert fd.plan(1, 8, 32800, 132) == fd.Plan(16, 2112)
 
 
 # -- AG-GEMM, AG-SwiGLU and GEMM-RS (csrc/ag_gemm.cu) ---------------------------
@@ -1123,8 +1172,10 @@ def _fd_world_weight(q, k, v, lens, world):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("heads", [(32, 8, 128), (32, 4, 256)],
+                         ids=["qwen3_8b", "g8_d256"])
 def test_world_flash_decode_kernel_matches_plain_on_card(cuda_device, dtype,
-                                                         world):
+                                                         world, heads):
     """The world-W kernel in both variants, dense and paged, against the
     plain world-W decode: kv_len 1 (every rank but the first empty),
     ragged rows and a full cache; the W rank outputs bit-equal and equal
@@ -1132,7 +1183,7 @@ def test_world_flash_decode_kernel_matches_plain_on_card(cuda_device, dtype,
     from triton_dist_tpu_torch.ops import flash_decode as fd
     from triton_dist_tpu_torch.runtime.dist import create_rank_group
     group = create_rank_group(world, "sp", cuda_device)
-    b, hq, hkv, d, t_loc, page = 4, 32, 8, 128, 256, 16
+    (hq, hkv, d), b, t_loc, page = heads, 4, 256, 16
     t = world * t_loc
     q, k, v = _fd_inputs(b, hq, hkv, d, t, dtype, cuda_device, seed=world)
     npg = t_loc // page

@@ -21,9 +21,13 @@ The kernels are hand-written CUDA for Hopper in ``csrc/flash_decode.cu``
 (the note at its top says what bounds them and what the design does
 about it):
 
-* ``partial`` + ``combine`` replace ``_tiled_decode_kernel`` (:280): a
-  split-KV partial per (row, KV head, split), then the fixed-order
-  log-sum-exp merge of the splits (``_exchange_and_merge`` :218);
+* ``tiled`` replaces ``_tiled_decode_kernel`` (:280) with its merge
+  (``_exchange_and_merge`` :218): one launch of the split-KV partial
+  kernel whose last block of each (row, KV head) merges that row's
+  splits in a fixed order (:func:`flash_decode_tiled`); the partial
+  alone (:func:`flash_decode_partial`) and the merge as a launch of its
+  own (:func:`flash_decode_combine`) stay as entries for checks, and the
+  fused launch equals their composition bit for bit;
 * ``single`` replaces ``_decode_kernel`` (:262): one pass over the whole
   cache, picked by :meth:`FlashDecodeContext.resolve_variant` exactly
   where the JAX package picks "einsum";
@@ -50,7 +54,7 @@ import torch
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import LaunchCount, num_sms
 from triton_dist_tpu_torch.runtime.dist import RankGroup
-from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
+from triton_dist_tpu_torch.runtime.symm_mem import RingState
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -58,7 +62,9 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_GROUPS = 8
 MAX_HEAD_DIM = 256
 
-#: Launches of each kernel: ``partial`` and ``single`` keyed by
+#: Launches of each kernel: ``partial`` (the split-KV kernel, with its
+#: merge tail in :func:`flash_decode_tiled` or without it in
+#: :func:`flash_decode_partial`) and ``single`` keyed by
 #: ("paged" | "dense", B, T), ``combine`` by (B, splits); the world-W
 #: kernel under its variant, ``world_single`` or ``world_tiled``, keyed by
 #: ("paged" | "dense", W, B, t_loc).
@@ -71,7 +77,7 @@ launches = {"partial": LaunchCount(), "combine": LaunchCount(),
 class FlashDecodeContext:
     """The JAX context's variant rules.
 
-    ``variant``: "tiled" (split-KV partial + combine), "einsum" (the
+    ``variant``: "tiled" (the split-KV kernel with its merge), "einsum" (the
     single-pass kernel) or "auto", which takes "einsum" for shards of at
     most ``einsum_max_bytes`` (each rank's ``t_loc * Hkv * D * itemsize *
     B`` bytes, JAX :430-431) and "tiled" above.
@@ -86,13 +92,16 @@ class FlashDecodeContext:
     ``group``: the ranks of the sequence axis (``None``: world 1). At
     world W the context keeps the world-W kernel's combine buffers,
     signals and call counter (``state``) across calls, as JAX's
-    ``pallas_call`` owns its semaphores."""
+    ``pallas_call`` owns its semaphores; at world 1 the fused tiled
+    launch's arrival tickets (``tickets``)."""
     variant: str = "auto"
     einsum_max_bytes: int = 4 * 1024 * 1024
     paged_variant: str = "direct"
     group: RankGroup | None = None
     state: RingState | None = dataclasses.field(default=None, init=False,
                                                 repr=False)
+    tickets: torch.Tensor | None = dataclasses.field(default=None,
+                                                     init=False, repr=False)
 
     def __post_init__(self):
         if self.variant not in ("tiled", "einsum", "auto"):
@@ -112,6 +121,17 @@ class FlashDecodeContext:
         if self.variant != "auto":
             return self.variant
         return "einsum" if shard_bytes <= self.einsum_max_bytes else "tiled"
+
+    def ticket_words(self, n: int, device) -> torch.Tensor:
+        """The fused tiled launch's arrival tickets: at least ``n``
+        zeroed int32 on ``device``, kept across this context's calls (a
+        call's last block of each row sets its ticket back to 0, so calls
+        in stream order share them)."""
+        t = self.tickets
+        if t is None or t.numel() < n or t.device != torch.device(device):
+            t = self.tickets = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+        return t
 
 
 def create_flash_decode_context(group: RankGroup | None = None,
@@ -328,51 +348,77 @@ def _check_cuda(q, k, v) -> None:
                          f"{MAX_HEAD_DIM}, got {tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash decode kernels need contiguous operands")
+    if q.shape[2] * k.element_size() % 16:
+        raise ValueError(f"flash decode kernels copy 16-byte pieces of the "
+                         f"cache's rows: head dim {q.shape[2]} of "
+                         f"{k.dtype} is not a multiple of "
+                         f"{16 // k.element_size()}")
 
 
 def flash_decode_partial(q, k, v, kv_len, split_len: int, splits: int,
                          table=None):
-    """The split-KV partial kernel: per (row, KV head, split) the
+    """The split-KV partial kernel alone: per (row, KV head, split) the
     unnormalized (a, l, m) of :func:`flash_decode_partials_reference`.
     k/v: (B, T, Hkv, D) rows, or with ``table`` (B, n_pages) int32 the
     (P, page, Hkv, D) pool, T = n_pages * page."""
-    _check_operands(q, k, v, table)
-    b, hq, d = q.shape
-    hkv = k.shape[2]
-    paged = table is not None
-    t = table.shape[1] * k.shape[1] if paged else k.shape[1]
-    if splits <= 0 or split_len <= 0 or not (
-            (splits - 1) * split_len < t <= splits * split_len):
-        raise ValueError(f"{splits} splits of {split_len} do not cover "
-                         f"{t} positions")
     if q.device.type == "cpu":
-        if paged:
+        _check_split(q, k, v, split_len, splits, table)
+        if table is not None:
             from triton_dist_tpu_torch.models.kv_cache import (
                 PagedKVCacheManager)
             k = PagedKVCacheManager.gathered_view(k, table[None])
             v = PagedKVCacheManager.gathered_view(v, table[None])
         return flash_decode_partials_reference(q, k, v, kv_len, split_len,
                                                splits)
+    return _launch_split(q, k, v, kv_len, split_len, splits, table)
+
+
+def _check_split(q, k, v, split_len: int, splits: int, table) -> int:
+    """The positions T of a split call's cache, its operands checked and
+    its splits checked to cover T."""
+    _check_operands(q, k, v, table)
+    t = table.shape[1] * k.shape[1] if table is not None else k.shape[1]
+    if splits <= 0 or split_len <= 0 or not (
+            (splits - 1) * split_len < t <= splits * split_len):
+        raise ValueError(f"{splits} splits of {split_len} do not cover "
+                         f"{t} positions")
+    return t
+
+
+def _launch_split(q, k, v, kv_len, split_len: int, splits: int, table,
+                  tickets=None, fault: int = -1):
+    """One launch of the split-KV kernel on CUDA tensors, counted in
+    ``launches["partial"]``: the partials (a, l, m) in a new workspace,
+    and with ``tickets`` (B * Hkv zeroed int32) the merge of each row's
+    splits, but split ``fault``, into a new (B, Hq, D) output, returned
+    instead."""
+    t = _check_split(q, k, v, split_len, splits, table)
     _check_cuda(q, k, v)
     lib = _lib()
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    paged = table is not None
     lens = _lens(kv_len, b, q.device)
     g = hq // hkv
     f32 = dict(dtype=torch.float32, device=q.device)
     ws_a = torch.empty((b, hkv, splits, g, d), **f32)
     ws_l = torch.empty((b, hkv, splits, g), **f32)
     ws_m = torch.empty((b, hkv, splits, g), **f32)
+    out = torch.empty_like(q) if tickets is not None else None
     if paged:
         table = table.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _check(lib, lib.tdt_flash_decode_partial(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         table.data_ptr() if paged else None, ws_a.data_ptr(),
-        ws_l.data_ptr(), ws_m.data_ptr(), b, hq, hkv, d, t,
-        k.shape[1] if paged else t, k.shape[0] if paged else b, split_len,
-        splits, d ** -0.5, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
-        stream))
+        ws_l.data_ptr(), ws_m.data_ptr(),
+        out.data_ptr() if out is not None else None,
+        tickets.data_ptr() if tickets is not None else None, b, hq, hkv, d,
+        t, k.shape[1] if paged else t, k.shape[0] if paged else b,
+        split_len, splits, d ** -0.5, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k.dtype], fault, stream))
     launches["partial"].add(("paged" if paged else "dense", b, t))
-    return ws_a, ws_l, ws_m
+    return (ws_a, ws_l, ws_m) if out is None else out
 
 
 def flash_decode_combine(a, l, m, dtype) -> torch.Tensor:
@@ -421,26 +467,54 @@ def flash_decode_single(q, cache_k, cache_v, kv_len) -> torch.Tensor:
     return out
 
 
-def _tiled(q, k, v, kv_len, table=None) -> torch.Tensor:
-    """Partial + combine over the plan's splits (dense rows, or the pool
-    through ``table``)."""
+def flash_decode_tiled(q, k, v, kv_len, split_len: int, splits: int,
+                       table=None, fault: int | None = None,
+                       ctx: FlashDecodeContext | None = None
+                       ) -> torch.Tensor:
+    """The world-1 tiled decode in one launch, counted in
+    ``launches["partial"]``: the split-KV partial kernel, whose last block
+    of each (row, KV head) merges the row's splits in the order 0, 1, ...
+    into (B, Hq, D) of q's dtype; bit-equal to
+    ``flash_decode_combine(*flash_decode_partial(...), q.dtype)``. k/v and
+    ``table`` as in :func:`flash_decode_partial`. ``fault`` plants the test
+    fault: the merge leaves that split out (on the CPU too). ``ctx`` keeps
+    the arrival tickets across calls (``None``: fresh ones)."""
+    if fault is not None and not 0 <= fault < splits:
+        raise ValueError(f"fault split {fault} of {splits}")
+    if q.device.type == "cpu":
+        a, l, m = flash_decode_partial(q, k, v, kv_len, split_len, splits,
+                                       table)
+        if fault is not None:
+            a, l, m = a.clone(), l.clone(), m.clone()
+            a[:, :, fault], l[:, :, fault], m[:, :, fault] = 0.0, 0.0, _NEG
+        return flash_decode_combine_reference(a, l, m, q.dtype)
+    tickets = (ctx or FlashDecodeContext()).ticket_words(
+        q.shape[0] * k.shape[2], q.device)
+    return _launch_split(q, k, v, kv_len, split_len, splits, table, tickets,
+                         -1 if fault is None else fault)
+
+
+def _tiled(q, k, v, kv_len, ctx: FlashDecodeContext,
+           table=None) -> torch.Tensor:
+    """The fused tiled call over the plan's splits (dense rows, or the
+    pool through ``table``)."""
     _lib()                             # build (or fail) before the plan
     b = q.shape[0]
     t = table.shape[1] * k.shape[1] if table is not None else k.shape[1]
     p = plan(b, k.shape[2], t, num_sms(q.device.index))
-    a, l, m = flash_decode_partial(q, k, v, kv_len, p.split_len, p.splits,
-                                   table)
-    return flash_decode_combine(a, l, m, q.dtype)
+    return flash_decode_tiled(q, k, v, kv_len, p.split_len, p.splits, table,
+                              ctx=ctx)
 
 
 @functools.cache
-def world_grid(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
-    """Blocks the world-W kernel keeps resident on the card (the most its
-    cooperative launch takes, and the barrier words it needs)."""
+def world_grid(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int) -> int:
+    """Blocks the world-W kernel keeps resident on the card at head dim
+    ``d`` (its shared memory depends on the types and ``d``): the most its
+    cooperative launch takes, and the barrier words it needs."""
     lib = _lib()
     out = ctypes.c_int()
     _check(lib, lib.tdt_flash_decode_world_grid(
-        _DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype], ctypes.byref(out)))
+        _DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype], d, ctypes.byref(out)))
     return out.value
 
 
@@ -495,13 +569,11 @@ def flash_decode_world(q, k, v, kv_len, ctx: FlashDecodeContext,
     else:
         ws = [None, None, None]
     state = ctx.state
-    comb = state.workspace(world * b * hkv * g * (d + 2), torch.float32)
-    sig = state.signals("fd", world * b * hkv)
-    flags = state.signals("barrier", world_grid(q.dtype, k.dtype))
+    comb_tab = state.table(state.workspace(world * b * hkv * g * (d + 2),
+                                           torch.float32))
+    sig_tab = state.table(state.signals("fd", world * b * hkv))
+    flags = state.signals("barrier", world_grid(q.dtype, k.dtype, d))
     out = torch.empty((world, b, hq, d), dtype=q.dtype, device=q.device)
-    # The tables stay referenced until the launch is queued: a freed
-    # temporary's memory would be handed to the next one.
-    comb_tab, sig_tab = rank_table(comb, world), rank_table(sig, world)
     epoch = state.next_epoch()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _check(lib, lib.tdt_flash_decode_world(
@@ -560,7 +632,7 @@ def gqa_fwd_batch_decode(q: torch.Tensor, cache_k: torch.Tensor,
                                   else "tiled")[0]
     if variant == "einsum":
         return flash_decode_single(q, cache_k, cache_v, kv_len)
-    return _tiled(q, cache_k, cache_v, kv_len)
+    return _tiled(q, cache_k, cache_v, kv_len, ctx)
 
 
 def gqa_fwd_batch_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
@@ -598,7 +670,7 @@ def gqa_fwd_batch_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
     if world > 1:
         return flash_decode_world(q, pool_k, pool_v, kv_len, ctx, "tiled",
                                   block_table)[0]
-    return _tiled(q, pool_k, pool_v, kv_len, block_table[0])
+    return _tiled(q, pool_k, pool_v, kv_len, ctx, block_table[0])
 
 
 # -- the library ------------------------------------------------------------
@@ -616,14 +688,14 @@ def _lib() -> ctypes.CDLL:
         lib.tdt_flash_decode_plan.argtypes = [i, i, i, i, ip, ip]
         lib.tdt_flash_decode_plan.restype = i
         lib.tdt_flash_decode_partial.argtypes = (
-            [p] * 8 + [i] * 9 + [f, i, i, p])
+            [p] * 10 + [i] * 9 + [f, i, i, i, p])
         lib.tdt_flash_decode_partial.restype = i
         lib.tdt_flash_decode_combine.argtypes = [p] * 4 + [i] * 6 + [p]
         lib.tdt_flash_decode_combine.restype = i
         lib.tdt_flash_decode_single.argtypes = (
             [p] * 5 + [i] * 5 + [f, i, i, p])
         lib.tdt_flash_decode_single.restype = i
-        lib.tdt_flash_decode_world_grid.argtypes = [i, i, ip]
+        lib.tdt_flash_decode_world_grid.argtypes = [i, i, i, ip]
         lib.tdt_flash_decode_world_grid.restype = i
         lib.tdt_flash_decode_world.argtypes = (
             [p] * 12 + [i] * 10 + [f, i, i, ctypes.c_ulonglong, i, p])
