@@ -416,19 +416,28 @@ def port_launches() -> int:
     return total
 
 
-def port_session(torch, fn, n: int):
-    """One profiler (CUPTI) session over ``n`` ``fn()`` calls after a
-    warm-up: (the kernel rows of ``key_averages()``, records of the port's
-    main kernels, calls its wrappers counted meanwhile)."""
+def port_pattern():
+    """A regular expression that finds a kernel record of one of the
+    port's main kernels (:func:`port_kernel_names`)."""
     import re
+    return re.compile(r"\b(" + "|".join(port_kernel_names()) + r")\b")
+
+
+def port_session(torch, fn, n: int, tail=None):
+    """One profiler (CUPTI) session over ``n`` ``fn()`` calls after a
+    warm-up, then ``tail()`` once if given: (the kernel rows of
+    ``key_averages()``, records of the port's main kernels, calls its
+    wrappers counted meanwhile)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    pattern = re.compile(r"\b(" + "|".join(port_kernel_names()) + r")\b")
+    pattern = port_pattern()
     before = port_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
+        if tail is not None:
+            tail()
         torch.cuda.synchronize()
     counted = port_launches() - before
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -492,6 +501,69 @@ def device_breakdown(torch, fn, n: int = 3, top: int = 8) -> list:
     total = sum(ms for _, ms in rows) or 1.0
     rows.sort(key=lambda r: -r[1])
     return [(k[:70], ms, ms / total) for k, ms in rows[:top]]
+
+
+def kernels_a_call(torch, fn, what: str, n: int = 20,
+                   pad: int = 64) -> tuple:
+    """(what one ``fn()`` call queues: the node types of a CUDA graph
+    captured from it, e.g. ``{"kernel": 1}``
+    (``triton_dist_tpu_torch.tools.queued.queued_work``, which loses
+    nothing); kernel records a call and the names recorded, from a
+    profiler session (:func:`port_session`) of ``n`` calls, ``fn``
+    launching one port kernel a call, or (None, []) when no session
+    recorded every port launch; device ms of one port kernel launch from
+    that session, the kernel alone without the launch gaps of
+    :func:`queued_ms`, or None likewise). ``pad`` short GPU sleeps
+    (``torch.cuda._sleep``, whose ``spin_kernel`` no port entry queues)
+    follow the calls: sessions drop their last records (on the card, 24 of
+    84 in every one of eight tries), and the pad takes that loss. A
+    session that recorded fewer port kernel records than the calls counted
+    is printed and tried again, up to :data:`PROFILER_SESSIONS` times;
+    late in a long process every session may record nothing (ROADMAP.md,
+    C6), and then the profiler's figures are not measured, and later
+    calls try two sessions only."""
+    from triton_dist_tpu_torch.tools.queued import queued_work
+
+    def tail():
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
+
+    fn()
+    nodes = dict(queued_work(fn))
+    tries = 2 if kernels_a_call.lost else PROFILER_SESSIONS
+    for attempt in range(1, tries + 1):
+        events, recorded, counted = port_session(torch, fn, n, tail)
+        if counted and recorded >= counted:
+            break
+        print(f"profiler session ({what}, {n} calls) {attempt}: {recorded} "
+              f"of {counted} port launches recorded", flush=True)
+    else:
+        print(f"profiler ({what}): no session recorded every port launch; "
+              f"kernel records a call and the kernel alone not measured "
+              f"(C6)", flush=True)
+        kernels_a_call.lost = True
+        return nodes, None, [], None
+    seen = [e for e in events if "spin_kernel" not in e.key]
+    pattern = port_pattern()
+    ours = [e for e in seen if pattern.search(e.key)]
+    return (nodes, sum(e.count for e in seen) / counted,
+            sorted({e.key[:60] for e in seen}),
+            sum(e.self_device_time_total for e in ours) / recorded / 1e3)
+
+
+kernels_a_call.lost = False
+
+
+def one_kernel(nodes: dict, seen) -> bool:
+    """Whether :func:`kernels_a_call` shows one kernel queued and nothing
+    else: the captured graph holds one kernel node and no other, and the
+    profiler, where it recorded the calls, saw one kernel a call."""
+    return nodes == {"kernel": 1} and seen in (None, 1.0)
+
+
+def fmt_ms(ms) -> str:
+    """``ms`` to five places, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def queued_ms(torch, fn, n: int = 20, may_wait: bool = False) -> float:
@@ -2722,13 +2794,15 @@ def phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card: str) -> list:
             def canvas():
                 return torch.full_like(send, canary)
 
-            want, _ = a2a.fast_all_to_all_reference(send, counts, world,
-                                                    chunk, out=canvas())
-            got = [a2a.fast_all_to_all(send, counts, ctx, out=canvas())[0]
-                   for _ in range(2)]
+            want, want_counts = a2a.fast_all_to_all_reference(
+                send, counts, world, chunk, out=canvas())
+            runs = [a2a.fast_all_to_all(send, counts, ctx, out=canvas())
+                    for _ in range(2)]
             torch.cuda.synchronize()
+            got = [g for g, _ in runs]
             same = torch.equal(bits(torch, got[0]), bits(torch, want))
             again = torch.equal(bits(torch, got[0]), bits(torch, got[1]))
+            counted = all(torch.equal(c, want_counts) for _, c in runs)
             # A planted fault: the fullest slab's count lowered by one
             # chunk for the kernel only; the same check must refuse it.
             bad = counts.clone()
@@ -2741,9 +2815,17 @@ def phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card: str) -> list:
                     < a2a._xla_a2a(counts, world)[:, None])
             err = ((got[0].float() - want.float())[rows].abs().max().item()
                    if live else 0.0)
-            check(same and again and refused,
+            # One entry call queues the kernel and nothing else.
+            nodes, seen, names, alone = kernels_a_call(
+                torch, lambda: a2a.fast_all_to_all(send, counts, ctx),
+                "all_to_all")
+            single = one_kernel(nodes, seen)
+            check(same and again and refused and counted and single,
                   f"a2a W={world} tokens {tokens} {wire}: bit-equal {same}, "
-                  f"repeat {again}, planted fault refused {refused}")
+                  f"repeat {again}, planted fault refused {refused}, "
+                  f"receive counts {counted}, an entry call queued {nodes} "
+                  f"(graph), {seen} kernel records a call {names} "
+                  f"(profiler)")
             out = canvas()
             moved = send.view(world, world, cap, h).transpose(0, 1)
             ms = queued_ms(torch, lambda: a2a.fast_all_to_all(
@@ -2753,16 +2835,22 @@ def phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card: str) -> list:
             lib_ms = queued_ms(torch, lambda: out.view(
                 world, world, cap, h).copy_(moved), n=10)
             bnd = 2.0 * live * h * send.element_size() / HBM_BYTES_PER_S * 1e3
+            row = h * send.element_size()
+            blocks, compact = a2a.grid(world, cap, chunk, row)
             print(f"kernel all_to_all W={world} tokens {tokens} {wire}: cap "
                   f"{cap} chunk {chunk}, {live} live rows of "
-                  f"{world * world * cap}, grid {world} x "
-                  f"{a2a.blocks_per_rank(world, cap // chunk)} blocks; live "
-                  f"rows bit-equal, dead-chunk canaries intact, repeat "
-                  f"bit-identical, planted fault (slab {top} count lowered "
-                  f"by {chunk}) refused; kernel_ms={ms:.5f} plain_ms="
-                  f"{plain_ms:.5f} bound_ms={bnd:.5f} (bytes) copy_ms="
-                  f"{lib_ms:.5f} (queued CUDA events) [{card}]",
-                  flush=True)
+                  f"{world * world * cap}, grid {blocks} blocks "
+                  f"({'compact body' if compact else 'a block an item'}); "
+                  f"live rows bit-equal, dead-chunk canaries intact, repeat "
+                  f"bit-identical, receive counts written by the kernel, "
+                  f"planted fault (slab {top} count lowered by {chunk}) "
+                  f"refused; an entry call queued {nodes} (graph), "
+                  f"{seen} kernel records a call {names} (profiler); "
+                  f"kernel_ms={ms:.5f} (the entry, queued CUDA events) "
+                  f"kernel_alone_ms={fmt_ms(alone)} (profiler) "
+                  f"plain_ms={plain_ms:.5f} bound_ms={bnd:.5f} (bytes) "
+                  f"copy_ms={lib_ms:.5f}; rate {bnd / ms:.3f} of the HBM "
+                  f"bound [{card}]", flush=True)
             if world == EP_WORLD and wire == "bf16":
                 shape = "decode" if tokens == 4 else "prefill"
                 records.append(({
@@ -2772,6 +2860,8 @@ def phase_a2a_kernel(torch, a2a, mu, rd, cfg, params, card: str) -> list:
                     "launches": 0, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bnd,
                     "bound_by": "bytes", "library_ms": lib_ms,
+                    "kernel_alone_ms": alone,
+                    "kernels_a_call": nodes["kernel"],
                     "wall_ms": wall_ms(torch, lambda: a2a.fast_all_to_all(
                         send, counts, ctx, out=out)),
                     "shape": [world, cap, h, live], "ok": True},
@@ -2926,7 +3016,7 @@ def phase_ep_checks(torch, a2a, cfg, model, params, square, card: str):
         wall = sorted(walls)[2]
         rows, whole = profiled_rows(torch, fn, 3, "ep step")
         ge, le = bound_marks(whole)
-        dev = sum(ms for _, ms in rows)
+        dev = sum(ms for _, ms in rows) or float("nan")  # none recorded
         gg_ms = sum(ms for key, ms in rows if "group_" in key)
         a2a_ms = sum(ms for key, ms in rows if "a2a_kernel" in key)
         print(f"ep {name} (W={EP_WORLD}, mode xla, batch 4, forward only): "
@@ -3484,7 +3574,7 @@ def phase_tp_checks(torch, ag, rs, model, params, square, cfg, card) -> None:
             walls = [sync_time(torch, fn)[1] for _ in range(5)]
             wall = sorted(walls)[2]
             rows, whole = profiled_rows(torch, fn, 3, "tp step")
-            dev = sum(ms for _, ms in rows)
+            dev = sum(ms for _, ms in rows) or float("nan")  # none recorded
             ring = sum(ms for key, ms in rows if "ring_kernel" in key)
             ge, le = bound_marks(whole)
             print(f"tp {what}, engine {name}, W={TP_WORLD}, forward only: "
@@ -4151,10 +4241,12 @@ def phase_agw_kernels(torch, agk, rd, card: str) -> list:
     every rank's copy written into NaN-filled buffers bit-equal to the
     plain version (so the W copies are bit-equal), a repeat bit-identical,
     and a push (or forward) skipped with its signal still set refused (its
-    NaN stays). Then the W = 4 bf16 decode and prefill cases timed by the
-    profiler (the kernel alone) beside the plain version, one
-    ``Tensor.copy_`` of the same bytes and the bound. Returns the JSON
-    records, ``launches`` to fill from phase 23."""
+    NaN stays). Then the W = 4 bf16 cases of every method: an entry call
+    must queue exactly one kernel (:func:`kernels_a_call`), and each is
+    timed by :func:`queued_ms` (the entry, launch gaps included) and by
+    the profiler (the kernel alone), beside the plain
+    version, one ``Tensor.copy_`` of the same bytes and the bound. Returns
+    the JSON records, ``launches`` to fill from phase 23."""
     print("== phase 22: world-W all-gather and broadcast kernels vs their "
           "plain versions", flush=True)
     t0 = time.perf_counter()
@@ -4254,13 +4346,22 @@ def phase_agw_kernels(torch, agk, rd, card: str) -> list:
 
             def library():
                 return out.view(world, -1).copy_(src.expand(world, -1))
+            nodes, seen, names, alone = kernels_a_call(torch, kernel, meth)
+            check(one_kernel(nodes, seen),
+                  f"all_gather_world[{meth}] {name}: an entry call queued "
+                  f"{nodes} (graph), {seen} kernel records a call {names} "
+                  f"(profiler)")
             ms = queued_ms(torch, kernel)
             bnd, by = agw_bound_ms(world, chunk, b)
             lib_ms = queued_ms(torch, library)
             print(f"kernel all_gather_world[{meth}] W={world} bf16 {name} "
-                  f"{tuple(x.shape)}: kernel_ms={ms:.5f} copy_ms={lib_ms:.5f}"
-                  f" bound_ms={bnd:.5f} ({by}); kernel rate "
-                  f"{bnd / ms:.3f} of the HBM bound [{card}]", flush=True)
+                  f"{tuple(x.shape)}: an entry call queued {nodes} "
+                  f"(graph), {seen} kernel records a call {names} "
+                  f"(profiler); kernel_ms={ms:.5f} (the entry, queued CUDA "
+                  f"events) kernel_alone_ms={fmt_ms(alone)} (profiler) "
+                  f"copy_ms={lib_ms:.5f} bound_ms={bnd:.5f} ({by}); kernel "
+                  f"rate {bnd / ms:.3f} of the HBM bound [{card}]",
+                  flush=True)
             if name == "large":
                 continue
             rows = x.shape[0] // world
@@ -4272,6 +4373,7 @@ def phase_agw_kernels(torch, agk, rd, card: str) -> list:
                 "max_abs_err": 0.0, "ms": ms,
                 "plain_ms": queued_ms(torch, plain, may_wait=True),
                 "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+                "kernel_alone_ms": alone, "kernels_a_call": nodes["kernel"],
                 "wall_ms": wall_ms(torch, kernel),
                 "shape": [world, *x.shape], "ok": True},
                 "broadcast" if b else "all_gather",
@@ -4527,7 +4629,7 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
         walls = [sync_time(torch, fn)[1] for _ in range(5)]
         wall = sorted(walls)[2]
         rows, whole = profiled_rows(torch, fn, 3, "tp-moe step")
-        dev = sum(ms for _, ms in rows)
+        dev = sum(ms for _, ms in rows) or float("nan")  # none recorded
         ag_ms = sum(ms for key, ms in rows if "gather_world" in key)
         ring = sum(ms for key, ms in rows if "ag_stream_ring_kernel" in key
                    or "ag_ring_kernel" in key)

@@ -13,7 +13,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "triton_dist_tpu_torch"
-PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                              ROOT / "step_times.py"]
 
 
 def _module_names():
@@ -731,12 +732,18 @@ def test_all_to_all_source_targets_sm90a_and_synchronises_by_signals():
     assert 'extern "C"' in text and '#include "shmem.cuh"' in text
     for entry in ("tdt_all_to_all", "tdt_all_to_all_grid",
                   "tdt_error_string", "cudaLaunchCooperativeKernel",
-                  "_a2a_kernel", "a2a_send_peer", "a2a_wait_src"):
+                  "_a2a_kernel", "a2a_send_peer", "a2a_wait_src",
+                  "tdt_rank_ptr", "tdt_putmem_block_x4",
+                  "tdt_signal_wait_all"):
         assert entry in text
+    # No grid barrier before the pushes: the receive buffer exists before
+    # the launch, and epochs keep stale signals from satisfying a wait.
+    assert "tdt_barrier_all" not in text
     header = _build.CSRC_DIR / "shmem.cuh"
     assert header in _build.HEADERS
     shmem = header.read_text()
-    for entry in ("tdt_peer_ptr", "tdt_putmem_block", "st.release.gpu",
+    for entry in ("tdt_peer_ptr", "tdt_rank_ptr", "tdt_putmem_block",
+                  "tdt_putmem_block_x4", "st.release.gpu",
                   "ld.acquire.gpu", "tdt_signal_wait_until",
                   "tdt_barrier_all"):
         assert entry in shmem

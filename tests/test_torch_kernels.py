@@ -851,15 +851,19 @@ def test_all_to_all_kernel_matches_plain_on_card(cuda_device, dtype, world,
     torch.cuda.synchronize()
     assert a2a.a2a_launches.total == before + 3
     for got, got_counts in runs:
-        # Live chunks bit-equal, dead chunks' canaries intact.
+        # Live chunks bit-equal, dead chunks' canaries intact; the receive
+        # counts written by the kernel, a tensor of their own.
         assert torch.equal(_bits(got), _bits(want))
+        assert got_counts.dtype == torch.int32
         assert torch.equal(got_counts, want_counts)
+        assert got_counts.data_ptr() != counts.data_ptr()
     # A planted fault: one slab's count lowered by a chunk for the kernel
     # only; the same check must refuse it.
     bad = counts.clone()
     bad[0] -= chunk
-    got, _ = a2a.fast_all_to_all(send, bad, ctx, out=canvas())
+    got, got_counts = a2a.fast_all_to_all(send, bad, ctx, out=canvas())
     assert not torch.equal(_bits(got), _bits(want))
+    assert torch.equal(got_counts, a2a._xla_a2a(bad, world))
     # The fp8 wire: the int8 bytes through the kernel, dequantized rows
     # bit-equal to the same bytes through the plain exchange.
     if dtype == torch.bfloat16:
@@ -876,14 +880,120 @@ def test_all_to_all_kernel_matches_plain_on_card(cuda_device, dtype, world,
 
 
 @pytest.mark.cuda
-def test_all_to_all_grid_fits_the_card(cuda_device):
+@pytest.mark.parametrize("world,cap", [(2, 16), (4, 8), (4, 1024)])
+def test_all_to_all_reuses_one_out_across_epochs_on_card(cuda_device, world,
+                                                         cap):
+    """Three calls into one receive buffer, queued with no sync between
+    them, each with its own slabs and counts: the buffer ends bit-equal to
+    the three plain exchanges in order, canaries intact where no call
+    wrote; each call's counts are its own."""
     from triton_dist_tpu_torch.ops import all_to_all as a2a
-    most = a2a.max_blocks()
-    assert most >= 132
-    for world, n_chunks in ((4, 1), (4, 8), (8, 8), (2, 1 << 20)):
-        bpr = a2a.blocks_per_rank(world, n_chunks)
-        assert 1 <= bpr <= world * n_chunks and world * bpr <= most
-    assert a2a.blocks_per_rank(4, 8) == 32      # one block per item
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    h = 2048
+    rng = np.random.RandomState(world + cap)
+    ctx = a2a.create_all_to_all_context(
+        create_rank_group(world, device=cuda_device), capacity=cap)
+    chunk = ctx.resolve_chunk(2)
+    calls = []
+    for _ in range(3):
+        send = torch.from_numpy(rng.randn(world * world, cap, h).astype(
+            np.float32)).to(torch.bfloat16).to(cuda_device)
+        counts = torch.from_numpy(rng.randint(
+            0, cap + 1, world * world).astype(np.int32)).to(cuda_device)
+        calls.append((send, counts))
+    out = torch.full_like(calls[0][0], float("nan"))
+    want = out.clone()
+    got_counts = [a2a.fast_all_to_all(s, c, ctx, out=out)[1]
+                  for s, c in calls]
+    torch.cuda.synchronize()
+    for send, counts in calls:
+        a2a.fast_all_to_all_reference(send, counts, world, chunk, out=want)
+    assert torch.equal(_bits(out), _bits(want))
+    for (_, counts), got in zip(calls, got_counts):
+        assert torch.equal(got, a2a._xla_a2a(counts, world))
+
+
+@pytest.mark.cuda
+def test_all_to_all_grid_fits_the_card(cuda_device):
+    """A block an item while the card keeps that many resident (a copy
+    item per 16 KiB piece of every (peer, rank, chunk), a wait item per
+    (rank, source)); above, the compact body on whole waves of blocks,
+    fewer than the items."""
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops.common import num_sms
+    sms = num_sms(cuda_device.index)
+    # Qwen3-30B-A3B's decode slabs (one chunk of 8 rows of 4 KiB, two
+    # pieces) at W = 2, 4, 8: 2 W^2 copy items and W (W - 1) waits.
+    for world in (2, 4, 8):
+        items = 2 * world * world + world * (world - 1)
+        assert a2a.grid(world, 8, 8, 4096) == (items, False)
+    assert a2a.grid(4, 8, 8, 4096) == (44, False)
+    # Its prefill slabs (chunks of 128 rows, 32 pieces each): 4108 items
+    # at W = 4, 8248 at W = 8.
+    for world, cap, items in ((4, 1024, 4108), (8, 512, 8248)):
+        blocks, compact = a2a.grid(world, cap, 128, 4096)
+        assert compact and blocks % sms == 0 and sms <= blocks < items
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["all_to_all_decode", "all_to_all_prefill",
+                                   "full_mesh_push", "ring_1d", "ring_bidir",
+                                   "broadcast"])
+def test_one_entry_call_queues_one_kernel_on_card(cuda_device, entry):
+    """A CUDA graph captured from one call of ``fast_all_to_all``,
+    ``launch_all_gather_world`` or ``launch_broadcast_world`` at W = 4 on
+    Qwen3-30B-A3B's shapes holds one kernel node and nothing else."""
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    from triton_dist_tpu_torch.tools.queued import queued_work
+    world, h = 4, 2048
+    group = create_rank_group(world, device=cuda_device)
+    if entry.startswith("all_to_all"):
+        cap = 8 if entry.endswith("decode") else 1024
+        send = torch.randn(world * world, cap, h,
+                           device=cuda_device).to(torch.bfloat16)
+        counts = torch.full((world * world,), cap // 2, dtype=torch.int32,
+                            device=cuda_device)
+        ctx = a2a.create_all_to_all_context(group, capacity=cap)
+
+        def call():
+            return a2a.fast_all_to_all(send, counts, ctx)
+    else:
+        x = torch.randn(512, h, device=cuda_device).to(torch.bfloat16)
+        if entry == "broadcast":
+            ctx = ag.create_allgather_context(group=group)
+
+            def call():
+                return ag.launch_broadcast_world(x, 0, ctx)
+        else:
+            method = ag.AllGatherMethod(entry)
+            ctx = ag.create_allgather_context(method=method, group=group)
+
+            def call():
+                return ag.launch_all_gather_world(x, ctx, method)
+    call()
+    assert dict(queued_work(call)) == {"kernel": 1}
+    # The count sees work queued beside the entry: one more kernel.
+    extra = (send if entry.startswith("all_to_all") else x).float
+    assert queued_work(lambda: (call(), extra()))["kernel"] == 2
+    # The state stays sound after the capture: the next call is right.
+    if entry.startswith("all_to_all"):
+        got, got_counts = call()
+        want, want_counts = a2a.fast_all_to_all_reference(
+            send, counts, world, ctx.resolve_chunk(2))
+        live = (torch.arange(cap, device=cuda_device)[None, :]
+                < want_counts[:, None])
+        assert torch.equal(got_counts, want_counts)
+        assert torch.equal(_bits(got)[live], _bits(want)[live])
+    elif entry == "broadcast":
+        got = call()
+        want = ag.broadcast_reference(x, 0, world)
+        assert all(torch.equal(_bits(got[r]), _bits(want))
+                   for r in range(world))
+    else:
+        assert torch.equal(_bits(call()), _bits(
+            ag.all_gather_reference(x, world, stacked=True)))
 
 
 # -- slice 7: the ring kernels (csrc/ag_gemm_ring.cu, csrc/gemm_rs_ring.cu) --

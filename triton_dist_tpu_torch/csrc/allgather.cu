@@ -24,10 +24,12 @@
 //
 // World W (`tdt_all_gather_world`, `tdt_broadcast_world`): the ranks are W
 // slices of one card (runtime/dist.py). Rank r's input chunk is chunk r of
-// one global (W rows, ...) tensor; its output is buffer r of a symmetric
-// (W, ...) tensor, reached through a device table of base addresses
-// (shmem.cuh's tdt_peer_ptr), as a Pallas kernel reaches a peer's buffer
-// by device id. Replaces, each in one cooperative launch over every rank:
+// one global (W rows, ...) tensor; its output is row r of one (W, ...)
+// tensor, reached from row 0's address and the bytes between two rows
+// (shmem.cuh's tdt_rank_ptr), as a Pallas kernel reaches a peer's buffer
+// by device id; the signal rows through the state's device table, made
+// once (tdt_peer_ptr). So a call queues this one kernel and nothing else.
+// Replaces, each in one cooperative launch over every rank:
 //  * _full_mesh_push_kernel (:254): each rank copies its chunk into its
 //    own slot, then pushes it into slot `me` of every peer in JAX's order
 //    peer = me + p, p = 1..W-1 (:271-279), each push followed by its
@@ -111,7 +113,8 @@ constexpr int kBroadcast = 3;
 
 struct Args {
   const unsigned char* x;    // W chunks of `chunk` bytes, rank r's at r C
-  const long long* out_tab;  // rank r's output buffer
+  unsigned char* out;        // rank 0's output buffer
+  long long out_step;        // bytes from rank r's output buffer to r + 1's
   const long long* sig_tab;  // rank r's signal row
   long long chunk;           // bytes of one rank's chunk
   long long pieces;          // pieces of one chunk
@@ -140,7 +143,8 @@ __device__ __forceinline__ unsigned long long* signal_of(const Args& a,
 // Slot `slot` of rank `owner`'s output, at piece `pc`.
 __device__ __forceinline__ unsigned char* slot_of(const Args& a, int owner,
                                                   int slot, long long pc) {
-  return tdt_peer_ptr(a.out_tab, owner) + slot * a.chunk + pc * kPiece;
+  return tdt_rank_ptr(a.out, a.out_step, owner) + slot * a.chunk +
+         pc * kPiece;
 }
 
 __device__ __forceinline__ const unsigned char* input_of(const Args& a,
@@ -314,12 +318,13 @@ int launch_world(Args a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-Args make_args(const void* x, const void* out_tab, const void* sig_tab,
-               long long chunk, int world, int method,
+Args make_args(const void* x, void* out, long long out_step,
+               const void* sig_tab, long long chunk, int world, int method,
                unsigned long long epoch, int fault) {
   Args a;
   a.x = static_cast<const unsigned char*>(x);
-  a.out_tab = static_cast<const long long*>(out_tab);
+  a.out = static_cast<unsigned char*>(out);
+  a.out_step = out_step;
   a.sig_tab = static_cast<const long long*>(sig_tab);
   a.chunk = chunk;
   a.pieces = (chunk + kPiece - 1) / kPiece;
@@ -363,21 +368,21 @@ long long tdt_gather_signals(long long chunk_bytes, int world) {
 
 // The all-gather over `world` ranks of one card: rank r's chunk x[r C,
 // (r + 1) C) into slot r of every rank's output buffer (W C bytes each,
-// out_tab[r] its base). method 0: full-mesh push; 1: ring; 2: bidirectional
-// ring. sig_tab[r]: rank r's row of tdt_gather_signals(...) uint64
-// signals. `epoch` must differ from every earlier call's on these signals
-// (a counter, never 0); `fault` plants the test fault. Returns a
+// rank r's at out + r * out_step). method 0: full-mesh push; 1: ring; 2:
+// bidirectional ring. sig_tab[r]: rank r's row of tdt_gather_signals(...)
+// uint64 signals. `epoch` must differ from every earlier call's on these
+// signals (a counter, never 0); `fault` plants the test fault. Returns a
 // cudaError_t.
-int tdt_all_gather_world(const void* x, const void* out_tab,
+int tdt_all_gather_world(const void* x, void* out, long long out_step,
                          const void* sig_tab, long long chunk_bytes,
                          int world, int method, unsigned long long epoch,
                          int fault, void* stream) {
-  if (x == nullptr || out_tab == nullptr || sig_tab == nullptr ||
+  if (x == nullptr || out == nullptr || sig_tab == nullptr ||
       chunk_bytes < 1 || world < 2 || method < kFullMesh ||
       method > kRingBidir || epoch == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, out_tab, sig_tab, chunk_bytes, world, method, epoch,
-                     fault);
+  Args a = make_args(x, out, out_step, sig_tab, chunk_bytes, world, method,
+                     epoch, fault);
   if (method == kRing) {
     a.n_fwd = world - 1;
   } else if (method == kRingBidir) {
@@ -389,18 +394,18 @@ int tdt_all_gather_world(const void* x, const void* out_tab,
 
 // The broadcast over `world` ranks of one card: rank root's chunk
 // x[root C, (root + 1) C) into every rank's output buffer (C bytes each,
-// out_tab[r] its base). Signals, epoch and fault as above. Returns a
-// cudaError_t.
-int tdt_broadcast_world(const void* x, const void* out_tab,
+// rank r's at out + r * out_step). Signals, epoch and fault as above.
+// Returns a cudaError_t.
+int tdt_broadcast_world(const void* x, void* out, long long out_step,
                         const void* sig_tab, long long chunk_bytes, int world,
                         int root, unsigned long long epoch, int fault,
                         void* stream) {
-  if (x == nullptr || out_tab == nullptr || sig_tab == nullptr ||
+  if (x == nullptr || out == nullptr || sig_tab == nullptr ||
       chunk_bytes < 1 || world < 2 || root < 0 || root >= world ||
       epoch == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, out_tab, sig_tab, chunk_bytes, world, kBroadcast,
-                     epoch, fault);
+  Args a = make_args(x, out, out_step, sig_tab, chunk_bytes, world,
+                     kBroadcast, epoch, fault);
   a.root = root;
   return launch_world(a, stream);
 }

@@ -10,9 +10,16 @@
 //                                rank `peer`'s buffer from a symmetric
 //                                table of base addresses
 //                                (runtime/symm_mem.py);
+//  * tdt_rank_ptr             <- the same, for the rank shards of one
+//                                tensor: rank `peer`'s buffer from rank
+//                                0's address and the bytes between two
+//                                ranks' buffers (symm_mem.py's
+//                                rank_span), with no table to read;
 //  * tdt_putmem_block         <- shmem.putmem_nbi_block / putmem_block
 //                                and remote_copy: a block-wide copy of
 //                                one chunk into a peer's buffer;
+//  * tdt_putmem_block_x4      <- the same copy with four 16-byte loads
+//                                in flight a thread before their stores;
 //  * tdt_signal_release       <- shmem.signal_op / notify: a signal store
 //                                with release semantics (st.release.gpu);
 //  * tdt_putmem_signal_block  <- shmem.putmem_signal_nbi_block: the copy,
@@ -56,6 +63,15 @@ __device__ __forceinline__ unsigned char* tdt_peer_ptr(
       static_cast<uintptr_t>(table[peer]));
 }
 
+// Rank `peer`'s buffer when rank r's lies `step` bytes after rank r - 1's
+// and rank 0's at `base`.
+template <typename T>
+__device__ __forceinline__ T* tdt_rank_ptr(T* base, long long step,
+                                           int peer) {
+  return reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(base) +
+                              static_cast<long long>(peer) * step);
+}
+
 // The calling block copies `nbytes` bytes from src to dst: 16-byte
 // vectors, neighbouring threads on neighbouring addresses, when both ends
 // are 16-byte aligned; the tail (or everything, unaligned) byte by byte.
@@ -71,6 +87,37 @@ __device__ __forceinline__ void tdt_putmem_block(
     const uint4* s = reinterpret_cast<const uint4*>(src);
     uint4* d = reinterpret_cast<uint4*>(dst);
     for (long long i = tid; i < n16; i += nt) d[i] = s[i];
+    done = n16 << 4;
+  }
+  for (long long i = done + tid; i < nbytes; i += nt) dst[i] = src[i];
+}
+
+// tdt_putmem_block with four 16-byte loads issued by each thread before
+// any of their stores, so a block keeps 4 x 16 x blockDim bytes in flight
+// (a 16 KiB piece at 256 threads in one round).
+__device__ __forceinline__ void tdt_putmem_block_x4(
+    unsigned char* __restrict__ dst, const unsigned char* __restrict__ src,
+    long long nbytes) {
+  const long long tid = threadIdx.x;
+  const long long nt = blockDim.x;
+  long long done = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) |
+        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const long long n16 = nbytes >> 4;
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    long long i = tid;
+    for (; i + 3 * nt < n16; i += 4 * nt) {
+      const uint4 v0 = s[i];
+      const uint4 v1 = s[i + nt];
+      const uint4 v2 = s[i + 2 * nt];
+      const uint4 v3 = s[i + 3 * nt];
+      d[i] = v0;
+      d[i + nt] = v1;
+      d[i + 2 * nt] = v2;
+      d[i + 3 * nt] = v3;
+    }
+    for (; i < n16; i += nt) d[i] = s[i];
     done = n16 << 4;
   }
   for (long long i = done + tid; i < nbytes; i += nt) dst[i] = src[i];

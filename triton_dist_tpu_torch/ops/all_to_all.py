@@ -11,9 +11,11 @@ capacity, H) with rank s's buffer at rows [s * W, (s + 1) * W), and
 ``fast_all_to_all(impl="pallas")`` launches the hand-written kernel of
 ``csrc/all_to_all.cu``, the counterpart of ``_a2a_kernel`` (:155), for
 every rank of the card at once; only the live chunks of each slab move
-(:func:`a2a_live_chunks`). ``impl="xla"``, and every call at world 1 (as
-in JAX, :262), is the plain slab transpose :func:`_xla_a2a`, which also
-carries the small side bands (counts, fp8 scales, expert ids).
+(:func:`a2a_live_chunks`), and the kernel writes the receive counts too,
+so a call queues that one kernel and nothing else. ``impl="xla"``, and
+every call at world 1 (as in JAX, :262), is the plain slab transpose
+:func:`_xla_a2a`, which also carries the small side bands (counts, fp8
+scales, expert ids).
 
 On a CUDA tensor ``impl="pallas"`` launches the kernel or raises; only a
 tensor that lies on the CPU takes the plain version
@@ -25,7 +27,8 @@ through the side band. Inference only, as in JAX (no gradient is
 defined).
 
 ``a2a_footprint`` is the TPU kernel's VMEM budget and has no counterpart
-here: the kernel keeps nothing in shared memory.
+here: the kernel keeps only its scan of the slabs' live pieces in shared
+memory.
 """
 
 from __future__ import annotations
@@ -33,13 +36,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import LaunchCount
 from triton_dist_tpu_torch.runtime.dist import RankGroup, create_rank_group
-from triton_dist_tpu_torch.runtime.symm_mem import rank_table, symm_tensor
+from triton_dist_tpu_torch.runtime.symm_mem import rank_span, symm_tensor
 
 #: Launches of the all-to-all kernel, by (world, capacity, row bytes).
 a2a_launches = LaunchCount()
@@ -66,14 +70,12 @@ def _default_chunk_rows(capacity: int, itemsize: int = 2) -> int:
 class AllToAllContext:
     """Capacity and chunking of the exchange (JAX ``AllToAllContext``),
     over a rank group. The kernel's persistent state lives here: the
-    symmetric signals (one 64-bit word per (src, chunk) on each rank), the
-    launch barrier's flags and the call counter that stamps them."""
+    symmetric signals (one 64-bit word per (src, chunk, piece) on each
+    rank) and the call counter that stamps them."""
     group: RankGroup
     capacity: int = 128          # max rows per (src, dst) pair
     chunk_rows: int | None = None
     _signals: dict = dataclasses.field(default_factory=dict, repr=False)
-    _barrier: torch.Tensor | None = dataclasses.field(default=None,
-                                                      repr=False)
     _epoch: int = dataclasses.field(default=0, repr=False)
 
     @property
@@ -84,19 +86,18 @@ class AllToAllContext:
         return self.chunk_rows or _default_chunk_rows(self.capacity,
                                                       itemsize)
 
-    def kernel_state(self, n_chunks: int):
-        """(signals, barrier flags, this call's epoch) for one launch.
-        The signals of ``n_chunks`` chunks per slab are allocated zeroed
-        at first use and kept; every call takes the next epoch."""
-        sig = self._signals.get(n_chunks)
+    def kernel_state(self, n_signals: int):
+        """(signals, this call's epoch) for one launch whose rows hold
+        ``n_signals`` signals (``tdt_all_to_all_signals``: they depend on
+        the row width through the pieces of a chunk). Each size's signals
+        are allocated zeroed at first use and kept, so a call never
+        reuses a smaller buffer; every call takes the next epoch."""
+        sig = self._signals.get(n_signals)
         if sig is None:
-            sig = self._signals[n_chunks] = symm_tensor(
-                (self.world_size, n_chunks), torch.int64, self.group)
-        if self._barrier is None:
-            self._barrier = torch.zeros(max_blocks(), dtype=torch.int64,
-                                        device=self.group.device)
+            sig = self._signals[n_signals] = symm_tensor(
+                (n_signals,), torch.int64, self.group)
         self._epoch += 1
-        return sig, self._barrier, self._epoch
+        return sig, self._epoch
 
 
 def create_all_to_all_context(group: RankGroup | None = None,
@@ -188,8 +189,7 @@ def fast_all_to_all(send_buf: torch.Tensor, send_counts: torch.Tensor,
     if send_buf.device.type == "cpu":
         return fast_all_to_all_reference(send_buf, send_counts, world, chunk,
                                          out)
-    recv = launch_all_to_all(send_buf, send_counts, ctx, chunk, out)
-    return recv, _xla_a2a(send_counts, world)
+    return launch_all_to_all(send_buf, send_counts, ctx, chunk, out)
 
 
 def quantize_fp8_rows(x: torch.Tensor):
@@ -226,53 +226,61 @@ def fast_all_to_all_fp8(send_buf: torch.Tensor, send_counts: torch.Tensor,
 
 # -- the kernel ------------------------------------------------------------------
 @functools.cache
-def max_blocks() -> int:
-    """Blocks of the kernel resident at once on the card: the most one
-    launch may have, and the barrier's flag count."""
-    return blocks_per_rank(1, 1 << 30)
-
-
-@functools.cache
-def blocks_per_rank(world: int, n_chunks: int) -> int:
-    """The kernel's blocks for each rank of a ``world``-rank call with
-    ``n_chunks`` chunks per slab (``tdt_all_to_all_grid``)."""
+def grid(world: int, capacity: int, chunk: int,
+         row_bytes: int) -> tuple[int, bool]:
+    """(blocks, compact body) of one launch (``tdt_all_to_all_grid``): a
+    block an item (a copy item per 16 KiB piece of every (peer, rank,
+    chunk), a wait item per (rank, source)) while the card keeps that many
+    resident, else the compact body on every block it keeps resident."""
     lib = _lib()
-    out = ctypes.c_int()
-    _check(lib, lib.tdt_all_to_all_grid(world, n_chunks, ctypes.byref(out)))
-    return out.value
+    blocks, compact = ctypes.c_int(), ctypes.c_int()
+    _check(lib, lib.tdt_all_to_all_grid(world, capacity, chunk, row_bytes,
+                                        ctypes.byref(blocks),
+                                        ctypes.byref(compact)))
+    return blocks.value, bool(compact.value)
 
 
 def launch_all_to_all(send_buf: torch.Tensor, send_counts: torch.Tensor,
                       ctx: AllToAllContext, chunk: int,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
+                      out: torch.Tensor | None = None):
     """One launch of the kernel on CUDA tensors, counted in
-    :data:`a2a_launches`. Returns the receive buffer (``out`` or a new
-    one, rows outside the live chunks untouched)."""
+    :data:`a2a_launches`; nothing else is queued. Returns (the receive
+    buffer: ``out`` or a new one, rows outside the live chunks untouched;
+    the receive counts, a new int32 tensor the kernel writes)."""
     world, cap = ctx.world_size, ctx.capacity
     if send_buf.device.type != "cuda":
         raise ValueError(f"the all-to-all kernel runs on CUDA, not "
                          f"{send_buf.device}")
     if not send_buf.is_contiguous():
         raise ValueError("the all-to-all kernel needs a contiguous send_buf")
+    if send_counts.device != send_buf.device:
+        raise ValueError(f"send_counts on {send_counts.device}, send_buf on "
+                         f"{send_buf.device}")
     lib = _lib()
     if out is None:
         out = torch.empty_like(send_buf)
     elif (out.shape != send_buf.shape or out.dtype != send_buf.dtype
           or not out.is_contiguous() or out.device != send_buf.device):
         raise ValueError("out must be a contiguous tensor like send_buf")
-    counts = send_counts.to(device=send_buf.device, dtype=torch.int32)
-    counts = counts.contiguous()
-    sig, bar, epoch = ctx.kernel_state(cap // chunk)
-    row_bytes = send_buf[0, 0].numel() * send_buf.element_size()
-    send_tab = rank_table(send_buf, world)
-    recv_tab = rank_table(out, world)
+    # No-ops for the contiguous int32 counts of ``dispatch_layout``.
+    counts = send_counts.to(torch.int32).contiguous()
+    recv_counts = torch.empty_like(counts)
+    row_bytes = math.prod(send_buf.shape[2:]) * send_buf.element_size()
+    n_signals = lib.tdt_all_to_all_signals(world, cap, chunk, row_bytes)
+    if n_signals < 1:
+        raise ValueError(f"the all-to-all kernel refuses world {world}, "
+                         f"capacity {cap}, chunk {chunk}, {row_bytes}-byte "
+                         f"rows")
+    sig, epoch = ctx.kernel_state(n_signals)
+    send_base, send_step = rank_span(send_buf, world)
+    recv_base, recv_step = rank_span(out, world)
     stream = torch.cuda.current_stream(send_buf.device).cuda_stream
     _check(lib, lib.tdt_all_to_all(
-        send_tab.data_ptr(), recv_tab.data_ptr(), sig.table.data_ptr(),
-        bar.data_ptr(), bar.numel(), counts.data_ptr(), world, cap, chunk,
+        send_base, send_step, recv_base, recv_step, sig.table.data_ptr(),
+        counts.data_ptr(), recv_counts.data_ptr(), world, cap, chunk,
         row_bytes, epoch, stream))
     a2a_launches.add((world, cap, row_bytes))
-    return out
+    return out, recv_counts
 
 
 def _check(lib: ctypes.CDLL, err: int) -> None:
@@ -284,12 +292,14 @@ def _check(lib: ctypes.CDLL, err: int) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("all_to_all")
     if lib.tdt_all_to_all.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tdt_all_to_all_grid.argtypes = [i, i, ctypes.POINTER(i)]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.tdt_all_to_all_signals.argtypes = [i, i, i, ll]
+        lib.tdt_all_to_all_signals.restype = ll
+        lib.tdt_all_to_all_grid.argtypes = [i, i, i, ll, ctypes.POINTER(i),
+                                            ctypes.POINTER(i)]
         lib.tdt_all_to_all_grid.restype = i
-        lib.tdt_all_to_all.argtypes = [p, p, p, p, i, p, i, i, i,
-                                       ctypes.c_longlong, ctypes.c_ulonglong,
-                                       p]
+        lib.tdt_all_to_all.argtypes = [p, ll, p, ll, p, p, p, i, i, i, ll,
+                                       ctypes.c_ulonglong, p]
         lib.tdt_all_to_all.restype = i
         lib.tdt_error_string.argtypes = [i]
         lib.tdt_error_string.restype = ctypes.c_char_p

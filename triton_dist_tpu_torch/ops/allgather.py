@@ -21,8 +21,10 @@ global (W rows, ...) tensor whose chunk r is rank r's, and the world-W
 kernels write one output buffer per rank, a (W, ...) tensor whose row r
 is rank r's copy (``stacked``, as JAX's ``stacked=True``); a replicated
 result is one shared tensor, rank 0's copy. The context over a
-``RankGroup`` keeps the kernels' signals and call counter (``state``)
-across calls; each call's outputs are fresh tensors.
+``RankGroup`` keeps the kernels' signals, their device table and the call
+counter (``state``) across calls; each call's outputs are fresh tensors,
+reached by the kernel from row 0's address and the row step, so a world-W
+call queues its one kernel and nothing else.
 
 The copy kernel (:func:`launch_copy`) also serves the world = 1 bodies of
 ``ops.allreduce`` and ``ops.reduce_scatter``; each op counts its own
@@ -44,7 +46,7 @@ import torch
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import LaunchCount, num_sms
 from triton_dist_tpu_torch.runtime.dist import RankGroup
-from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_span
 from triton_dist_tpu_torch.tools.perf_model import (
     ChipSpec, estimate_all_gather_time_ms, estimate_full_mesh_push_time_ms)
 
@@ -231,14 +233,13 @@ def launch_all_gather_world(x: torch.Tensor, ctx: AllGatherContext,
     lib = _lib()
     out = _world_out(x, (world, *x.shape), out)
     chunk = x.numel() * x.element_size() // world
-    sig = state.signals("ag", lib.tdt_gather_signals(chunk, world))
-    # The tables stay referenced until the launch is queued: a freed
-    # temporary's memory would be handed to the next one.
-    out_tab, sig_tab = rank_table(out, world), rank_table(sig, world)
+    sig_tab = state.table(state.signals(
+        "ag", lib.tdt_gather_signals(chunk, world)))
+    out_base, out_step = rank_span(out, world)
     epoch = state.next_epoch()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(lib, lib.tdt_all_gather_world(
-        x.data_ptr(), out_tab.data_ptr(), sig_tab.data_ptr(), chunk, world,
+        x.data_ptr(), out_base, out_step, sig_tab.data_ptr(), chunk, world,
         _METHOD_CODES[method], epoch, int(fault), stream))
     all_gather_launches.add((method.value, world, *_row_key(x)))
     return out
@@ -247,7 +248,7 @@ def launch_all_gather_world(x: torch.Tensor, ctx: AllGatherContext,
 def _world_out(x: torch.Tensor, shape: tuple,
                out: torch.Tensor | None) -> torch.Tensor:
     if out is None:
-        return torch.empty(shape, dtype=x.dtype, device=x.device)
+        return x.new_empty(shape)
     if tuple(out.shape) != shape or out.dtype != x.dtype or \
             out.device != x.device or not out.is_contiguous():
         raise ValueError(f"out must be a contiguous {x.dtype} tensor of "
@@ -315,12 +316,13 @@ def launch_broadcast_world(x: torch.Tensor, root: int,
     lib = _lib()
     out = _world_out(x, (world, rows, *x.shape[1:]), out)
     chunk = x.numel() * x.element_size() // world
-    sig = state.signals("ag", lib.tdt_gather_signals(chunk, world))
-    out_tab, sig_tab = rank_table(out, world), rank_table(sig, world)
+    sig_tab = state.table(state.signals(
+        "ag", lib.tdt_gather_signals(chunk, world)))
+    out_base, out_step = rank_span(out, world)
     epoch = state.next_epoch()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(lib, lib.tdt_broadcast_world(
-        x.data_ptr(), out_tab.data_ptr(), sig_tab.data_ptr(), chunk, world,
+        x.data_ptr(), out_base, out_step, sig_tab.data_ptr(), chunk, world,
         root, epoch, int(fault), stream))
     broadcast_launches.add(("broadcast", world, *_row_key(x)))
     return out
@@ -356,10 +358,10 @@ def _lib() -> ctypes.CDLL:
         lib.tdt_copy.restype = i
         lib.tdt_gather_signals.argtypes = [ll, i]
         lib.tdt_gather_signals.restype = ll
-        lib.tdt_all_gather_world.argtypes = [p, p, p, ll, i, i,
+        lib.tdt_all_gather_world.argtypes = [p, p, ll, p, ll, i, i,
                                              ctypes.c_ulonglong, i, p]
         lib.tdt_all_gather_world.restype = i
-        lib.tdt_broadcast_world.argtypes = [p, p, p, ll, i, i,
+        lib.tdt_broadcast_world.argtypes = [p, p, ll, p, ll, i, i,
                                             ctypes.c_ulonglong, i, p]
         lib.tdt_broadcast_world.restype = i
         lib.tdt_error_string.argtypes = [i]

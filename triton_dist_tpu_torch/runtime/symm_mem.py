@@ -9,8 +9,11 @@ tensor carries ``table``, a device ``int64`` tensor of their base
 addresses: a kernel reaches rank r's buffer through ``table[r]``
 (``csrc/shmem.cuh``: ``tdt_peer_ptr``), never by assuming the ranks lie
 side by side. :func:`rank_table` gives the same table for the rank
-shards of one global tensor (its leading dimension), as the all-to-all
-uses for its send and receive buffers. :class:`RingState` holds the
+shards of one global tensor (its leading dimension), and
+:func:`rank_span` its two numbers, rank 0's address and the step between
+ranks, which a kernel takes by value (``tdt_rank_ptr``): the all-to-all's
+send and receive buffers and the world-W all-gather's output go that way,
+with no table to build. :class:`RingState` holds the
 per-rank workspaces and signals of the ring kernels (AG-GEMM, GEMM-RS /
 AR) across calls, with the call counter that stamps the signals.
 """
@@ -79,21 +82,31 @@ def local_shard(x: SymmTensor, index: int = 0) -> torch.Tensor:
 _ARANGE: dict = {}
 
 
+def rank_span(x: torch.Tensor, world: int) -> tuple[int, int]:
+    """(base address, step in bytes) of the ``world`` rank shards of
+    ``x`` along its leading dimension: rank r's shard starts at ``base + r
+    * step``. Host arithmetic only, so a launch that takes it queues no
+    kernel."""
+    if x.dim() == 0 or x.shape[0] % world:
+        raise ValueError(f"{tuple(x.shape)} does not split over {world} "
+                         f"ranks")
+    return x.data_ptr(), x.stride(0) * (x.shape[0] // world) * \
+        x.element_size()
+
+
 def rank_table(x: torch.Tensor, world: int) -> torch.Tensor:
     """The device ``int64`` table of the base addresses of the ``world``
-    rank shards of ``x`` along its leading dimension. Computed on the
-    device from the base address and the stride: no host-to-device copy,
-    so a layer can call it on every forward without a host sync."""
-    if x.shape[0] % world:
-        raise ValueError(f"{x.shape[0]} rows do not split over {world} "
-                         f"ranks")
+    rank shards of ``x`` along its leading dimension (:func:`rank_span`'s
+    ``base + r * step``). Computed on the device: no host-to-device copy,
+    so a layer can call it on every forward without a host sync, at the
+    cost of two small kernels."""
+    base, step = rank_span(x, world)
     key = (x.device, world)
     ar = _ARANGE.get(key)
     if ar is None:
         ar = _ARANGE[key] = torch.arange(world, dtype=torch.int64,
                                          device=x.device)
-    step = x.stride(0) * (x.shape[0] // world) * x.element_size()
-    return ar * step + x.data_ptr()
+    return ar * step + base
 
 
 #: Elements past the live ones in every rank's ring workspace, filled with
