@@ -67,7 +67,10 @@ without the final line:
     12288; gemm_rs at the o_proj and down shapes) and decode M = 4 (QKV,
     gate|up with n_b = 2, down): error, bit-identical repeat, device ms,
     plain ms, one ``torch.matmul`` of the same product (for the SwiGLU, of
-    the gate|up products without their epilogue) and the bound.
+    the gate|up products without their epilogue) and the bound; at prefill
+    the TFLOP/s, their share of the bf16 peak and the waves of the
+    persistent grid (``tile_waves``: tiles over blocks, the last wave's
+    idle share).
 11. ag_rs main path: Qwen3-8B (default model mode "ag_rs") served by the
     reference engine (prefill "ag_rs", decode "gemm_ar") and the fused one
     (both "ag_rs") through serve, serve_stream (6 prompts of 65-128
@@ -76,7 +79,10 @@ without the final line:
     ag_gemm + 72 gemm_rs (fused) or 72 gemm_ar (reference); the share of
     greedy tokens equal to phase 3's engine; then the prefill's
     last-position logits through the kernels against the plain versions
-    (within 0.25) and each engine's decode step wall vs device time.
+    (within 0.25), each engine's decode step wall vs device time and the
+    ag_rs prefill's per-kernel breakdown (``device_breakdown``: lower
+    bounds, shares not measured, when no profiler session recorded every
+    port launch).
 
 12. MoE kernels: Qwen3-30B-A3B (``presets.qwen3_30b_a3b()``, full width
     and depth, random bf16 weights drawn on the card from the seed) after
@@ -171,12 +177,13 @@ without the final line:
     printed), bit-identical on repeat, GEMM-AR's W per-rank buffers
     bit-equal, the workspaces' NaN canaries intact, a planted fault (AG:
     rank 0's first push skipped; RS / AR: the step-0 pushes of chunk 0;
-    their signals still set) refused; the AG output against the world-1
-    kernel on each rank's column shard (checked bit-equal for the decode
-    body, printed at prefill); the W = 4 cases timed
+    their signals still set) refused; the bf16 AG output checked
+    bit-equal to the world-1 kernel on each rank's column shard (the
+    decode body and the tensor-core tile); the W = 4 cases timed
     (queued CUDA events) beside the plain version, one ``torch.matmul`` of the
     global product, the world-1 kernel at the same global shape and the
-    bound (the ring's copies counted as HBM traffic); a decode body's
+    bound (the ring's copies counted as HBM traffic), at prefill the
+    TFLOP/s, their share of the peak and a rank's waves; a decode body's
     ``exchange_ms`` is its time less the world-1 kernel's, which streams
     the same bytes of B once (printed,
     without a record, for the bf16 decode cases at the other worlds and
@@ -445,11 +452,6 @@ def port_session(torch, fn, n: int, tail=None):
     return events, recorded, counted
 
 
-def profiled(torch, fn, n: int = 3, what: str = "") -> list:
-    """The rows of :func:`profiled_rows`."""
-    return profiled_rows(torch, fn, n, what)[0]
-
-
 def profiled_rows(torch, fn, n: int = 3, what: str = "") -> tuple:
     """([(kernel name, ms per call)] of one ``fn()`` call from a profiler
     session (:func:`port_session`), whether that session recorded every
@@ -493,14 +495,20 @@ def bound_marks(whole: bool) -> tuple:
     return ("", "") if whole else (">= ", "<= ")
 
 
-def device_breakdown(torch, fn, n: int = 3, top: int = 8) -> list:
-    """The ``top`` kernels of one ``fn()`` call by device time: [(kernel
-    name cut to 70 characters, ms per call, share of the call's device
-    time)], from :func:`profiled`."""
-    rows = profiled(torch, fn, n, "breakdown")
-    total = sum(ms for _, ms in rows) or 1.0
+def device_breakdown(torch, fn, label: str, n: int = 3,
+                     top: int = 8) -> list:
+    """Lines of the ``top`` kernels of one ``fn()`` call by device time
+    (kernel name cut to 70 characters, ms per call, share of the call's
+    device time), from :func:`profiled_rows`. When no session recorded
+    every port launch the times are lower bounds (``bound_marks``) and the
+    shares not measured (ROADMAP.md, Queue C item C6)."""
+    rows, whole = profiled_rows(torch, fn, n, f"{label} breakdown")
+    total = sum(ms for _, ms in rows)
+    ge = bound_marks(whole)[0]
     rows.sort(key=lambda r: -r[1])
-    return [(k[:70], ms, ms / total) for k, ms in rows[:top]]
+    return [f"  {label} device time: {ge}{ms:.3f} ms ("
+            + (f"{ms / total:.2f}" if whole and total else "share not measured")
+            + f") {k[:70]}" for k, ms in rows[:top]]
 
 
 def kernels_a_call(torch, fn, what: str, n: int = 20,
@@ -1454,6 +1462,19 @@ def gemm_bound_ms(m: int, k: int, widths, n_b_operands: int = 1):
             else (by_ops * 1e3, "operations"))
 
 
+def prefill_rate(ag, m: int, k: int, widths, swiglu: bool, ms: float,
+                 tiles: int, blocks: int) -> str:
+    """What a prefill tile kernel's time gives: its TFLOP/s, their share
+    of the bf16 peak, and the waves of ``tiles`` tiles over ``blocks``
+    persistent blocks with the idle share of the last one."""
+    flops = 2.0 * m * k * sum(widths) * (2 if swiglu else 1)
+    tflops = flops / ms / 1e9
+    waves, idle = ag.tile_waves(tiles, blocks)
+    return (f" {tflops:.0f} TFLOP/s ({tflops * 1e12 / PEAK_FLOPS['bf16']:.3f}"
+            f" of the peak), {tiles} tiles in {waves:.2f} waves on {blocks} "
+            f"blocks (last wave idle {idle:.2f})")
+
+
 def phase_ag_kernels(torch, ag, rs, params, cfg, card: str) -> list:
     """Phase 10: the new kernels against their plain versions at the main
     path's shapes, bf16, on the model's own weights (cycled over the 36
@@ -1557,12 +1578,18 @@ def phase_ag_kernels(torch, ag, rs, params, cfg, card: str) -> list:
                        "rs": "gemm_rs"}[op]
             key = (p.path, k, widths[:1] if op == "swiglu" else widths)
             path = f"{p.path}, {p.tiles} tiles x {p.splits} splits"
+        rate = ""
+        if plan == "prefill":
+            # The persistent grid: one block an SM, at most one a tile.
+            rate = prefill_rate(ag, m, k, widths[:1] if op == "swiglu"
+                                else widths, op == "swiglu", ms, p.tiles,
+                                min(p.tiles, sms))
         print(f"kernel {name} bf16 M={m} K={k} N={'|'.join(map(str, widths))}"
               f" ({path}): max_abs_err={err:.3g} (tol {tol}) ok, repeat "
               f"bit-identical; kernel_ms={ms:.4f} (wall {wall:.4f}) "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}"
               f"{' (matmul of the gate|up products, no epilogue)' if op == 'swiglu' else ''}"
-              f" bound_ms={bnd:.4f} ({by}) [{card}]", flush=True)
+              f" bound_ms={bnd:.4f} ({by}){rate} [{card}]", flush=True)
         records.append(({
             "name": name, "route": "cuda",
             "source": ("triton_dist_tpu_torch/csrc/gemm_ar.cu"
@@ -1754,6 +1781,10 @@ def phase_ag_checks(torch, ag, engines, params, square, cfg,
               f"{dev:.2f} ms, device idle share {le}{1 - dev / wall:.2f}; "
               f"prefill forward wall {pre_wall:.2f} ms, device "
               f"{pre_ge}{pre_dev:.2f} ms [{card}]", flush=True)
+    # Where the prefill's device time goes (the four products a layer on
+    # the tensor-core tile, 144 launches).
+    for line in device_breakdown(torch, prefill, "ag_rs prefill (4 x 128)"):
+        print(line, flush=True)
 
 
 def ag_kernels_line(records, launches) -> list:
@@ -2290,9 +2321,8 @@ def phase_moe_checks(torch, gg, mrs, agk, ag, rs, engines, cfg, params,
               f"wall {wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, "
               f"device idle share {le}{1 - dev / wall:.2f} [{card}]",
               flush=True)
-        for kernel, ms, share in device_breakdown(torch, fn):
-            print(f"  moe decode step ({name}) device time: {ms:.3f} ms "
-                  f"({share:.2f}) {kernel}", flush=True)
+        for line in device_breakdown(torch, fn, f"moe decode step ({name})"):
+            print(line, flush=True)
 
 
 def moe_kernels_line(records, launches) -> list:
@@ -3187,6 +3217,30 @@ def ring_case(torch, ag, rs, rd, op, world, m, ws, dirs, a):
                 products=sizes.ws)
 
 
+def ring_rate(ag, rs, op: str, world: int, m: int, k: int, widths, ms: float,
+              plan) -> str:
+    """:func:`prefill_rate` of a ring's tensor-core tile body: a rank's
+    tiles (AG: W chunks of its shard widths; RS / AR: W steps of the two
+    directions' columns) over its blocks (``tdt_*_ring_grid``)."""
+    import ctypes
+    rows, out = m // world, ctypes.c_int()
+    if op in ("gemm", "swiglu"):
+        tiles = ag.tile_count(op, rows, [n // world for n in widths], world)
+        err = ag._ring_lib().tdt_ag_ring_grid(
+            int(op == "swiglu"), 0, ag.RING_PATHS["mma"], world, m,
+            ctypes.byref(out))
+    else:
+        n = widths[0]
+        tiles = ag.tile_count("gemm", rows, (plan.split, n - plan.split),
+                              world)
+        err = rs._ring_lib().tdt_rs_ring_grid(
+            0, ag.RING_PATHS["mma"], world, rows, k // world, n,
+            ctypes.byref(out))
+    check(err == 0, f"ring grid of {op} at W={world}: error {err}")
+    return prefill_rate(ag, m, k, widths, op == "swiglu", ms, tiles,
+                        out.value)
+
+
 def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
     """Phase 17: the ring kernels against their plain ring versions at
     W = 2, 3, 4, 8, prefill (M = 512, 384 at W = 3) and decode (M = 4)
@@ -3197,9 +3251,9 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
     refused. The W = 4, dirs 2, bf16 cases at the main path's shapes are
     timed and returned as JSON records, ``launches`` to fill from phase
     18. The decode bodies' cases (launch key "stream") print their
-    exchange_ms (kernel_ms - world1_ms: both stream B once), and AG's are
-    bit-equal to the world-1 kernel
-    on the gathered A and each rank's column shard."""
+    exchange_ms (kernel_ms - world1_ms: both stream B once), and bf16 AG
+    cases (decode body or tensor-core tile) are checked bit-equal to the
+    world-1 kernel on the gathered A and each rank's column shard."""
     print("== phase 17: ring AG-GEMM / AG-SwiGLU / GEMM-RS / GEMM-AR kernels "
           "vs their plain ring versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -3338,16 +3392,15 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
                   f"{name}: differs after the fault")
             extra += ", planted fault refused"
         w1 = ""
-        if op in ("gemm", "swiglu") and (timed or key[0] == "stream"):
+        if op in ("gemm", "swiglu") and key[0] in ("stream", "mma"):
             same = all(torch.equal(
                 g[:, r * (g.shape[1] // world):(r + 1) * (g.shape[1] // world)],
                 x) for r in range(world) for g, x in zip(got, c["shard"](r)))
-            if key[0] == "stream":
-                check(same, f"{name}: not bit-equal to the world-1 kernel on "
-                            f"the gathered A and each rank's column shard")
-            w1 = (f"; equal to the world-1 kernel on the gathered A and each"
-                  f" rank's column shard: {same} (both run the decode plan's"
-                  f" stream body, or tiles.cuh's tile at prefill)")
+            check(same, f"{name}: not bit-equal to the world-1 kernel on the "
+                        f"gathered A and each rank's column shard")
+            w1 = ("; bit-equal to the world-1 kernel on the gathered A and "
+                  "each rank's column shard (both run the decode plan's "
+                  "stream body, or tiles.cuh's tile at prefill)")
         print(f"kernel {name} {str(dtype)[6:]} W={world} dirs={dirs} M={m} "
               f"K={k} N={'|'.join(str(w.shape[1]) for w in ws)} ({key[0]}):"
               f" max_abs_err={err:.3g} (tol {tol}"
@@ -3377,11 +3430,13 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
         if key[0] == "stream":
             exchange = (f" exchange_ms={ms - w1_ms:.4f} (kernel_ms - "
                         f"world1_ms: both stream B once)")
+        rate = (ring_rate(ag, rs, op, world, m, k, widths, ms, c["plan"])
+                if key[0] == "mma" else "")
         print(f"  {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (one torch.matmul of the global "
               f"product{', gate|up' if op == 'swiglu' else ''}, no exchange)"
               f" world1_ms={w1_ms:.4f} (the world-1 kernel on the same global"
-              f" shape) bound_ms={bnd:.4f} ({by}){exchange} [{card}]",
+              f" shape) bound_ms={bnd:.4f} ({by}){exchange}{rate} [{card}]",
               flush=True)
         replaces = RING_REPLACES[c["plan"].variant if c["plan"] else op]
         records.append(({
@@ -3575,7 +3630,8 @@ def phase_tp_checks(torch, ag, rs, model, params, square, cfg, card) -> None:
             wall = sorted(walls)[2]
             rows, whole = profiled_rows(torch, fn, 3, "tp step")
             dev = sum(ms for _, ms in rows) or float("nan")  # none recorded
-            ring = sum(ms for key, ms in rows if "ring_kernel" in key)
+            ring = sum(ms for key, ms in rows
+                       if "ring_kernel" in key or "ring_wg_kernel" in key)
             ge, le = bound_marks(whole)
             print(f"tp {what}, engine {name}, W={TP_WORLD}, forward only: "
                   f"wall {wall:.2f} ms (median of 5), device {ge}{dev:.2f} "
@@ -4632,7 +4688,7 @@ def phase_tpm_checks(torch, gg, mrs, agk, cfg, model, params, square,
         dev = sum(ms for _, ms in rows) or float("nan")  # none recorded
         ag_ms = sum(ms for key, ms in rows if "gather_world" in key)
         ring = sum(ms for key, ms in rows if "ag_stream_ring_kernel" in key
-                   or "ag_ring_kernel" in key)
+                   or "ag_ring_kernel" in key or "ag_ring_wg_kernel" in key)
         ge, le = bound_marks(whole)
         print(f"tp-moe {name} (W={TPM_WORLD}, batch 4, forward only): wall "
               f"{wall:.2f} ms (median of 5), device {ge}{dev:.2f} ms, device "

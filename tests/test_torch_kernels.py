@@ -405,7 +405,10 @@ def test_flash_decode_plan_fills_the_card(cuda_device):
 # widths and K that are not multiples of 8 (the FMA kernel in bf16).
 AG_SHAPES = [(512, 4096, (4096, 1024, 1024)), (4, 4096, (4096, 1024, 1024)),
              (4, 4096, (12288, 12288)), (130, 72, (40, 24, 8)),
-             (65, 264, (136,)), (7, 100, (72, 30)), (200, 36, (20, 12))]
+             (65, 264, (136,)), (7, 100, (72, 30)), (200, 36, (20, 12)),
+             # The tensor-core tile's edges: M and K (4104) off its 128 and
+             # 64, widths off its 128, three products; M = 2048, 5.8 waves.
+             (200, 4104, (136, 264, 40)), (2048, 1024, (4096, 1024, 1024))]
 
 
 def _ag_inputs(m, k, widths, dtype, device, seed=0):
@@ -474,7 +477,8 @@ def _swiglu_bound(a, wg, wu, bg, bu):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(512, 4096, 12288), (128, 64, 128),
-                                   (130, 72, 40), (4, 100, 30)])
+                                   (130, 72, 40), (4, 100, 30),
+                                   (200, 4104, 136), (2048, 1024, 4096)])
 @pytest.mark.parametrize("bias", [False, True], ids=["", "bias"])
 def test_ag_swiglu_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n,
                                                 bias):
@@ -500,7 +504,8 @@ def test_ag_swiglu_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(512, 4096, 4096), (512, 12288, 4096),
                                    (4, 12288, 4096), (100, 256, 136),
-                                   (64, 100, 72)])
+                                   (64, 100, 72), (130, 4104, 264),
+                                   (2048, 4096, 4096)])
 def test_gemm_rs_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
     from triton_dist_tpu_torch.ops import allgather_gemm as ag
     a, (b,) = _ag_inputs(m, k, (n,), dtype, cuda_device, seed=k)
@@ -1009,7 +1014,13 @@ AG_RING_CASES = [(4, 512, 4096, (4096, 1024, 1024), 2),
                  (2, 2, 4096, (4096, 1024, 1024), 2),
                  (2, 64, 4096, (4096, 1024, 1024), 2),
                  (8, 8, 4096, (4096, 1024, 1024), 2),
-                 (8, 64, 4096, (4096, 1024, 1024), 2)]
+                 (8, 64, 4096, (4096, 1024, 1024), 2),
+                 # The tensor-core tile's edges: chunks of 130 rows, K =
+                 # 4104 and 1032, shard widths off 128, three products; W =
+                 # 8; 512 rows a chunk (a rank's 192 tiles, over two waves).
+                 (3, 390, 4104, (264, 120, 24), 2),
+                 (8, 1024, 1032, (2048, 512, 512), 2),
+                 (4, 2048, 1024, (4096, 1024, 1024), 2)]
 #: The AG ring's body for each world-1 plan of one rank's shard.
 _AG_RING_BODY = {"decode": "stream", "prefill": "mma", "fma": "fma"}
 #: (world, M, K, N, ring_dirs) of the RS / AR ring: Qwen3-8B's o_proj and
@@ -1019,6 +1030,8 @@ RS_RING_CASES = [(4, 512, 4096, 4096, 2), (4, 512, 12288, 4096, 2),
                  (4, 4, 12288, 4096, 2), (2, 512, 4096, 4096, 2),
                  (3, 384, 12288, 4096, 2), (8, 512, 4096, 4096, 2),
                  (4, 512, 4096, 4096, 1), (3, 6, 96, 40, 2),
+                 (3, 390, 4104, 264, 2), (8, 1024, 8256, 4096, 2),
+                 (4, 2048, 4096, 4096, 2),
                  (4, 4, 4096, 4096, 2), (8, 8, 4096, 4096, 2),
                  (4, 64, 4096, 4096, 2), (4, 68, 4096, 4096, 2)]
 #: GEMM-AR only: M does not split over the ranks (padded to 6; and M = 1,
@@ -1097,7 +1110,8 @@ def test_ag_ring_kernel_matches_plain_on_card(cuda_device, dtype, world, m,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("world,m,k,n,bias", [
     (4, 512, 4096, 12288, False), (2, 256, 64, 256, True),
-    (4, 512, 72, 512, True)])
+    (4, 512, 72, 512, True), (3, 390, 4104, 264, True),
+    (8, 1024, 1032, 1024, False), (4, 2048, 1024, 4096, False)])
 def test_ag_swiglu_ring_kernel_matches_plain_on_card(cuda_device, dtype,
                                                      world, m, k, n, bias):
     """The fused SwiGLU through the ring (launched directly: in f32 at
@@ -1122,6 +1136,37 @@ def test_ag_swiglu_ring_kernel_matches_plain_on_card(cuda_device, dtype,
     if ag.swiglu_fuses(m // world, k, n // world, a.element_size()):
         entry = ag.ag_swiglu(a, wg, wu, *biases, group=ctx.group, ctx=ctx)
         assert torch.equal(entry, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["gemm", "swiglu"])
+@pytest.mark.parametrize("world,m,k,widths", [
+    (2, 512, 4096, (4096, 1024, 1024)), (3, 390, 4104, (264, 120, 24)),
+    (4, 512, 4096, (4096, 1024, 1024)), (8, 1024, 1032, (2048, 512, 512))])
+def test_ag_ring_prefill_is_the_world1_kernel_on_each_shard(cuda_device, op,
+                                                           world, m, k,
+                                                           widths):
+    """bf16 at prefill shapes (the tensor-core tile): each rank's columns
+    of every AG-GEMM product (the SwiGLU: of its output, gate and up the
+    first width) bit-equal to the world-1 kernel on the gathered A and
+    that rank's column shard of the weights."""
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    if op == "swiglu":
+        widths = (widths[0], widths[0])
+    a, bs = _ag_inputs(m, k, widths, torch.bfloat16, cuda_device,
+                       seed=world + k)
+    ctx = ag.AllGatherGEMMContext(_ring_group(world, cuda_device))
+    shards = tuple(n // world for n in widths)
+    assert ag.ring_path(torch.bfloat16, m, k, shards[:1] if op == "swiglu"
+                        else shards, op) == "mma"
+    got = ag.launch_ag_ring(op, a, bs, ctx)
+    for r in range(world):
+        cols = [b[:, r * n:(r + 1) * n].contiguous()
+                for b, n in zip(bs, shards)]
+        want = ([ag.launch_swiglu(a, *cols, None, None)] if op == "swiglu"
+                else ag.ag_gemm_multi(a, cols))
+        for x, y, n in zip(got, want, shards):
+            assert torch.equal(x[:, r * n:(r + 1) * n], y)
 
 
 @pytest.mark.cuda

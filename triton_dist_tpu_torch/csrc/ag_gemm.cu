@@ -27,16 +27,18 @@
 // What the design does about it. Three kernels, picked by dtype and shape
 // only (ag_plan.cuh's make_plan, exported as tdt_ag_gemm_plan):
 //  * Prefill plan, bf16 with K and every width a multiple of 8 and M > 64
-//    (or any M for SwiGLU): `tile_mma`, the tensor cores through mma.sync
-//    m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix. A block computes a
-//    128 x 128 output tile (128 x 64 of gate and of up for SwiGLU, whose two
-//    accumulators share each A tile), 8 warps of 64 x 32 (64 x 16); a
-//    4-stage cp.async pipeline of 16-byte copies streams 64-deep slices of A
-//    and B through padded (conflict-free) shared memory. No split-K: at
-//    M = 512 QKV has 4 x 48 = 192 tiles, down 128, gate/up 768, which fill
-//    the 132 SMs. Every 128 K terms (two stages) the tensor core's sum is
-//    added to an f32 register sum, so long K sums stay within one bf16 ulp
-//    of the f32 reference.
+//    (or any M for SwiGLU): `tile_wg`, tiles.cuh's tensor-core tile
+//    (wgmma fed by TMA through a 6-stage mbarrier ring, one producer warp
+//    and two consumer warpgroups, 128 x 128 tiles, 128 x 64 of gate and of
+//    up for SwiGLU, whose two accumulators share each A slice). A
+//    persistent grid of one block an SM walks the output tiles row tile
+//    first, so the SMs at work share B's column tiles through L2 and each
+//    block's next loads overlap its epilogue. No split-K: at M = 512 QKV
+//    has 4 x 48 = 192 tiles (1.45 waves on 132 SMs: the last wave leaves
+//    0.55 of the SMs idle; the smoke prints it), o_proj and down 128 (0.97
+//    waves), gate/up 768 (5.8). Every 128 K terms (two stages) the tensor
+//    core's sum is added to an f32 register sum, so long K sums stay within
+//    one bf16 ulp of the f32 reference.
 //  * Decode plan, bf16 aligned as above and M <= 64 (AG-GEMM only):
 //    gemm_common.cuh's `stream_mma`, the B-streaming kernel of gemm_ar, run
 //    over up to three products at once, split-K to about two blocks per SM
@@ -48,7 +50,6 @@
 //    column tile (`Segs`), so QKV is one launch and writes three outputs.
 //  * Every sum has a fixed order and there are no atomics, so equal inputs
 //    give equal bits from run to run.
-//  * No wgmma / TMA / persistent blocks yet: that is later work.
 //  * The tile bodies live in tiles.cuh, shared with the ring kernels of
 //    ag_gemm_ring.cu and gemm_rs_ring.cu.
 //
@@ -62,50 +63,77 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Prefill: the tensor-core tile of tiles.cuh, one tile per block.
-// grid = (column tiles of all products, ceil(M / 128)), 256 threads.
-// SWIGLU: one product (segs.b[0] = Wg, segs.c[0] = act) and Bu = Wu; the
-// optional biases have one entry per column.
-template <int BN, bool SWIGLU>
+// Prefill: the tensor-core tile of tiles.cuh in a persistent grid of one
+// block an SM, each walking output tiles i = blockIdx.x, + gridDim.x, ...,
+// row tile fastest (the blocks at work share B's column tiles through L2),
+// so a block's next tile's loads overlap its epilogue. SWIGLU: one product
+// (segs.b[0] = Wg, segs.c[0] = act) and the view of Wu; the optional biases
+// have one entry per column.
+template <bool SWIGLU>
 __global__ void __launch_bounds__(kPfThreads, 1)
-tile_mma(const bf16* __restrict__ A, Segs<bf16> segs,
-         const bf16* __restrict__ Bu, const bf16* __restrict__ bias_g,
-         const bf16* __restrict__ bias_u, int M, int K) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int seg = seg_of_tile(segs, blockIdx.x);
-  const int N = seg_field(segs.n, seg);
-  const int n0 = (blockIdx.x - seg_field(segs.tile0, seg)) * BN;
-  const int m0 = blockIdx.y * kPfBM;
-  Tile<bf16> t;
-  t.a = A + static_cast<size_t>(m0) * K;
-  t.lda = K;
-  t.b = seg_field(segs.b, seg) + n0;
-  t.bu = SWIGLU ? Bu + n0 : nullptr;
-  t.ldb = N;
-  t.bias_g = bias_g != nullptr ? bias_g + n0 : nullptr;
-  t.bias_u = bias_u != nullptr ? bias_u + n0 : nullptr;
-  t.rows = min(kPfBM, M - m0);
-  t.cols = min(BN, N - n0);
-  t.K = K;
-  const StoreEpi<bf16> epi{
-      seg_field(segs.c, seg) + static_cast<size_t>(m0) * N + n0, N};
-  mma_tile<BN, SWIGLU>(t, smem_raw, epi);
+tile_wg(Segs<bf16> segs, const bf16* __restrict__ bias_g,
+        const bf16* __restrict__ bias_u, int M, int K,
+        const __grid_constant__ TileViews views) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int BN = SWIGLU ? kPfBNSwiglu : kPfBN;
+  const WgSmem s = wg_smem(smem_raw);
+  wg_init(s);
+  __syncthreads();
+  const int row_tiles = (M + kPfBM - 1) / kPfBM;
+  const int tiles = seg_field(segs.tile0, segs.count) * row_tiles;
+  const int nk = (K + kPfBK - 1) / kPfBK;
+  if (threadIdx.x < 128) {
+    wg_producer_regs();
+    if (threadIdx.x != 0) return;
+    WgPipe p;
+    for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+      const int ct = i / row_tiles;
+      const int seg = seg_of_tile(segs, ct);
+      const int n0 = (ct - seg_field(segs.tile0, seg)) * BN;
+      const CUtensorMap* b = seg_view(views, seg);
+      const WgBox b1 = SWIGLU ? WgBox{&views.bu, n0, 0, 0, 0}
+                              : WgBox{b, n0 + 64, 0, 0, 0};
+      wg_load(s, p, {&views.a, 0, (i % row_tiles) * kPfBM, 0, 0},
+              {b, n0, 0, 0, 0}, b1, nk);
+    }
+    return;
+  }
+  wg_consumer_regs();
+  WgPipe p;
+  for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+    const int ct = i / row_tiles;
+    const int m0 = (i % row_tiles) * kPfBM;
+    const int seg = seg_of_tile(segs, ct);
+    const int N = seg_field(segs.n, seg);
+    const int n0 = (ct - seg_field(segs.tile0, seg)) * BN;
+    const StoreEpi<bf16> epi{
+        seg_field(segs.c, seg) + static_cast<size_t>(m0) * N + n0, N};
+    wg_mma<SWIGLU>(s, p, nk, min(kPfBM, M - m0), min(BN, N - n0),
+                   bias_g != nullptr ? bias_g + n0 : nullptr,
+                   bias_u != nullptr ? bias_u + n0 : nullptr, epi, [] {});
+  }
 }
 
-template <int BN, bool SWIGLU>
-cudaError_t launch_tile_mma(const bf16* a, const Segs<bf16>& segs,
-                            const bf16* bu, const bf16* bias_g,
-                            const bf16* bias_u, int M, int K,
-                            cudaStream_t stream) {
-  constexpr int smem = tile_smem_bytes<BN, SWIGLU>();
+template <bool SWIGLU>
+cudaError_t launch_tile_wg(const bf16* a, const Segs<bf16>& segs,
+                           const bf16* bu, const bf16* bias_g,
+                           const bf16* bias_u, int M, int K, int sms,
+                           cudaStream_t stream) {
+  TileViews v = {};
+  cudaError_t err = a_view(&v.a, a, M, K, K);
+  for (int i = 0; err == cudaSuccess && i < segs.count; ++i)
+    err = b_view(&v.b[i], segs.b[i], K, segs.n[i], segs.n[i]);
+  if (err == cudaSuccess && SWIGLU)
+    err = b_view(&v.bu, bu, K, segs.n[0], segs.n[0]);
   // The attribute belongs to the current device: set it on every launch.
-  const cudaError_t err = cudaFuncSetAttribute(
-      tile_mma<BN, SWIGLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tile_wg<SWIGLU>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kPfSmemBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(segs.tile0[segs.count], (M + kPfBM - 1) / kPfBM);
-  tile_mma<BN, SWIGLU><<<grid, kPfThreads, smem, stream>>>(
-      a, segs, bu, bias_g, bias_u, M, K);
+  const int tiles = segs.tile0[segs.count] * ((M + kPfBM - 1) / kPfBM);
+  tile_wg<SWIGLU><<<min(tiles, sms), kPfThreads, kPfSmemBytes, stream>>>(
+      segs, bias_g, bias_u, M, K, v);
   return cudaSuccess;
 }
 
@@ -148,7 +176,7 @@ void launch_tile_fma(const T* a, const Segs<T>& segs, const T* bu,
 template <typename T>
 cudaError_t run_gemm(const Plan& p, const void* a, const void* const* b,
                      void* const* c, const int* n, int count, void* ws, int M,
-                     int K, cudaStream_t s) {
+                     int K, int sms, cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* bs[kMaxSegs] = {};
   T* cs[kMaxSegs] = {};
@@ -161,8 +189,8 @@ cudaError_t run_gemm(const Plan& p, const void* a, const void* const* b,
     if (p.path == 1)
       return run_stream(A, segs, static_cast<float*>(ws), M, K, p.splits, s);
     if (p.path == 2)
-      return launch_tile_mma<kPfBN, false>(A, segs, nullptr, nullptr, nullptr,
-                                           M, K, s);
+      return launch_tile_wg<false>(A, segs, nullptr, nullptr, nullptr, M, K,
+                                   sms, s);
   }
   launch_tile_fma<T, false>(A, segs, nullptr, nullptr, nullptr, M, K, s);
   return cudaSuccess;
@@ -171,7 +199,8 @@ cudaError_t run_gemm(const Plan& p, const void* a, const void* const* b,
 template <typename T>
 cudaError_t run_swiglu(const Plan& p, const void* a, const void* wg,
                        const void* wu, const void* bg, const void* bu,
-                       void* out, int M, int N, int K, cudaStream_t s) {
+                       void* out, int M, int N, int K, int sms,
+                       cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* g = static_cast<const T*>(wg);
   T* o = static_cast<T*>(out);
@@ -182,8 +211,7 @@ cudaError_t run_swiglu(const Plan& p, const void* a, const void* wg,
   const T* bias_u = static_cast<const T*>(bu);
   if constexpr (sizeof(T) == 2) {
     if (p.path == 2)
-      return launch_tile_mma<kPfBNSwiglu, true>(A, segs, u, bias_g, bias_u, M,
-                                                K, s);
+      return launch_tile_wg<true>(A, segs, u, bias_g, bias_u, M, K, sms, s);
   }
   launch_tile_fma<T, true>(A, segs, u, bias_g, bias_u, M, K, s);
   return cudaSuccess;
@@ -196,7 +224,7 @@ extern "C" {
 // The launch plan of `op` (0: C_i = A @ B_i for n_b = 1..3 products of
 // widths n0, n1, n2; 1: the fused SwiGLU, n_b = 1 and n0 = its width) with A
 // (M, K) on a card with `sms` SMs. dtype: 0 = bfloat16, 1 = float32. Fills
-// *path (0: tile_fma, 1: stream_mma, 2: tile_mma), *tiles (output tiles)
+// *path (0: tile_fma, 1: stream_mma, 2: tile_wg), *tiles (output tiles)
 // and *splits (K splits; with more than one a launch needs a workspace of
 // splits * M * (n0 + n1 + n2) floats). Returns a cudaError_t.
 int tdt_ag_gemm_plan(int op, int M, int n_b, int n0, int n1, int n2, int K,
@@ -232,8 +260,8 @@ int tdt_ag_gemm(const void* a, int n_b, const void* b0, const void* b1,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? run_gemm<bf16>(p, a, b, c, n, n_b, ws, M, K, s)
-                 : run_gemm<float>(p, a, b, c, n, n_b, ws, M, K, s);
+      dtype == 0 ? run_gemm<bf16>(p, a, b, c, n, n_b, ws, M, K, sms, s)
+                 : run_gemm<float>(p, a, b, c, n, n_b, ws, M, K, sms, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -251,8 +279,9 @@ int tdt_ag_swiglu(const void* a, const void* wg, const void* wu,
   const Plan p = make_plan(kOpSwiglu, M, 1, &N, K, sms, dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? run_swiglu<bf16>(p, a, wg, wu, bg, bu, out, M, N, K, s)
-                 : run_swiglu<float>(p, a, wg, wu, bg, bu, out, M, N, K, s);
+      dtype == 0
+          ? run_swiglu<bf16>(p, a, wg, wu, bg, bu, out, M, N, K, sms, s)
+          : run_swiglu<float>(p, a, wg, wu, bg, bu, out, M, N, K, sms, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

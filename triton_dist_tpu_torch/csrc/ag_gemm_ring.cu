@@ -71,16 +71,28 @@
 //     waits for its splits, sums them in split order and rounds once into
 //     C's column shard, as splitk_reduce does, so each rank's columns are
 //     bit-equal to the world-1 kernel on (gathered A, its column shard).
-// * Tile (`ag_ring_kernel`, every other call: prefill, f32, odd shapes and
-//   the SwiGLU): phase 2 deals items (chunk, row tile, column tile) in
-//   ring_chunk_schedule order; a block waits on every piece signal of a
-//   chunk before it reads the chunk. What bounds it: the products, 2 * M *
-//   K * sum(N_i) operations, at Qwen3-8B's prefill (M = 512) bound by
+// * Tile (every other call: prefill, f32, odd shapes and the SwiGLU):
+//   phase 2 deals items (column tile, chunk in ring_chunk_schedule order,
+//   row tile), so each B tile streams from HBM about once for all W chunks
+//   (dealt chunk first, each rank's 50 MB shard of Qwen3-8B's gate|up was
+//   read W times: the W = 4 SwiGLU ring took 0.336 ms on an H100 against
+//   0.205 dealt column first). What bounds it: the products, 2 * M * K *
+//   sum(N_i) operations, at Qwen3-8B's prefill (M = 512) bound by
 //   operations; the ring's W - 1 chunk copies per rank move (W - 1) * M * K
 //   bytes of bf16 through HBM (every rank shares the card's memory, so no
-//   interconnect is measured). The tiles are tiles.cuh's: the tensor-core
-//   tile for bf16 with K and every shard width a multiple of 8, the FMA
-//   tile otherwise.
+//   interconnect is measured). For bf16 with K and every shard width a
+//   multiple of 8, `ag_ring_wg_kernel` runs tiles.cuh's wgmma tile, the
+//   world-1 kernel's, so each rank's columns are bit-equal to the world-1
+//   kernel on the gathered A and its column shard: a block of 384 threads,
+//   one an SM, all of them pushing in the gather, then warp 0 feeding the
+//   tiles' K slices by TMA and two warpgroups multiplying. A reads through
+//   one 4-D view of every rank's workspace (K, rows, chunk, rank), so a
+//   tile's rows past its chunk read as zeros; warp 0 acquires a chunk's
+//   piece signals before the first TMA read of it, behind a
+//   fence.proxy.async. At Qwen3-8B's QKV a rank has 48 tiles on 33 blocks
+//   (W = 4: 1.45 waves); at W = 8 a chunk is 64 rows, half a 128-row tile.
+//   Otherwise `ag_ring_kernel` runs the FMA tile; a block waits on every
+//   piece signal of a chunk before it reads the chunk.
 //
 // Plain C entry points, loaded with ctypes. A launch runs on the stream it
 // is given, allocates nothing and returns a cudaError_t.
@@ -184,36 +196,44 @@ __device__ __forceinline__ void gather(const AgArgs<T>& a, int me, int j) {
   }
 }
 
-// The tile body.
-template <typename T, bool MMA, bool SWIGLU>
-__global__ void __launch_bounds__(kPfThreads, 1) ag_ring_kernel(AgArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int BM = MMA ? kPfBM : kFmBM;
-  constexpr int BN = MMA ? (SWIGLU ? kPfBNSwiglu : kPfBN) : kFmBN;
+// Phase 2 of the tile bodies: my tiles; item i = (column tile, position in
+// the chunk schedule, row tile), chunk and row tile fastest, so the blocks
+// at work share B's column tiles through L2 (a column tile's every chunk
+// reads the same columns of B). Item i's chunk, row tile and column tile.
+struct AgItem {
+  int c, rt, ct;
+};
+template <typename T>
+__device__ __forceinline__ AgItem ag_item(const AgArgs<T>& a, int me, int i,
+                                          int row_tiles) {
+  const int per_col = a.world * row_tiles;
+  return {schedule_chunk(me, i % per_col / row_tiles, a.world, a.dirs),
+          i % row_tiles, i / per_col};
+}
+
+// The FMA tile body (f32 and odd bf16 shapes).
+template <typename T, bool SWIGLU>
+__global__ void __launch_bounds__(kFmThreads, 1) ag_ring_kernel(AgArgs<T> a) {
   const int world = a.world;
   const int me = tdt_rank(a.bpr);
   const int j = static_cast<int>(blockIdx.x) % a.bpr;
   gather(a, me, j);
 
-  // Phase 2: my tiles, chunks in schedule order; item (position, row tile,
-  // column tile over all products).
   const int P = a.pieces;
   const unsigned long long* sig_me =
       reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
-  const int row_tiles = (a.rows + BM - 1) / BM;
+  const int row_tiles = (a.rows + kFmBM - 1) / kFmBM;
   const int col_tiles = seg_field(a.segs.tile0, a.segs.count);
   const int per_chunk = row_tiles * col_tiles;
   const T* ws = reinterpret_cast<const T*>(tdt_peer_ptr(a.ws_tab, me));
   for (int i = j; i < world * per_chunk; i += a.bpr) {
-    const int c = schedule_chunk(me, i / per_chunk, world, a.dirs);
-    const int rt = (i % per_chunk) / col_tiles;
-    const int ct = i % col_tiles;
-    tdt_signal_wait_all(sig_me + c * P, P, a.epoch);
-    const int seg = seg_of_tile(a.segs, ct);
+    const AgItem it = ag_item(a, me, i, row_tiles);
+    tdt_signal_wait_all(sig_me + it.c * P, P, a.epoch);
+    const int seg = seg_of_tile(a.segs, it.ct);
     const int n_loc = seg_field(a.segs.n, seg);
     const long long ld = seg_field(a.segs.ld, seg);
-    const int n0 = (ct - seg_field(a.segs.tile0, seg)) * BN;
-    const int m0 = c * a.rows + rt * BM;
+    const int n0 = (it.ct - seg_field(a.segs.tile0, seg)) * kFmBN;
+    const int m0 = it.c * a.rows + it.rt * kFmBM;
     const long long col = static_cast<long long>(me) * n_loc + n0;
     Tile<T> t;
     t.a = ws + static_cast<long long>(m0) * a.K;
@@ -223,11 +243,89 @@ __global__ void __launch_bounds__(kPfThreads, 1) ag_ring_kernel(AgArgs<T> a) {
     t.ldb = ld;
     t.bias_g = a.bias_g != nullptr ? a.bias_g + col : nullptr;
     t.bias_u = a.bias_u != nullptr ? a.bias_u + col : nullptr;
-    t.rows = min(BM, a.rows - rt * BM);
-    t.cols = min(BN, n_loc - n0);
+    t.rows = min(kFmBM, a.rows - it.rt * kFmBM);
+    t.cols = min(kFmBN, n_loc - n0);
     t.K = a.K;
     const StoreEpi<T> epi{seg_field(a.segs.c, seg) + m0 * ld + col, ld};
-    run_tile<T, MMA, BN, SWIGLU>(t, smem_raw, epi);
+    fma_tile<T, SWIGLU>(t, epi);
+  }
+}
+
+// The tensor-core tile body (bf16): tiles.cuh's wgmma tile. views.a is the
+// 4-D view (K, rows, chunk, rank) of every rank's workspace, so TMA fills a
+// tile's rows past its chunk with zeros; views.b / bu the global weights.
+// After the gather, warp 0 waits for a chunk's piece signals (spread over
+// its lanes) before its first tile of that chunk, and its lane 0 orders
+// those acquires before the TMA reads (fence.proxy.async: the pieces were
+// written by generic stores) and issues the loads; the consumer
+// warpgroups never wait on a signal.
+template <bool SWIGLU>
+__global__ void __launch_bounds__(kPfThreads, 1)
+ag_ring_wg_kernel(AgArgs<bf16> a, const __grid_constant__ TileViews views) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int BN = SWIGLU ? kPfBNSwiglu : kPfBN;
+  const WgSmem s = wg_smem(smem_raw);
+  wg_init(s);
+  const int world = a.world;
+  const int me = tdt_rank(a.bpr);
+  const int j = static_cast<int>(blockIdx.x) % a.bpr;
+  gather(a, me, j);
+  __syncthreads();
+
+  const int P = a.pieces;
+  const int row_tiles = (a.rows + kPfBM - 1) / kPfBM;
+  const int col_tiles = seg_field(a.segs.tile0, a.segs.count);
+  const int per_chunk = row_tiles * col_tiles;
+  const int nk = (a.K + kPfBK - 1) / kPfBK;
+  if (threadIdx.x < 128) {
+    wg_producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const unsigned long long* sig_me =
+        reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
+    WgPipe p;
+    int ready = -1;                          // the chunk last waited for
+    for (int i = j; i < world * per_chunk; i += a.bpr) {
+      const AgItem it = ag_item(a, me, i, row_tiles);
+      if (it.c != ready) {
+        for (int q = lane; q < P; q += 32)
+          while (tdt_signal_acquire(sig_me + it.c * P + q) != a.epoch)
+            __nanosleep(64);
+        __threadfence();
+        __syncwarp();
+        ready = it.c;
+      }
+      if (lane == 0) {
+        fence_proxy_async();
+        const int seg = seg_of_tile(a.segs, it.ct);
+        const int col = me * seg_field(a.segs.n, seg) +
+                        (it.ct - seg_field(a.segs.tile0, seg)) * BN;
+        const CUtensorMap* b = seg_view(views, seg);
+        const WgBox b1 = SWIGLU ? WgBox{&views.bu, col, 0, 0, 0}
+                                : WgBox{b, col + 64, 0, 0, 0};
+        wg_load(s, p, {&views.a, 0, it.rt * kPfBM, it.c, me},
+                {b, col, 0, 0, 0}, b1, nk);
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  wg_consumer_regs();
+  WgPipe p;
+  for (int i = j; i < world * per_chunk; i += a.bpr) {
+    const AgItem it = ag_item(a, me, i, row_tiles);
+    const int seg = seg_of_tile(a.segs, it.ct);
+    const int n_loc = seg_field(a.segs.n, seg);
+    const long long ld = seg_field(a.segs.ld, seg);
+    const int n0 = (it.ct - seg_field(a.segs.tile0, seg)) * BN;
+    const int m0 = it.c * a.rows + it.rt * kPfBM;
+    const long long col = static_cast<long long>(me) * n_loc + n0;
+    const StoreEpi<bf16> epi{seg_field(a.segs.c, seg) + m0 * ld + col, ld};
+    wg_mma<SWIGLU>(s, p, nk, min(kPfBM, a.rows - it.rt * kPfBM),
+                   min(BN, n_loc - n0),
+                   a.bias_g != nullptr ? a.bias_g + col : nullptr,
+                   a.bias_u != nullptr ? a.bias_u + col : nullptr, epi,
+                   [] {});
   }
 }
 
@@ -309,16 +407,29 @@ ag_stream_ring_kernel(AgArgs<bf16> a) {
   }
 }
 
-// A kernel of this file with its block size and dynamic shared memory.
-template <typename T_, bool MMA, bool SWIGLU>
+// A kernel of this file with its block size, dynamic shared memory, tile
+// width and whether it takes the TMA views.
+template <bool SWIGLU>
+struct WgKernel {
+  using T = bf16;
+  static constexpr int threads = kPfThreads;
+  static constexpr int smem = kPfSmemBytes;
+  static constexpr int bn = SWIGLU ? kPfBNSwiglu : kPfBN;
+  static constexpr bool views = true;
+  static const void* fn() {
+    return reinterpret_cast<const void*>(ag_ring_wg_kernel<SWIGLU>);
+  }
+};
+
+template <typename T_, bool SWIGLU>
 struct TileKernel {
   using T = T_;
-  static constexpr int threads = kPfThreads;
-  static constexpr int smem =
-      MMA ? tile_smem_bytes<SWIGLU ? kPfBNSwiglu : kPfBN, SWIGLU>() : 0;
-  static constexpr int bn = MMA ? (SWIGLU ? kPfBNSwiglu : kPfBN) : kFmBN;
+  static constexpr int threads = kFmThreads;
+  static constexpr int smem = 0;
+  static constexpr int bn = kFmBN;
+  static constexpr bool views = false;
   static const void* fn() {
-    return reinterpret_cast<const void*>(ag_ring_kernel<T, MMA, SWIGLU>);
+    return reinterpret_cast<const void*>(ag_ring_kernel<T, SWIGLU>);
   }
 };
 
@@ -328,6 +439,7 @@ struct StreamKernel {
   static constexpr int threads = kTcThreads;
   static constexpr int smem = stream_smem_bytes<MF>();
   static constexpr int bn = kTcBN;
+  static constexpr bool views = false;
   static const void* fn() {
     return reinterpret_cast<const void*>(ag_stream_ring_kernel<MF>);
   }
@@ -359,22 +471,24 @@ cudaError_t resident(int* out) {
   return cudaSuccess;
 }
 
-template <typename K>
-cudaError_t launch(const AgArgs<typename K::T>& a, cudaStream_t stream) {
+// One cooperative launch of kernel K over `blocks` blocks with the given
+// kernel parameters.
+template <typename K, typename... P>
+cudaError_t launch(int blocks, cudaStream_t stream, const P&... params) {
   cudaError_t err = cudaFuncSetAttribute(
       K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, K::smem);
   if (err != cudaSuccess) return err;
-  void* params[] = {const_cast<AgArgs<typename K::T>*>(&a)};
-  err = cudaLaunchCooperativeKernel(K::fn(), dim3(a.world * a.bpr),
-                                    dim3(K::threads), params, K::smem,
-                                    stream);
+  void* args[] = {const_cast<void*>(static_cast<const void*>(&params))...};
+  err = cudaLaunchCooperativeKernel(K::fn(), dim3(blocks), dim3(K::threads),
+                                    args, K::smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Calls f with the kernel (a TileKernel or StreamKernel value) that runs a
-// launch of `path` for op in dtype (0: bf16, 1: f32) over M rows; the
-// decode body's fragments are the world-1 decode plan's for M rows.
+// Calls f with the kernel (a WgKernel, TileKernel or StreamKernel value)
+// that runs a launch of `path` for op in dtype (0: bf16, 1: f32) over M
+// rows; the decode body's fragments are the world-1 decode plan's for M
+// rows.
 template <typename F>
 cudaError_t with_kernel(int op, int dtype, int path, int M, F&& f) {
   const bool sw = op == kOpSwiglu;
@@ -386,13 +500,10 @@ cudaError_t with_kernel(int op, int dtype, int path, int M, F&& f) {
     }
   }
   if (dtype == 0 && path == kPathMma)
-    return sw ? f(TileKernel<bf16, true, true>{})
-              : f(TileKernel<bf16, true, false>{});
+    return sw ? f(WgKernel<true>{}) : f(WgKernel<false>{});
   if (dtype == 0)
-    return sw ? f(TileKernel<bf16, false, true>{})
-              : f(TileKernel<bf16, false, false>{});
-  return sw ? f(TileKernel<float, false, true>{})
-            : f(TileKernel<float, false, false>{});
+    return sw ? f(TileKernel<bf16, true>{}) : f(TileKernel<bf16, false>{});
+  return sw ? f(TileKernel<float, true>{}) : f(TileKernel<float, false>{});
 }
 
 // Whether `path` takes op in dtype over M = world * rows rows, depth K and
@@ -468,14 +579,16 @@ int tdt_ag_ring_sizes(int op, int dtype, int path, int world, int rows,
 // column-sharded (op 1: n_b = 1, b0 = Wg, bu = Wu, bg / bias_u the (N,)
 // biases or null). ws_tab / sig_tab: device tables of each rank's (M, K)
 // workspace and its signals ((world, pieces), then tdt_ag_ring_sizes'
-// *prods); prod_tab (decode body with *ws > 0) each rank's f32 products
-// workspace. Chunks move in `pieces` pieces of piece_bytes (the last may be
+// *prods); ws_base / ws_step: rank 0's workspace and the elements from one
+// rank's to the next (the tensor-core tile reads them through a TMA view;
+// ws_step a multiple of 8); prod_tab (decode body with *ws > 0) each rank's
+// f32 products workspace. Chunks move in `pieces` pieces of piece_bytes (the last may be
 // shorter). `sms`: the card's SMs, as tdt_ag_ring_sizes was given.
 // `epoch` is greater than every earlier call's on these signals.
 // Returns a cudaError_t.
 int tdt_ag_ring(int op, int dtype, int path, const void* x,
-                const void* ws_tab, const void* sig_tab,
-                const void* prod_tab, int n_b, const void* b0,
+                const void* ws_tab, const void* sig_tab, const void* ws_base,
+                long long ws_step, const void* prod_tab, int n_b, const void* b0,
                 const void* b1, const void* b2, void* c0, void* c1, void* c2,
                 int n0, int n1, int n2, const void* bu, const void* bg,
                 const void* bias_u, int world, int rows, int K, int pieces,
@@ -492,8 +605,13 @@ int tdt_ag_ring(int op, int dtype, int path, const void* x,
                 static_cast<long long>(rows) * K * elem &&
             (dirs == 1 || dirs == 2) && epoch != 0 &&
             (op != kOpSwiglu ||
-             (bu != nullptr && (bg == nullptr) == (bias_u == nullptr)));
-  for (int i = 0; ok && i < n_b; ++i) ok = b[i] != nullptr && c[i] != nullptr;
+             (bu != nullptr && (bg == nullptr) == (bias_u == nullptr))) &&
+            (path != kPathMma ||
+             (aligned16(ws_base) && aligned16(bu) && ws_step % 8 == 0 &&
+              ws_step >= static_cast<long long>(world) * rows * K));
+  for (int i = 0; ok && i < n_b; ++i)
+    ok = b[i] != nullptr && c[i] != nullptr &&
+         (path != kPathMma || aligned16(b[i]));
   // The decode body's K splits: the world-1 decode plan's of a rank's shard.
   const int splits =
       ok && path == kPathStream
@@ -544,7 +662,22 @@ int tdt_ag_ring(int op, int dtype, int path, const void* x,
         a.splits = splits;
         a.k_per_split = stream_k_per_split(K, splits, 1);
         a.epoch = epoch;
-        return launch<Kern>(a, s);
+        if constexpr (Kern::views) {
+          // Every rank's workspace as one (K, rows, chunk, rank) view; the
+          // global weights.
+          TileViews v = {};
+          cudaError_t err = make_view(
+              &v.a, ws_base, {K, rows, world, world},
+              {K, static_cast<long long>(rows) * K, ws_step}, kPfBM);
+          for (int i = 0; err == cudaSuccess && i < n_b; ++i)
+            err = b_view(&v.b[i], b[i], K, a.segs.ld[i], a.segs.ld[i]);
+          if (err == cudaSuccess && op == kOpSwiglu)
+            err = b_view(&v.bu, bu, K, a.segs.ld[0], a.segs.ld[0]);
+          if (err != cudaSuccess) return err;
+          return launch<Kern>(world * bpr, s, a, v);
+        } else {
+          return launch<Kern>(world * bpr, s, a);
+        }
       });
   return static_cast<int>(e);
 }

@@ -16,7 +16,7 @@ constexpr int kOpSwiglu = 1;
 // Paths of a plan.
 constexpr int kPlanFma = 0;       // tile_fma: f32 and odd shapes
 constexpr int kPlanDecode = 1;    // stream_mma: bf16 aligned, M <= kTcBM
-constexpr int kPlanPrefill = 2;   // tile_mma: bf16 aligned, larger M / SwiGLU
+constexpr int kPlanPrefill = 2;   // tile_wg: bf16 aligned, larger M / SwiGLU
 
 // How one call is launched. The path depends on the op, the dtype and the
 // shape only, never on where the operands lie, so equal inputs give equal

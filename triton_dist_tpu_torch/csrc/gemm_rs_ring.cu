@@ -77,13 +77,19 @@
 //   - GEMM-AR: the last step stores the reduced piece into every rank's
 //     buffer at once. The copies are exact, so this is the ring
 //     all-gather's result without its W - 1 dependent hops.
-// * Prefill, M > 64 (`rs_ring_kernel`): the partial products, 2 * M * K * N
-//   operations, bound it by operations at Qwen3-8B's prefill (M = 512);
-//   the ring moves (W - 1) * M * N partial sums through HBM (the ranks
-//   share the card's memory: no interconnect is measured). Tiles are
-//   tiles.cuh's: tensor cores for bf16 with kl, N and the split multiples
-//   of 8, FMAs otherwise, computed chunk by chunk in the ring's order as
-//   above, with the all-gather epilogue's hops.
+// * Prefill, M > 64: the partial products, 2 * M * K * N operations, bound
+//   it by operations at Qwen3-8B's prefill (M = 512); the ring moves (W -
+//   1) * M * N partial sums through HBM (the ranks share the card's memory:
+//   no interconnect is measured). The tiles are computed chunk by chunk in
+//   the ring's order as above, with the all-gather epilogue's hops. For
+//   bf16 with kl, N and the split multiples of 8 (and W <= 24),
+//   `rs_ring_wg_kernel` runs tiles.cuh's wgmma tile (the world-1 kernel's):
+//   a block of 384 threads, one an SM, thread 0 feeding each item's K
+//   slices by TMA through per-rank views of A's column shard and B's row
+//   shard, two warpgroups multiplying, then waiting for the travelling sum
+//   only before the epilogue that adds it. Otherwise `rs_ring_kernel` runs
+//   the FMA tile. At Qwen3-8B's o_proj and down a rank has 4 x 32 tiles
+//   over 33 blocks (W = 4); at W = 8 a chunk is 64 rows, half a tile.
 //
 // Plain C entry points, loaded with ctypes. A launch runs on the stream it
 // is given, allocates nothing and returns a cudaError_t.
@@ -145,22 +151,24 @@ struct RsEpi {
   }
 };
 
-// The block copies a rows x cols tile of row stride ld from src to dst.
+// Threads tid of nt copy a rows x cols tile of row stride ld from src to
+// dst.
 template <typename T>
 __device__ __forceinline__ void copy_tile(T* dst, const T* src, int rows,
-                                          int cols, long long ld) {
+                                          int cols, long long ld, int tid,
+                                          int nt) {
   constexpr int V = 16 / sizeof(T);
   if (cols % V == 0 && ld % V == 0 &&
       ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) &
        15) == 0) {
     const int vc = cols / V;
-    for (int e = threadIdx.x; e < rows * vc; e += blockDim.x) {
+    for (int e = tid; e < rows * vc; e += nt) {
       const long long o = (e / vc) * ld + (e % vc) * V;
       *reinterpret_cast<uint4*>(dst + o) =
           *reinterpret_cast<const uint4*>(src + o);
     }
   } else {
-    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+    for (int e = tid; e < rows * cols; e += nt) {
       const long long o = (e / cols) * ld + e % cols;
       dst[o] = src[o];
     }
@@ -177,21 +185,57 @@ __device__ __forceinline__ void release_after_block(unsigned long long* sig,
   }
 }
 
-// The tile body (prefill). Signals of a rank: (W - 1, tiles) ring steps.
-template <typename T, bool MMA>
-__global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int BM = MMA ? kPfBM : kFmBM;
-  constexpr int BN = MMA ? kPfBN : kFmBN;
+// Step s of tile t (row tile, column tile) of the tile bodies' ring over
+// tiles of BM x BN: its chunk c, rows from row0, columns [col0, col0 +
+// cols) and direction d (+1 or -1, mod world); `last`: the rank's own
+// chunk, into the output. The ring deals item i = s * tiles + t, step by
+// step, so a wait (step s - 1 of the same tile, on the neighbour) is on an
+// item of an earlier step, which every block reaches first. Each step
+// reads the rank's whole shard of B again (Qwen3-8B's down: 25 MB a rank,
+// 100 MB a step over W = 4, twice the L2). Dealt tile by tile, the steps
+// of a tile share B's tiles through L2, but each waits on the one before
+// it in the same wave: the W = 4 o_proj and down rings took 0.135 and
+// 0.190 ms on an H100 against 0.072 and 0.180 dealt step by step (odd
+// steps walked backwards: 0.076 and 0.178).
+struct RsItem {
+  int s, t, c, row0, col0, cols, d;
+  bool last;
+};
+template <typename T, int BM, int BN>
+__device__ __forceinline__ RsItem rs_item(const RsArgs<T>& a, int me, int s,
+                                          int t) {
+  const int ct0 = (a.split + BN - 1) / BN;
+  const int col_tiles = ct0 + (a.N - a.split + BN - 1) / BN;
+  RsItem it;
+  it.s = s;
+  it.t = t;
+  const int ctj = t % col_tiles;
+  const bool fwd = ctj < ct0;
+  it.col0 = fwd ? ctj * BN : a.split + (ctj - ct0) * BN;
+  it.cols = min(BN, (fwd ? a.split : a.N) - it.col0);
+  it.row0 = t / col_tiles * BM;
+  it.last = s == a.world - 1;
+  it.d = fwd ? 1 : a.world - 1;
+  it.c = it.last ? me : (me + (a.world - it.d) * (s + 1)) % a.world;
+  return it;
+}
+
+// Tiles a chunk has (a ring step's items).
+template <int BM, int BN>
+__device__ __forceinline__ int rs_tiles(int rows, int N, int split) {
+  return (rows + BM - 1) / BM *
+         ((split + BN - 1) / BN + (N - split + BN - 1) / BN);
+}
+
+// The FMA tile body (f32 and odd bf16 shapes). Signals of a rank: (W - 1,
+// tiles) ring steps.
+template <typename T>
+__global__ void __launch_bounds__(kFmThreads, 1) rs_ring_kernel(RsArgs<T> a) {
   const int world = a.world;
   const int me = tdt_rank(a.bpr);
   const int j = static_cast<int>(blockIdx.x) % a.bpr;
   const int N = a.N;
-  const int row_tiles = (a.rows + BM - 1) / BM;
-  const int ct0 = (a.split + BN - 1) / BN;
-  const int ct1 = (N - a.split + BN - 1) / BN;
-  const int col_tiles = ct0 + ct1;
-  const int tiles = row_tiles * col_tiles;
+  const int tiles = rs_tiles<kFmBM, kFmBN>(a.rows, N, a.split);
   const long long slab = static_cast<long long>(a.rows) * N;
   unsigned long long* sig_me =
       reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
@@ -199,57 +243,47 @@ __global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
 
   // The ring reduce-scatter; item (step, row tile, column tile).
   for (int i = j; i < world * tiles; i += a.bpr) {
-    const int s = i / tiles;
-    const int t = i % tiles;
-    const int rt = t / col_tiles;
-    const int ctj = t % col_tiles;
-    const bool fwd = ctj < ct0;
-    const int col0 = fwd ? ctj * BN : a.split + (ctj - ct0) * BN;
-    const int cols = min(BN, (fwd ? a.split : N) - col0);
-    const int row0 = rt * BM;
-    const int last = s == world - 1;
-    const int d = fwd ? 1 : world - 1;          // +1 or -1, mod world
-    const int c = last ? me : (me + (world - d) * (s + 1)) % world;
+    const RsItem it = rs_item<T, kFmBM, kFmBN>(a, me, i / tiles, i % tiles);
     const T* recv = nullptr;
-    if (s > 0) {
-      tdt_signal_wait_until(sig_me + (s - 1) * tiles + t, a.epoch);
-      recv = slab_me + (s - 1) * slab + static_cast<long long>(row0) * N +
-             col0;
+    if (it.s > 0) {
+      tdt_signal_wait_until(sig_me + (it.s - 1) * tiles + it.t, a.epoch);
+      recv = slab_me + (it.s - 1) * slab +
+             static_cast<long long>(it.row0) * N + it.col0;
     }
     Tile<T> tile;
-    tile.a = a.a + static_cast<long long>(c * a.rows + row0) * a.K +
+    tile.a = a.a + static_cast<long long>(it.c * a.rows + it.row0) * a.K +
              static_cast<long long>(me) * a.kl;
     tile.lda = a.K;
-    tile.b = a.b + static_cast<long long>(me) * a.kl * N + col0;
+    tile.b = a.b + static_cast<long long>(me) * a.kl * N + it.col0;
     tile.bu = nullptr;
     tile.ldb = N;
     tile.bias_g = nullptr;
     tile.bias_u = nullptr;
-    tile.rows = min(BM, a.rows - row0);
-    tile.cols = cols;
+    tile.rows = min(kFmBM, a.rows - it.row0);
+    tile.cols = it.cols;
     tile.K = a.kl;
-    const long long at = static_cast<long long>(c * a.rows + row0) * N + col0;
-    if (!last) {
-      const int peer = (me + d) % world;
+    const long long at =
+        static_cast<long long>(it.c * a.rows + it.row0) * N + it.col0;
+    if (!it.last) {
+      const int peer = (me + it.d) % world;
       T* dst = reinterpret_cast<T*>(tdt_peer_ptr(a.slab_tab, peer)) +
-               s * slab + static_cast<long long>(row0) * N + col0;
+               it.s * slab + static_cast<long long>(it.row0) * N + it.col0;
       unsigned long long* sig = reinterpret_cast<unsigned long long*>(
-          tdt_peer_ptr(a.sig_tab, peer)) + s * tiles + t;
-      if (a.fault && s == 0 && c == 0) {
+          tdt_peer_ptr(a.sig_tab, peer)) + it.s * tiles + it.t;
+      if (a.fault && it.s == 0 && it.c == 0) {
         release_after_block(sig, a.epoch);
         continue;
       }
-      run_tile<T, MMA, BN, false>(tile, smem_raw, RsEpi<T>{recv, dst, N});
+      fma_tile<T, false>(tile, RsEpi<T>{recv, dst, N});
       release_after_block(sig, a.epoch);
     } else if (!a.ag) {
-      run_tile<T, MMA, BN, false>(tile, smem_raw,
-                                  RsEpi<T>{recv, a.out + at, N});
+      fma_tile<T, false>(tile, RsEpi<T>{recv, a.out + at, N});
     } else {
       T* own = a.out + static_cast<long long>(me) * world * slab;
-      run_tile<T, MMA, BN, false>(tile, smem_raw, RsEpi<T>{recv, own + at, N});
+      fma_tile<T, false>(tile, RsEpi<T>{recv, own + at, N});
       unsigned long long* ag_me = reinterpret_cast<unsigned long long*>(
           tdt_peer_ptr(a.ag_tab, me));
-      release_after_block(ag_me + me * tiles + t, a.epoch);
+      release_after_block(ag_me + me * tiles + it.t, a.epoch);
     }
   }
   if (!a.ag) return;
@@ -264,19 +298,138 @@ __global__ void __launch_bounds__(kPfThreads, 1) rs_ring_kernel(RsArgs<T> a) {
   unsigned long long* ag_right =
       reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.ag_tab, right));
   for (int i = j; i < (world - 1) * tiles; i += a.bpr) {
-    const int h = i / tiles;
-    const int t = i % tiles;
-    const int rt = t / col_tiles;
-    const int ctj = t % col_tiles;
-    const bool fwd = ctj < ct0;
-    const int col0 = fwd ? ctj * BN : a.split + (ctj - ct0) * BN;
-    const int cols = min(BN, (fwd ? a.split : N) - col0);
-    const int row0 = rt * BM;
-    const int c = (me - h + world) % world;
-    tdt_signal_wait_until(ag_me + c * tiles + t, a.epoch);
-    const long long at = static_cast<long long>(c * a.rows + row0) * N + col0;
-    copy_tile(right_out + at, own + at, min(BM, a.rows - row0), cols, N);
-    release_after_block(ag_right + c * tiles + t, a.epoch);
+    const RsItem it = rs_item<T, kFmBM, kFmBN>(a, me, 0, i % tiles);
+    const int c = (me - i / tiles + world) % world;
+    tdt_signal_wait_until(ag_me + c * tiles + it.t, a.epoch);
+    const long long at =
+        static_cast<long long>(c * a.rows + it.row0) * N + it.col0;
+    copy_tile(right_out + at, own + at, min(kFmBM, a.rows - it.row0),
+              it.cols, N, threadIdx.x, blockDim.x);
+    release_after_block(ag_right + c * tiles + it.t, a.epoch);
+  }
+}
+
+// The tensor-core tile's views: rank r's column shard of A as (kl, rows,
+// chunk), so TMA fills K past kl and rows past a chunk with zeros, and B's
+// row shards as (N, kl, rank). A kernel parameter of at most 4 KB holds
+// the views of kRsMaxWorld ranks.
+constexpr int kRsMaxWorld = 24;
+struct RsViews {
+  CUtensorMap a[kRsMaxWorld];
+  CUtensorMap b;
+};
+
+// The consumer threads' counterparts of tdt_signal_wait_until and
+// release_after_block (the producer warpgroup never reaches them).
+__device__ __forceinline__ void consumers_wait(const unsigned long long* sig,
+                                               unsigned long long epoch) {
+  if (threadIdx.x == 128) {
+    while (tdt_signal_acquire(sig) != epoch) __nanosleep(64);
+    __threadfence();
+  }
+  consumers_sync();
+}
+__device__ __forceinline__ void consumers_release(unsigned long long* sig,
+                                                  unsigned long long epoch) {
+  consumers_sync();
+  if (threadIdx.x == 128) {
+    __threadfence();
+    tdt_signal_release(sig, epoch);
+  }
+}
+
+// The tensor-core tile body (bf16): tiles.cuh's wgmma tile on the ring
+// above. Thread 0 loads each item's K slices by TMA (A and B are inputs:
+// no signal orders them); the two consumer warpgroups run the products,
+// then (s > 0) wait for the travelling sum in my slab s - 1, which the
+// epilogue adds, so the wait overlaps the products; they release the
+// item's signal, and in GEMM-AR run the all-gather.
+__global__ void __launch_bounds__(kPfThreads, 1)
+rs_ring_wg_kernel(RsArgs<bf16> a, const __grid_constant__ RsViews views) {
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem sm = wg_smem(smem_raw);
+  wg_init(sm);
+  __syncthreads();
+  const int world = a.world;
+  const int me = tdt_rank(a.bpr);
+  const int j = static_cast<int>(blockIdx.x) % a.bpr;
+  const int N = a.N;
+  const int tiles = rs_tiles<kPfBM, kPfBN>(a.rows, N, a.split);
+  const int nk = (a.kl + kPfBK - 1) / kPfBK;
+  if (threadIdx.x < 128) {
+    wg_producer_regs();
+    if (threadIdx.x != 0) return;
+    WgPipe p;
+    const CUtensorMap* av = &views.a[me];
+    for (int i = j; i < world * tiles; i += a.bpr) {
+      const RsItem it = rs_item<bf16, kPfBM, kPfBN>(a, me, i / tiles,
+                                                     i % tiles);
+      if (a.fault && it.s == 0 && it.c == 0) continue;
+      wg_load(sm, p, {av, 0, it.row0, it.c, 0},
+              {&views.b, it.col0, 0, me, 0},
+              {&views.b, it.col0 + 64, 0, me, 0}, nk);
+    }
+    return;
+  }
+  wg_consumer_regs();
+  const long long slab = static_cast<long long>(a.rows) * N;
+  const unsigned long long* sig_me =
+      reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
+  const bf16* slab_me =
+      reinterpret_cast<const bf16*>(tdt_peer_ptr(a.slab_tab, me));
+  bf16* own = a.out + static_cast<long long>(me) * world * slab;
+  unsigned long long* ag_me =
+      a.ag ? reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.ag_tab, me))
+           : nullptr;
+  WgPipe p;
+  for (int i = j; i < world * tiles; i += a.bpr) {
+    const RsItem it = rs_item<bf16, kPfBM, kPfBN>(a, me, i / tiles,
+                                                     i % tiles);
+    const bf16* recv =
+        it.s > 0 ? slab_me + (it.s - 1) * slab +
+                       static_cast<long long>(it.row0) * N + it.col0
+                 : nullptr;
+    auto ready = [&] {
+      if (it.s > 0)
+        consumers_wait(sig_me + (it.s - 1) * tiles + it.t, a.epoch);
+    };
+    const long long at =
+        static_cast<long long>(it.c * a.rows + it.row0) * N + it.col0;
+    // Where the item's sum goes and the signal it then releases: the right
+    // (left) neighbour's slab s, or the output (GEMM-AR: my own buffer,
+    // then my all-gather signal).
+    bf16* dst = it.last ? (a.ag ? own : a.out) + at
+                        : reinterpret_cast<bf16*>(tdt_peer_ptr(
+                              a.slab_tab, (me + it.d) % world)) +
+                              it.s * slab +
+                              static_cast<long long>(it.row0) * N + it.col0;
+    unsigned long long* sig =
+        !it.last ? reinterpret_cast<unsigned long long*>(tdt_peer_ptr(
+                       a.sig_tab, (me + it.d) % world)) +
+                       it.s * tiles + it.t
+        : a.ag   ? ag_me + me * tiles + it.t
+                 : nullptr;
+    if (!(a.fault && it.s == 0 && it.c == 0))
+      wg_mma<false>(sm, p, nk, min(kPfBM, a.rows - it.row0), it.cols,
+                    nullptr, nullptr, RsEpi<bf16>{recv, dst, N}, ready);
+    if (sig != nullptr) consumers_release(sig, a.epoch);
+  }
+  if (!a.ag) return;
+
+  // GEMM-AR: the ring all-gather, as in rs_ring_kernel, by the consumers.
+  const int right = (me + 1) % world;
+  bf16* right_out = a.out + static_cast<long long>(right) * world * slab;
+  unsigned long long* ag_right =
+      reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.ag_tab, right));
+  for (int i = j; i < (world - 1) * tiles; i += a.bpr) {
+    const RsItem it = rs_item<bf16, kPfBM, kPfBN>(a, me, 0, i % tiles);
+    const int c = (me - i / tiles + world) % world;
+    consumers_wait(ag_me + c * tiles + it.t, a.epoch);
+    const long long at =
+        static_cast<long long>(c * a.rows + it.row0) * N + it.col0;
+    copy_tile(right_out + at, own + at, min(kPfBM, a.rows - it.row0),
+              it.cols, N, static_cast<int>(threadIdx.x) - 128, 256);
+    consumers_release(ag_right + c * tiles + it.t, a.epoch);
   }
 }
 
@@ -404,14 +557,26 @@ rs_stream_ring_kernel(RsArgs<T> a) {
   }
 }
 
-// A kernel of this file with its block size and dynamic shared memory.
-template <typename T_, bool MMA>
+// A kernel of this file with its block size, dynamic shared memory and
+// whether it takes the TMA views.
+struct WgKernel {
+  using T = bf16;
+  static constexpr int threads = kPfThreads;
+  static constexpr int smem = kPfSmemBytes;
+  static constexpr bool views = true;
+  static const void* fn() {
+    return reinterpret_cast<const void*>(rs_ring_wg_kernel);
+  }
+};
+
+template <typename T_>
 struct TileKernel {
   using T = T_;
-  static constexpr int threads = kPfThreads;
-  static constexpr int smem = MMA ? tile_smem_bytes<kPfBN, false>() : 0;
+  static constexpr int threads = kFmThreads;
+  static constexpr int smem = 0;
+  static constexpr bool views = false;
   static const void* fn() {
-    return reinterpret_cast<const void*>(rs_ring_kernel<T, MMA>);
+    return reinterpret_cast<const void*>(rs_ring_kernel<T>);
   }
 };
 
@@ -420,6 +585,7 @@ struct StreamKernel {
   using T = T_;
   static constexpr int threads = MMA ? kTcThreads : kFaThreads;
   static constexpr int smem = MMA ? stream_smem_bytes<R>() : 0;
+  static constexpr bool views = false;
   static const void* fn() {
     return reinterpret_cast<const void*>(rs_stream_ring_kernel<T, MMA, R>);
   }
@@ -451,30 +617,31 @@ cudaError_t resident(int* out) {
   return cudaSuccess;
 }
 
-template <typename K>
-cudaError_t launch(const RsArgs<typename K::T>& a, cudaStream_t stream) {
+// One cooperative launch of kernel K over `blocks` blocks with the given
+// kernel parameters.
+template <typename K, typename... P>
+cudaError_t launch(int blocks, cudaStream_t stream, const P&... params) {
   cudaError_t err = cudaFuncSetAttribute(
       K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, K::smem);
   if (err != cudaSuccess) return err;
-  void* params[] = {const_cast<RsArgs<typename K::T>*>(&a)};
-  err = cudaLaunchCooperativeKernel(K::fn(), dim3(a.world * a.bpr),
-                                    dim3(K::threads), params, K::smem,
-                                    stream);
+  void* args[] = {const_cast<void*>(static_cast<const void*>(&params))...};
+  err = cudaLaunchCooperativeKernel(K::fn(), dim3(blocks), dim3(K::threads),
+                                    args, K::smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Calls f with the kernel (a TileKernel or StreamKernel value) that runs a
-// launch of `path` in dtype (0: bf16, 1: f32) over M = world * rows rows,
+// Calls f with the kernel (a WgKernel, TileKernel or StreamKernel value)
+// that runs a launch of `path` in dtype (0: bf16, 1: f32) over M = world *
+// rows rows,
 // kl columns of A per rank and n of B; the decode body's variant is the
 // one gemm_ar.cu's world-1 plan runs on a rank's shard.
 template <typename F>
 cudaError_t with_kernel(int dtype, int path, int M, int kl, int n, F&& f) {
   if (path != kPathStream) {
     if (dtype == 0)
-      return path == kPathMma ? f(TileKernel<bf16, true>{})
-                              : f(TileKernel<bf16, false>{});
-    return f(TileKernel<float, false>{});
+      return path == kPathMma ? f(WgKernel{}) : f(TileKernel<bf16>{});
+    return f(TileKernel<float>{});
   }
   if (stream_mma_ok(dtype, n, kl)) {
     switch (stream_frags(M)) {
@@ -502,7 +669,8 @@ bool path_ok(int dtype, int path, int world, int rows, int kl, int n,
     return false;
   if (path == kPathStream) return world * rows <= kStreamMaxM;
   if (path == kPathMma)
-    return dtype == 0 && kl % 8 == 0 && n % 8 == 0 && split % 8 == 0;
+    return dtype == 0 && kl % 8 == 0 && n % 8 == 0 && split % 8 == 0 &&
+           world <= kRsMaxWorld;
   return path == kPathFma;
 }
 
@@ -577,7 +745,8 @@ int tdt_rs_ring(int dtype, int path, const void* a, const void* b, void* out,
       sig_tab == nullptr || epoch == 0 || sms < 1 ||
       !path_ok(dtype, path, world, rows, kl, n, split) ||
       (stream_path && ws_tab == nullptr) ||
-      (ag && !stream_path && ag_tab == nullptr))
+      (ag && !stream_path && ag_tab == nullptr) ||
+      (path == kPathMma && !(aligned16(a) && aligned16(b))))
     return static_cast<int>(cudaErrorInvalidValue);
   int bpr = 0;
   const int err = tdt_rs_ring_grid(dtype, path, world, rows, kl, n, &bpr);
@@ -608,7 +777,22 @@ int tdt_rs_ring(int dtype, int path, const void* a, const void* b, void* out,
     args.splits = sp.splits;
     args.k_per_split = sp.k_per_split;
     args.epoch = epoch;
-    return launch<K>(args, s);
+    if constexpr (K::views) {
+      RsViews v = {};
+      cudaError_t err = cudaSuccess;
+      const long long ld = static_cast<long long>(world) * kl;
+      for (int r = 0; err == cudaSuccess && r < world; ++r)
+        err = make_view(&v.a[r], static_cast<const bf16*>(a) + r * kl,
+                        {kl, rows, world, 1},
+                        {ld, ld * rows, ld * rows * world}, kPfBM);
+      if (err == cudaSuccess)
+        err = make_view(&v.b, b, {n, kl, world, 1},
+                        {n, static_cast<long long>(n) * kl, ld * n}, 64);
+      if (err != cudaSuccess) return err;
+      return launch<K>(world * bpr, s, args, v);
+    } else {
+      return launch<K>(world * bpr, s, args);
+    }
   });
   return static_cast<int>(e);
 }

@@ -315,6 +315,32 @@ def plan(op: str, m: int, widths: tuple, k: int, dtype: torch.dtype,
     return Plan(PATHS[path.value], tiles.value, splits.value)
 
 
+#: The tensor-core tile of ``csrc/tiles.cuh`` (``kPfBM``, ``kPfBN``,
+#: ``kPfBNSwiglu``): rows, columns, and columns of gate and of up.
+TILE_M, TILE_N, SWIGLU_TILE_N = 128, 128, 64
+
+
+def tile_count(op: str, rows: int, widths, chunks: int = 1) -> int:
+    """Output tiles of the tensor-core tile over ``chunks`` row blocks of
+    ``rows`` rows and output widths ``widths`` (op "swiglu": its one width,
+    gate and up in one tile): the world-1 prefill kernel's tiles with
+    ``chunks`` 1; a rank's items of the AG ring with ``chunks`` = W,
+    ``rows`` = M / W and its shard widths, or of the GEMM-RS ring with
+    widths (split, N - split)."""
+    bn = SWIGLU_TILE_N if op == "swiglu" else TILE_N
+    return chunks * -(-rows // TILE_M) * sum(-(-n // bn) for n in widths)
+
+
+def tile_waves(tiles: int, blocks: int) -> tuple:
+    """(waves, idle share of the last wave) of ``tiles`` tiles dealt in
+    turn to ``blocks`` persistent blocks: tiles / blocks, and the share of
+    the blocks that have no tile in the last wave."""
+    if tiles < 1 or blocks < 1:
+        raise ValueError(f"need tiles and blocks >= 1, got {tiles}, {blocks}")
+    last = tiles - (-(-tiles // blocks) - 1) * blocks
+    return tiles / blocks, 1 - last / blocks
+
+
 def launch_gemm(a: torch.Tensor, bs: list, count: LaunchCount) -> list:
     """The products ``a @ b`` for ``b`` in ``bs`` (checked by the caller)
     in one launch of the AG-GEMM kernel on CUDA tensors, counted in
@@ -466,7 +492,8 @@ def launch_ag_ring(op: str, a: torch.Tensor, bs: list,
     state = ctx.state
     # The state's tables are made once (RingState.table): a launch queues
     # no kernel but its own.
-    ws_tab = state.table(state.workspace(m * k, a.dtype))
+    ws = state.workspace(m * k, a.dtype)
+    ws_tab = state.table(ws)
     sig_tab = state.table(state.signals("ag", world * pieces + size.prods))
     prod_tab = (state.table(state.workspace(size.ws, torch.float32,
                                             "products"))
@@ -491,7 +518,8 @@ def launch_ag_ring(op: str, a: torch.Tensor, bs: list,
     _check(lib, lib.tdt_ag_ring(
         _OP_SWIGLU if swiglu else _OP_GEMM, _DTYPE_CODES[a.dtype],
         RING_PATHS[path], a.data_ptr(), ws_tab.data_ptr(),
-        sig_tab.data_ptr(), prod_tab.data_ptr() if size.ws else None, n_b,
+        sig_tab.data_ptr(), ws.data_ptr(), ws.stride(0),
+        prod_tab.data_ptr() if size.ws else None, n_b,
         *b_ptrs, *c_ptrs, *n_loc, u_ptr, *bias_ptrs, world, rows, k, pieces,
         piece, ctx.ring_dirs, sms, epoch, int(fault), stream))
     count = ag_swiglu_ring_launches if swiglu else ag_ring_launches
@@ -508,7 +536,8 @@ def _ring_lib() -> ctypes.CDLL:
         lib.tdt_ag_ring_sizes.argtypes = [i] * 11 + [
             ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
         lib.tdt_ag_ring_sizes.restype = i
-        lib.tdt_ag_ring.argtypes = ([i, i, i, p, p, p, p, i] + [p] * 6
+        lib.tdt_ag_ring.argtypes = ([i, i, i, p, p, p, p, ctypes.c_longlong,
+                                     p, i] + [p] * 6
                                     + [i] * 3 + [p] * 3 + [i] * 4
                                     + [ctypes.c_longlong, i, i,
                                        ctypes.c_ulonglong, i, p])
