@@ -106,18 +106,19 @@ without the final line:
     wall vs device time.
 
 14. flash-prefill kernel (``csrc/sp_attention.cu``) against its plain
-    version ``sp_attention_fused_reference`` (64-wide KV tiles, as the
-    kernel's) after every Qwen3-8B object is released, at Qwen3-8B's
-    attention width (32 query heads, D = 128): bf16 and f32, causal and
-    full, G = 4 and 8, S = 1000 (no multiple of the tiles), B = 4 at
-    S = 4096 and the full case B = 1, S = 32768; each within the port's
+    version ``sp_attention_fused_reference`` (``KV_TILE``-wide KV tiles,
+    128, as the bf16 kernel's) after every Qwen3-8B object is released,
+    at Qwen3-8B's attention width (32 query heads, D = 128): bf16 and f32,
+    causal and full, G = 4 and 8, S = 1000 (no multiple of the tiles), B =
+    4 at S = 4096 and the full case B = 1, S = 32768; each within the port's
     tolerance (``sp_attention_tolerance``: bf16 2^-7 |out| + 2^-8 sum_j
     (p_j / l) |v_j| elementwise), a planted fault (the KV tile at S / 2
     zeroed for the kernel only) refused by that same limit, bit-identical
-    on repeat, with its time beside the bound;
-    the full case also with the plain version's time and one
-    ``scaled_dot_product_attention(is_causal, enable_gqa)``. These times
-    come from CUDA events around back-to-back calls, not the profiler.
+    on repeat, with its time, TFLOP/s and share of the peak beside the
+    bound; the full case also with the plain version's time and one
+    ``scaled_dot_product_attention(is_causal, enable_gqa)`` (and its
+    TFLOP/s). These times come from CUDA events around back-to-back
+    calls, not the profiler.
 15. sp main path (this slice's), every count set to 0 just before it:
     ``SpAttentionLayer(impl="pallas")`` prefill of the 32k prompt (one
     kernel launch, equal to phase 14's output), ``SpFlashDecodeLayer``
@@ -212,7 +213,8 @@ without the final line:
     (its signal set) refused; the ring-KV prefill
     (``tdt_sp_ring_attention``) at W = 2, 4, 8 causal and W = 4 full and
     f32 at Qwen3-8B's attention width, within ``sp_attention_tolerance``
-    of the plain world-W version, a skipped forward refused.
+    of the plain world-W version, a skipped forward refused, its time and
+    TFLOP/s beside the world-1 kernel's at the same global shape.
 20. SP main path: Qwen3-8B (phase 3's params, full width and depth) as
     ``AutoLLM.build(cfg, sp_axis="sp", sp_world=4)``, served by a paged
     engine, a contiguous engine of 4096 positions (the tiled variant) and
@@ -226,7 +228,8 @@ without the final line:
     group of 4 on phase 14's 32k inputs (one ring launch) and 32 append +
     decode steps through ``SpFlashDecodeLayer`` over the sequence-split
     cache (one world-W launch each), each against its plain world-4
-    version; times beside the world-1 kernels' on the same inputs.
+    version; times beside the world-1 kernels' on the same inputs (the
+    ring prefill's TFLOP/s and its time over the world-1 kernel's).
 
 22. world-W all-gather kernels (``csrc/allgather.cu``:
     ``tdt_all_gather_world``, ``tdt_broadcast_world``), once phase 16's
@@ -2341,7 +2344,8 @@ def moe_kernels_line(records, launches) -> list:
 SP_S, SP_DECODE = 32768, 32
 #: Phase 14's cases: (name, dtype, causal, B, S, KV heads); query heads and
 #: head dim are Qwen3-8B's (32, 128). 8 KV heads: G = 4 (Qwen3-8B); 4: G = 8
-#: (Qwen3-30B-A3B's). S = 1000 is no multiple of the 64-wide tiles.
+#: (Qwen3-30B-A3B's). S = 1000 is no multiple of the 128-wide bf16 tiles
+#: (nor of the f32 kernel's 64-wide ones).
 SP_CASES = [("qwen3_8b_32k", "bf16", True, 1, SP_S, 8),
             ("b4_4096", "bf16", True, 4, 4096, 8),
             ("full_4096", "bf16", False, 1, 4096, 8),
@@ -2393,6 +2397,13 @@ def sp_bound_ms(b, s, hq, hkv, d, itemsize, kind, causal):
                                                            "operations")
 
 
+def sp_tflops(b, s, hq, d, causal, ms) -> float:
+    """TFLOP/s of one prefill attention in ``ms``: 4 D operations per
+    (query head, live (query, key) pair), as ``sp_bound_ms`` counts."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return 4.0 * b * hq * d * pairs / ms / 1e9
+
+
 def sp_operands(torch, dtype, b, s, hq, hkv, d, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return tuple(torch.randn((b, s, h, d), generator=gen,
@@ -2437,12 +2448,15 @@ def phase_sp_attn_kernels(torch, sp, cfg, card: str):
         bnd, by = sp_bound_ms(b, s, hq, hkv, d, q.element_size(), dt, causal)
         tol = ("2^-7 max|out| + 2^-8 sum_j (p_j/l)|v_j|" if dt == "bf16"
                else sp.SP_F32_ATOL)
+        rate = sp_tflops(b, s, hq, d, causal, ms)
+        peak = PEAK_FLOPS[dt] / 1e12
         print(f"sp_attention {name} {dt} causal={causal} B={b} S={s} "
               f"heads {hq}/{hkv} D={d}: max_abs_err={err:.3e} (tol {tol}, "
               f"largest share used {used:.3f}) ok={ok}; planted fault "
               f"(KV tile at S/2 zeroed): max_abs_err={bad_err:.3e}, share "
               f"{bad_used:.3f}, refused={not bad_ok}; repeat "
               f"bit-identical={same} finite={finite} kernel_ms={ms:.3f} "
+              f"({rate:.0f} TFLOP/s, {rate / peak:.3f} of {peak:.0f}) "
               f"bound_ms={bnd:.3f} ({by}) [{card}]", flush=True)
         check(ok and same and finite and not bad_ok,
               f"sp_attention {name}: err {err}, repeat {same}, finite "
@@ -2457,7 +2471,9 @@ def phase_sp_attn_kernels(torch, sp, cfg, card: str):
             del qt, kt, vt
             print(f"sp_attention {name}: plain_ms={plain_ms:.1f} "
                   f"library_ms={lib_ms:.3f} (scaled_dot_product_attention, "
-                  f"is_causal, enable_gqa) [{card}]", flush=True)
+                  f"is_causal, enable_gqa; "
+                  f"{sp_tflops(b, s, hq, d, causal, lib_ms):.0f} TFLOP/s); "
+                  f"kernel / library {ms / lib_ms:.2f} [{card}]", flush=True)
             record = {
                 "name": "sp_attention", "route": "cuda",
                 "source": "triton_dist_tpu_torch/csrc/sp_attention.cu",
@@ -3791,12 +3807,17 @@ def phase_sp_world_kernels(torch, fd, sp, rd, cfg, card: str) -> None:
                                                     group=group), fault=True)
         bad_err, bad_ok, _ = sp_error(bad, ref, lim)
         same = torch.equal(got, again)
+        ms = wall_ms(torch, lambda: sp.launch_sp_ring_attention(q, k, v, ctx))
+        w1 = wall_ms(torch, lambda: sp.launch_sp_attention(q, k, v, causal))
         print(f"sp ring prefill W={world} {dt} causal={causal} S={s} heads "
               f"{hq}/{hkv} D={d}: max_abs_err={err:.3e} (largest share of "
               f"the tolerance {used:.3f}) ok={ok}; repeat bit-identical="
               f"{same}; planted fault (rank 0's first forward skipped, its "
-              f"signal set): max_abs_err={bad_err}, refused={not bad_ok} "
-              f"[{card}]", flush=True)
+              f"signal set): max_abs_err={bad_err}, refused={not bad_ok}; "
+              f"ring {ms:.3f} ms ({sp_tflops(1, s, hq, d, causal, ms):.0f} "
+              f"TFLOP/s), the world-1 kernel at the same global shape "
+              f"{w1:.3f} ms, ring / world 1 {ms / w1:.2f} [{card}]",
+              flush=True)
         check(ok and same and not bad_ok,
               f"sp ring prefill W={world} {dt}: err {err}, repeat {same}, "
               f"fault refused {not bad_ok}")
@@ -4140,13 +4161,16 @@ def phase_sp_world_long(torch, layers, fd, sp, rd, cfg, full, card: str):
         "ok": ok, "tol_share": used}
     w1_ms = wall_ms(torch, lambda: sp.launch_sp_attention(q, k, v, True),
                     n=5)
+    ring_rec["w1_ms"] = w1_ms
     print(f"SpAttentionLayer(impl='pallas', W={world}) prefill B=1 S={SP_S}:"
           f" 1 ring launch, wall {prefill_ms:.1f} ms; max_abs_err vs the "
           f"plain world-{world} version {err:.3e} (largest share of the "
-          f"tolerance {used:.3f}); kernel_ms={ms:.3f} (CUDA events) "
+          f"tolerance {used:.3f}); kernel_ms={ms:.3f} (CUDA events; "
+          f"{sp_tflops(1, SP_S, hq, d, True, ms):.0f} TFLOP/s) "
           f"plain_ms={plain_ms:.1f} library_ms={lib_ms:.3f} (SDPA, global "
           f"causal) bound_ms={bnd:.3f} ({by}); the world-1 kernel on the "
-          f"same inputs {w1_ms:.3f} ms [{card}]", flush=True)
+          f"same inputs {w1_ms:.3f} ms, ring / world 1 {ms / w1_ms:.2f} "
+          f"[{card}]", flush=True)
 
     t = SP_S + SP_DECODE
     qn = steps[-1][0]

@@ -13,6 +13,12 @@ the card's name and power limit on every line. Groups:
   is cold in L2, as ``chip_smoke.py``'s phase 10) and through the W = 4
   rings (layer 0's weights, as phase 17), by ``chip_smoke.queued_ms``,
   beside one ``torch.matmul`` of the same product.
+* ``sp``: the flash prefill (``csrc/sp_attention.cu``) at Qwen3-8B's
+  attention width (32 / 8 heads, D 128, bf16, causal): the 32k prompt at
+  world 1 and through the W = 4 ring, and phase 14's B 4 x 4096, full 4096
+  and G 8 4096 cases, by CUDA events around back-to-back calls
+  (``chip_smoke.wall_ms``, as phases 14 and 21 time them), each with its
+  TFLOP/s; the 32k case beside one masked SDPA call.
 
 Steps give wall (median of 7), device time and kernels a step from a
 profiler session that recorded every port launch (retried up to 8 times,
@@ -27,7 +33,7 @@ change, parent on the card, e.g.::
     python step_times.py change dense tiles
     (cd parent && python ../step_times.py parent dense tiles)
 
-With no group named it runs all three.
+With no group named it runs all four.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import re
 import sys
 import time
 
-GROUPS = ("dense", "tiles", "moe")
+GROUPS = ("dense", "tiles", "moe", "sp")
 #: (what, model options, prefill mode, step mode, exchange kernel name).
 STEPS = (("EP decode step", {"fwd_mode": "xla", "moe_parallel": "ep",
                              "world": 4}, "xla", "xla", "a2a_kernel"),
@@ -143,6 +149,47 @@ def tile_rows(torch, cs, cfg, params, label, card):
                   f"torch.matmul {lib:.5f} ms [{card}]", flush=True)
 
 
+def sp_rows(torch, cs, label, card):
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.ops import sp_attention as sp
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    hq, d = 32, 128
+    rows = (("32k world 1", 1, cs.SP_S, 8, True, 1),
+            ("32k ring W=4", 1, cs.SP_S, 8, True, 4),
+            ("B=4 S=4096", 4, 4096, 8, True, 1),
+            ("full S=4096", 1, 4096, 8, False, 1),
+            ("G=8 S=4096", 1, 4096, 4, True, 1))
+    for what, b, s, hkv, causal, world in rows:
+        q, k, v = cs.sp_operands(torch, torch.bfloat16, b, s, hq, hkv, d,
+                                 seed=40)
+        if world == 1:
+            def fn():
+                return sp.launch_sp_attention(q, k, v, causal)
+        else:
+            ctx = sp.create_sp_attention_context(
+                causal=causal, group=create_rank_group(world, "sp", "cuda"))
+
+            def fn():
+                return sp.launch_sp_ring_attention(q, k, v, ctx)
+        ms = cs.wall_ms(torch, fn, n=5 if s > 4096 else 20)
+        flops = 4.0 * b * hq * d * (s * (s + 1) / 2 if causal else s * s)
+        bound = cs.sp_bound_ms(b, s, hq, hkv, d, 2, "bf16", causal)[0]
+        extra = ""
+        if s > 4096 and world == 1:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = cs.wall_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), n=5)
+            extra = (f", SDPA {lib:.3f} ms ({flops / lib / 1e9:.0f} "
+                     f"TFLOP/s)")
+            del qt, kt, vt
+        print(f"[{label}] flash prefill {what} B={b} S={s} heads {hq}/{hkv} "
+              f"D={d} causal={causal}: {ms:.3f} ms ({flops / ms / 1e9:.0f} "
+              f"TFLOP/s, {flops / ms / 1e9 / 989:.3f} of 989), bound "
+              f"{bound:.3f} ms{extra} [{card}]", flush=True)
+        del q, k, v
+
+
 def moe_steps(torch, cs, models, label, card):
     from triton_dist_tpu_torch.models import KVCacheManager
     cfg = models.presets.qwen3_30b_a3b()
@@ -186,7 +233,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(["sp_attention"] if groups == ["sp"] else None)
     print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
     if "dense" in groups or "tiles" in groups:
         cfg = models.presets.qwen3_8b()
@@ -197,6 +244,8 @@ def main() -> int:
             tile_rows(torch, cs, cfg, params, label, card)
         del params
         torch.cuda.empty_cache()
+    if "sp" in groups:
+        sp_rows(torch, cs, label, card)
     if "moe" in groups:
         moe_steps(torch, cs, models, label, card)
     return 0

@@ -641,7 +641,7 @@ def test_sp_attention_and_collective_sources_target_sm90a_without_atomics():
     assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
     text = src.read_text()
     assert 'extern "C"' in text and '#include "gemm_common.cuh"' in text
-    for entry in ("tdt_sp_attention", "tdt_error_string", "mma_bf16",
+    for entry in ("tdt_sp_attention", "tdt_error_string", "wgmma_m64n128k16",
                   "_sp_fused_kernel"):             # the kernel it replaces
         assert entry in text
     copy = _build.SOURCES["allgather"].read_text()

@@ -709,9 +709,11 @@ def test_all_gather_copy_on_card(cuda_device, rows, cols, dtype):
 
 # -- slice 5: the flash-prefill kernel and the collectives' copy ---------------
 #: (dtype, causal, B, S, Hq, Hkv, D): chip_smoke.py's cases at reduced S —
-#: Qwen3-8B's heads (G = 4), Qwen3-30B-A3B's (G = 8), G = 1, an S that is
-#: no multiple of the 64-wide tiles, B = 4, D = 64, f32 on the FMA path,
-#: and sequences shorter than one tile (S = 1, 7).
+#: Qwen3-8B's heads (G = 4), Qwen3-30B-A3B's (G = 8, also at B = 4), G = 1,
+#: G = 3 (a q tile of 42 positions, its last two rows dead), G = 200 (heads
+#: split into groups of 128), S at and beside the 128-wide KV tiles (127,
+#: 128, 129, 4097) and no multiple of them, B = 4, D = 64, f32 on the FMA
+#: path, and sequences shorter than one tile (S = 1, 7).
 SP_SHAPES = [(torch.bfloat16, True, 1, 2048, 32, 8, 128),
              (torch.bfloat16, True, 4, 1024, 32, 8, 128),
              (torch.bfloat16, False, 1, 1000, 32, 8, 128),
@@ -721,7 +723,17 @@ SP_SHAPES = [(torch.bfloat16, True, 1, 2048, 32, 8, 128),
              (torch.float32, False, 1, 512, 32, 4, 128),
              (torch.float32, True, 1, 100, 4, 4, 64),
              (torch.bfloat16, True, 3, 1, 32, 8, 128),
-             (torch.float32, False, 2, 7, 32, 4, 128)]
+             (torch.float32, False, 2, 7, 32, 4, 128),
+             (torch.bfloat16, True, 1, 127, 32, 8, 128),
+             (torch.bfloat16, True, 1, 128, 32, 8, 128),
+             (torch.bfloat16, False, 1, 129, 32, 8, 128),
+             (torch.bfloat16, True, 1, 4097, 32, 8, 128),
+             (torch.bfloat16, True, 1, 1000, 8, 8, 128),
+             (torch.bfloat16, True, 2, 1000, 24, 8, 128),
+             (torch.bfloat16, False, 1, 777, 24, 8, 128),
+             (torch.bfloat16, True, 4, 1024, 32, 4, 128),
+             (torch.bfloat16, True, 1, 1000, 32, 8, 64),
+             (torch.bfloat16, True, 1, 100, 200, 1, 64)]
 
 
 def zero_middle_tile(x, tile):
@@ -1383,11 +1395,18 @@ def test_world_flash_decode_kernel_matches_plain_on_card(cuda_device, dtype,
         assert not _fd_close(bad[1], want, w)
 
 
+#: (world, dtype, S) of the ring prefill's card cases; W = 4 at S = 4000
+#: gives each rank 1000 positions, no multiple of the 128-wide KV tiles.
+RING_PREFILL_CASES = [(2, torch.bfloat16, 4096), (4, torch.bfloat16, 4096),
+                      (3, torch.bfloat16, 3072), (8, torch.bfloat16, 4096),
+                      (4, torch.bfloat16, 4000), (2, torch.float32, 512),
+                      (4, torch.float32, 512), (3, torch.float32, 384),
+                      (8, torch.float32, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,s", [(torch.bfloat16, 4096),
-                                     (torch.float32, 512)])
+@pytest.mark.parametrize("world,dtype,s", RING_PREFILL_CASES)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("world", [2, 4])
 def test_ring_prefill_kernel_matches_plain_on_card(cuda_device, dtype, s,
                                                    causal, world):
     """The ring-KV prefill at Qwen3-8B's attention width against the

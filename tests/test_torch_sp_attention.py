@@ -75,6 +75,8 @@ FUSED_CASES = [
     ("f32", False, 1, 192, 8, 2, 32, 64, 64),
     ("bf16", True, 1, 192, 8, 2, 32, 128, 128),
     ("bf16", False, 2, 48, 4, 1, 16, 32, 32),
+    # The CUDA kernel's KV_TILE: p rounded at JAX's default t_sub of 128.
+    ("bf16", True, 1, 384, 8, 2, 16, 128, 128),
 ]
 
 

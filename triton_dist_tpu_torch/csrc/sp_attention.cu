@@ -32,9 +32,8 @@
 //     rank's OWN workspace, which only the copies fill, once the signals of
 //     the pieces it reads hold the epoch (the wait for `nxt` at :336).
 //     Chunk me is masked on the diagonal, earlier chunks not at all. The
-//     bf16 item walks the tiles of all its chunks in one flat loop, so the
-//     double-buffered loads run on across chunk boundaries (a tile loop
-//     nested in a chunk loop compiled to markedly slower code).
+//     item walks the tiles of all its chunks in one flat loop, so the
+//     pipeline runs on across chunk boundaries.
 // Rank W - 1 consumes W chunks and rank 0 one: the compute items go out
 // longest first (rank W - 1's first, and within a rank the q-tiles nearest
 // the diagonal's end), over every block of the launch (on one card a rank
@@ -54,31 +53,57 @@
 // above the ~295 operations per byte where the tensor cores, not HBM, are
 // the limit (8.9 ms at 989 TFLOP/s).
 //
-// What the design does about it (an FA2-style forward, mma.sync first;
-// wgmma and TMA are later work):
-//  * one block of four warps per (batch, KV head, tile of 64 folded rows),
-//    so each K/V tile read from HBM serves all G query heads of its KV head;
-//  * K/V tiles of 64 positions, double-buffered in shared memory with
-//    cp.async, the next tile in flight while the current one is used;
-//  * bf16: Q fragments held in registers, S = Q K^T and O += P V on
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix, the
-//    online-softmax state (m, l) and O in registers, P passed from the S
-//    accumulators to the PV operand without shared memory;
-//  * f32: the same tiles on FMA (p through shared memory), so f32 inputs
-//    keep f32 products as in the JAX package;
+// What the design does about it (bf16, an FA3-style forward):
+//  * wgmma, the only way to the tensor cores' full rate: S = Q K^T as
+//    m64n128k16 with Q and the K tile both read from shared memory
+//    (K-major), O += P V as m64nDk16 with P in registers (the S
+//    accumulator packs into wgmma's A fragments) and the V tile read
+//    N-major through the transpose bit;
+//  * a q tile of 128 folded rows, floor(128 / G) whole positions x G heads
+//    of one KV head (G = 4: 32 positions; a G that does not divide 128
+//    leaves the last rows dead; G > 128 splits a position's heads into
+//    groups of 128), so each K/V tile brought in serves 128 rows; two
+//    consumer warpgroups own 64 rows each;
+//  * one producer warp keeps the K and V tiles (128 positions each) in
+//    flight by TMA (cp.async.bulk.tensor) into a ring of kWgStages stages
+//    under full / empty mbarriers, and brings each item's q tile once; the
+//    views (tiles.cuh's make_box_view) are built on the host and passed as
+//    __grid_constant__; TMA's zero fill past the extents is no mask, so
+//    keys past n_keys and the causal diagonal are still masked explicitly;
+//  * a persistent grid of one block per SM walks the items (b, h, q tile)
+//    in a static deal, longest first (most KV tiles under the causal mask
+//    first) and snaking (each round of grid items reversed after the
+//    last), so the blocks' loads even out and the bits never depend on
+//    timing; the stage and mbarrier parities carry from item to item;
+//  * the block is three warpgroups: the producer's gives its registers up
+//    (setmaxnreg) to the two consumers', 232 a thread, so a consumer holds
+//    S (64 f32), O (D / 2 f32) and P (32 bf16 pairs) without spilling. A
+//    288-thread block (one producer warp) did not help: ptxas budgeted it
+//    as 384 threads, 168 registers, and the consumers spilled;
+//  * the softmax runs under the products: each consumer issues tile g's
+//    S = Q K^T together with tile g - 1's P V, then takes tile g's
+//    softmax while P V runs (FA3's intra-warpgroup overlap), and keeps
+//    the softmax short, since it and not the tensor cores bounds the
+//    kernel: unmasked tiles take the row max of the raw scores and fold
+//    the scale into the exponent's FMA, 2^x runs on ex2.approx.ftz, and
+//    a warp whose rows all kept their max skips O's rescale;
 //  * causal: KV tiles wholly in the future of every row of a q-tile are
 //    skipped (exact: they give p = 0 and a correction factor of 1), only
-//    the tiles on the diagonal (or past S) are masked, and the q-tiles
-//    with the most KV tiles are launched first so the last wave is short.
+//    the tiles on the diagonal (or past S) are masked;
+//  * f32: the FMA body (p through shared memory, 64-wide tiles, one block
+//    of four warps per 64 folded rows), so f32 inputs keep f32 products as
+//    in the JAX package.
 //
 // Numerics against JAX: the scale multiplies the f32 scores; masked
 // entries are -1e30, never -inf, so nothing gives NaN; p is rounded to
 // v's dtype (bf16: round to nearest even) for the PV product, l sums the
 // unrounded f32 p; out = acc / max(l, 1e-20) in q's dtype. The bf16 path
-// takes p = exp(s - m) as exp2f(s log2 e - m log2 e), within a few f32
-// ulps of exp; the f32 path calls expf. KV tiles here
-// are 64 wide where JAX's t_sub is 128: the running max at which each p is
-// rounded may differ, which moves a bf16 p by at most one ulp.
+// takes p = exp(s - m) as 2^(s log2 e - m log2 e) (on an unmasked tile
+// 2^(s_raw (scale log2 e) - m log2 e), the scale in the same FMA), within
+// a few f32 ulps of exp, p below 2^-126 flushed to zero; the f32 path
+// calls expf. bf16 KV tiles are 128 wide, JAX's default t_sub, so each p
+// is rounded at JAX's running max; the f32 tiles are 64 wide (p is not
+// rounded there).
 //
 // Every sum has a fixed order and there are no atomics: equal inputs give
 // equal bits from run to run. All offsets are 64-bit (B * S * Hq * D
@@ -93,13 +118,15 @@
 
 #include "gemm_common.cuh"
 #include "shmem.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int kBM = 64;                  // folded rows per block
-constexpr int kBN = 64;                  // KV positions per tile
+constexpr int kBM = 64;                  // f32: folded rows per block
+constexpr int kBN = 64;                  // f32: KV positions per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kPiece = 64;               // ring: positions per signal
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -109,21 +136,28 @@ struct Params {
   const void* v;
   void* out;            // (B, S, Hq, D), q's dtype
   int B, S, Hq, Hkv, G;
-  int n_qt;             // q-tiles of one (b, h): ceil(S_loc * G / kBM)
+  int n_qt;             // q-tiles of one (b, h)
   int causal;
   float scale;          // D^-0.5 rounded to f32, as JAX rounds it
+  // bf16: a q tile is qp positions x qh heads (qh = min(G, 128), qp =
+  // 128 / qh), n_hg = ceil(G / qh) head groups; n_qt = n_pt n_hg.
+  int qp, qh, n_hg, n_pt;
   // World W only (world = 1: S_loc = S).
   int world, s_loc;
-  int n_pieces;         // 64-position pieces of one row's chunk
-  const long long* ws_tab;   // (W,) workspaces: K slots then V slots, each
-                             // W x (B, S_loc, Hkv, D)
-  const long long* sig_tab;  // (W,) signals: (W slots, B, n_pieces) u64
+  int n_pieces;         // kPiece-position pieces of one row's chunk
+  // Rank r's workspace (K slots then V slots, each W x (B, S_loc, Hkv,
+  // D)) at ws_base + r ws_step elements; its signals ((W slots, B,
+  // n_pieces) u64) at sig_base + r sig_step words.
+  void* ws_base;
+  long long ws_step;
+  unsigned long long* sig_base;
+  long long sig_step;
   unsigned long long epoch;
   int fault;            // skip rank 0's first forward of (row 0, piece 0)
 };
 
-// The (b, h, q-tile) of a block's work.
-struct Tile {
+// f32: the (b, h, q-tile) of a block's work.
+struct QTile {
   int b, h;
   long long r0;         // first folded row
   long long rows;       // S_loc * G
@@ -133,12 +167,12 @@ struct Tile {
 // World 1: tiles are launched in falling order of their index, all (b, h)
 // of one tile together, so under a causal mask the longest tiles start
 // first.
-__device__ __forceinline__ Tile tile_of_block(const Params& p) {
+__device__ __forceinline__ QTile tile_of_block(const Params& p) {
   const long long bh_count = static_cast<long long>(p.B) * p.Hkv;
   const long long id = blockIdx.x;
   const int bh = static_cast<int>(id % bh_count);
   const long long qt = p.n_qt - 1 - id / bh_count;
-  Tile t;
+  QTile t;
   t.b = bh / p.Hkv;
   t.h = bh % p.Hkv;
   t.rows = static_cast<long long>(p.S) * p.G;
@@ -149,8 +183,8 @@ __device__ __forceinline__ Tile tile_of_block(const Params& p) {
 
 // KV tiles of positions [0, n_keys) that the q-tile reads: all of them, or
 // under the diagonal's causal mask those up to its last query.
-__device__ __forceinline__ int kv_tiles(const Tile& t, int G, long long n_keys,
-                                        bool diag) {
+__device__ __forceinline__ int kv_tiles(const QTile& t, int G,
+                                        long long n_keys, bool diag) {
   long long kv_end = n_keys;
   if (diag) {
     const long long last = min(t.r0 + kBM, t.rows) - 1;
@@ -160,7 +194,7 @@ __device__ __forceinline__ int kv_tiles(const Tile& t, int G, long long n_keys,
 }
 
 // Element offset of folded row R of (b, h) in q or out.
-__device__ __forceinline__ long long q_offset(const Params& p, const Tile& t,
+__device__ __forceinline__ long long q_offset(const Params& p, const QTile& t,
                                               long long R, int D) {
   return ((static_cast<long long>(t.b) * p.S + t.pos0 + R / p.G) * p.Hq +
           static_cast<long long>(t.h) * p.G + R % p.G) *
@@ -170,7 +204,7 @@ __device__ __forceinline__ long long q_offset(const Params& p, const Tile& t,
 // Stages the block's 64 folded q rows into `dst` (row stride `ld`
 // elements); rows past the tile's rows are zero-filled.
 template <typename T, int D>
-__device__ __forceinline__ void load_q(const Params& p, const Tile& t, T* dst,
+__device__ __forceinline__ void load_q(const Params& p, const QTile& t, T* dst,
                                        int ld) {
   constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));
@@ -204,87 +238,358 @@ __device__ __forceinline__ void load_kv(const T* kb, const T* vb,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync. Warp w owns folded rows 16w..16w+15 of the tile; in the
-// m16n8 accumulator layout a lane holds rows g and g + 8 (g = lane / 4) at
-// columns 2t, 2t + 1 (t = lane % 4) of each 8-column fragment.
-template <int D>
-__host__ __device__ constexpr int mma_ld() { return D + 8; }  // padded rows: conflict-free ldmatrix
+// bf16: wgmma on K/V tiles brought by TMA (see the note at the top).
+constexpr int kWgRows = 128;             // folded rows per q tile
+constexpr int kWgBN = 128;               // KV positions per tile
+constexpr int kWgStages = 2;             // K and V tiles in flight
+constexpr int kWgThreads = 384;          // the producer + two consumers
 
+// Shared memory of a D-wide block, from a 1024-byte aligned base: the q
+// tile (D / 64 boxes of 128 rows x 128 bytes), kWgStages K tiles, as many
+// V tiles (D / 64 boxes of 128 positions x 128 bytes each), then the
+// mbarriers.
 template <int D>
-constexpr int mma_smem_bytes() {
-  // Q, then K and V double-buffered.
-  return (kBM + 4 * kBN) * mma_ld<D>() *
-         static_cast<int>(sizeof(__nv_bfloat16));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// The online-softmax state of a warp's 16 rows.
-template <int D>
-struct MmaState {
-  unsigned qf[D / 16][4];
-  float o[D / 8][4];
-  float m0, m1, l0, l1;
+struct WgShape {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBox = kWgRows * 128;
+  static constexpr int kKvBox = kWgBN * 128;
+  static constexpr int kQ = kBoxes * kQBox;
+  static constexpr int kKv = kBoxes * kKvBox;        // one K or V tile
+  static constexpr int kBars = 2 + 4 * kWgStages;
+  static constexpr int kSmem = kQ + 2 * kWgStages * kKv + kBars * 8 + 1024;
 };
 
-// Folds one KV tile (keys k0 + [0, kBN) of n_keys, in `ks_` / `vs_`) into
-// the state. `diag`: the causal mask applies, the lane's rows at query
-// positions qpos0 / qpos1 of the same origin as the keys, qmin the block's
-// first; otherwise only keys past n_keys are masked.
 template <int D>
-__device__ __forceinline__ void mma_tile(MmaState<D>& st,
-                                         const __nv_bfloat16* ks_,
-                                         const __nv_bfloat16* vs_, int k0,
-                                         long long n_keys, bool diag,
-                                         int qpos0, int qpos1, int qmin,
-                                         float scale) {
-  constexpr int LD = mma_ld<D>();
-  constexpr int KS = D / 16;              // k-steps of the score product
-  constexpr int NF = kBN / 8;             // score fragments per row block
-  constexpr int DF = D / 8;               // output fragments per row block
+struct SpSmem {
+  using L = WgShape<D>;
+  unsigned char* base;
+  __device__ unsigned char* q() const { return base; }
+  __device__ unsigned char* k(int s) const { return base + L::kQ + s * L::kKv; }
+  __device__ unsigned char* v(int s) const { return k(kWgStages + s); }
+  __device__ uint64_t* bar(int i) const {
+    return reinterpret_cast<uint64_t*>(base + L::kQ +
+                                       2 * kWgStages * L::kKv) + i;
+  }
+  // full: the producer's one arrival and the bytes; empty: the 8 consumer
+  // warps' arrivals.
+  __device__ uint64_t* q_full() const { return bar(0); }
+  __device__ uint64_t* q_empty() const { return bar(1); }
+  __device__ uint64_t* k_full(int s) const { return bar(2 + s); }
+  __device__ uint64_t* k_empty(int s) const { return bar(2 + kWgStages + s); }
+  __device__ uint64_t* v_full(int s) const {
+    return bar(2 + 2 * kWgStages + s);
+  }
+  __device__ uint64_t* v_empty(int s) const {
+    return bar(2 + 3 * kWgStages + s);
+  }
+};
+
+template <int D>
+__device__ __forceinline__ SpSmem<D> sp_smem(unsigned char* raw) {
+  const uintptr_t p = (reinterpret_cast<uintptr_t>(raw) + 1023) &
+                      ~static_cast<uintptr_t>(1023);
+  return SpSmem<D>{reinterpret_cast<unsigned char*>(p)};
+}
+
+// Thread 0 initialises the mbarriers; the caller syncs the block.
+template <int D>
+__device__ __forceinline__ void sp_init(const SpSmem<D>& s) {
+  if (threadIdx.x == 0) {
+    mbar_init(s.q_full(), 1);
+    mbar_init(s.q_empty(), 8);
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(s.k_full(i), 1);
+      mbar_init(s.k_empty(i), 8);
+      mbar_init(s.v_full(i), 1);
+      mbar_init(s.v_empty(i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+}
+
+// Where the K/V stage ring stands; producer and consumers keep their own,
+// and both advance once per KV tile of every item.
+struct SpPipe {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ void next() {
+    if (++stage == kWgStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The TMA views of one launch. q: (D, Hq, S, B), boxes (64, qh, qp, 1), so
+// a tile's rows land in folded order. k, v: (D, Hkv, positions, rows,
+// ranks), boxes (64, 1, kWgBN, 1, 1): at world 1 k and v themselves
+// (rows = B, one rank); at world W both are the (D, Hkv, S_loc, 2 W B, W)
+// view of every rank's workspace, K slot c of row b at row c B + b, V
+// slot c at (W + c) B + b.
+struct SpViews {
+  CUtensorMap q, k, v;
+};
+
+// A bf16 item: (rank, b, h, head group, position tile).
+struct WgItem {
+  int me, b, h;
+  int g0;               // first head of the tile within the KV head's G
+  int p0;               // first query position, from the rank's first
+};
+
+// Item `it` of the static deal, longest first: rank W - 1's items first,
+// within a rank the position tiles from the last, within a tile the head
+// groups, then every (b, h). The world-1 deal is the same with W = 1.
+// Item counts fit in 31 bits (make_params), so the deal's arithmetic is
+// 32-bit: the producer warp runs it within its 40 registers.
+__device__ __forceinline__ WgItem wg_item(const Params& p, int it) {
+  const int bh_count = p.B * p.Hkv;
+  const int per_rank = bh_count * p.n_qt;
+  WgItem t;
+  t.me = p.world - 1 - it / per_rank;
+  int rem = it % per_rank;
+  const int bh = rem % bh_count;
+  rem /= bh_count;
+  t.b = bh / p.Hkv;
+  t.h = bh % p.Hkv;
+  t.g0 = rem % p.n_hg * p.qh;
+  t.p0 = (p.n_pt - 1 - rem / p.n_hg) * p.qp;
+  return t;
+}
+
+// The static deal: a block takes turns c = first, first + grid, ... of
+// [0, dealt_end) and at turn c the item snake(c). Round c / grid of the
+// items (longest first) goes out in block order when even, reversed when
+// odd, so a block that took one of the longer items of a round takes one
+// of the shorter of the next. (On an H100 the W = 4 ring at 32k took 15.4
+// ms so and 21.5 ms dealt in block order every round, though the blocks'
+// tile counts differ by under 2 % either way; world 1 was unchanged.)
+__device__ __forceinline__ int snake(int c) {
+  const int g = gridDim.x;
+  const int rd = c / g;
+  return rd & 1 ? rd * g + g - 1 - c % g : c;
+}
+
+__device__ __forceinline__ int dealt_end(int items) {
+  const int g = gridDim.x;
+  return (items + g - 1) / g * g;
+}
+
+// Rank me's consumed ring steps are a prefix: 0..me under a causal mask
+// (the test cur <= me on chunk cur = me - s), all W otherwise; step s
+// carries chunk (me - s) mod W, and only step 0 the diagonal.
+__device__ __forceinline__ int ring_steps(const Params& p, int me) {
+  return p.causal ? me + 1 : p.world;
+}
+
+// KV tiles of a chunk that the item reads: all of them, or on the causal
+// diagonal those up to its last query.
+__device__ __forceinline__ int wg_kv_tiles(const Params& p, const WgItem& t,
+                                           bool diag) {
+  int end = p.s_loc;
+  if (diag) end = min(end, t.p0 + p.qp);
+  return (end + kWgBN - 1) / kWgBN;
+}
+
+__device__ __forceinline__ unsigned long long* piece_signal(const Params& p,
+                                                            int rank,
+                                                            int slot, int b,
+                                                            int piece) {
+  return tdt_rank_ptr(p.sig_base, p.sig_step * 8, rank) +
+         (static_cast<long long>(slot) * p.B + b) * p.n_pieces + piece;
+}
+
+// The producer warp: for each of the block's items (its turns of the
+// snake deal from `first`), the q tile once, then every K and V tile in
+// the consumers' order.
+// At world W its lanes first acquire the signals of the pieces a tile
+// covers, and lane 0 orders those acquires before the TMA reads
+// (fence.proxy.async: the pieces were written by generic stores).
+template <int D>
+__device__ __forceinline__ void sp_produce(const Params& p,
+                                           const SpViews& v,
+                                           const SpSmem<D>& sm,
+                                           int first, int items) {
+  using L = WgShape<D>;
   const int lane = threadIdx.x & 31;
-  const int tq = lane & 3;
-
-  // S = Q K^T (f32). K rows are the "col" operand as they lie: lanes
-  // 0-7 / 8-15 / 16-23 / 24-31 address positions +0..7 dims +0, +0..7
-  // dims +8, +8..15 dims +0, +8..15 dims +8.
-  float s[NF][4];
-#pragma unroll
-  for (int i = 0; i < NF; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int np = 0; np < NF / 2; ++np) {
-      unsigned kb[4];
-      ldmatrix_x4(kb, ks_ + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD +
-                          ks * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * np], st.qf[ks], kb[0], kb[1]);
-      mma_bf16(s[2 * np + 1], st.qf[ks], kb[2], kb[3]);
+  const int W = p.world;
+  SpPipe pipe;
+  uint32_t qphase = 0;
+  for (int c = first; c < dealt_end(items); c += gridDim.x) {
+    const int it = snake(c);
+    if (it >= items) continue;
+    const WgItem t = wg_item(p, it);
+    if (lane == 0) {
+      mbar_wait(sm.q_empty(), qphase ^ 1);
+      mbar_expect(sm.q_full(), L::kBoxes * 128 * p.qh * p.qp);
+      for (int x = 0; x < L::kBoxes; ++x)
+        tma_load(sm.q() + x * L::kQBox, &v.q, sm.q_full(), x * 64,
+                 t.h * p.G + t.g0, t.me * p.s_loc + t.p0, t.b);
+    }
+    qphase ^= 1;
+    for (int s = 0; s < ring_steps(p, t.me); ++s) {
+      const int cur = (t.me - s + W) % W;
+      const int krow = W > 1 ? cur * p.B + t.b : t.b;
+      const int vrow = W > 1 ? (W + cur) * p.B + t.b : t.b;
+      const int n = wg_kv_tiles(p, t, p.causal && s == 0);
+      for (int j = 0; j < n; ++j) {
+        if (W > 1) {
+          const int pc = j * (kWgBN / kPiece) + lane;
+          if (lane < kWgBN / kPiece && pc < p.n_pieces) {
+            const unsigned long long* sig =
+                piece_signal(p, t.me, cur, t.b, pc);
+            while (tdt_signal_acquire(sig) != p.epoch) __nanosleep(64);
+          }
+          __threadfence();
+          __syncwarp();
+        }
+        if (lane == 0) {
+          if (W > 1) fence_proxy_async();
+          mbar_wait(sm.k_empty(pipe.stage), pipe.phase ^ 1);
+          mbar_expect(sm.k_full(pipe.stage), L::kKv);
+          for (int x = 0; x < L::kBoxes; ++x)
+            tma_load5(sm.k(pipe.stage) + x * L::kKvBox, &v.k,
+                      sm.k_full(pipe.stage), x * 64, t.h, j * kWgBN, krow,
+                      t.me);
+          mbar_wait(sm.v_empty(pipe.stage), pipe.phase ^ 1);
+          mbar_expect(sm.v_full(pipe.stage), L::kKv);
+          for (int x = 0; x < L::kBoxes; ++x)
+            tma_load5(sm.v(pipe.stage) + x * L::kKvBox, &v.v,
+                      sm.v_full(pipe.stage), x * 64, t.h, j * kWgBN, vrow,
+                      t.me);
+        }
+        __syncwarp();
+        pipe.next();
+      }
     }
   }
+}
 
-  // Scale, mask, and the tile's row maxima (a row's 64 columns lie in
-  // the four lanes of one quad). Only a tile that reaches past n_keys or
-  // past the block's first query position can hold a masked entry.
-  const bool edge = k0 + kBN > n_keys || (diag && k0 + kBN - 1 > qmin);
+#define SP_F8(d, i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// O (+)= P V for one 16-position step: P (64 x 16) from registers in
+// wgmma's A fragments (mma.sync's A layout, a warp's 16 rows), V (16 x N)
+// from shared memory read N-major (the transpose bit); N = D.
+__device__ __forceinline__ void wgmma_pv(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : SP_F8(d, 0), SP_F8(d, 8), SP_F8(d, 16), SP_F8(d, 24), SP_F8(d, 32),
+        SP_F8(d, 40), SP_F8(d, 48), SP_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : SP_F8(d, 0), SP_F8(d, 8), SP_F8(d, 16), SP_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef SP_F8
+
+// Keeps the registers of P live and in place until the wgmmas that read
+// them have completed (the compiler does not see their asynchronous reads).
+template <int N>
+__device__ __forceinline__ void reg_fence_u(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The online-softmax state of a consumer thread's two rows r and r + 8 of
+// its warp: O in wgmma's accumulator layout (for each 8-column group j,
+// o[4j], o[4j + 1] at row r, columns 8j + 2 (lane % 4) and + 1; o[4j + 2],
+// o[4j + 3] at row r + 8), the running max and sum of each row.
+template <int D>
+struct WgState {
+  float o[D / 2];
+  float m0, m1, l0, l1;
+  float c0, c1;         // the last tile's correction of each row
+};
+
+// 2^x on the special-function unit, denormal results flushed to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Folds the scores s (this tile's m64n128 accumulator, keys k0 + [0,
+// kWgBN) of n_keys) into the state and leaves p = exp(s - m) in s. `diag`:
+// the causal mask applies, the thread's rows at query positions qpos0 /
+// qpos1 of the same origin as the keys, qmin the tile's first; otherwise
+// only keys past n_keys are masked. O's correction is kept for
+// wg_rescale_pack.
+template <int D>
+__device__ __forceinline__ void wg_softmax(WgState<D>& st, float (&s)[64],
+                                           int k0, int n_keys, bool diag,
+                                           int qpos0, int qpos1, int qmin,
+                                           float scale) {
+  constexpr int NF = kWgBN / 8;           // 8-column groups of a row
+  const int tq = threadIdx.x & 3;
+  // Only a tile that reaches past n_keys or past the tile's first query
+  // position can hold a masked entry.
+  const bool edge = k0 + kWgBN > n_keys || (diag && k0 + kWgBN - 1 > qmin);
   float mx0 = kNeg, mx1 = kNeg;
+  if (edge) {
 #pragma unroll
-  for (int nf = 0; nf < NF; ++nf) {
+    for (int j = 0; j < NF; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kpos = k0 + nf * 8 + 2 * tq + (e & 1);
-      const bool ok = !edge || (kpos < n_keys &&
-                                (!diag || kpos <= (e < 2 ? qpos0 : qpos1)));
-      s[nf][e] = ok ? s[nf][e] * scale : kNeg;
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + j * 8 + 2 * tq + (e & 1);
+        const bool ok = kpos < n_keys &&
+                        (!diag || kpos <= (e < 2 ? qpos0 : qpos1));
+        s[4 * j + e] = ok ? s[4 * j + e] * scale : kNeg;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
-    mx0 = fmaxf(mx0, fmaxf(s[nf][0], s[nf][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[nf][2], s[nf][3]));
+  } else {
+    // No mask: the row max of the raw scores, times the scale, is the max
+    // of the scaled scores (rounding is monotonic, the scale positive).
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    mx0 *= scale;
+    mx1 *= scale;
   }
+  // A row's 128 columns lie in the four lanes of one quad.
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
@@ -294,18 +599,20 @@ __device__ __forceinline__ void mma_tile(MmaState<D>& st,
   const float mn1 = fmaxf(st.m1, mx1);
   const float c0 = expf(st.m0 - mn0);
   const float c1 = expf(st.m1 - mn1);
-  // p = exp(s - m) as 2^(s log2 e - m log2 e): one FMA and one exp2f.
+  // p = exp(s - m) as 2^(s log2 e - m log2 e): one FMA and one exp2.
   const float ml0 = mn0 * kLog2e;
   const float ml1 = mn1 * kLog2e;
   float sum0 = 0.f, sum1 = 0.f;
+  // Unmasked scores take the scale in the same FMA: s scale log2 e.
+  const float f = edge ? kLog2e : scale * kLog2e;
 #pragma unroll
-  for (int nf = 0; nf < NF; ++nf) {
-    s[nf][0] = exp2f(fmaf(s[nf][0], kLog2e, -ml0));
-    s[nf][1] = exp2f(fmaf(s[nf][1], kLog2e, -ml0));
-    s[nf][2] = exp2f(fmaf(s[nf][2], kLog2e, -ml1));
-    s[nf][3] = exp2f(fmaf(s[nf][3], kLog2e, -ml1));
-    sum0 += s[nf][0] + s[nf][1];
-    sum1 += s[nf][2] + s[nf][3];
+  for (int j = 0; j < NF; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], f, -ml0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], f, -ml0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], f, -ml1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], f, -ml1));
+    sum0 += s[4 * j] + s[4 * j + 1];
+    sum1 += s[4 * j + 2] + s[4 * j + 3];
   }
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -316,140 +623,233 @@ __device__ __forceinline__ void mma_tile(MmaState<D>& st,
   st.m1 = mn1;
   st.l0 = st.l0 * c0 + sum0;
   st.l1 = st.l1 * c1 + sum1;
+  st.c0 = c0;
+  st.c1 = c1;
+}
+
+// O *= the last tile's correction, then p rounded to bf16 into wgmma's A
+// fragments: the S accumulator's 8-column groups 2kk, 2kk + 1 are the
+// fragments of 16-position step kk.
+template <int D>
+__device__ __forceinline__ void wg_rescale_pack(WgState<D>& st,
+                                                const float (&s)[64],
+                                                uint32_t (&pa)[kWgBN / 16][4]) {
+  // Multiplying by 1 changes no bit: a warp whose rows all kept their max
+  // skips it.
+  if (!__all_sync(0xffffffffu, st.c0 == 1.f && st.c1 == 1.f))
 #pragma unroll
-  for (int i = 0; i < DF; ++i) {
-    st.o[i][0] *= c0;
-    st.o[i][1] *= c0;
-    st.o[i][2] *= c1;
-    st.o[i][3] *= c1;
+  for (int i = 0; i < D / 8; ++i) {
+    st.o[4 * i] *= st.c0;
+    st.o[4 * i + 1] *= st.c0;
+    st.o[4 * i + 2] *= st.c1;
+    st.o[4 * i + 3] *= st.c1;
   }
-
-  // O += round_bf16(P) V. The S accumulators of fragments 2kk, 2kk + 1
-  // are the A operand of k-step kk; V rows go through ldmatrix.trans.
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    unsigned a[4];
-    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      unsigned vb[4];
-      ldmatrix_x4_trans(vb, vs_ + (kk * 16 + (lane & 15)) * LD + dp * 16 +
-                                (lane >> 4) * 8);
-      mma_bf16(st.o[2 * dp], a, vb[0], vb[1]);
-      mma_bf16(st.o[2 * dp + 1], a, vb[2], vb[3]);
-    }
+  for (int kk = 0; kk < kWgBN / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
+// out = O / max(l, 1e-20) for the thread's live rows: row r of the tile is
+// position p0 + r / qh, head g0 + r % qh; rows past qp qh, past the rank's
+// positions or past G are not stored.
 template <int D>
-__device__ __forceinline__ void mma_init(MmaState<D>& st) {
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st.o[i][e] = 0.f;
-  st.m0 = st.m1 = kNeg;
-  st.l0 = st.l1 = 0.f;
-}
-
-// Q fragments of the warp's 16 rows from the staged q tile.
-template <int D>
-__device__ __forceinline__ void mma_load_q(MmaState<D>& st,
-                                           const __nv_bfloat16* Qs) {
-  constexpr int LD = mma_ld<D>();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    ldmatrix_x4(st.qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                               (lane >> 4) * 8);
-}
-
-// out = O / max(l, 1e-20) for the warp's rows below the tile's rows.
-template <int D>
-__device__ __forceinline__ void mma_store(const Params& p, const Tile& t,
-                                          const MmaState<D>& st) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-  const float d0 = fmaxf(st.l0, 1e-20f);
-  const float d1 = fmaxf(st.l1, 1e-20f);
+__device__ __forceinline__ void wg_store(const Params& p, const WgItem& t,
+                                         const WgState<D>& st, int r) {
+  const int tq = threadIdx.x & 3;
+  bf16* out = static_cast<bf16*>(p.out);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const long long R = t.r0 + warp * 16 + g + half * 8;
-    if (R >= t.rows) continue;
-    __nv_bfloat16* row = out + q_offset(p, t, R, D);
-    const float d = half ? d1 : d0;
+    const int ri = r + half * 8;
+    const int pos = t.p0 + ri / p.qh;
+    const int g = t.g0 + ri % p.qh;
+    if (ri >= p.qp * p.qh || pos >= p.s_loc || g >= p.G) continue;
+    bf16* row = out + ((static_cast<long long>(t.b) * p.S +
+                        static_cast<long long>(t.me) * p.s_loc + pos) *
+                           p.Hq +
+                       static_cast<long long>(t.h) * p.G + g) *
+                          D;
+    const float d = fmaxf(half ? st.l1 : st.l0, 1e-20f);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const __nv_bfloat162 v2 = __floats2bfloat162_rn(
-          st.o[i][2 * half] / d, st.o[i][2 * half + 1] / d);
-      *reinterpret_cast<__nv_bfloat162*>(row + i * 8 + 2 * tq) = v2;
-    }
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(row + i * 8 + 2 * tq) =
+          __floats2bfloat162_rn(st.o[4 * i + 2 * half] / d,
+                                st.o[4 * i + 2 * half + 1] / d);
   }
 }
 
-// The query positions (from the rank's first) of a lane's two rows and of
-// the block's first row (positions fit in 32 bits: S < 2^31 - kBM).
-struct QPos {
-  int q0, q1, qmin;
+// S = Q K^T of one tile, issued as one wgmma group. Q and K K-major:
+// 8-row groups 1024 bytes apart, a 16-deep step 32 bytes within the
+// swizzled 128-byte row, the next 64 dims a box on.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa,
+                                         uint32_t ka) {
+  using L = WgShape<D>;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_m64n128k16<0>(
+        s, wg_desc(qa + ks / 4 * L::kQBox + ks % 4 * 32, 16, 1024),
+        wg_desc(ka + ks / 4 * L::kKvBox + ks % 4 * 32, 16, 1024), ks > 0);
+  wg_commit();
+}
+
+// O += P V of one tile, issued as one wgmma group. V N-major: a
+// 16-position step 2048 bytes on, the two 64-dim boxes (the N direction) a
+// box apart, 8-position groups 1024 bytes apart.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[kWgBN / 16][4],
+                                         uint32_t va) {
+  using L = WgShape<D>;
+#pragma unroll
+  for (int kk = 0; kk < kWgBN / 16; ++kk)
+    wgmma_pv(o, pa[kk], wg_desc(va + kk * 2048, L::kKvBox, 1024));
+  wg_commit();
+}
+
+// Returns once at most one wgmma group of this warpgroup is in flight.
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// Where an item's flat tile loop stands in its chunks: tile j of the n of
+// the current chunk, on the causal diagonal or not.
+struct KvWalk {
+  int j, n;
+  bool diag;
 };
 
-__device__ __forceinline__ QPos mma_qpos(const Tile& t, int G) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  return {static_cast<int>((t.r0 + warp * 16 + g) / G),
-          static_cast<int>((t.r0 + warp * 16 + g + 8) / G),
-          static_cast<int>(t.r0 / G)};
+// S of the item's tile g (of `total`, in K stage `stage`) landed: free the
+// K stage (and after the item's last tile the q tile), then the softmax.
+template <int D>
+__device__ __forceinline__ void scores_done(const Params& p, const WgItem& t,
+                                            const SpSmem<D>& sm,
+                                            WgState<D>& st, float (&s)[64],
+                                            int stage, bool last, KvWalk& w,
+                                            int qpos0, int qpos1) {
+  reg_fence(s);
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive(sm.k_empty(stage));
+    if (last) mbar_arrive(sm.q_empty());
+  }
+  wg_softmax(st, s, w.j * kWgBN, p.s_loc, w.diag, qpos0, qpos1, t.p0,
+             p.scale);
+  if (++w.j == w.n) {                     // the next chunk: no diagonal
+    w.j = 0;
+    w.n = wg_kv_tiles(p, t, false);
+    w.diag = false;
+  }
 }
 
+// P V of the tile in V stage `stage` completed: free the stage.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-sp_attention_mma(const Params p) {
-  constexpr int LD = mma_ld<D>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBM * LD;      // [2][kBN][LD]
-  __nv_bfloat16* Vs = Ks + 2 * kBN * LD;  // [2][kBN][LD]
+__device__ __forceinline__ void pv_done(const SpSmem<D>& sm, WgState<D>& st,
+                                        uint32_t (&pa)[kWgBN / 16][4],
+                                        int stage) {
+  reg_fence(st.o);
+  reg_fence_u(pa);
+  if ((threadIdx.x & 31) == 0) mbar_arrive(sm.v_empty(stage));
+}
 
-  const Tile t = tile_of_block(p);
-  const int n_kv = kv_tiles(t, p.G, p.S, p.causal);
-  const long long stride = static_cast<long long>(p.Hkv) * D;
-  const long long head = (static_cast<long long>(t.b) * p.S * p.Hkv + t.h) *
-                         static_cast<long long>(D);
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + head;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + head;
-
-  load_q<__nv_bfloat16, D>(p, t, Qs, LD);
-  cp_async_commit();
-  if (n_kv > 0) load_kv<__nv_bfloat16, D>(kb, vb, stride, p.S, 0, Ks, Vs, LD);
-  cp_async_commit();
-
-  const QPos qp = mma_qpos(t, p.G);
-  MmaState<D> st;
-  mma_init(st);
-
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {
-      const int nb = (j + 1) & 1;
-      load_kv<__nv_bfloat16, D>(kb, vb, stride, p.S, j + 1,
-                                Ks + nb * kBN * LD, Vs + nb * kBN * LD, LD);
+// The consumer warpgroups: for each of the block's items, in the
+// producer's order, S = Q K^T on each tile (warpgroup wg: rows 64 wg ..),
+// the softmax, O += P V, then the store. One flat loop walks the tiles of
+// every consumed chunk (step 0's on the diagonal under a causal mask).
+// Tile g's S = Q K^T is issued with tile g - 1's P V, before tile g's
+// softmax, so the tensor cores run P V while the softmax runs (FA3's
+// intra-warpgroup overlap; the bits are those of S, softmax, P V in turn).
+template <int D>
+__device__ __forceinline__ void sp_consume(const Params& p,
+                                           const SpSmem<D>& sm,
+                                           int first, int items) {
+  const int tid = threadIdx.x - 128;      // consumer thread 0..255
+  const int wg = tid >> 7;
+  // This thread's rows r and r + 8 of the q tile.
+  const int r = wg * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
+  const uint32_t qa = smem_addr(sm.q()) + wg * 64 * 128;
+  SpPipe pipe;
+  uint32_t qphase = 0;
+  for (int c = first; c < dealt_end(items); c += gridDim.x) {
+    const int it = snake(c);
+    if (it >= items) continue;
+    const WgItem t = wg_item(p, it);
+    const int qpos0 = t.p0 + r / p.qh;
+    const int qpos1 = t.p0 + (r + 8) / p.qh;
+    WgState<D> st;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
+    st.m0 = st.m1 = kNeg;
+    st.l0 = st.l1 = 0.f;
+    KvWalk w{0, wg_kv_tiles(p, t, p.causal), p.causal != 0};
+    const int total = w.n + (ring_steps(p, t.me) - 1) *
+                                wg_kv_tiles(p, t, false);
+    float s[64];
+    uint32_t pa[kWgBN / 16][4];
+    mbar_wait(sm.q_full(), qphase);
+    qphase ^= 1;
+    mbar_wait(sm.k_full(pipe.stage), pipe.phase);
+    wg_fence();
+    issue_qk<D>(s, qa, smem_addr(sm.k(pipe.stage)));
+    wg_wait_all();
+    scores_done(p, t, sm, st, s, pipe.stage, total == 1, w, qpos0, qpos1);
+    wg_rescale_pack(st, s, pa);
+    for (int g = 1; g < total; ++g) {
+      const int prev = pipe.stage;
+      const uint32_t prev_phase = pipe.phase;
+      pipe.next();
+      mbar_wait(sm.k_full(pipe.stage), pipe.phase);
+      mbar_wait(sm.v_full(prev), prev_phase);
+      reg_fence(st.o);
+      wg_fence();
+      issue_qk<D>(s, qa, smem_addr(sm.k(pipe.stage)));
+      issue_pv<D>(st.o, pa, smem_addr(sm.v(prev)));
+      wg_wait_one();                    // S of tile g
+      scores_done(p, t, sm, st, s, pipe.stage, g == total - 1, w, qpos0,
+                  qpos1);
+      wg_wait_all();                    // P V of tile g - 1
+      pv_done(sm, st, pa, prev);
+      wg_rescale_pack(st, s, pa);
     }
-    cp_async_commit();
-    cp_async_wait<1>();                   // Q and tile j landed
-    __syncthreads();
-    if (j == 0) mma_load_q(st, Qs);
-    mma_tile(st, Ks + (j & 1) * kBN * LD, Vs + (j & 1) * kBN * LD, j * kBN,
-             p.S, p.causal != 0, qp.q0, qp.q1, qp.qmin, p.scale);
-    __syncthreads();                      // tile j's buffers are free
+    mbar_wait(sm.v_full(pipe.stage), pipe.phase);
+    reg_fence(st.o);
+    wg_fence();
+    issue_pv<D>(st.o, pa, smem_addr(sm.v(pipe.stage)));
+    wg_wait_all();
+    pv_done(sm, st, pa, pipe.stage);
+    pipe.next();
+    wg_store(p, t, st, r);
   }
-  cp_async_wait<0>();
-  mma_store(p, t, st);
+}
+
+// The block's roles over its turns of the deal from `first`: warpgroup 0
+// gives up registers (tiles.cuh's wg_producer_regs) and its warp 0
+// produces; warpgroups 1 and 2 take them (wg_consumer_regs) and consume.
+// The two branches never meet again.
+template <int D>
+__device__ __forceinline__ void sp_roles(const Params& p, const SpViews& v,
+                                         const SpSmem<D>& sm, int first,
+                                         int items) {
+  if (threadIdx.x < 128) {
+    wg_producer_regs();
+    if (threadIdx.x < 32) sp_produce<D>(p, v, sm, first, items);
+    return;
+  }
+  wg_consumer_regs();
+  sp_consume<D>(p, sm, first, items);
+}
+
+// The world-1 kernel: a persistent grid over the items.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+sp_attention_wg(const Params p, const __grid_constant__ SpViews views) {
+  extern __shared__ unsigned char smem_raw[];
+  const SpSmem<D> sm = sp_smem<D>(smem_raw);
+  sp_init(sm);
+  __syncthreads();
+  sp_roles<D>(p, views, sm, blockIdx.x, p.B * p.Hkv * p.n_qt);
 }
 
 // ---------------------------------------------------------------------------
@@ -550,7 +950,7 @@ __device__ __forceinline__ void fma_init(FmaState<D>& st) {
 }
 
 template <int D>
-__device__ __forceinline__ void fma_store(const Params& p, const Tile& t,
+__device__ __forceinline__ void fma_store(const Params& p, const QTile& t,
                                           const FmaState<D>& st) {
   const long long R = t.r0 + (threadIdx.x >> 1);
   const int half = threadIdx.x & 1;
@@ -572,7 +972,7 @@ sp_attention_fma(const Params p) {
   float* Vs = Ks + kBN * LD;
   float* Ps = Vs + kBN * LD;              // [kBM][kPLd]
 
-  const Tile t = tile_of_block(p);
+  const QTile t = tile_of_block(p);
   const int n_kv = kv_tiles(t, p.G, p.S, p.causal);
   const long long qpos = (t.r0 + (threadIdx.x >> 1)) / p.G;
   const long long stride = static_cast<long long>(p.Hkv) * D;
@@ -607,18 +1007,9 @@ template <typename T, int D>
 __device__ __forceinline__ T* ws_slot(const Params& p, int rank, int kv,
                                       int slot) {
   const long long chunk = static_cast<long long>(p.B) * p.s_loc * p.Hkv * D;
-  T* base = reinterpret_cast<T*>(tdt_peer_ptr(p.ws_tab, rank));
+  T* base = tdt_rank_ptr(static_cast<T*>(p.ws_base),
+                         p.ws_step * static_cast<long long>(sizeof(T)), rank);
   return base + (static_cast<long long>(kv) * p.world + slot) * chunk;
-}
-
-__device__ __forceinline__ unsigned long long* piece_signal(const Params& p,
-                                                            int rank,
-                                                            int slot, int b,
-                                                            int piece) {
-  unsigned long long* base = reinterpret_cast<unsigned long long*>(
-      tdt_peer_ptr(p.sig_tab, rank));
-  return base + (static_cast<long long>(slot) * p.B + b) * p.n_pieces +
-         piece;
 }
 
 // Piece `piece` (positions [64 piece, 64 (piece + 1)) of row b, K then V)
@@ -631,8 +1022,8 @@ __device__ __forceinline__ void copy_piece(const Params& p, const T* src_k,
                                            int slot, int b, int piece,
                                            bool skip) {
   const long long row = static_cast<long long>(p.Hkv) * D;
-  const long long pos = static_cast<long long>(piece) * kBN;
-  const long long n = min(static_cast<long long>(kBN), p.s_loc - pos);
+  const long long pos = static_cast<long long>(piece) * kPiece;
+  const long long n = min(static_cast<long long>(kPiece), p.s_loc - pos);
   const long long at = (static_cast<long long>(b) * p.s_loc + pos) * row;
   unsigned long long* sig = piece_signal(p, dst_rank, slot, b, piece);
   if (skip) {
@@ -688,9 +1079,9 @@ __device__ __forceinline__ void ring_copy_item(const Params& p,
                               piece == 0);
 }
 
-// Phase 2 item `it`: the (rank, row, KV head, q-tile) it names, longest
-// first.
-__device__ __forceinline__ Tile ring_tile(const Params& p, long long it,
+// f32: phase 2 item `it`, the (rank, row, KV head, q-tile) it names,
+// longest first.
+__device__ __forceinline__ QTile ring_tile(const Params& p, long long it,
                                           int* me) {
   const long long bh_count = static_cast<long long>(p.B) * p.Hkv;
   const long long per_rank = bh_count * p.n_qt;
@@ -698,7 +1089,7 @@ __device__ __forceinline__ Tile ring_tile(const Params& p, long long it,
   const long long rem = it % per_rank;
   const long long qt = p.n_qt - 1 - rem / bh_count;
   const int bh = static_cast<int>(rem % bh_count);
-  Tile t;
+  QTile t;
   t.b = bh / p.Hkv;
   t.h = bh % p.Hkv;
   t.rows = static_cast<long long>(p.s_loc) * p.G;
@@ -707,7 +1098,8 @@ __device__ __forceinline__ Tile ring_tile(const Params& p, long long it,
   return t;
 }
 
-// The calling block waits until the first n pieces of row b's chunk in
+// f32: the calling block waits until the first n pieces (one a 64-wide
+// tile: kPiece == kBN) of row b's chunk in
 // rank `rank`'s slot `slot` have landed (their signals hold the epoch):
 // one acquire load per piece, spread over the block's threads, before the
 // chunk's first tile.
@@ -721,82 +1113,6 @@ __device__ __forceinline__ void wait_pieces(const Params& p, int rank,
   __syncthreads();
 }
 
-// Rank me's consumed ring steps are a prefix: 0..me under a causal mask
-// (the test cur <= me on chunk cur = me - s), all W otherwise; step s
-// carries chunk (me - s) mod W, and only step 0 the diagonal.
-__device__ __forceinline__ int ring_steps(const Params& p, int me) {
-  return p.causal ? me + 1 : p.world;
-}
-
-template <int D>
-__device__ __forceinline__ void ring_compute_mma(const Params& p,
-                                                 long long it,
-                                                 unsigned char* smem_raw) {
-  constexpr int LD = mma_ld<D>();
-  using T = __nv_bfloat16;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kBM * LD;
-  T* Vs = Ks + 2 * kBN * LD;
-  int me = 0;
-  const Tile t = ring_tile(p, it, &me);
-  const int W = p.world;
-  const int n_steps = ring_steps(p, me);
-  const long long stride = static_cast<long long>(p.Hkv) * D;
-  const long long head =
-      (static_cast<long long>(t.b) * p.s_loc * p.Hkv + t.h) * D;
-  const QPos qp = mma_qpos(t, p.G);
-
-  __syncthreads();                        // the previous item's smem is free
-  load_q<T, D>(p, t, Qs, LD);
-  cp_async_commit();
-  MmaState<D> st;
-  mma_init(st);
-  // One flat loop over the tiles of every consumed chunk, so the
-  // double-buffered loads run on across chunk boundaries: a load cursor
-  // (step ls, tile lj of ln) one tile ahead of the compute cursor (step
-  // cs, tile cj of cn). Entering a chunk, the load cursor first waits for
-  // the chunk's pieces.
-  int ls = 0, lj = 0;
-  int ln = kv_tiles(t, p.G, p.s_loc, p.causal);
-  const T* lkb = ws_slot<T, D>(p, me, 0, me) + head;
-  const T* lvb = ws_slot<T, D>(p, me, 1, me) + head;
-  wait_pieces(p, me, me, t.b, ln);
-  load_kv<T, D>(lkb, lvb, stride, p.s_loc, 0, Ks, Vs, LD);
-  cp_async_commit();
-  int cs = 0, cj = 0, cn = ln;
-  bool cdiag = p.causal;                  // step 0 carries chunk me
-  for (int g = 0;; ++g) {
-    if (++lj == ln && ++ls < n_steps) {
-      const int cur = (me - ls + W) % W;
-      lj = 0;
-      ln = kv_tiles(t, p.G, p.s_loc, false);
-      lkb = ws_slot<T, D>(p, me, 0, cur) + head;
-      lvb = ws_slot<T, D>(p, me, 1, cur) + head;
-      wait_pieces(p, me, cur, t.b, ln);
-    }
-    if (ls < n_steps) {
-      const int nb = (g + 1) & 1;
-      load_kv<T, D>(lkb, lvb, stride, p.s_loc, lj, Ks + nb * kBN * LD,
-                    Vs + nb * kBN * LD, LD);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();                   // Q and tile g landed
-    __syncthreads();
-    if (g == 0) mma_load_q(st, Qs);
-    mma_tile(st, Ks + (g & 1) * kBN * LD, Vs + (g & 1) * kBN * LD,
-             cj * kBN, p.s_loc, cdiag, qp.q0, qp.q1, qp.qmin, p.scale);
-    __syncthreads();                      // tile g's buffers are free
-    if (++cj == cn) {
-      if (++cs == n_steps) break;
-      cj = 0;
-      cn = kv_tiles(t, p.G, p.s_loc, false);
-      cdiag = false;                      // only step 0 carries chunk me
-    }
-  }
-  cp_async_wait<0>();
-  mma_store(p, t, st);
-}
-
 template <int D>
 __device__ __forceinline__ void ring_compute_fma(const Params& p,
                                                  long long it,
@@ -807,7 +1123,7 @@ __device__ __forceinline__ void ring_compute_fma(const Params& p,
   float* Vs = Ks + kBN * LD;
   float* Ps = Vs + kBN * LD;
   int me = 0;
-  const Tile t = ring_tile(p, it, &me);
+  const QTile t = ring_tile(p, it, &me);
   const long long stride = static_cast<long long>(p.Hkv) * D;
   const long long head =
       (static_cast<long long>(t.b) * p.s_loc * p.Hkv + t.h) * D;
@@ -839,8 +1155,9 @@ __device__ __forceinline__ void ring_compute_fma(const Params& p,
   fma_store(p, t, st);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+// f32: the ring kernel, a block of four warps an item.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 sp_ring_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const long long copies = static_cast<long long>(p.world) * p.world * p.B *
@@ -848,21 +1165,58 @@ sp_ring_kernel(const Params p) {
   const long long tiles = static_cast<long long>(p.world) * p.B * p.Hkv *
                           p.n_qt;
   for (long long it = blockIdx.x; it < copies + tiles; it += gridDim.x) {
-    if (it < copies) {
-      ring_copy_item<T, D>(p, it);
-    } else if constexpr (sizeof(T) == 2) {
-      ring_compute_mma<D>(p, it - copies, smem_raw);
-    } else {
+    if (it < copies)
+      ring_copy_item<float, D>(p, it);
+    else
       ring_compute_fma<D>(p, it - copies, smem_raw);
-    }
   }
 }
 
+// bf16: the ring kernel. Every thread of the block runs its copy items
+// (phases 0 and 1, which come first in its order); then the block's roles
+// take its compute items, as in the world-1 kernel.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+sp_ring_wg_kernel(const Params p, const __grid_constant__ SpViews views) {
+  extern __shared__ unsigned char smem_raw[];
+  const SpSmem<D> sm = sp_smem<D>(smem_raw);
+  sp_init(sm);
+  __syncthreads();
+  const int copies = p.world * p.world * p.B * p.n_pieces;
+  int it = blockIdx.x;
+  for (; it < copies; it += gridDim.x) ring_copy_item<bf16, D>(p, it);
+  sp_roles<D>(p, views, sm, it - copies, p.world * p.B * p.Hkv * p.n_qt);
+}
+
+// As many blocks of `kernel` as the card keeps resident (its occupancy on
+// every SM with `threads` threads and `smem` bytes), at most `items`.
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const Params& p,
-                   long long blocks, cudaStream_t stream) {
+cudaError_t resident_grid(Kernel kernel, int threads, int smem,
+                          long long items, long long* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   // The attribute belongs to the current device: set it on every launch
   // (it is cheap) so a second card is configured too.
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  *grid = static_cast<long long>(sms) * per_sm;
+  if (items < *grid) *grid = items;
+  return *grid < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// f32, world 1: one block an item.
+template <int D>
+cudaError_t launch_fma(const Params& p, long long blocks,
+                       cudaStream_t stream) {
+  auto kernel = sp_attention_fma<D>;
+  const int smem = fma_smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -870,35 +1224,76 @@ cudaError_t launch(Kernel kernel, int smem, const Params& p,
   return cudaGetLastError();
 }
 
-// One cooperative launch of the ring kernel: as many blocks as the card
-// keeps resident (its occupancy on every SM), at most one per item.
-template <typename T, int D>
-cudaError_t launch_ring(int smem, Params p, cudaStream_t stream) {
-  auto kernel = sp_ring_kernel<T, D>;
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
+// The TMA views of a bf16 launch (SpViews): q always; k and v themselves
+// at world 1, else every rank's workspace.
+cudaError_t make_views(SpViews* v, const Params& p, int D) {
+  const long long hq = p.Hq, hkv = p.Hkv, S = p.S, B = p.B;
+  cudaError_t err = make_box_view<4>(&v->q, p.q, {D, hq, S, B},
+                                     {D, hq * D, S * hq * D},
+                                     {64, p.qh, p.qp, 1});
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
+  const int box[5] = {64, 1, kWgBN, 1, 1};
+  if (p.world == 1) {
+    const long long dim[5] = {D, hkv, S, B, 1};
+    const long long step[4] = {D, hkv * D, S * hkv * D, B * S * hkv * D};
+    err = make_box_view<5>(&v->k, p.k, dim, step, box);
+    if (err == cudaSuccess) err = make_box_view<5>(&v->v, p.v, dim, step, box);
+    return err;
+  }
+  const long long sl = p.s_loc;
+  const long long dim[5] = {D, hkv, sl, 2LL * p.world * B, p.world};
+  const long long step[4] = {D, hkv * D, sl * hkv * D, p.ws_step};
+  err = make_box_view<5>(&v->k, p.ws_base, dim, step, box);
+  v->v = v->k;
+  return err;
+}
+
+// bf16: the kernel (world 1 or the ring) on a grid of resident blocks.
+template <int D>
+cudaError_t launch_wg(Params p, cudaStream_t stream) {
+  SpViews v;
+  cudaError_t err = make_views(&v, p, D);
+  if (err != cudaSuccess) return err;
+  const int smem = WgShape<D>::kSmem;
+  const long long tiles = static_cast<long long>(p.world) * p.B * p.Hkv *
+                          p.n_qt;
+  long long grid = 0;
+  if (p.world == 1) {
+    auto kernel = sp_attention_wg<D>;
+    err = resident_grid(kernel, kWgThreads, smem, tiles, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(grid), kWgThreads, smem, stream>>>(p, v);
+    return cudaGetLastError();
+  }
+  auto kernel = sp_ring_wg_kernel<D>;
+  const long long copies = static_cast<long long>(p.world) * p.world * p.B *
+                           p.n_pieces;
+  err = resident_grid(kernel, kWgThreads, smem, copies + tiles, &grid);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&p, &v};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(static_cast<unsigned>(grid)),
+                                    dim3(kWgThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// f32: one cooperative launch of the ring kernel on resident blocks.
+template <int D>
+cudaError_t launch_ring_fma(Params p, cudaStream_t stream) {
+  auto kernel = sp_ring_kernel<D>;
   const long long items =
       static_cast<long long>(p.world) * p.world * p.B * p.n_pieces +
       static_cast<long long>(p.world) * p.B * p.Hkv * p.n_qt;
-  long long grid = static_cast<long long>(sms) * per_sm;
-  if (items < grid) grid = items;
-  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  long long grid = 0;
+  cudaError_t err = resident_grid(kernel, kThreads, fma_smem_bytes<D>(),
+                                  items, &grid);
+  if (err != cudaSuccess) return err;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(static_cast<unsigned>(grid)),
-                                    dim3(kThreads), args, smem, stream);
+                                    dim3(kThreads), args,
+                                    fma_smem_bytes<D>(), stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -912,23 +1307,41 @@ bool valid_common(const void* q, const void* k, const void* v,
          aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
 }
 
-Params make_params(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Hq, int Hkv, int causal, float scale) {
-  Params p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.B = B;
-  p.S = S;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.G = Hq / Hkv;
-  p.causal = causal != 0;
-  p.scale = scale;
-  p.world = 1;
-  p.s_loc = S;
-  return p;
+// The parameters of a launch over `world` ranks of S / world positions;
+// false when a count passes 32 bits.
+bool make_params(Params* p, const void* q, const void* k, const void* v,
+                 void* out, int B, int S, int Hq, int Hkv, int causal,
+                 int dtype, float scale, int world) {
+  *p = Params{};
+  p->q = q;
+  p->k = k;
+  p->v = v;
+  p->out = out;
+  p->B = B;
+  p->S = S;
+  p->Hq = Hq;
+  p->Hkv = Hkv;
+  p->G = Hq / Hkv;
+  p->causal = causal != 0;
+  p->scale = scale;
+  p->world = world;
+  p->s_loc = S / world;
+  p->n_pieces = (p->s_loc + kPiece - 1) / kPiece;
+  long long n_qt;
+  if (dtype == 0) {
+    p->qh = p->G < kWgRows ? p->G : kWgRows;
+    p->qp = kWgRows / p->qh;
+    p->n_hg = (p->G + p->qh - 1) / p->qh;
+    p->n_pt = (p->s_loc + p->qp - 1) / p->qp;
+    n_qt = static_cast<long long>(p->n_pt) * p->n_hg;
+  } else {
+    n_qt = (static_cast<long long>(p->s_loc) * p->G + kBM - 1) / kBM;
+  }
+  p->n_qt = static_cast<int>(n_qt);
+  // Every count of items, and a deal's turns past them, fits in 31 bits.
+  constexpr long long kMax = 1LL << 30;
+  return n_qt <= kMax && n_qt * B * Hkv * world <= kMax &&
+         static_cast<long long>(world) * world * B * p->n_pieces <= kMax;
 }
 
 }  // namespace
@@ -941,68 +1354,60 @@ extern "C" {
 int tdt_sp_attention(const void* q, const void* k, const void* v, void* out,
                      int B, int S, int Hq, int Hkv, int D, int causal,
                      int dtype, float scale, void* stream) {
-  if (!valid_common(q, k, v, out, B, S, Hq, Hkv, D, dtype))
+  Params p;
+  if (!valid_common(q, k, v, out, B, S, Hq, Hkv, D, dtype) ||
+      !make_params(&p, q, k, v, out, B, S, Hq, Hkv, causal, dtype, scale,
+                   1))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p = make_params(q, k, v, out, B, S, Hq, Hkv, causal, scale);
-  const long long rows = static_cast<long long>(S) * p.G;
-  const long long n_qt = (rows + kBM - 1) / kBM;
-  const long long blocks = n_qt * B * Hkv;
-  if (n_qt > 0x7fffffffLL || blocks > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.n_qt = static_cast<int>(n_qt);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = D == 64 ? launch(sp_attention_mma<64>, mma_smem_bytes<64>(), p,
-                           blocks, s)
-                  : launch(sp_attention_mma<128>, mma_smem_bytes<128>(), p,
-                           blocks, s);
-  else
-    err = D == 64 ? launch(sp_attention_fma<64>, fma_smem_bytes<64>(), p,
-                           blocks, s)
-                  : launch(sp_attention_fma<128>, fma_smem_bytes<128>(), p,
-                           blocks, s);
+  if (dtype == 0) {
+    err = D == 64 ? launch_wg<64>(p, s) : launch_wg<128>(p, s);
+  } else {
+    const long long blocks = static_cast<long long>(p.n_qt) * B * Hkv;
+    err = D == 64 ? launch_fma<64>(p, blocks, s)
+                  : launch_fma<128>(p, blocks, s);
+  }
   return static_cast<int>(err);
 }
 
 // The world-W prefill: q, k, v and out (B, S, Hq / Hkv, D) global, S split
-// over `world` ranks; ws_tab / sig_tab: the ranks' workspaces (2 W B
-// (S / W) Hkv D elements each, K slots then V slots) and signals (W B
-// ceil(S / W / 64) words each). `epoch` must differ from every earlier
-// call's on these buffers; `fault` plants the test fault (rank 0's first
-// forward of row 0's first piece skipped, its signal still set). Returns a
-// cudaError_t.
+// over `world` ranks; ws_base / ws_step: rank 0's workspace and the
+// elements from one rank's to the next (2 W B (S / W) Hkv D elements
+// each, K slots then V slots; 16-byte aligned, ws_step a multiple of 8:
+// bf16 reads them all through one TMA view); sig_base / sig_step: the
+// same for the signals (W B ceil(S / W / 64) words each). `epoch` must
+// differ from every earlier call's on these buffers; `fault` plants the
+// test fault (rank 0's first forward of row 0's first piece skipped, its
+// signal still set). Returns a cudaError_t.
 int tdt_sp_ring_attention(const void* q, const void* k, const void* v,
-                          void* out, const long long* ws_tab,
-                          const long long* sig_tab, int world, int B, int S,
-                          int Hq, int Hkv, int D, int causal, int dtype,
-                          float scale, unsigned long long epoch, int fault,
+                          void* out, void* ws_base, long long ws_step,
+                          unsigned long long* sig_base, long long sig_step,
+                          int world, int B, int S, int Hq, int Hkv, int D,
+                          int causal, int dtype, float scale,
+                          unsigned long long epoch, int fault,
                           void* stream) {
+  Params p;
   if (!valid_common(q, k, v, out, B, S, Hq, Hkv, D, dtype) || world < 2 ||
-      S % world != 0 || ws_tab == nullptr || sig_tab == nullptr ||
-      epoch == 0)
+      S % world != 0 || epoch == 0 ||
+      !make_params(&p, q, k, v, out, B, S, Hq, Hkv, causal, dtype, scale,
+                   world) ||
+      ws_base == nullptr || !aligned16(ws_base) || ws_step % 8 != 0 ||
+      ws_step < 2LL * world * B * p.s_loc * Hkv * D || sig_base == nullptr ||
+      sig_step < static_cast<long long>(world) * B * p.n_pieces)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p = make_params(q, k, v, out, B, S, Hq, Hkv, causal, scale);
-  p.world = world;
-  p.s_loc = S / world;
-  p.n_pieces = (p.s_loc + kBN - 1) / kBN;
-  const long long n_qt = (static_cast<long long>(p.s_loc) * p.G + kBM - 1) /
-                         kBM;
-  if (n_qt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  p.n_qt = static_cast<int>(n_qt);
-  p.ws_tab = ws_tab;
-  p.sig_tab = sig_tab;
+  p.ws_base = ws_base;
+  p.ws_step = ws_step;
+  p.sig_base = sig_base;
+  p.sig_step = sig_step;
   p.epoch = epoch;
   p.fault = fault;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = D == 64
-              ? launch_ring<__nv_bfloat16, 64>(mma_smem_bytes<64>(), p, s)
-              : launch_ring<__nv_bfloat16, 128>(mma_smem_bytes<128>(), p, s);
+    err = D == 64 ? launch_wg<64>(p, s) : launch_wg<128>(p, s);
   else
-    err = D == 64 ? launch_ring<float, 64>(fma_smem_bytes<64>(), p, s)
-                  : launch_ring<float, 128>(fma_smem_bytes<128>(), p, s);
+    err = D == 64 ? launch_ring_fma<64>(p, s) : launch_ring_fma<128>(p, s);
   return static_cast<int>(err);
 }
 

@@ -142,32 +142,44 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A 4-D bf16 view of `base` for TMA: extents dim[0..4) (dim[0]
-// contiguous), row strides step[0..3) of dims 1-3 in elements; boxes of 64
-// x `box_rows` elements of dims 0 and 1 in the 128-byte swizzle; elements
-// outside the extents read as zeros. Every step must be a multiple of 8
-// and base 16-byte aligned. An empty view (an extent of 0) is left zeroed:
-// no tile reads it.
-inline cudaError_t make_view(CUtensorMap* map, const void* base,
-                             const long long (&dim)[4],
-                             const long long (&step)[3], int box_rows) {
+// A bf16 view of `base` for TMA of rank N (at most 5): extents dim[0..N)
+// (dim[0] contiguous), row strides step[0..N-1) of dims 1..N-1 in
+// elements, boxes of box[0..N) elements (box[0] = 64: 128 bytes) in the
+// 128-byte swizzle; elements outside the extents read as zeros. Every step
+// must be a multiple of 8 and base 16-byte aligned. An empty view (an
+// extent of 0) is left zeroed: no tile reads it.
+template <int N>
+inline cudaError_t make_box_view(CUtensorMap* map, const void* base,
+                                 const long long (&dim)[N],
+                                 const long long (&step)[N - 1],
+                                 const int (&box)[N]) {
   *map = CUtensorMap{};
   for (long long d : dim)
     if (d == 0) return cudaSuccess;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  cuuint64_t gdim[4], gstride[3];
-  for (int i = 0; i < 4; ++i) gdim[i] = static_cast<cuuint64_t>(dim[i]);
-  for (int i = 0; i < 3; ++i)
+  cuuint64_t gdim[N], gstride[N - 1];
+  cuuint32_t gbox[N], elem[N];
+  for (int i = 0; i < N; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dim[i]);
+    gbox[i] = static_cast<cuuint32_t>(box[i]);
+    elem[i] = 1;
+  }
+  for (int i = 0; i < N - 1; ++i)
     gstride[i] = static_cast<cuuint64_t>(step[i]) * sizeof(bf16);
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      gdim, gstride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, const_cast<void*>(base),
+      gdim, gstride, gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-D view with boxes of 64 x `box_rows` elements of dims 0 and 1.
+inline cudaError_t make_view(CUtensorMap* map, const void* base,
+                             const long long (&dim)[4],
+                             const long long (&step)[3], int box_rows) {
+  return make_box_view<4>(map, base, dim, step, {64, box_rows, 1, 1});
 }
 
 // A (rows, K) row-major view (row stride ld), 128-row boxes of A.
@@ -246,6 +258,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// The same for a 5-D view, coordinates (c0, ..., c4).
+__device__ __forceinline__ void tma_load5(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4) : "memory");
+}
+
 // Orders this thread's earlier generic-proxy accesses of global memory
 // (the acquire of a signal) before its later TMA reads of it.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -279,8 +302,10 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d (+)= A (64 x 16, K-major) @ B (16 x 128, N-major) through descriptors;
-// scale_d 0 overwrites d.
+// d (+)= A (64 x 16, K-major) @ B (16 x 128) through descriptors, B read
+// N-major (kTransB 1, the transpose bit) or K-major (0); scale_d 0
+// overwrites d.
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b,
@@ -298,7 +323,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -316,7 +341,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
 // ---------------------------------------------------------------------------

@@ -52,13 +52,18 @@ from triton_dist_tpu_torch.ops.allgather import (
     AllGatherContext, all_gather, create_allgather_context)
 from triton_dist_tpu_torch.ops.common import LaunchCount, aligned16
 from triton_dist_tpu_torch.runtime.dist import RankGroup
-from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_span
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-#: KV positions per tile of the kernel (``csrc/sp_attention.cu`` kBN): the
-#: width at which its p is rounded, where JAX's is ``t_sub``.
-KV_TILE = 64
+#: KV positions per tile of the bf16 kernel (``csrc/sp_attention.cu``
+#: kWgBN): the width at which its p is rounded, where JAX's is ``t_sub``
+#: (128 by default, as here). The f32 kernel's tiles are 64 wide; its p is
+#: not rounded.
+KV_TILE = 128
+#: Positions per piece of the ring kernel's copies, one signal each
+#: (``csrc/sp_attention.cu`` kPiece).
+RING_PIECE = 64
 #: Head dims the kernel takes.
 HEAD_DIMS = (64, 128)
 IMPLS = ("ring", "xla", "ulysses", "ag_pallas", "pallas")
@@ -387,16 +392,18 @@ def launch_sp_ring_attention(q: torch.Tensor, k: torch.Tensor,
     q, k, v = aligned16(q), aligned16(k), aligned16(v)
     state = ctx.state
     ws = state.workspace(2 * world * b * s_loc * hkv * d, q.dtype)
-    sig = state.signals("sp", world * b * -(-s_loc // KV_TILE))
+    sig = state.signals("sp", world * b * -(-s_loc // RING_PIECE))
     out = torch.empty_like(q)
-    # The tables stay referenced until the launch is queued: a freed
-    # temporary's memory would be handed to the next one.
-    ws_tab, sig_tab = rank_table(ws, world), rank_table(sig, world)
+    # Every rank's workspace and signals as (rank 0's address, step): host
+    # arithmetic, so the call queues the one kernel.
+    ws_base, ws_step = rank_span(ws, world)
+    sig_base, sig_step = rank_span(sig, world)
     epoch = state.next_epoch()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _kernel_error(lib, "sp ring attention", lib.tdt_sp_ring_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ws_tab.data_ptr(), sig_tab.data_ptr(), world, b, s, hq, hkv, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws_base,
+        ws_step // ws.element_size(), sig_base,
+        sig_step // sig.element_size(), world, b, s, hq, hkv, d,
         int(ctx.causal), _DTYPE_CODES[q.dtype], d ** -0.5, epoch,
         int(fault), stream))
     sp_ring_launches.add((str(q.dtype).removeprefix("torch."), world, b, s,
@@ -603,8 +610,10 @@ def _lib() -> ctypes.CDLL:
         lib.tdt_sp_attention.argtypes = [p] * 4 + [i] * 7 + [ctypes.c_float,
                                                              p]
         lib.tdt_sp_attention.restype = i
+        ll = ctypes.c_longlong
         lib.tdt_sp_ring_attention.argtypes = (
-            [p] * 6 + [i] * 8 + [ctypes.c_float, ctypes.c_ulonglong, i, p])
+            [p] * 4 + [p, ll, p, ll] + [i] * 8
+            + [ctypes.c_float, ctypes.c_ulonglong, i, p])
         lib.tdt_sp_ring_attention.restype = i
         lib.tdt_error_string.argtypes = [i]
         lib.tdt_error_string.restype = ctypes.c_char_p
