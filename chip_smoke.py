@@ -94,7 +94,8 @@ without the final line:
     tokens, 32 pairs) and prefill (512 tokens, 4096 pairs) shapes routed
     by layer 0's router: error, bit-identical repeat, device ms, plain
     ms, the bound and one ``torch._grouped_mm`` (``Tensor.copy_`` for the
-    all-gather; for the MoE-reduce, the grouped product only).
+    all-gather; for the MoE-reduce, the grouped product only); each
+    grouped row carries its plan (path, rows a tile, columns an item).
 13. MoE main path: the default (prefill xla_ar, decode gemm_ar), all-ag_rs
     and paged sp engines through serve, serve_ragged (not sp),
     serve_stream and the server, with launch counts per prefill and per
@@ -2010,12 +2011,14 @@ def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
                                  may_wait=True)
             lib_ms = queued_ms(torch, lib) if lib is not None else None
             moe_rs = counter == "moe_rs"
+            pl = plan_dn if key[4] == inter else plan
             lib_txt = (f"{lib_ms:.4f} (torch._grouped_mm"
                        f"{', no epilogue' if 'swiglu' in name else ''}"
                        f"{', the grouped product only' if moe_rs else ''})"
                        if lib_ms is not None else "—")
             print(f"kernel {name} bf16 P={p} ({m} tokens, {live} live "
-                  f"experts, {key[0]}, {key[1]}-row tiles): max_abs_err="
+                  f"experts, {pl.path}, {pl.m_blk}-row tiles, {pl.cols}-"
+                  f"column items): max_abs_err="
                   f"{err:.3g} (tol {tol}) ok, repeat bit-identical; "
                   f"kernel_ms={ms:.4f} (wall {wall:.4f}) plain_ms="
                   f"{plain_ms:.4f} library_ms={lib_txt} bound_ms={bnd:.4f} "
@@ -2032,7 +2035,7 @@ def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
                 "bound_by": by, "library_ms": lib_ms, "wall_ms": wall,
                 "shape": [m, topk, k, list(key[-1]) if counter ==
                           "group_gemm" else key[-1]], "live_experts": live,
-                "ok": ok}, counter, key))
+                "plan": pl._asdict(), "ok": ok}, counter, key))
         del cat_gu
 
         # The all-gather of the token rows.
@@ -4908,7 +4911,7 @@ def phase_agg_kernels(torch, gg, rd, cfg, params, routing, card: str):
         print(f"kernel ag_group_gemm_world W={world} bf16 {name} (M={m}, "
               f"{live} live experts, {p.path} path, {p.m_blk}-row tiles): "
               f"ms={ms:.5f} (2 launches a call: group_schedule, "
-              f"ag_group_gemm_kernel; and the wrapper's rank tables) "
+              f"the ring kernel; and the wrapper's rank tables) "
               f"bound_ms={bnd:.5f} ({by}) "
               f"xla_ms={xla_ms:.5f} ({world} grouped launches) w1_ms="
               f"{w1_ms:.5f} plain_ms={plain_ms:.5f} grouped_mm_ms={lib_txt};"

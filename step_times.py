@@ -13,6 +13,16 @@ the card's name and power limit on every line. Groups:
   is cold in L2, as ``chip_smoke.py``'s phase 10) and through the W = 4
   rings (layer 0's weights, as phase 17), by ``chip_smoke.queued_ms``,
   beside one ``torch.matmul`` of the same product.
+* ``grouped``: the grouped products of full-depth Qwen3-30B-A3B (bf16, 128
+  experts, top-8) by ``chip_smoke.queued_ms``, the 48 layers' weights in
+  turn (cold in L2, as ``chip_smoke.py``'s phase 12): at world 1 gate|up,
+  SwiGLU, down and the MoE-reduce (pairs rounded and f32) at decode (4
+  tokens, 32 pairs) and prefill (512 tokens, 4096 pairs), each beside its
+  bound and one ``torch._grouped_mm`` of the same products; the W = 4
+  rings ``ag_group_gemm(impl="fused")`` (gate) and
+  ``moe_reduce_rs(impl="fused")`` at both shapes beside their bounds; and
+  the world-1 ag_rs prefill (4 x 128 prompts) with the grouped kernels'
+  share of its device time.
 * ``sp``: the flash prefill (``csrc/sp_attention.cu``) at Qwen3-8B's
   attention width (32 / 8 heads, D 128, bf16, causal): the 32k prompt at
   world 1 and through the W = 4 ring, and phase 14's B 4 x 4096, full 4096
@@ -33,7 +43,7 @@ change, parent on the card, e.g.::
     python step_times.py change dense tiles
     (cd parent && python ../step_times.py parent dense tiles)
 
-With no group named it runs all four.
+With no group named it runs all five.
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ import re
 import sys
 import time
 
-GROUPS = ("dense", "tiles", "moe", "sp")
+GROUPS = ("dense", "tiles", "moe", "sp", "grouped")
 #: (what, model options, prefill mode, step mode, exchange kernel name).
 STEPS = (("EP decode step", {"fwd_mode": "xla", "moe_parallel": "ep",
                              "world": 4}, "xla", "xla", "a2a_kernel"),
@@ -51,6 +61,9 @@ STEPS = (("EP decode step", {"fwd_mode": "xla", "moe_parallel": "ep",
           "gather_world"))
 #: The prefill tile kernels by name, before and after the wgmma tile.
 TILE_KERNELS = re.compile(r"tile_(mma|wg)<|ring_(wg_)?kernel")
+#: The world-1 grouped kernels by name, before and after the wgmma body:
+#: the products, the expert schedule and the MoE-reduce's top-k sum.
+GROUPED_KERNELS = re.compile(r"group_(mma|wg|fma|schedule)|topk_reduce_rows")
 
 
 def device_time(torch, cs, fn, pattern):
@@ -190,6 +203,111 @@ def sp_rows(torch, cs, label, card):
         del q, k, v
 
 
+def grouped_rows(torch, cs, models, label, card):
+    from triton_dist_tpu_torch.models import KVCacheManager
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.ops.moe_utils import topk_routing
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    cfg = models.presets.qwen3_30b_a3b()
+    model = models.AutoLLM.build(cfg)
+    params = model.init(0)
+    e, topk = cfg.num_experts, cfg.num_experts_per_tok
+    h, inter = cfg.hidden_size, cfg.moe_intermediate_size
+    moe = [lp["moe"] for lp in params["layers"]]
+    gate_up = [[lp["w_gate"], lp["w_up"]] for lp in moe]
+    downs = [lp["w_down"] for lp in moe]
+    gates = [lp["w_gate"] for lp in moe]
+    cat_gu = [torch.cat(gu, dim=2) for gu in gate_up[:2]]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    world = 4
+    group = create_rank_group(world, device="cuda")
+
+    def library(a_rows, ids, ws):
+        order = torch.argsort(ids.long(), stable=True)
+        a_sorted = a_rows[order].contiguous()
+        offs = torch.cumsum(torch.bincount(ids.long(), minlength=e), 0).to(
+            torch.int32)
+        nl = cs.rotating(ws)
+        return cs.queued_ms(torch, lambda: torch._grouped_mm(
+            a_sorted, nl(), offs=offs))
+
+    for m in (cs.MOE_DECODE_M, cs.MOE_PREFILL_M):
+        p = m * topk
+        x = torch.randn((m, h), generator=gen, device="cuda").to(cfg.dtype)
+        w, idx = topk_routing(x.float() @ moe[0]["w_router"], topk)
+        ids = idx.reshape(-1)
+        live = int(torch.unique(ids).numel())
+        pairs_x = x.repeat_interleave(topk, 0)
+        act = torch.randn((p, inter), generator=gen, device="cuda").to(
+            cfg.dtype)
+        ctx = mrs.create_moe_rs_context(num_experts=e, topk=topk)
+        rows = (
+            ("gate|up", lambda ws: gg.grouped_matmul_multi(x, ws, ids, e,
+                                                           topk), gate_up,
+             cs.grouped_bound_ms(live, m, p, h, inter, 2, p),
+             library(pairs_x, ids, cat_gu)),
+            ("SwiGLU", lambda ws: gg.grouped_swiglu(x, ws[0], ws[1], ids, e,
+                                                    topk), gate_up,
+             cs.grouped_bound_ms(live, m, p, h, inter, 2, p // 2),
+             library(pairs_x, ids, cat_gu)),
+            ("down", lambda ws: gg.grouped_matmul(act, ws, ids, e), downs,
+             cs.grouped_bound_ms(live, p, p, inter, h, 1, p),
+             library(act, ids, downs[:4])),
+            ("moe_rs rounded", lambda ws: mrs.moe_reduce_rs(
+                act, ws, ids, w, ctx, "ring"), downs,
+             cs.grouped_bound_ms(live, p, p, inter, h, 1, m,
+                                 extra_bytes=p * 4),
+             library(act, ids, downs[:4])),
+            ("moe_rs f32", lambda ws: mrs.moe_reduce_rs(
+                act, ws, ids, w, ctx, "fused"), downs,
+             cs.grouped_bound_ms(live, p, p, inter, h, 1, m,
+                                 extra_bytes=p * 4),
+             library(act, ids, downs[:4])))
+        for name, fn, sets, (bnd, by), lib in rows:
+            nxt = cs.rotating(sets)
+            ms = cs.queued_ms(torch, lambda: fn(nxt()))
+            print(f"[{label}] grouped {name} P={p} ({m} tokens, {live} live "
+                  f"experts) world 1: {ms:.5f} ms, bound {bnd:.5f} ({by}), "
+                  f"{ms / bnd:.2f}x bound, torch._grouped_mm {lib:.5f} "
+                  f"({ms / lib:.2f}x) [{card}]", flush=True)
+        agg_ctx = gg.create_ag_group_gemm_context(group=group)
+        mrr_ctx = mrs.create_moe_rs_context(num_experts=e, topk=topk,
+                                            world_size=world)
+        nk, nd = cs.rotating(gates), cs.rotating(downs)
+        for name, fn, (bnd, by) in (
+                ("ag_group_gemm fused (gate)", lambda: gg.ag_group_gemm(
+                    pairs_x, nk(), ids, e, agg_ctx, impl="fused"),
+                 cs.agg_bound_ms(live, p, h, inter, world, 2)),
+                ("moe_reduce_rs fused", lambda: mrs.moe_reduce_rs(
+                    act, nd(), ids, w, mrr_ctx, impl="fused"),
+                 cs.mrr_bound_ms(live, p, m, inter, h, world, 2))):
+            ms = cs.queued_ms(torch, fn)
+            print(f"[{label}] grouped ring {name} W={world} P={p} ({live} "
+                  f"live experts): {ms:.5f} ms, bound {bnd:.5f} ({by}), "
+                  f"{ms / bnd:.2f}x bound [{card}]", flush=True)
+        del agg_ctx, mrr_ctx, ctx
+    del cat_gu
+    ids = torch.randint(0, cfg.vocab_size, (4, 128),
+                        generator=torch.Generator().manual_seed(10)).cuda()
+
+    def prefill():
+        kv = KVCacheManager(cfg.num_hidden_layers, 4, 256,
+                            cfg.num_key_value_heads, cfg.head_dim,
+                            dtype=cfg.dtype, device="cuda").init()
+        with torch.no_grad():
+            return model.forward(params, ids, kv, 0, mode="ag_rs")[0]
+    walls = sorted(cs.sync_time(torch, prefill)[1] for _ in range(5))
+    dev, kernels, part, ge, rec = device_time(torch, cs, prefill,
+                                              GROUPED_KERNELS)
+    print(f"[{label}] Qwen3-30B-A3B ag_rs prefill world 1: wall "
+          f"{walls[2]:.2f} ms (median of 5), device {ge}{dev:.3f} ms, "
+          f"{kernels:.0f} kernels a prefill ({rec}), grouped kernels "
+          f"{ge}{part:.3f} ms ({part / dev:.3f} of device) [{card}]",
+          flush=True)
+    del model, params
+
+
 def moe_steps(torch, cs, models, label, card):
     from triton_dist_tpu_torch.models import KVCacheManager
     cfg = models.presets.qwen3_30b_a3b()
@@ -246,6 +364,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "sp" in groups:
         sp_rows(torch, cs, label, card)
+    if "grouped" in groups:
+        grouped_rows(torch, cs, models, label, card)
+        torch.cuda.empty_cache()
     if "moe" in groups:
         moe_steps(torch, cs, models, label, card)
     return 0

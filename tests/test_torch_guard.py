@@ -855,8 +855,9 @@ def test_ag_group_gemm_source_targets_sm90a_through_cooperative_launches():
     text = src.read_text()
     assert 'extern "C"' in text and '#include "shmem.cuh"' in text
     assert '#include "group_gemm.cuh"' in text   # the world-1 tile bodies
-    for entry in ("cudaLaunchCooperativeKernel", "tdt_putmem_signal_block",
-                  "tdt_signal_wait_until", "gg_mma_tile", "gg_fma_tile",
+    for entry in ("cudaLaunchCooperativeKernel", "tdt_putmem_block_x4",
+                  "tdt_signal_wait_until", "tdt_signal_acquire",
+                  "gg_wg_load", "gg_wg_mma", "gg_fma_tile",
                   "tdt_ag_group_gemm_grid", "tdt_ag_group_gemm",
                   "tdt_error_string",
                   "_ag_group_gemm_kernel"):     # the TPU kernel it replaces
@@ -911,8 +912,8 @@ def test_moe_rs_ring_source_targets_sm90a_through_cooperative_launches():
     assert 'extern "C"' in text and '#include "shmem.cuh"' in text
     assert '#include "group_gemm.cuh"' in text   # the world-1 tile bodies
     for entry in ("cudaLaunchCooperativeKernel", "tdt_signal_release",
-                  "tdt_signal_wait_until", "tdt_signal_wait_all",
-                  "gg_mma_tile", "gg_fma_tile", "launch_schedule",
+                  "tdt_signal_acquire", "consumers_release",
+                  "gg_wg_load", "gg_wg_mma", "gg_fma_tile", "launch_schedule",
                   "tdt_moe_rs_ring_tile_signals", "tdt_moe_rs_ring_grid",
                   "tdt_moe_rs_ring", "tdt_error_string",
                   "_moe_rs_fused_kernel"):      # the TPU kernel it replaces

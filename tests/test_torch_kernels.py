@@ -562,14 +562,27 @@ def test_ag_gemm_offset_views_give_the_same_bits(cuda_device):
 # decode (4 tokens, P = 32 pairs) and prefill (512 tokens, P = 4096), and
 # small odd ones: K or N not a multiple of 8 (the FMA kernel in bf16), few
 # live experts (most empty), sentinel ids (== E, run through the last
-# expert). Tolerances as for AG-GEMM above.
+# expert), and the wgmma body's edges: one expert with exactly 64, 65 and
+# 128 rows (its 64-row tiles), one pair, one expert, K = 200 (TMA's fill of
+# the last 64-deep slice), N = 200 (a partial 256-wide item) and N = 96 (a
+# partial SwiGLU item). Tolerances as for AG-GEMM above.
 # (tokens, topk, E, K, N, live experts or None for all, sentinel share)
 MOE_SHAPES = [(4, 8, 128, 2048, 768, None, 0.0),
               (512, 8, 128, 2048, 768, None, 0.0),
               (512, 8, 128, 768, 2048, 3, 0.0),
               (9, 2, 5, 40, 24, None, 0.25),
-              (70, 2, 8, 64, 136, 2, 0.1)]
-MOE_IDS = ["decode", "prefill", "few_experts", "odd_sentinel", "sentinel"]
+              (70, 2, 8, 64, 136, 2, 0.1),
+              (64, 1, 8, 256, 512, 1, 0.0),
+              (65, 1, 8, 256, 512, 1, 0.0),
+              (64, 2, 8, 256, 512, 1, 0.0),
+              (1, 1, 16, 256, 256, None, 0.0),
+              (40, 2, 1, 128, 256, None, 0.0),
+              (48, 2, 16, 200, 256, None, 0.0),
+              (48, 2, 16, 256, 200, None, 0.0),
+              (48, 2, 16, 256, 96, None, 0.0)]
+MOE_IDS = ["decode", "prefill", "few_experts", "odd_sentinel", "sentinel",
+           "rows64", "rows65", "rows128", "one_pair", "one_expert", "k200",
+           "n200", "n96"]
 
 
 def _moe_inputs(t, topk, e, k, n, live, sentinel, dtype, device, seed=0):
@@ -675,14 +688,27 @@ def test_moe_reduce_kernel_matches_plain_on_card(cuda_device, dtype, shape,
 def test_grouped_gemm_plans(cuda_device):
     from triton_dist_tpu_torch.ops import group_gemm as gg
     bf, f32 = torch.bfloat16, torch.float32
-    # Rows per tile: twice the mean pairs per expert, in [16, 64]; the grid
-    # is the worst case ceil(P / m_blk) + min(E, P).
-    assert gg.plan(32, 128, 2048, 768, bf) == gg.Plan("mma", 16, 2 + 32)
-    assert gg.plan(4096, 128, 2048, 768, bf) == gg.Plan("mma", 64, 64 + 128)
-    assert gg.plan(1024, 128, 768, 2048, bf).m_blk == 16
-    assert gg.plan(2048, 128, 768, 2048, bf).m_blk == 32
-    assert gg.plan(4096, 128, 2048, 768, f32).path == "fma"
+    # bf16 with K, N and the strides multiples of 8: the wgmma body, 64-row
+    # tiles (wgmma's M) and 256-column items at every P, so a row's sum
+    # does not depend on P; the worst case of live row tiles is
+    # ceil(P / 64) + min(E, P).
+    assert gg.plan(32, 128, 2048, 768, bf) == gg.Plan("wgmma", 64, 1 + 32,
+                                                      256)
+    assert gg.plan(4096, 128, 2048, 768, bf) == gg.Plan("wgmma", 64,
+                                                        64 + 128, 256)
+    for pairs in (1, 8, 1024, 2048):
+        assert gg.plan(pairs, 128, 768, 2048, bf)[:2] == ("wgmma", 64)
+    assert gg.plan(32, 128, 2048, 192, bf, (2048, 768, 2048 * 768)).m_blk \
+        == 64
+    # f32, and bf16 with a width or a stride off 8: the FMA tile, rows per
+    # tile twice the mean pairs per expert in [16, 64], 64 columns.
+    assert gg.plan(4096, 128, 2048, 768, f32) == gg.Plan("fma", 64,
+                                                         64 + 128, 64)
+    assert gg.plan(1024, 128, 768, 2048, f32).m_blk == 16
+    assert gg.plan(2048, 128, 768, 2048, f32).m_blk == 32
     assert gg.plan(32, 128, 2048, 770, bf).path == "fma"
+    assert gg.plan(32, 128, 2048, 768, bf, (2052, 768, 2048 * 768)).path \
+        == "fma"
     with pytest.raises(RuntimeError, match="invalid argument"):
         gg.plan(32, 2048, 64, 64, bf)                 # more than 1024 experts
 
@@ -1542,7 +1568,7 @@ def test_grouped_gemm_on_expert_shards_equals_contiguous_on_card(
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     p = gg.plan(t * topk, e, h, loc, torch.bfloat16, (h, i, h * i))
-    assert p.path == "mma"
+    assert p.path == "wgmma"
     assert gg.plan(t * topk, e, h, loc, torch.bfloat16,
                    (h, i + 1, h * (i + 1))).path == "fma"
 
@@ -1590,14 +1616,20 @@ def test_world_moe_reduce_rs_matches_plain_on_card(cuda_device, impl):
 #: (world, M, E, K, N, sentinel share) of ag_group_gemm: Qwen3-30B-A3B's
 #: gate at decode (32 rows: 4 tokens x top-8) and prefill (4096) over its
 #: 192-wide (W = 4) and 96-wide (W = 8) expert shards, W = 2 and 3, and
-#: small shapes: 128-wide shards with few experts, and the FMA tile (K and
-#: the shard width not multiples of 8) with sentinel ids.
+#: small shapes: 128-wide shards with few experts, the FMA tile (K and the
+#: shard width not multiples of 8) with sentinel ids, and the wgmma body's
+#: edges: one expert (E = 1) with exactly 64, 65 and 128 rows a chunk, one
+#: row a chunk, K = 200 and a 200-wide shard.
 AGG_CASES = [(4, 32, 128, 2048, 768, 0.0), (4, 4096, 128, 2048, 768, 0.0),
              (8, 32, 128, 2048, 768, 0.0), (8, 4096, 128, 2048, 768, 0.0),
              (2, 512, 128, 2048, 768, 0.0), (3, 96, 16, 256, 384, 0.0),
-             (4, 72, 5, 36, 80, 0.25)]
+             (4, 72, 5, 36, 80, 0.25), (2, 128, 1, 256, 512, 0.0),
+             (2, 130, 1, 256, 512, 0.0), (2, 256, 1, 256, 512, 0.0),
+             (2, 2, 8, 256, 256, 0.0), (2, 64, 8, 200, 256, 0.0),
+             (2, 64, 8, 256, 400, 0.0)]
 AGG_IDS = ["w4_decode", "w4_prefill", "w8_decode", "w8_prefill", "w2",
-           "w3_small", "w4_fma_sentinel"]
+           "w3_small", "w4_fma_sentinel", "rows64", "rows65", "rows128",
+           "one_row", "k200", "n200"]
 
 
 @pytest.mark.cuda
@@ -1661,14 +1693,19 @@ def test_ag_group_gemm_ring_grid_fits_the_card(cuda_device):
 #: (world, T, E, I, H, sentinel share) of moe_reduce_rs(impl="fused"):
 #: Qwen3-30B-A3B's down projection at decode (T = W tokens, one row a
 #: chunk; 6 at W = 3) and prefill (512) over its 192-wide (W = 4) and
-#: 96-wide (W = 8) shards, W = 2 and 3, and the FMA tile (I / W and H not
-#: multiples of 8) with sentinel ids.
+#: 96-wide (W = 8) shards, W = 2 and 3, the FMA tile (I / W and H not
+#: multiples of 8) with sentinel ids, and the wgmma body's edges: one
+#: expert (E = 1, top-2) with exactly 64 and 128 pairs, four pairs, K =
+#: I / W = 200 and H = 200 (a partial 256-wide item).
 MRR_CASES = [(4, 4, 128, 768, 2048, 0.0), (4, 512, 128, 768, 2048, 0.0),
              (8, 8, 128, 768, 2048, 0.0), (8, 512, 128, 768, 2048, 0.0),
              (2, 512, 128, 768, 2048, 0.0), (3, 6, 128, 768, 2048, 0.0),
-             (4, 8, 5, 36, 84, 0.25)]
+             (4, 8, 5, 36, 84, 0.25), (2, 32, 1, 256, 512, 0.0),
+             (2, 64, 1, 256, 512, 0.0), (2, 2, 4, 256, 256, 0.0),
+             (2, 8, 16, 400, 512, 0.0), (2, 8, 16, 256, 200, 0.0)]
 MRR_IDS = ["w4_decode", "w4_prefill", "w8_decode", "w8_prefill", "w2",
-           "w3_decode", "w4_fma_sentinel"]
+           "w3_decode", "w4_fma_sentinel", "rows64", "rows128", "four_pairs",
+           "k200", "n200"]
 
 
 def _assert_moe_ring_close(got, want, mag, i_loc, world):

@@ -78,3 +78,34 @@ def test_prefill_tile_is_wgmma_fed_by_tma_under_every_launcher():
         assert "wg_load(" in text and "wg_mma<" in text
         assert "__grid_constant__" in text
         assert "cuTensorMapEncodeTiled" not in text   # views: tiles.cuh's
+
+
+def test_grouped_body_is_wgmma_fed_by_tma_under_every_launcher():
+    """``csrc/group_gemm.cuh``'s tensor-core body: tiles.cuh's wgmma
+    consumers (``wg_mma`` over its own stage layout) on B brought by TMA
+    and A gathered by the producer's cp.async into the stage ring, its
+    ``full`` barrier armed by cp.async's own arrivals; no mma.sync body
+    left. The world-1 kernels reach it through ``run_group_product``, the
+    two rings run its producer and consumer halves in 384-thread blocks on
+    a TMA view passed as a ``__grid_constant__`` parameter."""
+    import re
+
+    from triton_dist_tpu_torch.ops import _build
+    body = re.sub(r"//[^\n]*", "",
+                  (_build.CSRC_DIR / "group_gemm.cuh").read_text())
+    assert '#include "tiles.cuh"' in body
+    for needed in ("cp.async.mbarrier.arrive.noinc", "wg_mma<", "wg_init(",
+                   "tma_load(", "make_view(", "wg_producer_regs",
+                   "wg_consumer_regs", "gg_wg_load",
+                   "gg_wg_mma", "gg_fma_tile", "kSharedA = true"):
+        assert needed in body
+    for gone in ("mma_bf16", "ldmatrix", "gg_mma_tile", "group_mma",
+                 "gg_mma_smem", "launch_group_mma", "kTcThreads", "kTcBN"):
+        assert gone not in body
+    for name in ("group_gemm", "moe_rs"):
+        assert "run_group_product<" in _build.SOURCES[name].read_text()
+    for name in ("ag_group_gemm", "moe_rs_ring"):
+        text = _build.SOURCES[name].read_text()
+        assert "gg_wg_load<" in text and "gg_wg_mma<" in text
+        assert "__grid_constant__ GgViews" in text and "kPfThreads" in text
+        assert "cuTensorMapEncodeTiled" not in text   # views: tiles.cuh's

@@ -40,12 +40,14 @@
 //       (chunk, piece) signal in the neighbour's buffer: one signal per
 //       chunk and piece, as JAX has one semaphore per chunk
 //       (`send_sem.at[idx]`);
-//     * phase 2, the products: rank r's tiles of chunk r - s at step s, in
-//       JAX's order (`chunk_idx` :168), each (row tile, 64-column tile) of
-//       the chunk's schedule. A block waits on every piece signal of a
-//       chunk before it reads the chunk, and reads rows only from its own
-//       rank's workspace, so the data reaches a rank only through the
-//       pushes.
+//     * phase 2, the products: rank r's items, each (row tile, column
+//       item) of a chunk's schedule. The f32 kernel takes chunk r - s at
+//       step s, in JAX's order (`chunk_idx` :168), waiting on a chunk's
+//       piece signals before it reads the chunk; the bf16 kernel's
+//       producer waits on every chunk's before its first item and
+//       interleaves the chunks' items (`agg_walk`). Rows are read only
+//       from the rank's own workspace, so the data reaches a rank only
+//       through the pushes.
 //     Items are dealt round robin to a rank's blocks phase by phase (hop by
 //     hop within phase 1), so every wait's producer comes earlier in every
 //     block's order: the launch cannot deadlock. Signals hold the call's
@@ -55,12 +57,18 @@
 //  * `fault` (a test hook): rank 0's first push skips its copy and still
 //    releases its signal; the output must then be wrong.
 //
-// The products are group_gemm.cuh's tile bodies (`gg_mma_tile`: B streamed
-// through a 4-stage cp.async pipeline into mma.sync m16n8k16; `gg_fma_tile`
-// for f32 and odd shapes) over each chunk's schedule, with the rows per
-// tile of a grouped call of `rows` pairs. A row's sum does not depend on
-// the tile it lands in, so each row has the bits of the world-1 kernel on
-// the same shard (ag_group_gemm's impls "xla" and "ring").
+// The products are group_gemm.cuh's bodies over each chunk's schedule: bf16
+// with K and the shard width multiples of 8 runs the world-1 kernel's
+// wgmma body (`gg_wg_load` / `gg_wg_mma`) in the same 384-thread
+// persistent blocks that copy: phases 0 and 1 take the whole block, then
+// warpgroup 0 produces (B by TMA through one 4-D view (n_loc, K, E, W) of
+// every rank's shard, A gathered from the rank's workspace) and
+// warpgroups 1-2 consume; the live items of all W chunks are dealt round
+// robin, interleaved (no block holds a dead tile). f32 and odd shapes run `gg_fma_tile`
+// in 256-thread blocks. A row's sum depends on K alone, not on the tile it
+// lands in or the pairs of a call, so each row has the bits of the
+// world-1 kernel on the same shard (ag_group_gemm's impls "xla" and
+// "ring").
 //
 // The chunks travel as their `rows` live rows; JAX ships each in its
 // padded tile layout of round_up(rows + E (m_blk - 1), m_blk) + m_blk rows
@@ -75,10 +83,11 @@
 //  * prefill, 512 x 8 = 4096 rows (1024 a rank): all the weights, 403 MB,
 //    0.120 ms; the ring's three chunk copies a rank, 4 MB each written and
 //    read, 0.029 ms; 12.9 GFLOP of products, 0.013 ms. So bytes bound it.
-// This first design streams each rank's weight shard once per chunk (the
-// ring's order: a chunk's products start when it arrives), W times in all,
-// where the bound reads it once; the next design keeps the arrived chunks'
-// rows of one expert together.
+// The f32 kernel streams each rank's weight shard once per chunk (the
+// ring's order: a chunk's products start when it arrives), W times in
+// all, where the bound reads it once. The bf16 kernel runs the W items
+// that read one expert's shard columns side by side (`agg_walk`), so the
+// W - 1 later reads of a shard slab find it in L2.
 //
 // Plain C entry points, loaded with ctypes. A call runs on the stream it is
 // given, allocates nothing and returns a cudaError_t.
@@ -105,16 +114,12 @@ struct AggArgs {
   unsigned long long epoch;
 };
 
-template <bool MMA>
-constexpr int agg_threads() { return MMA ? kTcThreads : kGgFmThreads; }
-
-template <typename T, bool MMA, int MF>
-__global__ void __launch_bounds__(MMA ? kTcThreads : kGgFmThreads, 1)
-ag_group_gemm_kernel(AggArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// Phases 0 and 1, the whole block: my chunk into slot `me` of my workspace,
+// then the ring to the right, hop by hop; item (hop, piece).
+template <typename T>
+__device__ __forceinline__ void agg_copies(const AggArgs<T>& a, int me,
+                                           int j) {
   const int world = a.world;
-  const int me = tdt_rank(a.bpr);
-  const int j = static_cast<int>(blockIdx.x) % a.bpr;
   const long long chunk_bytes =
       static_cast<long long>(a.rows) * a.K * static_cast<long long>(sizeof(T));
   const int P = a.pieces;
@@ -127,18 +132,26 @@ ag_group_gemm_kernel(AggArgs<T> a) {
     const long long end = *off + a.piece_bytes;
     *len = (end < chunk_bytes ? end : chunk_bytes) - *off;
   };
+  // A piece's copy with four 16-byte loads in flight a thread (the serial
+  // hops set the ring's pace), then its signal.
+  auto put_piece = [&](unsigned char* dst, const unsigned char* src,
+                       long long len, unsigned long long* sig) {
+    tdt_putmem_block_x4(dst, src, len);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      tdt_signal_release(sig, a.epoch);
+    }
+  };
 
-  // Phase 0: my chunk into slot `me` of my workspace.
   const unsigned char* x = reinterpret_cast<const unsigned char*>(a.x);
   for (int p = j; p < P; p += a.bpr) {
     long long off, len;
     piece(p, &off, &len);
-    tdt_putmem_signal_block(ws_me + me * chunk_bytes + off,
-                            x + me * chunk_bytes + off, len,
-                            sig_me + me * P + p, a.epoch);
+    put_piece(ws_me + me * chunk_bytes + off, x + me * chunk_bytes + off,
+              len, sig_me + me * P + p);
   }
 
-  // Phase 1: the ring to the right, hop by hop; item (hop, piece).
   const int peer = (me + 1) % world;
   unsigned char* ws_peer = tdt_peer_ptr(a.ws_tab, peer);
   unsigned long long* sig_peer =
@@ -155,125 +168,185 @@ ag_group_gemm_kernel(AggArgs<T> a) {
     }
     long long off, len;
     piece(p, &off, &len);
-    tdt_putmem_signal_block(ws_peer + c * chunk_bytes + off,
-                            ws_me + c * chunk_bytes + off, len,
-                            sig_peer + c * P + p, a.epoch);
+    put_piece(ws_peer + c * chunk_bytes + off, ws_me + c * chunk_bytes + off,
+              len, sig_peer + c * P + p);
   }
+}
 
-  // Phase 2: my tiles, chunk me - s at step s; item (step, row tile of the
-  // chunk's schedule, column tile of my shard).
+// The grouped product of chunk c on rank me's shard, reading the chunk's
+// rows from my workspace.
+template <typename T>
+__device__ __forceinline__ GgArgs<T, T> agg_chunk(const AggArgs<T>& a,
+                                                  int me, int c) {
+  GgArgs<T, T> g = {};
+  g.a = reinterpret_cast<const T*>(tdt_peer_ptr(a.ws_tab, me)) +
+        static_cast<size_t>(c) * a.rows * a.K;
+  g.a_div = 1;
+  g.b0 = a.w + static_cast<size_t>(me) * a.n_loc;
+  g.c0 = a.c + static_cast<size_t>(c) * a.rows * a.N +
+         static_cast<size_t>(me) * a.n_loc;
+  g.sched = a.sched + static_cast<size_t>(c) * a.sched_ints;
+  g.P = a.rows;
+  g.max_tiles = a.max_tiles;
+  g.K = a.K;
+  g.N = a.n_loc;
+  g.col_tiles = a.col_tiles;
+  g.lda = a.K;
+  g.ldb = a.N;
+  g.b_estride = static_cast<long long>(a.K) * a.N;
+  g.ldc = a.N;
+  g.n_b = 1;
+  return g;
+}
+
+// f32 and odd shapes: phase 2 on gg_fma_tile, chunk me - s at step s; item
+// (step, row tile of the chunk's schedule, column tile of my shard).
+template <typename T>
+__global__ void __launch_bounds__(kGgFmThreads, 1)
+ag_group_gemm_kernel(AggArgs<T> a) {
+  const int world = a.world;
+  const int me = tdt_rank(a.bpr);
+  const int j = static_cast<int>(blockIdx.x) % a.bpr;
+  agg_copies(a, me, j);
+  const unsigned long long* sig_me =
+      reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
   const int per_chunk = a.max_tiles * a.col_tiles;
-  const T* ws = reinterpret_cast<const T*>(ws_me);
   int ready = -1;                            // the last step waited for
   for (int i = j; i < world * per_chunk; i += a.bpr) {
     const int s = i / per_chunk;
     const int c = (me - s + world) % world;
     const int tile = (i % per_chunk) / a.col_tiles;
     const int col = i % a.col_tiles;
-    const int* sched = a.sched + static_cast<size_t>(c) * a.sched_ints;
-    if (tile >= sched[0]) continue;          // past the chunk's live tiles
+    const GgArgs<T, T> g = agg_chunk(a, me, c);
+    if (tile >= g.sched[0]) continue;        // past the chunk's live tiles
     if (s != ready) {
-      tdt_signal_wait_all(sig_me + c * P, P, a.epoch);
+      tdt_signal_wait_all(sig_me + c * a.pieces, a.pieces, a.epoch);
       ready = s;
     }
     __syncthreads();                         // the last tile's smem is free
-    GgArgs<T, T> g = {};
-    g.a = ws + static_cast<size_t>(c) * a.rows * a.K;
-    g.a_div = 1;
-    g.b0 = a.w + static_cast<size_t>(me) * a.n_loc;
-    g.c0 = a.c + static_cast<size_t>(c) * a.rows * a.N +
-           static_cast<size_t>(me) * a.n_loc;
-    g.sched = sched;
-    g.P = a.rows;
-    g.max_tiles = a.max_tiles;
-    g.K = a.K;
-    g.N = a.n_loc;
-    g.col_tiles = a.col_tiles;
-    g.lda = a.K;
-    g.ldb = a.N;
-    g.b_estride = static_cast<long long>(a.K) * a.N;
-    g.ldc = a.N;
-    if constexpr (MMA) {
-      gg_mma_tile<MF, false, T>(g, tile, col, smem_raw);
-    } else {
-      gg_fma_tile<T, false, T>(g, tile, col);
-    }
+    gg_fma_tile<T, false, T>(g, tile, col);
   }
 }
 
-template <typename T, bool MMA, int MF>
-constexpr int agg_smem() {
-  if constexpr (MMA) return gg_mma_smem<MF, false>();
-  return 0;
+// Calls f(c, i) for each of block j's items of rank me: item i of chunk c.
+// The live items of every chunk are interleaved (item i of chunk me, of
+// me - 1, ..., then item i + 1) and dealt round robin to the rank's
+// blocks, so the items that read one expert's shard (its row tile of each
+// chunk) run side by side and all but the first find the shard in L2.
+template <class F>
+__device__ __forceinline__ void agg_walk(const AggArgs<bf16>& a, int me,
+                                         int j, F&& f) {
+  auto live = [&](int c) {
+    return a.sched[static_cast<size_t>(c) * a.sched_ints] * a.col_tiles;
+  };
+  int most = 0;
+  for (int c = 0; c < a.world; ++c) most = max(most, live(c));
+  int g = 0;                                 // the rank's item sequence
+  for (int i = 0; i < most; ++i)
+    for (int s = 0; s < a.world; ++s) {
+      const int c = (me - s + a.world) % a.world;
+      if (i < live(c) && g++ % a.bpr == j) f(c, i);
+    }
 }
 
-// Blocks of one instantiation resident at once on the current device.
-template <typename T, bool MMA, int MF>
+// bf16: phase 2 on the wgmma body. The producer warpgroup waits for every
+// chunk's piece signals (spread over its threads) before its first item:
+// a block leaves phase 1 only after its last hop, so little of the ring is
+// left by then. The consumers never wait on a signal.
+__global__ void __launch_bounds__(kPfThreads, 1)
+ag_group_gemm_wg_kernel(AggArgs<bf16> a,
+                        const __grid_constant__ GgViews v) {
+  extern __shared__ unsigned char smem_raw[];
+  const GgSmem s = gg_smem(smem_raw);
+  wg_init(s);
+  const int me = tdt_rank(a.bpr);
+  const int j = static_cast<int>(blockIdx.x) % a.bpr;
+  agg_copies(a, me, j);
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    wg_producer_regs();
+    const unsigned long long* sig_me =
+        reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
+    for (int q = threadIdx.x; q < a.world * a.pieces; q += 128)
+      while (tdt_signal_acquire(sig_me + q) != a.epoch) __nanosleep(64);
+    __threadfence();
+    gg_producers_sync();
+    GgRing p;
+    agg_walk(a, me, j, [&](int c, int i) {
+      const GgArgs<bf16, bf16> g = agg_chunk(a, me, c);
+      gg_wg_load<false>(s, p, g, v, me, gg_item<false>(g, i));
+    });
+    gg_producer_done();
+    return;
+  }
+  wg_consumer_regs();
+  GgRing p;
+  agg_walk(a, me, j, [&](int c, int i) {
+    const GgArgs<bf16, bf16> g = agg_chunk(a, me, c);
+    gg_wg_mma<false>(s, p, g, gg_item<false>(g, i), [] {});
+  });
+}
+
+// Blocks resident at once on the current device of the kernel a plan runs
+// (path 1: the wgmma body, bf16 only).
+template <typename T, bool WG>
 cudaError_t resident(int* out) {
   static int cached = -1;
   if (cached < 0) {
-    constexpr int smem = agg_smem<T, MMA, MF>();
-    int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    int dev = 0, coop = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ag_group_gemm_kernel<T, MMA, MF>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ag_group_gemm_kernel<T, MMA, MF>, agg_threads<MMA>(),
-          smem);
-    if (err != cudaSuccess) return err;
-    if (!coop) return cudaErrorNotSupported;
-    cached = sms * per_sm;
+      err = WG ? gg_resident(ag_group_gemm_wg_kernel, kPfThreads,
+                             kGgSmemBytes, &cached)
+               : gg_resident(ag_group_gemm_kernel<T>, kGgFmThreads, 0,
+                             &cached);
+    if (err != cudaSuccess) {
+      cached = -1;
+      return err;
+    }
+    if (!coop) {
+      cached = -1;
+      return cudaErrorNotSupported;
+    }
   }
   *out = cached;
   return cudaSuccess;
 }
 
-// Resident blocks of the instantiation a plan runs (path 1: tensor cores,
-// bf16 only; m_blk 16, 32 or 64 rows a tile).
-cudaError_t resident_of(int dtype, int path, int m_blk, int* out) {
-  if (dtype == 0 && path == 1) {
-    if (m_blk == 16) return resident<gg_bf16, true, 1>(out);
-    if (m_blk == 32) return resident<gg_bf16, true, 2>(out);
-    return resident<gg_bf16, true, 4>(out);
-  }
-  if (dtype == 0) return resident<gg_bf16, false, 1>(out);
-  return resident<float, false, 1>(out);
-}
-
-template <typename T, bool MMA, int MF>
-cudaError_t launch(const AggArgs<T>& a, cudaStream_t stream) {
-  constexpr int smem = agg_smem<T, MMA, MF>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ag_group_gemm_kernel<T, MMA, MF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  void* params[] = {const_cast<AggArgs<T>*>(&a)};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(ag_group_gemm_kernel<T, MMA, MF>),
-      dim3(a.world * a.bpr), dim3(agg_threads<MMA>()), params, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+cudaError_t resident_of(int dtype, int path, int* out) {
+  if (dtype == 0 && path == 1) return resident<bf16, true>(out);
+  if (dtype == 0) return resident<bf16, false>(out);
+  return resident<float, false>(out);
 }
 
 template <typename T>
-cudaError_t run(const GgPlan& p, AggArgs<T> a, cudaStream_t stream) {
+cudaError_t run(const GgPlan& p, AggArgs<T> a, int E, cudaStream_t stream) {
+  a.col_tiles = gg_col_tiles<false>(p, a.n_loc);
+  void* params[2] = {&a, nullptr};
+  const void* kernel = reinterpret_cast<const void*>(ag_group_gemm_kernel<T>);
+  int threads = kGgFmThreads, smem = 0;
+  GgViews v = {};
   if constexpr (sizeof(T) == 2) {
     if (p.path == 1) {
-      a.col_tiles = (a.n_loc + kTcBN - 1) / kTcBN;
-      if (p.m_blk == 16) return launch<T, true, 1>(a, stream);
-      if (p.m_blk == 32) return launch<T, true, 2>(a, stream);
-      return launch<T, true, 4>(a, stream);
+      const cudaError_t err =
+          gg_view(&v.b[0], a.w, E, a.K, a.n_loc, a.N,
+                  static_cast<long long>(a.K) * a.N, a.world, a.n_loc);
+      if (err != cudaSuccess) return err;
+      params[1] = &v;
+      kernel = reinterpret_cast<const void*>(ag_group_gemm_wg_kernel);
+      threads = kPfThreads;
+      smem = kGgSmemBytes;
     }
   }
-  a.col_tiles = (a.n_loc + kGgFmBN - 1) / kGgFmBN;
-  return launch<T, false, 1>(a, stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(a.world * a.bpr),
+                                    dim3(threads), params, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // The plan of one chunk's grouped product: `rows` pairs, (K -> n_loc) on
@@ -298,7 +371,7 @@ int tdt_ag_group_gemm_grid(int world, int rows, int E, int K, int N,
     return static_cast<int>(cudaErrorInvalidValue);
   const GgPlan p = chunk_plan(rows, E, K, N, N / world, dtype);
   int res = 0;
-  const cudaError_t err = resident_of(dtype, p.path, p.m_blk, &res);
+  const cudaError_t err = resident_of(dtype, p.path, &res);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (res / world < 1)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -359,19 +432,19 @@ int tdt_ag_group_gemm(const void* x, const int* ids, const void* w, void* c,
     args->epoch = epoch;
   };
   if (dtype == 0) {
-    AggArgs<gg_bf16> a = {};
+    AggArgs<bf16> a = {};
     fill(&a);
-    a.x = static_cast<const gg_bf16*>(x);
-    a.w = static_cast<const gg_bf16*>(w);
-    a.c = static_cast<gg_bf16*>(c);
-    e = run(p, a, s);
+    a.x = static_cast<const bf16*>(x);
+    a.w = static_cast<const bf16*>(w);
+    a.c = static_cast<bf16*>(c);
+    e = run(p, a, E, s);
   } else {
     AggArgs<float> a = {};
     fill(&a);
     a.x = static_cast<const float*>(x);
     a.w = static_cast<const float*>(w);
     a.c = static_cast<float*>(c);
-    e = run(p, a, s);
+    e = run(p, a, E, s);
   }
   return static_cast<int>(e);
 }

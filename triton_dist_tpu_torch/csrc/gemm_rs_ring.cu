@@ -319,25 +319,6 @@ struct RsViews {
   CUtensorMap b;
 };
 
-// The consumer threads' counterparts of tdt_signal_wait_until and
-// release_after_block (the producer warpgroup never reaches them).
-__device__ __forceinline__ void consumers_wait(const unsigned long long* sig,
-                                               unsigned long long epoch) {
-  if (threadIdx.x == 128) {
-    while (tdt_signal_acquire(sig) != epoch) __nanosleep(64);
-    __threadfence();
-  }
-  consumers_sync();
-}
-__device__ __forceinline__ void consumers_release(unsigned long long* sig,
-                                                  unsigned long long epoch) {
-  consumers_sync();
-  if (threadIdx.x == 128) {
-    __threadfence();
-    tdt_signal_release(sig, epoch);
-  }
-}
-
 // The tensor-core tile body (bf16): tiles.cuh's wgmma tile on the ring
 // above. Thread 0 loads each item's K slices by TMA (A and B are inputs:
 // no signal orders them); the two consumer warpgroups run the products,

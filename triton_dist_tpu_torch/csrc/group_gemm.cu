@@ -21,9 +21,10 @@
 // (P = 4096, all 128 experts); down 0.027 and 0.120 ms, all bound by the
 // bytes of the live experts' weights.
 //
-// The design (schedule kernel, B-streaming tensor-core product over
-// per-expert row tiles, the epilogues) is described in group_gemm.cuh,
-// which moe_rs.cu shares.
+// The design (schedule kernel, the persistent warp-specialised wgmma body
+// over 64-row per-expert tiles with B by TMA and A gathered into the stage
+// ring, the epilogues) is described in group_gemm.cuh, which moe_rs.cu and
+// the rings share.
 //
 // Plain C entry points `tdt_group_gemm_plan` and `tdt_group_gemm`, loaded
 // with ctypes. A call runs on the stream it is given, allocates nothing and
@@ -39,7 +40,7 @@ constexpr int kEpiSwiglu = 1;
 template <typename T>
 cudaError_t run(const GgPlan& p, const void* a, int a_div, const void* b0,
                 const void* b1, void* c0, void* c1, int n_b, int epi,
-                const int* sched, int P, int K, int N, long long lda,
+                const int* sched, int P, int E, int K, int N, long long lda,
                 long long ldb, long long b_estride, cudaStream_t s) {
   GgArgs<T, T> g = {};
   g.a = static_cast<const T*>(a);
@@ -55,8 +56,8 @@ cudaError_t run(const GgPlan& p, const void* a, int a_div, const void* b0,
   g.lda = lda;
   g.ldb = ldb;
   g.b_estride = b_estride;
-  if (epi == kEpiSwiglu) return run_group_product<T, T, true>(p, g, 2, s);
-  return run_group_product<T, T, false>(p, g, n_b, s);
+  if (epi == kEpiSwiglu) return run_group_product<T, T, true>(p, g, 2, E, s);
+  return run_group_product<T, T, false>(p, g, n_b, E, s);
 }
 
 }  // namespace
@@ -66,12 +67,13 @@ extern "C" {
 // The plan of a grouped product of P pairs over E experts, (K -> N) each,
 // dtype 0 = bfloat16, 1 = float32, with the strides (elements) of A's rows
 // (lda), the weights' rows (ldb) and experts (b_estride): *path (0: FMA
-// kernel, 1: tensor-core kernel), *m_blk (rows per tile) and *max_tiles
-// (tiles of the grid). A call needs a schedule buffer of 1 + P + 3 *
-// max_tiles int32. Returns a cudaError_t.
+// kernel, 1: the wgmma body), *m_blk (rows per tile, 64 on the wgmma
+// body), *max_tiles (the worst case of live row tiles) and *cols (columns
+// of a plain item of the wgmma body, or of an FMA tile). A call needs a
+// schedule buffer of 1 + P + 3 * max_tiles int32. Returns a cudaError_t.
 int tdt_group_gemm_plan(int P, int E, int K, int N, int dtype, long long lda,
                         long long ldb, long long b_estride, int* path,
-                        int* m_blk, int* max_tiles) {
+                        int* m_blk, int* max_tiles, int* cols) {
   if (!gg_args_ok(P, E, K, N, dtype) ||
       !gg_strides_ok(K, N, lda, ldb, b_estride))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -79,6 +81,7 @@ int tdt_group_gemm_plan(int P, int E, int K, int N, int dtype, long long lda,
   *path = p.path;
   *m_blk = p.m_blk;
   *max_tiles = p.max_tiles;
+  *cols = p.path == 1 ? gg_item_cols<false>() : kGgFmBN;
   return static_cast<int>(cudaSuccess);
 }
 
@@ -108,9 +111,9 @@ int tdt_group_gemm(const void* a, int a_div, const int* ids, int P, int E,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = dtype == 0
             ? run<__nv_bfloat16>(p, a, a_div, b0, b1, c0, c1, n_b, epi, sched,
-                                 P, K, N, lda, ldb, b_estride, s)
-            : run<float>(p, a, a_div, b0, b1, c0, c1, n_b, epi, sched, P, K,
-                         N, lda, ldb, b_estride, s);
+                                 P, E, K, N, lda, ldb, b_estride, s)
+            : run<float>(p, a, a_div, b0, b1, c0, c1, n_b, epi, sched, P, E,
+                         K, N, lda, ldb, b_estride, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

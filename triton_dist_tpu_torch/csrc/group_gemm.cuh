@@ -1,6 +1,7 @@
 // The grouped (per-expert) GEMM shared by group_gemm.cu (the expert products
-// of Qwen3-MoE: gate|up, the SwiGLU FFN, the down projection of mode "sp")
-// and moe_rs.cu (the down projection feeding the top-k reduce).
+// of Qwen3-MoE: gate|up, the SwiGLU FFN, the down projection of mode "sp"),
+// moe_rs.cu (the down projection feeding the top-k reduce) and the world-W
+// rings ag_group_gemm.cu and moe_rs_ring.cu.
 //
 // The function: out[p] = A[p / a_div] @ W[ids[p]] for every pair p, with f32
 // accumulation. `ids` may hold E (JAX's sentinel for an invalid pair): such
@@ -22,62 +23,105 @@
 //     pairs per (expert, m_blk chunk): its expert, first sorted row and row
 //     count. The live tile count goes to sched[0]; the layout is
 //     [n_live | sorted pairs (P) | tile expert | tile row0 | tile rows]
-//     (each max_tiles long). Integer counts only, in a fixed order.
-//  2. The product over the worst-case grid of ceil(P / m_blk) + min(E, P)
-//     row tiles (JAX's static m_pad, (P + E (m_blk - 1)) / m_blk tiles, would
-//     be ~16k rows at decode). A block reads its tile's entry and returns at
-//     once when the tile lies past the live end.
+//     (each max_tiles long), max_tiles = ceil(P / m_blk) + min(E, P), the
+//     worst case. Integer counts only, in a fixed order.
+//  2. The product.
 //
-// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode (P = 32
-// pairs over ~29 live experts of 128) the bytes of the live experts'
-// weights; at prefill (P = 4096, all 128 experts live) the bytes of all the
-// weights, and operations only a little below them. So the tensor-core
-// kernel is gemm_common.cuh's B-streaming design (`stream_mma`) with a
-// per-row-tile expert in place of `Segs`: a block holds one tile's rows of A
-// (m_blk = 16, 32 or 64, from the mean rows per expert) and streams a
-// 64-column tile of its expert's weights once through a 4-stage cp.async
-// pipeline into mma.sync m16n8k16. One-row experts are not padded to a
-// 128-row tile. Every sum has a fixed order and there are no atomics, so
-// equal inputs give equal bits from run to run.
+// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): the bytes of the
+// live experts' weights. At decode (P = 32 pairs over ~29 live experts of
+// 128) they are all the work; at prefill (P = 4096, all 128 experts live)
+// Qwen3-30B-A3B's gate|up weights are 805 MB and its down weights 403 MB,
+// against 26 GFLOP of products (0.026 ms at 989 TFLOP/s). So the design
+// keeps the weight stream running at the card's memory rate and moves
+// every other byte as few times as it can:
+//  * One persistent block an SM (grid: the blocks the card keeps resident,
+//    no more than the worst-case items), 384 threads: warpgroup 0 produces
+//    (setmaxnreg down to 40 registers), warpgroups 1 and 2 consume. Blocks
+//    read the live tile count sched[0] and walk the live items (row tile,
+//    column item), row tile first (`gg_item`: a tile's gathered rows of A
+//    are still in L2 when its next column item runs), so no block exists
+//    for a dead tile. The stage ring's stage and parity carry from item to
+//    item (tiles.cuh's WgRing), so one item's epilogue overlaps the next
+//    item's loads.
+//  * B by TMA: a 4-D view (N, K, experts, ranks) of the weights, N
+//    contiguous, K at stride ldb, experts at stride b_estride, so a rank's
+//    shard W[:, :, cols] or W[:, rows, :] is read in place; 64 x 64 boxes
+//    in the 128-byte swizzle that tiles.cuh's wgmma descriptors read. The
+//    view's extents zero-fill K past its end and columns past N.
+//  * A gathered by the producer's 128 threads (TMA cannot gather rows):
+//    two threads a row, each four 16-byte cp.async of the row's 128-byte
+//    K slice, through the pair -> row index, written straight into the
+//    128-byte-swizzled layout (16-byte chunk c of row r at chunk c ^ (r &
+//    7)). Rows past the tile's live rows and K past its end are zero-filled
+//    and read nothing. Each thread signals the stage's `full` mbarrier with
+//    cp.async.mbarrier.arrive.noinc, beside thread 0's TMA byte count (129
+//    arrivals a stage); the consumers order those generic-proxy writes
+//    before their wgmma reads with fence.proxy.async.
+//  * The tile: a row tile is 64 rows (wgmma's M) at every P. An item is 64
+//    rows x 256 columns: each consumer warpgroup runs tiles.cuh's `wg_mma`
+//    (wgmma m64n128k16) on its own 128 columns, both on one shared A
+//    stage; SwiGLU: each holds 64 columns of gate and 64 of up in one
+//    m64n128 accumulator, 128 output columns an item. A is staged once per
+//    item: 6 times for Qwen3-30B-A3B's gate|up (2 x 768 columns) and 8 for
+//    its down projection (2048), where a 64-column tile stages it 24 and 32
+//    times. A stage is 8 KB of A and 32 KB of B, 5 stages (205 KB).
+//  * The sum (tiles.cuh's fold): wgmma accumulates each kPfFold stages (128
+//    K terms) into `part` in f32, which is then added to `acc` in f32. The K
+//    order is fixed by K alone, so a row has the same bits at every P and
+//    item width, at world 1 and in the rings, and from run to run: no
+//    atomics, no split K.
+// This one body serves every bf16 call whose K, N and strides are
+// multiples of 8, at every P: a body chosen by P would give the same row
+// other bits in the ring (whose chunks are 1 / W of the pairs) than at
+// world 1.
 //
 // Epilogues:
 //  * plain: each product rounded to the output type (bf16, or f32 for the
 //    MoE-reduce's unrounded numerics). Gate and up may share a launch
-//    (n_b = 2): the column tiles of the second product follow the first's.
-//  * SwiGLU: gate and up accumulate side by side in one block (sharing each
-//    A tile), then silu(g) * u in f32 and one rounding.
+//    (n_b = 2): the column items of the second product follow the first's.
+//  * SwiGLU: gate and up accumulate side by side (sharing each A stage),
+//    then silu(g) * u in f32 and one rounding.
 // Each output row is stored at its pair's own index (row stride ldc): the
 // store address does the unsort.
 //
-// The tile bodies (`gg_mma_tile`, `gg_fma_tile`) are device functions: the
-// world-1 kernels run one tile a block, the world-W ring kernel of
-// ag_group_gemm.cu runs many from its persistent blocks, so both give a row
-// the same bits.
+// The bodies are device functions (`gg_wg_load` / `gg_wg_mma` for the
+// producer and the consumers, `gg_fma_tile`): the world-1 kernels run
+// them over a launch's items, the ring kernels over each rank's, so both
+// give a row the same bits.
 //
 // Strides: A's rows and W's rows and experts are read through the strides
-// the caller gives (elements; the last dimension is contiguous), so a
-// rank's shard of the experts under tensor parallelism, W[:, :, cols] of
-// (E, K, N_all) or W[:, rows, :] of (E, K_all, N), is read as the view it
-// is. The experts of Qwen3-30B-A3B take ~57 GB of the card's 80 GB: a copy
-// per rank would not fit. Strides change addresses only, never the order
-// of a sum, so a contiguous call and a strided call of equal values give
-// equal bits.
+// the caller gives (elements; the last dimension is contiguous). The
+// experts of Qwen3-30B-A3B take ~57 GB of the card's 80 GB: a copy per
+// rank would not fit. Strides change addresses only, never the order of a
+// sum, so a contiguous call and a strided call of equal values give equal
+// bits.
 //
-// f32 and bf16 with K or N not a multiple of 8 take `group_fma`, a 64 x 64
-// tile of f32 FMAs over the same schedule (test configurations only).
+// f32 and bf16 with K, N or a stride not a multiple of 8 take `group_fma`,
+// a tile of m_blk = 16, 32 or 64 rows (twice the mean pairs per expert) by
+// 64 columns of f32 FMAs over the same schedule, one tile a block (test
+// configurations only).
 
 #pragma once
 
-#include "gemm_common.cuh"
+#include "tiles.cuh"
 
 namespace {
-
-using gg_bf16 = __nv_bfloat16;
 
 constexpr int kGgMaxExperts = 1024;
 constexpr int kGgSchedThreads = 1024;
 constexpr int kGgSchedWarps = kGgSchedThreads / 32;
-constexpr int kGgMaxRows = 64;           // largest m_blk
+constexpr int kGgMaxRows = 64;           // largest m_blk of the FMA tile
+constexpr int kGgWgRows = 64;            // rows of a tensor-core row tile
+constexpr int kGgWgCols = 256;           // columns of a plain item
+constexpr int kGgWgColsSwiglu = 128;     // output columns of a SwiGLU item
+constexpr int kGgStages = 5;
+constexpr int kGgProducers = 128;        // the producer warpgroup's threads
+constexpr int kGgABytes = kGgWgRows * kPfBK * 2;
+constexpr int kGgStageBytes = kGgABytes + 4 * kPfBox;
+// The stages, their 2 x kGgStages mbarriers, and 1 KB to align the stages
+// to the swizzle pattern's 1024 bytes.
+constexpr int kGgSmemBytes = kGgStages * kGgStageBytes + 2 * kGgStages * 8 +
+                             1024;
 
 // ---------------------------------------------------------------------------
 // Sizes of a call's plan.
@@ -88,7 +132,7 @@ __host__ __device__ inline int gg_sched_ints(int P, int max_tiles) {
   return 1 + P + 3 * max_tiles;
 }
 
-// Rows per tile: twice the mean pairs per expert, a power of two in
+// Rows per FMA tile: twice the mean pairs per expert, a power of two in
 // [16, 64]. A function of the shape only.
 int gg_tile_rows(int P, int E) {
   const long long want = (2LL * P + E - 1) / E;
@@ -213,14 +257,10 @@ __device__ __forceinline__ bool gg_tile(const int* __restrict__ sched, int P,
   return true;
 }
 
-// SiLU(g) * u in f32 (gate * sigmoid(gate) * up); expf, not __expf.
-__device__ __forceinline__ float gg_swiglu(float g, float u) {
-  return g / (1.f + expf(-g)) * u;
-}
-
 // The operands of one launch. With n_b = 2 and the plain epilogue, column
 // tiles [0, col_tiles) are product 0's and [col_tiles, 2 col_tiles)
-// product 1's; with SWIGLU both products feed one output (c0).
+// product 1's; with SWIGLU both products feed one output (c0). col_tiles
+// counts the tiles (FMA) or items (tensor cores) of one product's N.
 template <typename T, typename OutT>
 struct GgArgs {
   const T* a;          // (P / a_div, K), row stride lda
@@ -232,184 +272,219 @@ struct GgArgs {
   const int* sched;
   int P, max_tiles, K, N, col_tiles;
   long long lda, ldb, b_estride, ldc;
+  int n_b;             // products of the plain epilogue (1 or 2)
 };
 
 // ---------------------------------------------------------------------------
-// 2a. Tensor-core tile (bf16, K and N multiples of 8, operands 16-byte
-// aligned): row tile `tile` of the schedule by column tile `col` (of every
-// product), 128 threads: four warps of 16 columns each over MF m16
-// fragments of rows. `smem_raw`: the block's gg_mma_smem<MF, SWIGLU>() bytes
-// of dynamic shared memory. The block's shared memory must be free when it
-// starts (one tile a block, or a barrier between tiles).
-template <int MF, bool SWIGLU>
-constexpr int gg_mma_smem() {
-  return kTcStages * (MF * 16 * kTcLdA + (SWIGLU ? 2 : 1) * kTcBK * kTcLdB) *
-         static_cast<int>(sizeof(gg_bf16));
+// 2a. The tensor-core body (bf16; K, N and the strides multiples of 8,
+// operands 16-byte aligned): the design note above. A launcher's kernel
+// takes kPfThreads threads and kGgSmemBytes of dynamic shared memory
+// (`gg_smem`), calls tiles.cuh's `wg_init` and syncs the block, then
+// splits for good: threads 0-127 call `wg_producer_regs` and run
+// `gg_wg_load` for each of the block's items, then `gg_producer_done`;
+// threads 128-383 call `wg_consumer_regs` and run `gg_wg_mma` for the same
+// items in the same order.
+
+// The stage ring: A's 64 x 64 slice, then B's four 64 x 64 boxes (box 2 wg
+// and 2 wg + 1 are consumer warpgroup wg's: its two 64-column halves, or
+// its gate and up columns).
+struct GgSmem {
+  static constexpr int kStages = kGgStages;
+  static constexpr int kFullArrivals = kGgProducers + 1;
+  static constexpr bool kSharedA = true;
+  unsigned char* base;
+  __device__ unsigned char* a(int s) const { return base + s * kGgStageBytes; }
+  __device__ unsigned char* b(int s) const { return a(s) + kGgABytes; }
+  __device__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(base + kStages * kGgStageBytes) + s;
+  }
+  __device__ uint64_t* empty(int s) const { return full(kStages + s); }
+};
+using GgRing = WgRing<kGgStages>;
+
+__device__ __forceinline__ GgSmem gg_smem(unsigned char* raw) {
+  return GgSmem{wg_smem(raw).base};
 }
 
-template <int MF, bool SWIGLU, typename OutT>
-__device__ __forceinline__ void gg_mma_tile(const GgArgs<gg_bf16, OutT>& g,
-                                            int tile_idx, int col,
-                                            unsigned char* smem_raw) {
-  constexpr int NB = SWIGLU ? 2 : 1;
-  gg_bf16* As = reinterpret_cast<gg_bf16*>(smem_raw);
-  gg_bf16* Bs = As + kTcStages * MF * 16 * kTcLdA;  // [stage][NB][BK][LdB]
-  __shared__ int pair_of[MF * 16];
-  __shared__ int arow_of[MF * 16];
+// The TMA views of a launch's weights: product 0's (gate's) and product
+// 1's (up's), each (N, K, E, ranks) with boxes of 64 x 64 of dims 0 and 1.
+struct GgViews {
+  CUtensorMap b[2];
+};
 
-  GgTile tile;
-  if (!gg_tile(g.sched, g.P, g.max_tiles, tile_idx, tile)) return;
-  const int K = g.K, N = g.N;
-  int prod = 0;
-  int n0 = col * kTcBN;
-  if (!SWIGLU && col >= g.col_tiles) {
-    prod = 1;
-    n0 = (col - g.col_tiles) * kTcBN;
-  }
-  const size_t w_off = static_cast<size_t>(tile.expert) * g.b_estride;
-  const gg_bf16* __restrict__ B0 = (prod ? g.b1 : g.b0) + w_off;
-  const gg_bf16* __restrict__ B1 = SWIGLU ? g.b1 + w_off : B0;
-  OutT* __restrict__ C = prod ? g.c1 : g.c0;
-  const gg_bf16* __restrict__ A = g.a;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int r = tid; r < MF * 16; r += kTcThreads) {
-    const int p = r < tile.rows ? g.sched[1 + tile.row0 + r] : -1;
-    pair_of[r] = p;
-    arow_of[r] = p >= 0 ? p / g.a_div : -1;
-  }
-  __syncthreads();
-  const int nk = (K + kTcBK - 1) / kTcBK;
+// One view of (E, K, N) weights with row stride ldb and expert stride
+// b_estride, and `ranks` shards `rank_step` elements apart (1, 0 at world
+// 1; the extents are a shard's, so TMA never reads a neighbour's).
+inline cudaError_t gg_view(CUtensorMap* map, const void* b, int E, int K,
+                           int N, long long ldb, long long b_estride,
+                           int ranks, long long rank_step) {
+  if (ranks == 1) rank_step = b_estride * E;
+  return make_view(map, b, {N, K, E, ranks}, {ldb, b_estride, rank_step},
+                   64);
+}
 
-  // Stage `kc` into slot `slot`; chunks of 8 past the tile's rows, N or K
-  // are zero-filled.
-  auto load_stage = [&](int slot, int kc) {
-    const int k0 = kc * kTcBK;
-    gg_bf16* as = As + slot * MF * 16 * kTcLdA;
-    for (int c = tid; c < MF * 16 * (kTcBK / 8); c += kTcThreads) {
-      const int r = c / (kTcBK / 8);
-      const int kk = (c % (kTcBK / 8)) * 8;
-      const int ar = arow_of[r];
-      const bool ok = ar >= 0 && k0 + kk < K;
-      const gg_bf16* src =
-          ok ? A + static_cast<size_t>(ar) * g.lda + k0 + kk : A;
-      cp_async16(as + r * kTcLdA + kk, src, ok);
-    }
-#pragma unroll
-    for (int h = 0; h < NB; ++h) {
-      const gg_bf16* B = h == 0 ? B0 : B1;
-      gg_bf16* bs = Bs + (slot * NB + h) * kTcBK * kTcLdB;
-      for (int c = tid; c < kTcBK * (kTcBN / 8); c += kTcThreads) {
-        const int r = c / (kTcBN / 8);
-        const int nn = (c % (kTcBN / 8)) * 8;
-        const bool ok = k0 + r < K && n0 + nn < N;
-        const gg_bf16* src =
-            ok ? B + static_cast<size_t>(k0 + r) * g.ldb + n0 + nn : B;
-        cp_async16(bs + r * kTcLdB + nn, src, ok);
-      }
-    }
-  };
+// An item: row tile `tile`'s schedule entry, product `prod` and its first
+// column n0.
+struct GgItem {
+  int expert, row0, rows, prod, n0;
+};
 
-  float acc[NB][MF][2][4];
-#pragma unroll
-  for (int h = 0; h < NB; ++h)
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[h][i][j][e] = 0.f;
+template <bool SWIGLU>
+__host__ __device__ constexpr int gg_item_cols() {
+  return SWIGLU ? kGgWgColsSwiglu : kGgWgCols;
+}
 
-#pragma unroll
-  for (int s = 0; s < kTcStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
+// Items a row tile has: column items of every product.
+template <bool SWIGLU, typename OutT>
+__device__ __forceinline__ int gg_items_per_tile(
+    const GgArgs<bf16, OutT>& g) {
+  return SWIGLU ? g.col_tiles : g.col_tiles * g.n_b;
+}
+
+// Item i of the live ones, row tile first.
+template <bool SWIGLU, typename OutT>
+__device__ __forceinline__ GgItem gg_item(const GgArgs<bf16, OutT>& g,
+                                          int i) {
+  const int per = gg_items_per_tile<SWIGLU>(g);
+  const int tile = i / per;
+  const int col = i % per;
+  const int* t_exp = g.sched + 1 + g.P;
+  GgItem it;
+  it.expert = t_exp[tile];
+  it.row0 = t_exp[g.max_tiles + tile];
+  it.rows = t_exp[2 * g.max_tiles + tile];
+  it.prod = col / g.col_tiles;
+  it.n0 = (col % g.col_tiles) * gg_item_cols<SWIGLU>();
+  return it;
+}
+
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// The producer warpgroup's part of one item (every one of its threads
+// calls it): for each 64-deep K slice, once the stage is free, thread 0
+// counts B's bytes on the stage's `full` and starts its four boxes (at
+// `rank` of the views), and thread t gathers half of row t / 2 of A.
+template <bool SWIGLU, typename OutT>
+__device__ __forceinline__ void gg_wg_load(const GgSmem& s, GgRing& p,
+                                           const GgArgs<bf16, OutT>& g,
+                                           const GgViews& v, int rank,
+                                           const GgItem& it) {
+  const int t = threadIdx.x;                  // 0..127
+  const int r = t >> 1;
+  const int c0 = (t & 1) * 4;                 // first of four 16-byte chunks
+  const bf16* src = nullptr;
+  if (r < it.rows)
+    src = g.a + static_cast<long long>(g.sched[1 + it.row0 + r] / g.a_div) *
+                    g.lda;
+  const CUtensorMap* b0 = &v.b[SWIGLU ? 0 : it.prod];
+  const CUtensorMap* b1 = SWIGLU ? &v.b[1] : b0;
+  const int nk = (g.K + kPfBK - 1) / kPfBK;
   for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<kTcStages - 2>();
-    __syncthreads();  // stage kc landed; slot (kc - 1) % stages is free
-    const int next = kc + kTcStages - 1;
-    if (next < nk) load_stage(next % kTcStages, next);
-    cp_async_commit();
-
-    const int slot = kc % kTcStages;
-    const gg_bf16* as = As + slot * MF * 16 * kTcLdA;
-    // Each stage's 64-term products accumulate in the tensor core (`part`),
-    // then add to `acc` in f32, as in stream_mma.
-    float part[NB][MF][2][4];
+    mbar_wait(s.empty(p.stage), p.phase ^ 1);
+    uint64_t* full = s.full(p.stage);
+    const int k0 = kc * kPfBK;
+    if (t == 0) {
+      mbar_expect(full, 4 * kPfBox);
+      unsigned char* b = s.b(p.stage);
 #pragma unroll
-    for (int h = 0; h < NB; ++h)
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[h][i][j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kTcBK; ks += 16) {
-      unsigned afr[MF][4];
-#pragma unroll
-      for (int mf = 0; mf < MF; ++mf)
-        ldmatrix_x4(afr[mf], as + (mf * 16 + (lane & 15)) * kTcLdA + ks +
-                                 (lane >> 4) * 8);
-#pragma unroll
-      for (int h = 0; h < NB; ++h) {
-        const gg_bf16* bs = Bs + (slot * NB + h) * kTcBK * kTcLdB;
-        unsigned bfr[4];
-        ldmatrix_x4_trans(bfr, bs + (ks + (lane & 15)) * kTcLdB + warp * 16 +
-                                   (lane >> 4) * 8);
-#pragma unroll
-        for (int mf = 0; mf < MF; ++mf) {
-          mma_bf16(part[h][mf][0], afr[mf], bfr[0], bfr[1]);
-          mma_bf16(part[h][mf][1], afr[mf], bfr[2], bfr[3]);
-        }
+      for (int box = 0; box < 4; ++box) {
+        // SwiGLU: gate, up, gate, up of columns n0, n0, n0 + 64, n0 + 64;
+        // plain: columns n0 + 64 box.
+        const CUtensorMap* m = SWIGLU && (box & 1) ? b1 : b0;
+        const int n = it.n0 + 64 * (SWIGLU ? box >> 1 : box);
+        tma_load(b + box * kPfBox, m, full, n, k0, it.expert, rank);
       }
     }
+    unsigned char* row = s.a(p.stage) + r * 128;
 #pragma unroll
-    for (int h = 0; h < NB; ++h)
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[h][i][j][e] += part[h][i][j][e];
-  }
-  cp_async_wait<0>();
-
-  // m16n8 accumulator layout: c0,c1 at (row g, cols 2t, 2t+1), c2,c3 at
-  // row g + 8, with g = lane / 4 and t = lane % 4.
-  const int gq = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int mf = 0; mf < MF; ++mf) {
-#pragma unroll
-    for (int nf = 0; nf < 2; ++nf) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mf * 16 + gq + (e >> 1) * 8;
-        const int n = n0 + warp * 16 + nf * 8 + 2 * t + (e & 1);
-        if (r >= tile.rows || n >= N) continue;
-        float v = acc[0][mf][nf][e];
-        if constexpr (SWIGLU) v = gg_swiglu(v, acc[NB - 1][mf][nf][e]);
-        C[static_cast<size_t>(pair_of[r]) * g.ldc + n] = from_f32<OutT>(v);
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + q;
+      const bool ok = src != nullptr && k0 + c * 8 < g.K;
+      cp_async16(row + ((c ^ (r & 7)) << 4), ok ? src + k0 + c * 8 : g.a, ok);
     }
+    cp_async_mbar_arrive_noinc(full);
+    p.next();
   }
 }
 
-// The world-1 kernel: grid = (max_tiles, column tiles), one tile a block.
-template <int MF, bool SWIGLU, typename OutT>
-__global__ void __launch_bounds__(kTcThreads)
-group_mma(GgArgs<gg_bf16, OutT> g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  gg_mma_tile<MF, SWIGLU, OutT>(g, blockIdx.x, blockIdx.y, smem_raw);
+// The producer warpgroup's 128 threads wait for each other (named barrier
+// 2; tiles.cuh's consumers use 1).
+__device__ __forceinline__ void gg_producers_sync() {
+  asm volatile("bar.sync 2, 128;" ::: "memory");
+}
+
+// A producer thread's last act: its copies are done before it exits.
+__device__ __forceinline__ void gg_producer_done() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Stores two neighbouring columns of a row, rounded to OutT, at the pair's
+// own row.
+template <typename OutT>
+struct GgEpi {
+  OutT* c;             // the item's first column of row 0
+  long long ldc;
+  const int* pairs;    // the row tile's sorted pairs
+  __device__ __forceinline__ void pair(int r, int col, float v0,
+                                       float v1) const {
+    OutT* dst = c + static_cast<long long>(pairs[r]) * ldc + col;
+    if constexpr (sizeof(OutT) == 4) {
+      *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+    } else {
+      __nv_bfloat162 q;
+      q.x = from_f32<bf16>(v0);
+      q.y = from_f32<bf16>(v1);
+      *reinterpret_cast<__nv_bfloat162*>(dst) = q;
+    }
+  }
+};
+
+// The consumers' part of the same item: tiles.cuh's wg_mma over GgSmem,
+// then `ready()`, then the epilogue into the pairs' rows.
+template <bool SWIGLU, typename OutT, class Ready>
+__device__ __forceinline__ void gg_wg_mma(const GgSmem& s, GgRing& p,
+                                          const GgArgs<bf16, OutT>& g,
+                                          const GgItem& it, Ready&& ready) {
+  OutT* c = (!SWIGLU && it.prod ? g.c1 : g.c0) + it.n0;
+  const int cols = min(gg_item_cols<SWIGLU>(), g.N - it.n0);
+  wg_mma<SWIGLU>(s, p, (g.K + kPfBK - 1) / kPfBK, it.rows, cols, nullptr,
+                 nullptr, GgEpi<OutT>{c, g.ldc, g.sched + 1 + it.row0},
+                 ready);
+}
+
+// The world-1 kernel: a persistent grid, block b taking live items b, b +
+// gridDim.x, ...
+template <bool SWIGLU, typename OutT>
+__global__ void __launch_bounds__(kPfThreads, 1)
+group_wg(GgArgs<bf16, OutT> g, const __grid_constant__ GgViews v) {
+  extern __shared__ unsigned char smem_raw[];
+  const GgSmem s = gg_smem(smem_raw);
+  wg_init(s);
+  __syncthreads();
+  const int items = g.sched[0] * gg_items_per_tile<SWIGLU>(g);
+  if (threadIdx.x < 128) {
+    wg_producer_regs();
+    GgRing p;
+    for (int i = blockIdx.x; i < items; i += gridDim.x)
+      gg_wg_load<SWIGLU>(s, p, g, v, 0, gg_item<SWIGLU>(g, i));
+    gg_producer_done();
+    return;
+  }
+  wg_consumer_regs();
+  GgRing p;
+  for (int i = blockIdx.x; i < items; i += gridDim.x)
+    gg_wg_mma<SWIGLU>(s, p, g, gg_item<SWIGLU>(g, i), [] {});
 }
 
 // ---------------------------------------------------------------------------
 // 2b. FMA tile (f32, odd shapes): row tile `tile` by 64-column tile `col`,
 // 256 threads; thread (ty, tx) owns rows ty*4..+3 and columns tx*4..+3 of a
-// 64 x 64 tile and sums K in order. Shared memory as for gg_mma_tile.
+// 64 x 64 tile and sums K in order. Static shared memory; the block's
+// must be free when it starts (one tile a block, or a barrier between
+// tiles).
 constexpr int kGgFmBN = 64;
 constexpr int kGgFmBK = 16;
 constexpr int kGgFmThreads = 256;
@@ -501,7 +576,7 @@ __device__ __forceinline__ void gg_fma_tile(const GgArgs<T, OutT>& g,
       const int n = n0 + tx * 4 + j;
       if (n >= N) continue;
       float v = acc[0][i][j];
-      if constexpr (SWIGLU) v = gg_swiglu(v, acc[NB - 1][i][j]);
+      if constexpr (SWIGLU) v = swiglu(v, acc[NB - 1][i][j]);
       C[static_cast<size_t>(pair_of[r]) * g.ldc + n] = from_f32<OutT>(v);
     }
   }
@@ -515,24 +590,32 @@ group_fma(GgArgs<T, OutT> g) {
 }
 
 // ---------------------------------------------------------------------------
-// How one call runs. The path and the tile rows depend on the dtype and the
-// shape only, so equal inputs give equal bits.
+// How one call runs. The path and the tile rows depend on the dtype, the
+// shape and the strides only, so equal inputs give equal bits.
 struct GgPlan {
-  int path;       // 0: group_fma, 1: group_mma
-  int m_blk;      // rows per tile
-  int max_tiles;  // grid.x, the worst case of live tiles
+  int path;       // 0: group_fma, 1: group_wg
+  int m_blk;      // rows per tile: kGgWgRows on tensor cores
+  int max_tiles;  // the worst case of live row tiles
 };
 
 // The strides (elements) of A's rows, W's rows and W's experts; the
-// tensor-core path reads 16-byte chunks, so each must be a multiple of 8.
+// tensor-core path reads 16-byte chunks of A and TMA boxes of W, so each
+// must be a multiple of 8.
 GgPlan gg_make_plan(int P, int E, int K, int N, int dtype, long long lda,
                     long long ldb, long long b_estride) {
   GgPlan p;
   p.path = (dtype == 0 && K % 8 == 0 && N % 8 == 0 && lda % 8 == 0 &&
             ldb % 8 == 0 && b_estride % 8 == 0) ? 1 : 0;
-  p.m_blk = gg_tile_rows(P, E);
+  p.m_blk = p.path == 1 ? kGgWgRows : gg_tile_rows(P, E);
   p.max_tiles = gg_max_tiles(P, E, p.m_blk);
   return p;
+}
+
+// Column tiles (FMA) or items (tensor cores) of one product's N.
+template <bool SWIGLU>
+int gg_col_tiles(const GgPlan& p, int N) {
+  const int w = p.path == 1 ? gg_item_cols<SWIGLU>() : kGgFmBN;
+  return (N + w - 1) / w;
 }
 
 bool gg_args_ok(int P, int E, int K, int N, int dtype) {
@@ -546,35 +629,56 @@ bool gg_strides_ok(int K, int N, long long lda, long long ldb,
   return lda >= K && ldb >= N && b_estride >= static_cast<long long>(K) * ldb;
 }
 
-template <int MF, bool SWIGLU, typename OutT>
-cudaError_t launch_group_mma(const GgArgs<gg_bf16, OutT>& g, int n_b,
-                             cudaStream_t stream) {
-  constexpr int smem = gg_mma_smem<MF, SWIGLU>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      group_mma<MF, SWIGLU, OutT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Blocks of a kernel of `threads` threads and `smem` bytes of dynamic
+// shared memory that the current device keeps resident at once.
+template <class Kernel>
+cudaError_t gg_resident(Kernel kernel, int threads, int smem, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess) *out = sms * per_sm;
+  return err;
+}
+
+template <bool SWIGLU, typename OutT>
+cudaError_t launch_group_wg(const GgArgs<bf16, OutT>& g, int E,
+                            cudaStream_t stream) {
+  GgViews v = {};
+  cudaError_t err = gg_view(&v.b[0], g.b0, E, g.K, g.N, g.ldb, g.b_estride,
+                            1, 0);
+  if (err == cudaSuccess && (SWIGLU || g.n_b == 2))
+    err = gg_view(&v.b[1], g.b1, E, g.K, g.N, g.ldb, g.b_estride, 1, 0);
+  int resident = 0;
+  if (err == cudaSuccess)
+    err = gg_resident(group_wg<SWIGLU, OutT>, kPfThreads, kGgSmemBytes,
+                      &resident);
   if (err != cudaSuccess) return err;
-  dim3 grid(g.max_tiles, g.col_tiles * (SWIGLU ? 1 : n_b));
-  group_mma<MF, SWIGLU, OutT><<<grid, kTcThreads, smem, stream>>>(g);
+  const int worst = g.max_tiles * (SWIGLU ? g.col_tiles : g.col_tiles * g.n_b);
+  group_wg<SWIGLU, OutT><<<min(worst, resident), kPfThreads, kGgSmemBytes,
+                           stream>>>(g, v);
   return cudaSuccess;
 }
 
-// The product of a planned call, after its schedule (the operands are
-// typed by the caller; OutT is T or float; outputs contiguous).
+// The product of a planned call over E experts, after its schedule (the
+// operands are typed by the caller; OutT is T or float; outputs
+// contiguous).
 template <typename T, typename OutT, bool SWIGLU>
 cudaError_t run_group_product(const GgPlan& p, GgArgs<T, OutT> g, int n_b,
-                              cudaStream_t stream) {
+                              int E, cudaStream_t stream) {
   g.max_tiles = p.max_tiles;
   g.ldc = g.N;
+  g.n_b = n_b;
+  g.col_tiles = gg_col_tiles<SWIGLU>(p, g.N);
   if constexpr (sizeof(T) == 2) {
-    if (p.path == 1) {
-      g.col_tiles = (g.N + kTcBN - 1) / kTcBN;
-      if (p.m_blk == 16) return launch_group_mma<1, SWIGLU, OutT>(g, n_b, stream);
-      if (p.m_blk == 32) return launch_group_mma<2, SWIGLU, OutT>(g, n_b, stream);
-      return launch_group_mma<4, SWIGLU, OutT>(g, n_b, stream);
-    }
+    if (p.path == 1) return launch_group_wg<SWIGLU, OutT>(g, E, stream);
   }
-  g.col_tiles = (g.N + kGgFmBN - 1) / kGgFmBN;
   dim3 grid(p.max_tiles, g.col_tiles * (SWIGLU ? 1 : n_b));
   group_fma<T, SWIGLU, OutT><<<grid, kGgFmThreads, 0, stream>>>(g);
   return cudaSuccess;

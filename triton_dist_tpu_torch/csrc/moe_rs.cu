@@ -30,7 +30,8 @@
 //     the activation dtype (round_pairs) or f32;
 //  3. `topk_reduce_rows`: each output element sums slots 0..k-1 in that
 //     order, each product weight * value rounded to f32 before the add (as
-//     JAX's `topk_reduce` multiplies, then sums), and rounds once.
+//     JAX's `topk_reduce` multiplies, then sums), and rounds once; a thread
+//     reads 16 bytes of each pair's row when H allows.
 // Equal inputs give equal bits from run to run.
 //
 // Plain C entry point `tdt_moe_rs`, loaded with ctypes. A call allocates
@@ -40,29 +41,45 @@
 
 namespace {
 
-constexpr int kRedThreads = 256;
+constexpr int kRedThreads = 128;     // decode's 4 rows still take 8-16 blocks
 
-template <typename T, typename WsT>
+// Each thread sums V neighbouring columns of a row: one 16-byte load of
+// each pair's products when V > 1.
+template <typename T, typename WsT, int V>
 __global__ void __launch_bounds__(kRedThreads)
 topk_reduce_rows(const WsT* __restrict__ ws, const float* __restrict__ w,
                  T* __restrict__ out, int M, int k, int H) {
-  const int h = blockIdx.x * kRedThreads + threadIdx.x;
+  const int h = (blockIdx.x * kRedThreads + threadIdx.x) * V;
   if (h >= H) return;
   for (int m = blockIdx.y; m < M; m += gridDim.y) {
-    float s = 0.f;
+    float s[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) s[v] = 0.f;
     for (int j = 0; j < k; ++j) {
       const size_t pair = static_cast<size_t>(m) * k + j;
-      s = __fadd_rn(s, __fmul_rn(to_f32(ws[pair * H + h]), w[pair]));
+      const float wt = w[pair];
+      WsT x[V];
+      if constexpr (V * sizeof(WsT) == 16) {
+        *reinterpret_cast<uint4*>(x) =
+            *reinterpret_cast<const uint4*>(ws + pair * H + h);
+      } else {
+        x[0] = ws[pair * H + h];
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        s[v] = __fadd_rn(s[v], __fmul_rn(to_f32(x[v]), wt));
     }
-    out[static_cast<size_t>(m) * H + h] = from_f32<T>(s);
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      out[static_cast<size_t>(m) * H + h + v] = from_f32<T>(s[v]);
   }
 }
 
 template <typename T, typename WsT>
 cudaError_t run(const GgPlan& p, const void* act, const void* w_down,
                 const float* weights, void* ws, void* out, const int* sched,
-                int M, int k, int I, int H, long long lda, long long w_estride,
-                cudaStream_t s) {
+                int M, int k, int E, int I, int H, long long lda,
+                long long w_estride, cudaStream_t s) {
   GgArgs<T, WsT> g = {};
   g.a = static_cast<const T*>(act);
   g.a_div = 1;
@@ -75,11 +92,19 @@ cudaError_t run(const GgPlan& p, const void* act, const void* w_down,
   g.lda = lda;
   g.ldb = H;
   g.b_estride = w_estride;
-  const cudaError_t err = run_group_product<T, WsT, false>(p, g, 1, s);
+  const cudaError_t err = run_group_product<T, WsT, false>(p, g, 1, E, s);
   if (err != cudaSuccess) return err;
-  dim3 grid((H + kRedThreads - 1) / kRedThreads, M < 65535 ? M : 65535);
-  topk_reduce_rows<T, WsT><<<grid, kRedThreads, 0, s>>>(
-      static_cast<const WsT*>(ws), weights, static_cast<T*>(out), M, k, H);
+  constexpr int V = 16 / sizeof(WsT);
+  const int rows = M < 65535 ? M : 65535;
+  if (H % V == 0) {
+    const dim3 grid((H / V + kRedThreads - 1) / kRedThreads, rows);
+    topk_reduce_rows<T, WsT, V><<<grid, kRedThreads, 0, s>>>(
+        static_cast<const WsT*>(ws), weights, static_cast<T*>(out), M, k, H);
+  } else {
+    const dim3 grid((H + kRedThreads - 1) / kRedThreads, rows);
+    topk_reduce_rows<T, WsT, 1><<<grid, kRedThreads, 0, s>>>(
+        static_cast<const WsT*>(ws), weights, static_cast<T*>(out), M, k, H);
+  }
   return cudaSuccess;
 }
 
@@ -114,13 +139,13 @@ int tdt_moe_rs(const void* act, const int* ids, const float* weights,
   if (dtype == 0) {
     using T = __nv_bfloat16;
     err = round_pairs
-              ? run<T, T>(p, act, w_down, weights, ws, out, sched, M, k, I, H,
-                          lda, w_estride, s)
-              : run<T, float>(p, act, w_down, weights, ws, out, sched, M, k, I,
-                              H, lda, w_estride, s);
+              ? run<T, T>(p, act, w_down, weights, ws, out, sched, M, k, E, I,
+                          H, lda, w_estride, s)
+              : run<T, float>(p, act, w_down, weights, ws, out, sched, M, k,
+                              E, I, H, lda, w_estride, s);
   } else {
-    err = run<float, float>(p, act, w_down, weights, ws, out, sched, M, k, I,
-                            H, lda, w_estride, s);
+    err = run<float, float>(p, act, w_down, weights, ws, out, sched, M, k, E,
+                            I, H, lda, w_estride, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -31,16 +31,19 @@
 //     tdt_moe_rs_ring_grid; a launch that does not fit fails), so a block
 //     that spins on a signal never starves its producer of an SM. A block
 //     walks its rank's items in phase order:
-//     * phase 0, the products: rank r's grouped tiles (row tile of the
-//       schedule, 64-column tile of H) of every pair on its shard, with
-//       group_gemm.cuh's tile bodies (`gg_mma_tile`, `gg_fma_tile`, as the
-//       world-1 kernels run them), in f32 into rank r's (T k, H) product
-//       workspace, each pair at its own slot. Each tile releases its own
-//       epoch-stamped signal. This reads each rank's weight shard once;
-//       JAX computes one chunk's products per ring step instead, which on
-//       this card would stream the shard W times (ag_group_gemm.cu's first
-//       design does, at 4.6x its bound). The products do not depend on
-//       the ring, so computing them first loses nothing.
+//     * phase 0, the products: rank r's grouped items (row tile of the
+//       schedule, column item of H) of every pair on its shard, with
+//       group_gemm.cuh's bodies (bf16: the wgmma body, `gg_wg_load` /
+//       `gg_wg_mma`, in 384-thread persistent blocks whose warpgroup 0
+//       produces, B by TMA through one 4-D view (H, I_loc, E, W) of every
+//       rank's row shard; f32 and odd shapes: `gg_fma_tile` in 256-thread
+//       blocks), as the world-1 kernels run them, in f32 into rank r's
+//       (T k, H) product workspace, each pair at its own slot. Each item
+//       releases its own epoch-stamped signal. This reads each rank's
+//       weight shard once; JAX computes one chunk's products per ring step
+//       instead, which on this card would stream the shard W times
+//       (ag_group_gemm.cu's design does, at 4.6x its bound). The products
+//       do not depend on the ring, so computing them first loses nothing.
 //     * phase 1, the ring: at step s rank r reduces chunk c = r - s - 1
 //       (mod W) in pieces of `piece_elems` elements of the chunk's (T / W,
 //       H) rows (any T / W: one row at decode; the pieces are small, one
@@ -54,7 +57,9 @@
 //       in the neighbour's buffer is released; at s = W - 1 (c = r) it
 //       goes into out. A step-s item first waits for every live tile
 //       signal of its rank (once a block) and, for s > 0, for the left
-//       neighbour's (s - 1, piece) signal.
+//       neighbour's (s - 1, piece) signal. In the bf16 kernel the
+//       consumer warpgroups run this phase; the producer warpgroup is done
+//       after its last item.
 //     Items are dealt round robin to a rank's blocks phase by phase (step
 //     by step within phase 1), so every wait's producer comes earlier in
 //     every block's order: the launch cannot deadlock. Signals hold the
@@ -109,77 +114,72 @@ struct RingArgs {
   unsigned long long epoch;
 };
 
-template <bool MMA>
-constexpr int ring_threads() { return MMA ? kTcThreads : kGgFmThreads; }
+// Rank me's f32 products of every pair on its shard.
+template <typename T>
+__device__ __forceinline__ GgArgs<T, float> ring_products(
+    const RingArgs<T>& a, int me) {
+  GgArgs<T, float> g = {};
+  g.a = a.act + static_cast<size_t>(me) * a.I_loc;
+  g.a_div = 1;
+  g.b0 = a.w + static_cast<size_t>(me) * a.I_loc * a.H;
+  g.c0 = reinterpret_cast<float*>(tdt_peer_ptr(a.prod_tab, me));
+  g.sched = a.sched;
+  g.P = a.tokens * a.k;
+  g.max_tiles = a.max_tiles;
+  g.K = a.I_loc;
+  g.N = a.H;
+  g.col_tiles = a.col_tiles;
+  g.lda = a.I;
+  g.ldb = a.H;
+  g.b_estride = static_cast<long long>(a.I) * a.H;
+  g.ldc = a.H;
+  g.n_b = 1;
+  return g;
+}
 
-template <typename T, bool MMA, int MF>
-__global__ void __launch_bounds__(MMA ? kTcThreads : kGgFmThreads, 1)
-moe_rs_ring_kernel(RingArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// Phase 1, the ring, step by step; item (step, piece of the chunk). Run by
+// nt threads of the block (t = 0 .. nt - 1 the caller's), which `sync`
+// brings together.
+template <typename T, class Sync>
+__device__ __forceinline__ void ring_steps(const RingArgs<T>& a, int me,
+                                           int j, int t, int nt,
+                                           Sync&& sync) {
   const int world = a.world;
-  const int me = tdt_rank(a.bpr);
-  const int j = static_cast<int>(blockIdx.x) % a.bpr;
-  const int P = a.tokens * a.k;
   const int tile_sigs = a.max_tiles * a.col_tiles;
-  float* prod = reinterpret_cast<float*>(tdt_peer_ptr(a.prod_tab, me));
-  unsigned long long* sig_me =
+  const float* prod =
+      reinterpret_cast<const float*>(tdt_peer_ptr(a.prod_tab, me));
+  const unsigned long long* sig_me =
       reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
-
-  // Phase 0: my f32 products of every pair, item (row tile, column tile).
-  {
-    GgArgs<T, float> g = {};
-    g.a = a.act + static_cast<size_t>(me) * a.I_loc;
-    g.a_div = 1;
-    g.b0 = a.w + static_cast<size_t>(me) * a.I_loc * a.H;
-    g.c0 = prod;
-    g.sched = a.sched;
-    g.P = P;
-    g.max_tiles = a.max_tiles;
-    g.K = a.I_loc;
-    g.N = a.H;
-    g.col_tiles = a.col_tiles;
-    g.lda = a.I;
-    g.ldb = a.H;
-    g.b_estride = static_cast<long long>(a.I) * a.H;
-    g.ldc = a.H;
-    const int live = a.sched[0] * a.col_tiles;
-    for (int i = j; i < live; i += a.bpr) {
-      const int tile = i / a.col_tiles;
-      const int col = i % a.col_tiles;
-      __syncthreads();                       // the last item's smem is free
-      if constexpr (MMA) {
-        gg_mma_tile<MF, false, float>(g, tile, col, smem_raw);
-      } else {
-        gg_fma_tile<T, false, float>(g, tile, col);
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        __threadfence();
-        tdt_signal_release(sig_me + i, a.epoch);
-      }
-    }
-  }
-
-  // Phase 1: the ring, step by step; item (step, piece of the chunk).
   const int peer = (me + 1) % world;
   const long long chunk = static_cast<long long>(a.rows) * a.H;
   const T* recv_me = reinterpret_cast<const T*>(tdt_peer_ptr(a.recv_tab, me));
   T* recv_peer = reinterpret_cast<T*>(tdt_peer_ptr(a.recv_tab, peer));
-  unsigned long long* ring_me = sig_me + tile_sigs;
+  const unsigned long long* ring_me = sig_me + tile_sigs;
   unsigned long long* ring_peer =
       reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, peer)) +
       tile_sigs;
-  bool products = false;                     // my tiles waited for
+  bool products = false;                     // my items waited for
   for (int i = j; i < world * a.pieces; i += a.bpr) {
     const int s = i / a.pieces;
     const int p = i % a.pieces;
     const int c = ((me - s - 1) % world + world) % world;
     if (!products) {
-      tdt_signal_wait_all(sig_me, a.sched[0] * a.col_tiles, a.epoch);
+      const int n = a.sched[0] * a.col_tiles;
+      for (int q = t; q < n; q += nt)
+        while (tdt_signal_acquire(sig_me + q) != a.epoch) __nanosleep(64);
+      __threadfence();
+      sync();
       products = true;
     }
-    if (s > 0) tdt_signal_wait_until(ring_me + (s - 1) * a.pieces + p,
-                                     a.epoch);
+    if (s > 0) {
+      if (t == 0) {
+        while (tdt_signal_acquire(ring_me + (s - 1) * a.pieces + p) !=
+               a.epoch)
+          __nanosleep(64);
+        __threadfence();
+      }
+      sync();
+    }
     const bool last = s == world - 1;
     const long long e0 = p * a.piece_elems;
     const long long e1 =
@@ -193,8 +193,7 @@ moe_rs_ring_kernel(RingArgs<T> a) {
       // not the arithmetic, set this loop's pace.
       auto reduce = [&](auto vec) {
         constexpr int V = decltype(vec)::value;
-        for (long long e = e0 + V * threadIdx.x; e < e1;
-             e += V * blockDim.x) {
+        for (long long e = e0 + V * t; e < e1; e += V * nt) {
           const long long row = static_cast<long long>(c) * a.rows + e / a.H;
           const long long h = e % a.H;
           float acc[V];
@@ -228,90 +227,131 @@ moe_rs_ring_kernel(RingArgs<T> a) {
         reduce(std::integral_constant<int, 1>{});
       }
     }
-    __syncthreads();
-    if (!last && threadIdx.x == 0) {
+    sync();
+    if (!last && t == 0) {
       __threadfence();
       tdt_signal_release(ring_peer + s * a.pieces + p, a.epoch);
     }
   }
 }
 
-template <typename T, bool MMA, int MF>
-constexpr int ring_smem() {
-  if constexpr (MMA) return gg_mma_smem<MF, false>();
-  return 0;
+// f32 and odd shapes: phase 0 on gg_fma_tile, item (row tile, column tile),
+// then phase 1 by the whole block.
+template <typename T>
+__global__ void __launch_bounds__(kGgFmThreads, 1)
+moe_rs_ring_kernel(RingArgs<T> a) {
+  const int me = tdt_rank(a.bpr);
+  const int j = static_cast<int>(blockIdx.x) % a.bpr;
+  unsigned long long* sig_me =
+      reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
+  const GgArgs<T, float> g = ring_products(a, me);
+  const int live = a.sched[0] * a.col_tiles;
+  for (int i = j; i < live; i += a.bpr) {
+    __syncthreads();                         // the last item's smem is free
+    gg_fma_tile<T, false, float>(g, i / a.col_tiles, i % a.col_tiles);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      tdt_signal_release(sig_me + i, a.epoch);
+    }
+  }
+  ring_steps(a, me, j, static_cast<int>(threadIdx.x),
+             static_cast<int>(blockDim.x), [] { __syncthreads(); });
 }
 
-// Blocks of one instantiation resident at once on the current device.
-template <typename T, bool MMA, int MF>
+// bf16: phase 0 on the wgmma body, each item's signal released by the
+// consumers once both warpgroups have stored it; then phase 1 by the
+// consumers.
+__global__ void __launch_bounds__(kPfThreads, 1)
+moe_rs_ring_wg_kernel(RingArgs<bf16> a,
+                      const __grid_constant__ GgViews v) {
+  extern __shared__ unsigned char smem_raw[];
+  const GgSmem s = gg_smem(smem_raw);
+  wg_init(s);
+  __syncthreads();
+  const int me = tdt_rank(a.bpr);
+  const int j = static_cast<int>(blockIdx.x) % a.bpr;
+  const GgArgs<bf16, float> g = ring_products(a, me);
+  const int live = a.sched[0] * a.col_tiles;
+  if (threadIdx.x < 128) {
+    wg_producer_regs();
+    GgRing p;
+    for (int i = j; i < live; i += a.bpr)
+      gg_wg_load<false>(s, p, g, v, me, gg_item<false>(g, i));
+    gg_producer_done();
+    return;
+  }
+  wg_consumer_regs();
+  unsigned long long* sig_me =
+      reinterpret_cast<unsigned long long*>(tdt_peer_ptr(a.sig_tab, me));
+  GgRing p;
+  for (int i = j; i < live; i += a.bpr) {
+    gg_wg_mma<false>(s, p, g, gg_item<false>(g, i), [] {});
+    consumers_release(sig_me + i, a.epoch);
+  }
+  ring_steps(a, me, j, static_cast<int>(threadIdx.x) - 128, 256,
+             [] { consumers_sync(); });
+}
+
+// Blocks resident at once on the current device of the kernel a plan runs
+// (path 1: the wgmma body, bf16 only).
+template <typename T, bool WG>
 cudaError_t resident(int* out) {
   static int cached = -1;
   if (cached < 0) {
-    constexpr int smem = ring_smem<T, MMA, MF>();
-    int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    int dev = 0, coop = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(moe_rs_ring_kernel<T, MMA, MF>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, moe_rs_ring_kernel<T, MMA, MF>, ring_threads<MMA>(), smem);
-    if (err != cudaSuccess) return err;
-    if (!coop) return cudaErrorNotSupported;
-    cached = sms * per_sm;
+      err = WG ? gg_resident(moe_rs_ring_wg_kernel, kPfThreads, kGgSmemBytes,
+                             &cached)
+               : gg_resident(moe_rs_ring_kernel<T>, kGgFmThreads, 0, &cached);
+    if (err != cudaSuccess) {
+      cached = -1;
+      return err;
+    }
+    if (!coop) {
+      cached = -1;
+      return cudaErrorNotSupported;
+    }
   }
   *out = cached;
   return cudaSuccess;
 }
 
-// Resident blocks of the instantiation a plan runs (path 1: tensor cores,
-// bf16 only; m_blk 16, 32 or 64 rows a tile).
-cudaError_t resident_of(int dtype, int path, int m_blk, int* out) {
-  if (dtype == 0 && path == 1) {
-    if (m_blk == 16) return resident<gg_bf16, true, 1>(out);
-    if (m_blk == 32) return resident<gg_bf16, true, 2>(out);
-    return resident<gg_bf16, true, 4>(out);
-  }
-  if (dtype == 0) return resident<gg_bf16, false, 1>(out);
-  return resident<float, false, 1>(out);
-}
-
-template <typename T, bool MMA, int MF>
-cudaError_t launch(const RingArgs<T>& a, cudaStream_t stream) {
-  constexpr int smem = ring_smem<T, MMA, MF>();
-  cudaError_t err = cudaFuncSetAttribute(
-      moe_rs_ring_kernel<T, MMA, MF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  void* params[] = {const_cast<RingArgs<T>*>(&a)};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(moe_rs_ring_kernel<T, MMA, MF>),
-      dim3(a.world * a.bpr), dim3(ring_threads<MMA>()), params, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// Column tiles of H a plan's tile body takes.
-int col_tiles_of(const GgPlan& p, int dtype, int H) {
-  const int bn = (dtype == 0 && p.path == 1) ? kTcBN : kGgFmBN;
-  return (H + bn - 1) / bn;
+cudaError_t resident_of(int dtype, int path, int* out) {
+  if (dtype == 0 && path == 1) return resident<bf16, true>(out);
+  if (dtype == 0) return resident<bf16, false>(out);
+  return resident<float, false>(out);
 }
 
 template <typename T>
-cudaError_t run(const GgPlan& p, RingArgs<T> a, cudaStream_t stream) {
+cudaError_t run(const GgPlan& p, RingArgs<T> a, int E, cudaStream_t stream) {
+  void* params[2] = {&a, nullptr};
+  const void* kernel = reinterpret_cast<const void*>(moe_rs_ring_kernel<T>);
+  int threads = kGgFmThreads, smem = 0;
+  GgViews v = {};
   if constexpr (sizeof(T) == 2) {
     if (p.path == 1) {
-      if (p.m_blk == 16) return launch<T, true, 1>(a, stream);
-      if (p.m_blk == 32) return launch<T, true, 2>(a, stream);
-      return launch<T, true, 4>(a, stream);
+      const cudaError_t err =
+          gg_view(&v.b[0], a.w, E, a.I_loc, a.H, a.H,
+                  static_cast<long long>(a.I) * a.H, a.world,
+                  static_cast<long long>(a.I_loc) * a.H);
+      if (err != cudaSuccess) return err;
+      params[1] = &v;
+      kernel = reinterpret_cast<const void*>(moe_rs_ring_wg_kernel);
+      threads = kPfThreads;
+      smem = kGgSmemBytes;
     }
   }
-  return launch<T, false, 1>(a, stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(a.world * a.bpr),
+                                    dim3(threads), params, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 bool ring_args_ok(int P, int E, int I_loc, int H, int dtype, long long lda,
@@ -335,7 +375,7 @@ int tdt_moe_rs_ring_tile_signals(int P, int E, int I_loc, int H, int dtype,
                                     w_estride))
     return static_cast<int>(cudaErrorInvalidValue);
   const GgPlan p = gg_make_plan(P, E, I_loc, H, dtype, lda, ldb, w_estride);
-  *n = p.max_tiles * col_tiles_of(p, dtype, H);
+  *n = p.max_tiles * gg_col_tiles<false>(p, H);
   return static_cast<int>(cudaSuccess);
 }
 
@@ -350,7 +390,7 @@ int tdt_moe_rs_ring_grid(int world, int P, int E, int I_loc, int H,
     return static_cast<int>(cudaErrorInvalidValue);
   const GgPlan p = gg_make_plan(P, E, I_loc, H, dtype, lda, ldb, w_estride);
   int res = 0;
-  const cudaError_t err = resident_of(dtype, p.path, p.m_blk, &res);
+  const cudaError_t err = resident_of(dtype, p.path, &res);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (res / world < 1)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -413,25 +453,25 @@ int tdt_moe_rs_ring(const void* act, const int* ids, const float* weights,
     args->rows = T / world;
     args->pieces = pieces;
     args->max_tiles = p.max_tiles;
-    args->col_tiles = col_tiles_of(p, dtype, H);
+    args->col_tiles = gg_col_tiles<false>(p, H);
     args->bpr = bpr;
     args->fault = fault;
     args->epoch = epoch;
   };
   if (dtype == 0) {
-    RingArgs<gg_bf16> a = {};
+    RingArgs<bf16> a = {};
     fill(&a);
-    a.act = static_cast<const gg_bf16*>(act);
-    a.w = static_cast<const gg_bf16*>(w_down);
-    a.out = static_cast<gg_bf16*>(out);
-    e = run(p, a, s);
+    a.act = static_cast<const bf16*>(act);
+    a.w = static_cast<const bf16*>(w_down);
+    a.out = static_cast<bf16*>(out);
+    e = run(p, a, E, s);
   } else {
     RingArgs<float> a = {};
     fill(&a);
     a.act = static_cast<const float*>(act);
     a.w = static_cast<const float*>(w_down);
     a.out = static_cast<float*>(out);
-    e = run(p, a, s);
+    e = run(p, a, E, s);
   }
   return static_cast<int>(e);
 }

@@ -1,6 +1,8 @@
 // One output tile of C = A @ B (or of the fused SwiGLU), shared by the
 // world-1 kernels of ag_gemm.cu and the ring kernels of ag_gemm_ring.cu and
 // gemm_rs_ring.cu, so a tile sums in the same order whichever kernel runs it.
+// group_gemm.cuh's grouped body runs the same consumers (`wg_mma`) and
+// helpers over a stage layout of its own (`GgSmem`).
 //
 //  * The tensor-core tile (bf16, K and every width a multiple of 8): a 128 x
 //    128 tile (SwiGLU: 128 x 64 of gate and of up) of a persistent block of
@@ -52,6 +54,7 @@
                      // at run time (tensor_map_encoder), so no libcuda link
 
 #include "gemm_common.cuh"
+#include "shmem.cuh"
 
 namespace {
 
@@ -275,6 +278,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
+// The same for shared memory: what this thread has seen written by
+// generic-proxy stores (cp.async), before its later wgmma reads of it.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // A wgmma shared-memory descriptor in the 128-byte swizzle: start address,
 // leading and stride byte offsets.
 __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
@@ -353,8 +362,15 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
 // order. The two branches never meet again: consumers sync among
 // themselves with `consumers_sync`.
 
-// The stage ring in dynamic shared memory, aligned to 1024 bytes.
+// The stage ring in dynamic shared memory, aligned to 1024 bytes. A stage
+// holds A's 128 x 64 slice (each consumer warpgroup reads its own 64 rows)
+// and B's two 64 x 64 boxes (both read all of them); its `full` mbarrier
+// takes the producer's one arrival. group_gemm.cuh's GgSmem is the other
+// layout wg_mma reads (kSharedA).
 struct WgSmem {
+  static constexpr int kStages = kPfStages;
+  static constexpr int kFullArrivals = 1;
+  static constexpr bool kSharedA = false;
   unsigned char* base;
   __device__ unsigned char* a(int s) const { return base + s * kPfStageBytes; }
   __device__ unsigned char* b(int s) const {
@@ -373,12 +389,14 @@ __device__ __forceinline__ WgSmem wg_smem(unsigned char* raw) {
 }
 
 // Thread 0 initialises the mbarriers: a stage's `full` takes the
-// producer's one arrival (and its bytes), its `empty` one arrival from
-// each of the eight consumer warps. The caller syncs the block afterwards.
-__device__ __forceinline__ void wg_init(const WgSmem& s) {
+// producer's Smem::kFullArrivals arrivals (and its bytes), its `empty` one
+// arrival from each of the eight consumer warps. The caller syncs the
+// block afterwards.
+template <class Smem>
+__device__ __forceinline__ void wg_init(const Smem& s) {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kPfStages; ++i) {
-      mbar_init(s.full(i), 1);
+    for (int i = 0; i < Smem::kStages; ++i) {
+      mbar_init(s.full(i), Smem::kFullArrivals);
       mbar_init(s.empty(i), 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -397,18 +415,39 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
+// The consumer threads' counterparts of tdt_signal_wait_until and of a
+// block's release of a signal (the producer warpgroup never reaches them).
+__device__ __forceinline__ void consumers_wait(const unsigned long long* sig,
+                                               unsigned long long epoch) {
+  if (threadIdx.x == 128) {
+    while (tdt_signal_acquire(sig) != epoch) __nanosleep(64);
+    __threadfence();
+  }
+  consumers_sync();
+}
+__device__ __forceinline__ void consumers_release(unsigned long long* sig,
+                                                  unsigned long long epoch) {
+  consumers_sync();
+  if (threadIdx.x == 128) {
+    __threadfence();
+    tdt_signal_release(sig, epoch);
+  }
+}
+
 // Where a stage ring slot stands in the sequence of K slices; each role
 // keeps its own, and both advance once per slice of every tile.
-struct WgPipe {
+template <int kStages>
+struct WgRing {
   int stage = 0;
   uint32_t phase = 0;
   __device__ void next() {
-    if (++stage == kPfStages) {
+    if (++stage == kStages) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
+using WgPipe = WgRing<kPfStages>;
 
 // A box of a tile's operand: its view and coordinates, K slice 0.
 struct WgBox {
@@ -439,16 +478,25 @@ __device__ __forceinline__ void wg_load(const WgSmem& s, WgPipe& p,
 // `ready()` (every consumer thread calls it; it returns once the epilogue
 // may read what it reads), then the epilogue over rows < `rows` and
 // columns < `cols` (SwiGLU: gate and up, plus the biases when not null,
-// are read at the same column).
-template <bool SWIGLU, class Epi, class Ready>
-__device__ __forceinline__ void wg_mma(const WgSmem& s, WgPipe& p, int nk,
+// are read at the same column). With WgSmem warpgroup wg takes rows 64 wg
+// .. 64 wg + 63 of the tile and all its columns; with a layout whose
+// kSharedA is set (group_gemm.cuh) both take the stage's one 64-row A,
+// which the producer's threads wrote, and warpgroup wg its own two B boxes
+// (2 wg and 2 wg + 1): columns 128 wg .. 128 wg + 127 of the tile (SwiGLU:
+// 64 wg .. 64 wg + 63).
+template <bool SWIGLU, class Smem, class Epi, class Ready>
+__device__ __forceinline__ void wg_mma(const Smem& s,
+                                       WgRing<Smem::kStages>& p, int nk,
                                        int rows, int cols,
                                        const bf16* bias_g,
                                        const bf16* bias_u, const Epi& epi,
                                        Ready&& ready) {
+  constexpr bool kSharedA = Smem::kSharedA;
   const int t = threadIdx.x - 128;           // consumer thread 0..255
-  const int wg = t >> 7;                      // rows 64 wg .. 64 wg + 63
+  const int wg = t >> 7;
   const int lane = t & 31;
+  const uint32_t a_off = kSharedA ? 0 : wg * 64 * kPfBK * 2;
+  const uint32_t b_off = kSharedA ? wg * 2 * kPfBox : 0;
   float acc[64], part[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -457,8 +505,9 @@ __device__ __forceinline__ void wg_mma(const WgSmem& s, WgPipe& p, int nk,
   }
   for (int kc = 0; kc < nk; ++kc) {
     mbar_wait(s.full(p.stage), p.phase);
-    const uint32_t a = smem_addr(s.a(p.stage)) + wg * 64 * kPfBK * 2;
-    const uint32_t b = smem_addr(s.b(p.stage));
+    if constexpr (kSharedA) fence_proxy_async_shared();
+    const uint32_t a = smem_addr(s.a(p.stage)) + a_off;
+    const uint32_t b = smem_addr(s.b(p.stage)) + b_off;
     const int first = kc % kPfFold == 0;
     reg_fence(part);
     wg_fence();
@@ -476,8 +525,8 @@ __device__ __forceinline__ void wg_mma(const WgSmem& s, WgPipe& p, int nk,
       reg_fence(part);
       if (lane == 0) {                  // this fold's stages are free
         mbar_arrive(s.empty(p.stage));
-        if (!first) mbar_arrive(s.empty((p.stage + kPfStages - 1) %
-                                        kPfStages));
+        if (!first) mbar_arrive(s.empty((p.stage + Smem::kStages - 1) %
+                                        Smem::kStages));
       }
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
@@ -492,11 +541,12 @@ __device__ __forceinline__ void wg_mma(const WgSmem& s, WgPipe& p, int nk,
   // multiple of 8, so both columns of a pair are in range together.
   const int g = lane >> 2;
   const int q = lane & 3;
-  const int m_base = wg * 64 + ((t >> 5) & 3) * 16 + g;
+  const int m_base = (kSharedA ? 0 : wg * 64) + ((t >> 5) & 3) * 16 + g;
+  const int n_base = kSharedA ? wg * (SWIGLU ? 64 : 128) : 0;
   constexpr int NJ = SWIGLU ? 8 : 16;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
-    const int n = j * 8 + 2 * q;
+    const int n = n_base + j * 8 + 2 * q;
     if (n >= cols) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {

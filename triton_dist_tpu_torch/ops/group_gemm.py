@@ -66,8 +66,10 @@ from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _EPI_PLAIN, _EPI_SWIGLU = 0, 1
-#: The kernel's paths, by the code of ``tdt_group_gemm_plan``.
-PATHS = ("fma", "mma")
+#: The kernel's paths, by the code of ``tdt_group_gemm_plan``: "wgmma",
+#: the persistent wgmma body of ``csrc/group_gemm.cuh`` (bf16 with K, N and
+#: the strides multiples of 8), else "fma".
+PATHS = ("fma", "wgmma")
 
 #: Launches of the grouped-GEMM kernel, by (path, rows per tile,
 #: "plain" | "swiglu", pairs, K, widths of the products).
@@ -327,11 +329,14 @@ def ag_group_gemm(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor,
 # -- the kernel ------------------------------------------------------------------
 class Plan(NamedTuple):
     """How the kernel runs one call, as ``csrc/group_gemm.cuh`` plans it:
-    ``path`` (one of :data:`PATHS`), ``m_blk`` (pairs per row tile) and
-    ``max_tiles`` (row tiles of the grid, the worst case of live ones)."""
+    ``path`` (one of :data:`PATHS`), ``m_blk`` (pairs per row tile: 64 on
+    "wgmma"), ``max_tiles`` (the worst case of live row tiles) and
+    ``cols`` (columns of a plain item of the "wgmma" body, or of an FMA
+    tile; a SwiGLU item has half as many output columns)."""
     path: str
     m_blk: int
     max_tiles: int
+    cols: int
 
 
 @functools.cache
@@ -343,13 +348,14 @@ def plan(pairs: int, num_experts: int, k: int, n: int, dtype: torch.dtype,
     function of the shape and strides only."""
     lda, ldb, estride = strides or (k, n, k * n)
     lib = _lib()
-    path, m_blk, tiles = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    path, m_blk, tiles, cols = (ctypes.c_int() for _ in range(4))
     _check(lib, lib.tdt_group_gemm_plan(pairs, num_experts, k, n,
                                         _DTYPE_CODES[dtype], lda, ldb,
                                         estride, ctypes.byref(path),
                                         ctypes.byref(m_blk),
-                                        ctypes.byref(tiles)))
-    return Plan(PATHS[path.value], m_blk.value, tiles.value)
+                                        ctypes.byref(tiles),
+                                        ctypes.byref(cols)))
+    return Plan(PATHS[path.value], m_blk.value, tiles.value, cols.value)
 
 
 def schedule_buffer(pairs: int, p: Plan, device) -> torch.Tensor:
@@ -516,7 +522,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
         ll = ctypes.c_longlong
-        lib.tdt_group_gemm_plan.argtypes = [i] * 5 + [ll] * 3 + [ip, ip, ip]
+        lib.tdt_group_gemm_plan.argtypes = [i] * 5 + [ll] * 3 + [ip] * 4
         lib.tdt_group_gemm_plan.restype = i
         lib.tdt_group_gemm.argtypes = ([p, i, p, i, i, p, p, p, p, i, i, i,
                                         i, ll, ll, ll, p, i, p])
