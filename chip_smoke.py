@@ -573,6 +573,31 @@ def one_kernel(nodes: dict, seen) -> bool:
     return nodes == {"kernel": 1} and seen in (None, 1.0)
 
 
+def queued_kernels(torch, fn, what: str, strict: bool) -> dict:
+    """The node types one ``fn()`` call queues (a CUDA graph captured from
+    it, ``tools/queued.py``'s ``queued_work``, after one warm-up call).
+    ``strict``: fail unless that is one kernel and nothing else (the
+    decode products since the cluster body: no split reduce, no memset)."""
+    from triton_dist_tpu_torch.tools.queued import queued_work
+    fn()
+    nodes = dict(queued_work(fn))
+    if strict:
+        check(nodes == {"kernel": 1},
+              f"{what}: a call queues {nodes}, not one kernel")
+    return nodes
+
+
+def decode_plan_text(ag, m: int, widths, k: int, dtype, sms: int) -> str:
+    """The decode plan of (m, k) x widths (``allgather_gemm.stream_plan``,
+    the mirror of the C plans): body, items, K splits (one cluster on the
+    tensor cores), K rows a split, blocks over the SMs, workspace."""
+    p = ag.stream_plan(m, widths, k, dtype, sms)
+    return (f"{'stream_tc' if p.tensor_cores else 'fma'} {p.tiles} tiles x "
+            f"{p.splits} splits of {p.k_per_split} K = "
+            f"{p.tiles * p.splits} blocks on {sms} SMs, workspace "
+            f"{p.workspace} f32")
+
+
 def fmt_ms(ms) -> str:
     """``ms`` to five places, or "not measured" for None."""
     return "not measured" if ms is None else f"{ms:.5f}"
@@ -662,6 +687,7 @@ def rotating(bs: list):
 
 
 def phase_kernel(torch, ops, card: str) -> None:
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
     print("== phase 2: gemm_ar kernel vs gemm_ar_reference", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -691,12 +717,16 @@ def phase_kernel(torch, ops, card: str) -> None:
                 ab = a.to(torch.bfloat16)
                 nl = rotating(bf)
                 lib_ms = queued_ms(torch, lambda: torch.matmul(ab, nl()))
-                path = ("mma" if ops.plan(m, n, k, dtype, sms).tensor_cores
-                        else "fma")
+                tc = ops.plan(m, n, k, dtype, sms).tensor_cores
+                nodes = queued_kernels(
+                    torch, lambda: ops.gemm_ar(a, bs[0]),
+                    f"gemm_ar {kind} M={m} K={k} N={n}", tc)
                 bnd, by = bound_ms(m, k, n, dtype.itemsize, kind)
                 tol = ("1 bf16 ulp" if dtype == torch.bfloat16
                        else f"{F32_ATOL:g} abs")
-                print(f"kernel gemm_ar {kind} M={m} K={k} N={n} ({path}): "
+                print(f"kernel gemm_ar {kind} M={m} K={k} N={n} "
+                      f"({decode_plan_text(ag, m, (n,), k, dtype, sms)}; "
+                      f"a call queues {nodes}): "
                       f"max_abs_err={err:.3g} (tol {tol}) ok "
                       f"kernel_ms={k_ms:.4f} (wall {k_wall:.4f}) "
                       f"library_ms={lib_ms:.4f} "
@@ -878,6 +908,18 @@ def phase_kernels_line(torch, ops, params, cfg, main_launches) -> list:
                           may_wait=True)
         lib = queued_ms(torch, lambda: torch.matmul(a, nl()))
         bnd, by = bound_ms(4, k, n, 2, "bf16")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        nodes, seen, names, alone = kernels_a_call(
+            torch, lambda: ops.gemm_ar(a, nk()), name)
+        check(one_kernel(nodes, seen),
+              f"{name}: a call queues {nodes} ({seen} kernel records a call"
+              f" in the profiler: {names}), not one kernel")
+        from triton_dist_tpu_torch.ops import allgather_gemm as ag
+        print(f"kernel {name} bf16 M=4 K={k} N={n} "
+              f"({decode_plan_text(ag, 4, (n,), k, cfg.dtype, sms)}): a call "
+              f"queues {nodes}, {fmt_ms(alone)} ms the kernel alone; "
+              f"kernel_ms={ms:.5f} library_ms={lib:.5f} bound_ms={bnd:.5f}"
+              f" [{card_line()}]", flush=True)
         out.append({
             "name": name, "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/gemm_ar.cu",
@@ -885,7 +927,8 @@ def phase_kernels_line(torch, ops, params, cfg, main_launches) -> list:
             "launches": main_launches.get((k, n), 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib,
-            "wall_ms": wall, "shape": [4, k, n], "ok": ok})
+            "wall_ms": wall, "alone_ms": alone, "kernels_a_call": nodes,
+            "shape": [4, k, n], "ok": ok})
         check(out[-1]["launches"] > 0, f"{name} never launched on the path")
     return out
 
@@ -1571,6 +1614,11 @@ def phase_ag_kernels(torch, ag, rs, params, cfg, card: str) -> list:
         else:
             bnd, by = gemm_bound_ms(m, k, widths)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rate = ""
+        if plan == "decode":
+            nodes = queued_kernels(torch, lambda: kernel(sets[0]), name, True)
+            rate = (f"; {decode_plan_text(ag, m, widths, k, cfg.dtype, sms)}"
+                    f"; a call queues {nodes}")
         if op == "rs" and m <= rs.DECODE_MAX_M:
             key, counter, path = ("decode", k, widths), "gemm_rs", "gemm_ar.cu"
         else:
@@ -1582,7 +1630,6 @@ def phase_ag_kernels(torch, ag, rs, params, cfg, card: str) -> list:
                        "rs": "gemm_rs"}[op]
             key = (p.path, k, widths[:1] if op == "swiglu" else widths)
             path = f"{p.path}, {p.tiles} tiles x {p.splits} splits"
-        rate = ""
         if plan == "prefill":
             # The persistent grid: one block an SM, at most one a tile.
             rate = prefill_rate(ag, m, k, widths[:1] if op == "swiglu"
@@ -3447,8 +3494,14 @@ def phase_ring_kernels(torch, ag, rs, rd, params, cfg, card: str) -> list:
         w1_ms = queued_ms(torch, c["world1"], n=10)
         exchange = ""
         if key[0] == "stream":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            k_loc, n_loc = ((k, tuple(n // world for n in widths))
+                            if op == "gemm" else (k // world, widths))
+            plan_text = decode_plan_text(ag, m, n_loc, k_loc, dtype, sms)
+            nodes = queued_kernels(torch, kernel, name, True)
             exchange = (f" exchange_ms={ms - w1_ms:.4f} (kernel_ms - "
-                        f"world1_ms: both stream B once)")
+                        f"world1_ms: both stream B once); a rank's shard: "
+                        f"{plan_text}; a call queues {nodes}")
         rate = (ring_rate(ag, rs, op, world, m, k, widths, ms, c["plan"])
                 if key[0] == "mma" else "")
         print(f"  {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "

@@ -23,6 +23,15 @@ the card's name and power limit on every line. Groups:
   ``moe_reduce_rs(impl="fused")`` at both shapes beside their bounds; and
   the world-1 ag_rs prefill (4 x 128 prompts) with the grouped kernels'
   share of its device time.
+* ``decode``: the bf16 decode products (M = 4) of full-depth Qwen3-8B on
+  the decode body (``csrc/stream.cuh``), the 36 layers' weights in turn
+  (B cold in L2, as ``chip_smoke.py``'s phases 6 and 10), by
+  ``chip_smoke.queued_ms``, each beside its bound, one ``torch.matmul`` of
+  the same product and its plan: at world 1 gemm_ar o_proj and down,
+  ag_gemm QKV and gate|up, gemm_rs down; through the W = 4 rings GEMM-AR /
+  GEMM-RS o_proj and down and AG-GEMM QKV and gate|up; then one decode
+  step (batch 4 after a 128-token prefill) of the gemm_ar engine (decode
+  mode "gemm_ar") and of the fused engine (mode "ag_rs").
 * ``sp``: the flash prefill (``csrc/sp_attention.cu``) at Qwen3-8B's
   attention width (32 / 8 heads, D 128, bf16, causal): the 32k prompt at
   world 1 and through the W = 4 ring, and phase 14's B 4 x 4096, full 4096
@@ -43,7 +52,7 @@ change, parent on the card, e.g.::
     python step_times.py change dense tiles
     (cd parent && python ../step_times.py parent dense tiles)
 
-With no group named it runs all five.
+With no group named it runs all six.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import re
 import sys
 import time
 
-GROUPS = ("dense", "tiles", "moe", "sp", "grouped")
+GROUPS = ("dense", "tiles", "moe", "sp", "grouped", "decode")
 #: (what, model options, prefill mode, step mode, exchange kernel name).
 STEPS = (("EP decode step", {"fwd_mode": "xla", "moe_parallel": "ep",
                              "world": 4}, "xla", "xla", "a2a_kernel"),
@@ -61,6 +70,9 @@ STEPS = (("EP decode step", {"fwd_mode": "xla", "moe_parallel": "ep",
           "gather_world"))
 #: The prefill tile kernels by name, before and after the wgmma tile.
 TILE_KERNELS = re.compile(r"tile_(mma|wg)<|ring_(wg_)?kernel")
+#: The decode products' kernels by name, before and after the cluster
+#: body: the tensor-core kernel, its split reduce, the FMA kernel.
+DECODE_KERNELS = re.compile(r"stream_(mma|tc)<|splitk_reduce|gemm_ar_partial")
 #: The world-1 grouped kernels by name, before and after the wgmma body:
 #: the products, the expert schedule and the MoE-reduce's top-k sum.
 GROUPED_KERNELS = re.compile(r"group_(mma|wg|fma|schedule)|topk_reduce_rows")
@@ -160,6 +172,91 @@ def tile_rows(torch, cs, cfg, params, label, card):
             print(f"[{label}] prefill tile {name} M={m} K={k} N={cat.shape[1]}"
                   f" {where}: {ms:.5f} ms ({flops / ms / 1e9:.0f} TFLOP/s), "
                   f"torch.matmul {lib:.5f} ms [{card}]", flush=True)
+
+
+def decode_rows(torch, cs, models, cfg, params, label, card):
+    from triton_dist_tpu_torch.models import KVCacheManager
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    layers = params["layers"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    world, m = 4, 4
+
+    def weights(*keys):
+        return [[lp[a][b] for a, b in keys] for lp in layers]
+    sets = {"o_proj": weights(("attn", "w_o")),
+            "down": weights(("mlp", "w_down")),
+            "qkv": weights(("attn", "w_q"), ("attn", "w_k"), ("attn", "w_v")),
+            "gate|up": weights(("mlp", "w_gate"), ("mlp", "w_up"))}
+    group = create_rank_group(world, device="cuda")
+    ag_ctx = ag.AllGatherGEMMContext(group, ring_dirs=2)
+    rs_ctx = rs.GEMMReduceScatterContext(group, ring_dirs=2)
+    for name, ws in sets.items():
+        k = ws[0][0].shape[0]
+        widths = tuple(w.shape[1] for w in ws[0])
+        a = torch.randn((m, k), generator=gen, device="cuda").to(cfg.dtype)
+        cats = [torch.cat(w, dim=1) for w in ws[:4]]
+        lib = cs.queued_ms(torch, lambda nl=cs.rotating(cats):
+                           torch.matmul(a, nl()))
+        bnd = cs.gemm_bound_ms(m, k, widths)[0]
+        # A checkout older than the cluster body has no plan mirror.
+        plan = (cs.decode_plan_text(ag, m, widths, k, cfg.dtype, sms)
+                if hasattr(ag, "stream_plan") else "the checkout's plan")
+        rows = []
+        if len(widths) == 1:
+            n = widths[0]
+            rows += [("gemm_ar world 1", lambda nx=cs.rotating(ws):
+                      rs.gemm_ar(a, nx()[0])),
+                     ("gemm_rs world 1", lambda nx=cs.rotating(ws):
+                      rs.gemm_rs(a, nx()[0]))]
+            for op, ar in (("GEMM-AR", True), ("GEMM-RS", False)):
+                split = rs.ring_plan(m, k // world, n, 2, world, 2, ar).split
+                rows.append((f"{op} ring W={world}",
+                             lambda nx=cs.rotating(ws), s=split, ar=ar:
+                             rs.launch_ring(a, nx()[0], rs_ctx, s, ar)))
+        else:
+            rows += [("ag_gemm world 1", lambda nx=cs.rotating(ws):
+                      ag.ag_gemm_multi(a, nx())),
+                     (f"AG-GEMM ring W={world}", lambda nx=cs.rotating(ws):
+                      ag.launch_ag_ring("gemm", a, nx(), ag_ctx))]
+        for where, fn in rows:
+            ms = cs.queued_ms(torch, fn)
+            ring = "ring" in where
+            b = (cs.ring_bound_ms({"GEMM-AR": "ar", "GEMM-RS": "rs"}.get(
+                where.split()[0], "gemm"), m, k, widths, world, 2)[0]
+                 if ring else bnd)
+            print(f"[{label}] decode {name} M={m} K={k} "
+                  f"N={'|'.join(map(str, widths))} {where}: {ms:.5f} ms, "
+                  f"bound {b:.5f}, {ms / b:.2f}x bound, torch.matmul "
+                  f"{lib:.5f} ({ms / lib:.2f}x)"
+                  f"{'' if ring else f'; {plan}'} [{card}]", flush=True)
+        del cats
+    del ag_ctx, rs_ctx
+    ids = torch.randint(0, cfg.vocab_size, (4, 128),
+                        generator=torch.Generator().manual_seed(10)).cuda()
+    model = models.DenseLLM(cfg)
+    for what, mode in (("gemm_ar engine", "gemm_ar"),
+                       ("fused engine", "ag_rs")):
+        kv = KVCacheManager(cfg.num_hidden_layers, 4, 256,
+                            cfg.num_key_value_heads, cfg.head_dim,
+                            dtype=cfg.dtype, device="cuda").init()
+        with torch.no_grad():
+            model.forward(params, ids, kv, 0, mode="ag_rs")
+
+        def step():
+            with torch.no_grad():
+                return model.forward(params, ids[:, :1], kv, 128,
+                                     mode=mode)[0]
+        walls = sorted(cs.sync_time(torch, step)[1] for _ in range(7))
+        dev, kernels, part, ge, rec = device_time(torch, cs, step,
+                                                  DECODE_KERNELS)
+        print(f"[{label}] Qwen3-8B {what} decode step (mode {mode}, batch "
+              f"4): wall {walls[3]:.2f} ms (median of 7), device "
+              f"{ge}{dev:.3f} ms, {kernels:.0f} kernels a step ({rec}), "
+              f"decode GEMM kernels {ge}{part:.3f} ms [{card}]", flush=True)
+        del kv
 
 
 def sp_rows(torch, cs, label, card):
@@ -353,13 +450,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(["sp_attention"] if groups == ["sp"] else None)
     print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
-    if "dense" in groups or "tiles" in groups:
+    if {"dense", "tiles", "decode"} & set(groups):
         cfg = models.presets.qwen3_8b()
         params = models.DenseLLM(cfg).init(0)
         if "dense" in groups:
             dense_prefills(torch, cs, models, cfg, params, label, card)
         if "tiles" in groups:
             tile_rows(torch, cs, cfg, params, label, card)
+        if "decode" in groups:
+            decode_rows(torch, cs, models, cfg, params, label, card)
         del params
         torch.cuda.empty_cache()
     if "sp" in groups:

@@ -133,19 +133,145 @@ def cuda_device(monkeypatch):
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
+#: (K, widths) of every decode product of Qwen3-8B and Qwen3-30B-A3B on
+#: the decode body: world 1, and one rank's shard at TP world 4 (the rings
+#: plan a shard with the world-1 plan).
+DECODE_SHAPES = {
+    "8b_qkv": (4096, (4096, 1024, 1024)), "8b_o_proj": (4096, (4096,)),
+    "8b_gate_up": (4096, (12288, 12288)), "8b_down": (12288, (4096,)),
+    "30b_qkv": (2048, (4096, 512, 512)), "30b_o_proj": (4096, (2048,)),
+    "8b_qkv_w4": (4096, (1024, 256, 256)), "8b_o_proj_w4": (1024, (4096,)),
+    "8b_gate_up_w4": (4096, (3072, 3072)), "8b_down_w4": (3072, (4096,)),
+    "30b_qkv_w4": (2048, (1024, 128, 128)), "30b_o_proj_w4": (1024, (2048,)),
+}
+
+
+def _assert_whole_waves(p, k, sms=132):
+    """The tensor-core decode plan's rules: at most 8 splits (a portable
+    cluster), each a whole number of 64-deep stages and none empty, no
+    workspace, and the busiest SM streaming at most 1.25x the mean share
+    of B (items dealt over ``sms`` SMs in whole waves)."""
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    assert p.tensor_cores and p.cols == 64 and p.workspace == 0
+    assert 1 <= p.splits <= ag.STREAM_MAX_SPLITS
+    assert p.k_per_split % 64 == 0
+    assert (p.splits - 1) * p.k_per_split < k <= p.splits * p.k_per_split
+    busiest = -(-p.tiles * p.splits // sms) * p.k_per_split
+    assert busiest <= 1.25 * p.tiles * k / sms
+
+
+@pytest.mark.parametrize("name", list(DECODE_SHAPES))
+def test_decode_plan_rules_over_every_decode_shape(name):
+    """The Python mirror of the decode plan (``stream_plan``) over M = 1..64
+    at each Qwen3 decode shape: the rules above, one 64-row tile, and the
+    same plan at every M (a function of dtype, shape and SM count)."""
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    k, widths = DECODE_SHAPES[name]
+    first = ag.stream_plan(1, widths, k, torch.bfloat16, 132)
+    for m in range(1, 65):
+        p = ag.stream_plan(m, widths, k, torch.bfloat16, 132)
+        assert p.tiles == sum(-(-n // 64) for n in widths)
+        _assert_whole_waves(p, k)
+        assert p == first
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (4, 12288, 4096),
                                    (64, 4096, 4096), (3, 100, 72)])
-def test_split_k_fills_the_card_within_two_blocks_per_sm(cuda_device, dtype,
-                                                         m, k, n):
-    p = port.plan(m, n, k, dtype, num_sms=132)
+def test_decode_plan_fills_the_card_in_whole_waves(dtype, m, k, n):
+    """The tensor-core body's plan follows the rules above; the FMA body
+    (f32, odd shapes) keeps its split-K rule: powers of two within about
+    two blocks per SM, at least 256 K rows a split, and the f32 workspace
+    its split reduce needs."""
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    p = ag.stream_plan(m, (n,), k, dtype, 132)
+    assert p.tensor_cores == (dtype == torch.bfloat16 and k % 8 == 0)
+    if p.tensor_cores:
+        _assert_whole_waves(p, k)
+        # Qwen3-8B's decode o_proj and down fill at least 0.95 of the SMs.
+        assert p.tiles * p.splits >= 0.95 * 132
+        return
     assert p.splits & (p.splits - 1) == 0      # a power of two
     assert p.tiles * p.splits <= max(p.tiles, 2 * 132)
     assert p.splits == 1 or k // p.splits >= 256
-    # Decode shapes at N = 4096 fill at least the 132 SMs once.
-    if n == 4096 and (p.tensor_cores or m <= 8):
+    assert p.workspace == (p.splits * m * n if p.splits > 1 else 0)
+    if n == 4096 and m <= 8:                   # decode shapes fill the card
         assert p.tiles * p.splits >= 132
+
+
+@pytest.mark.cuda
+def test_decode_plan_mirror_is_the_c_plan(cuda_device):
+    """``stream_plan`` against csrc/gemm_common.cuh's ``stream_plan``
+    (``tdt_gemm_ar_plan``, one product) and csrc/ag_plan.cuh's decode plan
+    (``tdt_ag_gemm_plan``, every product of a shape) on this card."""
+    import ctypes
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    out = [ctypes.c_int() for _ in range(4)]
+    shapes = list(DECODE_SHAPES.values()) + [(100, (72,)), (72, (24, 48)),
+                                             (4104, (136, 264, 40))]
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in (1, 2, 3, 4, 8, 17, 33, 63, 64, 65, 100):
+            for k, widths in shapes:
+                for n in widths:
+                    mirror = ag.stream_plan(m, (n,), k, dtype, sms)
+                    p = port.plan(m, n, k, dtype, sms)
+                    assert (p.tensor_cores, p.tiles, p.splits, p.k_per_split,
+                            p.workspace) == (mirror.tensor_cores,
+                                             mirror.tiles, mirror.splits,
+                                             mirror.k_per_split,
+                                             mirror.workspace)
+                if ag.plan("gemm", m, widths, k, dtype, sms).path != "decode":
+                    continue
+                mirror = ag.stream_plan(m, widths, k, dtype, sms)
+                w = list(widths) + [0] * (3 - len(widths))
+                assert ag._lib().tdt_ag_gemm_plan(
+                    0, m, len(widths), *w, k, sms, 0,
+                    *(ctypes.byref(o) for o in out)) == 0
+                assert [o.value for o in out] == [
+                    1, mirror.tiles, mirror.splits, mirror.k_per_split]
+
+
+#: Token counts of the decode cases that also count what a call queues.
+DECODE_MS = [1, 2, 3, 4, 8, 17, 33, 63, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", DECODE_MS)
+@pytest.mark.parametrize("op,k,widths", [
+    ("gemm_ar", 4096, (4096,)), ("gemm_ar", 12288, (4096,)),
+    ("ag_gemm", 4096, (4096, 1024, 1024)), ("ag_gemm", 4096, (12288, 12288))],
+    ids=["o_proj", "down", "qkv", "gate_up"])
+def test_decode_call_is_one_kernel_on_card(cuda_device, m, op, k, widths):
+    """Qwen3-8B's decode products on the tensor-core decode body: within
+    the tolerance of ``test_gemm_ar_kernel_matches_plain_on_card`` /
+    ``test_ag_gemm_kernel_matches_plain_on_card``, a repeat bit-identical,
+    and one call one kernel and nothing else (no split reduce, no
+    workspace memset), counted in a captured CUDA graph."""
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    from triton_dist_tpu_torch.tools.queued import queued_work
+    a, bs = _ag_inputs(m, k, widths, torch.bfloat16, cuda_device,
+                       seed=m + k)
+    if op == "gemm_ar":
+        def call():
+            return [port.gemm_ar(a, bs[0])]
+        want = [port.gemm_ar_reference(a, bs[0])]
+    else:
+        def call():
+            return ag.ag_gemm_multi(a, bs)
+        want = ag.ag_gemm_multi_reference(a, bs)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for x, ref in zip(got, want):
+        if op == "gemm_ar":
+            exact = (a.double() @ bs[0].double()).cpu().numpy()
+            for r in (ref.float().cpu().numpy(), exact):
+                assert_within_bf16_ulp(x.float().cpu().numpy(), r,
+                                       atol=F32_SUM_ATOL)
+        else:
+            _assert_gemm_close(x, ref, k)
+    assert dict(queued_work(call)) == {"kernel": 1}
 
 
 @pytest.mark.cuda
@@ -537,7 +663,7 @@ def test_ag_gemm_plans(cuda_device):
     assert ag.plan("swiglu", 512, (12288,), 4096, bf, 132) == ag.Plan(
         "prefill", 4 * 192, 1)
     p = ag.plan("gemm", 4, qkv, 4096, bf, 132)        # decode: split-K
-    assert p.path == "decode" and p.tiles == 96 and p.splits == 2
+    assert p.path == "decode" and p.tiles == 96 and p.splits == 4
     assert ag.plan("gemm", 64, (12288, 12288), 4096, bf, 132).path == "decode"
     assert ag.plan("gemm", 65, (12288, 12288), 4096, bf, 132).path == "prefill"
     assert ag.plan("gemm", 512, qkv, 4096, f32, 132).path == "fma"

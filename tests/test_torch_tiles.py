@@ -109,3 +109,46 @@ def test_grouped_body_is_wgmma_fed_by_tma_under_every_launcher():
         assert "gg_wg_load<" in text and "gg_wg_mma<" in text
         assert "__grid_constant__ GgViews" in text and "kPfThreads" in text
         assert "cuTensorMapEncodeTiled" not in text   # views: tiles.cuh's
+
+
+def test_decode_body_is_wgmma_fed_by_tma_under_every_launcher():
+    """``csrc/stream.cuh``'s decode body: wgmma with the weight tile as the
+    64-row side (the A operand's transpose bit) and the tokens as N = 8 to
+    64, B and A brought by TMA under mbarriers, the K splits of a column
+    tile one cluster summed through distributed shared memory; the
+    ``mma.sync`` body and its per-call workspace are gone. gemm_ar and
+    ag_gemm launch it, both rings run its item on TMA views passed as a
+    ``__grid_constant__`` parameter, and the wrappers allocate no
+    workspace for it."""
+    import inspect
+    import re
+
+    from triton_dist_tpu_torch.ops import _build
+    from triton_dist_tpu_torch.ops import allgather_gemm as ag
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+    body = re.sub(r"//[^\n]*", "",
+                  (_build.CSRC_DIR / "stream.cuh").read_text())
+    assert '#include "tiles.cuh"' in body
+    for needed in ("wgmma.mma_async", "m64n8k16", "m64n64k16",
+                   "p, 1, 1, 1, 0", "tma_load(", "mbar_expect(",
+                   "mbar_wait(", "cudaLaunchKernelEx",
+                   "cudaLaunchAttributeClusterDimension",
+                   "mapa.shared::cluster", "ld.shared::cluster",
+                   "barrier.cluster.arrive.release", "stream_item",
+                   "griddepcontrol.wait",
+                   "cudaLaunchAttributeProgrammaticStreamSerialization"):
+        assert needed in body
+    for gone in ("mma.sync", "ldmatrix", "cp.async.cg", "atomicAdd"):
+        assert gone not in body
+    common = (_build.CSRC_DIR / "gemm_common.cuh").read_text()
+    for gone in ("stream_mma_block", "stream_mma<", "kTcStages",
+                 "stream_smem_bytes"):
+        assert gone not in common
+    for name in ("gemm_ar", "ag_gemm"):
+        assert "run_stream(" in _build.SOURCES[name].read_text()
+    for name in ("ag_gemm_ring", "gemm_rs_ring"):
+        text = _build.SOURCES[name].read_text()
+        assert "stream_item<" in text and "__grid_constant__ TileViews" in text
+    assert "torch.empty" not in inspect.getsource(ag.launch_gemm).split(
+        "outs = ")[1].split("\n", 1)[1]
+    assert "p.workspace" in inspect.getsource(rs._launch_gemm_ar)

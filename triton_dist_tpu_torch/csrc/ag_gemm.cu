@@ -40,9 +40,11 @@
 //    core's sum is added to an f32 register sum, so long K sums stay within
 //    one bf16 ulp of the f32 reference.
 //  * Decode plan, bf16 aligned as above and M <= 64 (AG-GEMM only):
-//    gemm_common.cuh's `stream_mma`, the B-streaming kernel of gemm_ar, run
-//    over up to three products at once, split-K to about two blocks per SM
-//    and a fixed-order split reduce. B is read from HBM once.
+//    stream.cuh's `stream_tc`, gemm_ar's tensor-core kernel, over up to
+//    three products at once: TMA stages of B into a deep ring, wgmma with
+//    the weight tile as the 64-row side, the K splits of a column tile one
+//    cluster summed in split order through distributed shared memory. One
+//    launch, no workspace; B is read from HBM once.
 //  * f32, and bf16 at other shapes: `tile_fma`, a 64 x 64 tile of f32 FMAs,
 //    4 x 4 outputs per thread, K in slices of 16 through shared memory, every
 //    edge masked. Only the f32 test configurations and odd shapes use it.
@@ -58,6 +60,7 @@
 // nothing and returns cudaGetLastError().
 
 #include "ag_plan.cuh"
+#include "stream.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -175,8 +178,8 @@ void launch_tile_fma(const T* a, const Segs<T>& segs, const T* bu,
 
 template <typename T>
 cudaError_t run_gemm(const Plan& p, const void* a, const void* const* b,
-                     void* const* c, const int* n, int count, void* ws, int M,
-                     int K, int sms, cudaStream_t s) {
+                     void* const* c, const int* n, int count, int M, int K,
+                     int sms, cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* bs[kMaxSegs] = {};
   T* cs[kMaxSegs] = {};
@@ -186,9 +189,8 @@ cudaError_t run_gemm(const Plan& p, const void* a, const void* const* b,
   }
   const Segs<T> segs = make_segs<T>(count, bs, cs, n, tile_cols(p.path, 0));
   if constexpr (sizeof(T) == 2) {
-    if (p.path == 1)
-      return run_stream(A, segs, static_cast<float*>(ws), M, K, p.splits, s);
-    if (p.path == 2)
+    if (p.path == kPlanDecode) return run_stream(A, segs, M, K, p.splits, s);
+    if (p.path == kPlanPrefill)
       return launch_tile_wg<false>(A, segs, nullptr, nullptr, nullptr, M, K,
                                    sms, s);
   }
@@ -210,7 +212,7 @@ cudaError_t run_swiglu(const Plan& p, const void* a, const void* wg,
   const T* bias_g = static_cast<const T*>(bg);
   const T* bias_u = static_cast<const T*>(bu);
   if constexpr (sizeof(T) == 2) {
-    if (p.path == 2)
+    if (p.path == kPlanPrefill)
       return launch_tile_wg<true>(A, segs, u, bias_g, bias_u, M, K, sms, s);
   }
   launch_tile_fma<T, true>(A, segs, u, bias_g, bias_u, M, K, s);
@@ -224,11 +226,13 @@ extern "C" {
 // The launch plan of `op` (0: C_i = A @ B_i for n_b = 1..3 products of
 // widths n0, n1, n2; 1: the fused SwiGLU, n_b = 1 and n0 = its width) with A
 // (M, K) on a card with `sms` SMs. dtype: 0 = bfloat16, 1 = float32. Fills
-// *path (0: tile_fma, 1: stream_mma, 2: tile_wg), *tiles (output tiles)
-// and *splits (K splits; with more than one a launch needs a workspace of
-// splits * M * (n0 + n1 + n2) floats). Returns a cudaError_t.
+// *path (0: tile_fma, 1: stream_tc, 2: tile_wg), *tiles (output tiles),
+// *splits (K splits, one cluster of stream_tc; 1 elsewhere) and
+// *k_per_split (K rows of a split). No plan needs a workspace. Returns a
+// cudaError_t.
 int tdt_ag_gemm_plan(int op, int M, int n_b, int n0, int n1, int n2, int K,
-                     int sms, int dtype, int* path, int* tiles, int* splits) {
+                     int sms, int dtype, int* path, int* tiles, int* splits,
+                     int* k_per_split) {
   const int n[kMaxSegs] = {n0, n1, n2};
   if (!plan_args_ok(op, M, n_b, n, K, sms, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -236,17 +240,16 @@ int tdt_ag_gemm_plan(int op, int M, int n_b, int n0, int n1, int n2, int K,
   *path = p.path;
   *tiles = p.tiles;
   *splits = p.splits;
+  *k_per_split = p.k_per_split;
   return static_cast<int>(cudaSuccess);
 }
 
 // C_i = A @ B_i (i < n_b) as tdt_ag_gemm_plan(0, ...) plans it; B_i is
-// (K, n_i) and C_i (M, n_i), row-major. ws holds the workspace the plan asks
-// for (may be null with one split). Every operand must be 16-byte aligned.
-// Returns a cudaError_t.
+// (K, n_i) and C_i (M, n_i), row-major. Every operand must be 16-byte
+// aligned. Returns a cudaError_t.
 int tdt_ag_gemm(const void* a, int n_b, const void* b0, const void* b1,
                 const void* b2, void* c0, void* c1, void* c2, int n0, int n1,
-                int n2, void* ws, int M, int K, int sms, int dtype,
-                void* stream) {
+                int n2, int M, int K, int sms, int dtype, void* stream) {
   const int n[kMaxSegs] = {n0, n1, n2};
   const void* b[kMaxSegs] = {b0, b1, b2};
   void* c[kMaxSegs] = {c0, c1, c2};
@@ -256,12 +259,10 @@ int tdt_ag_gemm(const void* a, int n_b, const void* b0, const void* b1,
     if (!aligned16(b[i]) || c[i] == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(kOpGemm, M, n_b, n, K, sms, dtype);
-  if (p.splits > 65535 || (p.splits > 1 && ws == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? run_gemm<bf16>(p, a, b, c, n, n_b, ws, M, K, sms, s)
-                 : run_gemm<float>(p, a, b, c, n, n_b, ws, M, K, sms, s);
+      dtype == 0 ? run_gemm<bf16>(p, a, b, c, n, n_b, M, K, sms, s)
+                 : run_gemm<float>(p, a, b, c, n, n_b, M, K, sms, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

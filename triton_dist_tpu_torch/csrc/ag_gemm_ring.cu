@@ -55,22 +55,26 @@
 //   tile with one live row. This body gathers all W chunks first, then
 //   streams each rank's shard once:
 //   - phase 2, the products: items (column tile over all the rank's
-//     products, K split), each over all M rows, run gemm_common.cuh's
-//     `stream_mma_block` (the world-1 kernel's decode body) with the split
-//     count of the world-1 plan of the rank's shard on this card
-//     (ag_plan.cuh's make_plan, which also decides the body); each
-//     rank deals them from its own block offset, so the blocks that take a
-//     second item differ by rank. An item's m16 fragment holds every row,
-//     so it waits for all W chunks; it issues its first pipeline stages'
-//     copies of B before that wait and its A copies after (the `kBFirst`
-//     prologue; the B stream does not depend on the ring). With one split
-//     it stores C
-//     rounded; otherwise it writes its f32 partial into the rank's
-//     products workspace and releases its own signal.
+//     products, K split), each over all M rows, run stream.cuh's
+//     `stream_item` (the world-1 kernel's decode item: B's boxes and the
+//     rows of A by TMA into a deep stage ring, wgmma with the weight tile
+//     as the 64-row side) with the split count of the world-1 plan of the
+//     rank's shard on this card (ag_plan.cuh's make_plan, which also
+//     decides the body); each rank deals them from its own block offset,
+//     so the blocks that take a second item differ by rank. A reads
+//     through one (K, M, rank) view of every rank's workspace and an item
+//     holds every row, so it waits for all W chunks; its thread 0 issues
+//     the first stages' boxes of B before that wait and A's after it,
+//     behind a fence.proxy.async (the `kBFirst` prologue; the B stream
+//     does not depend on the ring). With one split it stores C rounded;
+//     otherwise it writes its f32 partial into the rank's products
+//     workspace and releases its own signal (the ring is a cooperative
+//     launch, not clusters, so the split sum stays its own).
 //   - phase 3, the split reduce (more than one split): item (column tile)
-//     waits for its splits, sums them in split order and rounds once into
-//     C's column shard, as splitk_reduce does, so each rank's columns are
-//     bit-equal to the world-1 kernel on (gathered A, its column shard).
+//     waits for its splits, sums them in split order from 0.f and rounds
+//     once into C's column shard, the order of the world-1 kernel's
+//     cluster sum, so each rank's columns are bit-equal to the world-1
+//     kernel on (gathered A, its column shard).
 // * Tile (every other call: prefill, f32, odd shapes and the SwiGLU):
 //   phase 2 deals items (column tile, chunk in ring_chunk_schedule order,
 //   row tile), so each B tile streams from HBM about once for all W chunks
@@ -102,6 +106,7 @@
 
 #include "ag_plan.cuh"
 #include "shmem.cuh"
+#include "stream.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -329,12 +334,15 @@ ag_ring_wg_kernel(AgArgs<bf16> a, const __grid_constant__ TileViews views) {
   }
 }
 
-// The decode body (M = W * rows <= kTcBM, bf16): MF m16 fragments of
-// stream_mma_block, B's first stages issued before the chunk waits.
-template <int MF>
+// The decode body (M = W * rows <= kTcBM, bf16): stream.cuh's item over
+// MT token rows, B's first stages issued before the chunk waits. views.a:
+// every rank's workspace as (K, M, rank); views.b[i]: the global weights.
+template <int MT>
 __global__ void __launch_bounds__(kTcThreads)
-ag_stream_ring_kernel(AgArgs<bf16> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+ag_stream_ring_kernel(AgArgs<bf16> a,
+                      const __grid_constant__ TileViews views) {
+  extern __shared__ unsigned char smem_raw[];
+  const StreamSmem<MT> sm = stream_smem<MT>(smem_raw);
   const int world = a.world;
   const int me = tdt_rank(a.bpr);
   const int j = static_cast<int>(blockIdx.x) % a.bpr;
@@ -349,7 +357,6 @@ ag_stream_ring_kernel(AgArgs<bf16> a) {
   float* prods = direct ? nullptr
                         : reinterpret_cast<float*>(tdt_peer_ptr(a.prod_tab,
                                                                 me));
-  const bf16* A = reinterpret_cast<const bf16*>(tdt_peer_ptr(a.ws_tab, me));
   // My column shard of every product.
   Segs<bf16> segs = a.segs;
 #pragma unroll
@@ -358,6 +365,7 @@ ag_stream_ring_kernel(AgArgs<bf16> a) {
     segs.b[i] += col;
     segs.c[i] += col;
   }
+  const int ncat = seg_width(segs);
   auto rows_ready = [&] {
     tdt_signal_wait_all(sig_me, world * a.pieces, a.epoch);
   };
@@ -368,12 +376,30 @@ ag_stream_ring_kernel(AgArgs<bf16> a) {
 
   // Phase 2: item (column tile, split) over all M rows; item i releases
   // product signal i.
+  int seq = 0;
   for (int i = first; i < tiles * a.splits; i += a.bpr) {
     const int t = i / a.splits;
     const int z = i % a.splits;
     __syncthreads();                       // the last item's smem is free
-    stream_mma_block<MF, true>(A, a.K, segs, prods, M, a.K, a.k_per_split,
-                               direct, t, 0, z, smem_raw, rows_ready);
+    const int seg = seg_of_tile(segs, t);
+    const int n_loc = seg_field(segs.n, seg);
+    const int n0 = (t - seg_field(segs.tile0, seg)) * kTcBN;
+    const int k0 = z * a.k_per_split;
+    float acc[MT / 2];
+    stream_item<MT, true>(sm, seq, {&views.a, k0, 0, me, 0},
+                          {seg_view(views, seg), me * n_loc + n0, k0, 0, 0},
+                          stream_stages(a.K, k0, a.k_per_split), acc,
+                          rows_ready);
+    const long long ld = seg_field(segs.ld, seg);
+    bf16* C = seg_field(segs.c, seg);
+    const int col0 = seg_field(segs.col0, seg);
+    stream_frag<MT>(acc, [&](int n, int m, float v) {
+      if (m >= M || n0 + n >= n_loc) return;
+      if (direct)
+        C[m * ld + n0 + n] = from_f32<bf16>(v);
+      else
+        prods[(static_cast<long long>(z) * M + m) * ncat + col0 + n0 + n] = v;
+    });
     if (!direct) {
       __syncthreads();
       if (threadIdx.x == 0) {
@@ -385,8 +411,7 @@ ag_stream_ring_kernel(AgArgs<bf16> a) {
   if (direct) return;
 
   // Phase 3: item (column tile): its splits summed in split order from
-  // 0.f and rounded once (splitk_reduce's order).
-  const int ncat = seg_width(segs);
+  // 0.f and rounded once (the world-1 kernel's cluster sum's order).
   const long long mn = static_cast<long long>(M) * ncat;
   for (int t = first; t < tiles; t += a.bpr) {
     tdt_signal_wait_all(prod_sig + t * a.splits, a.splits, a.epoch);
@@ -433,15 +458,15 @@ struct TileKernel {
   }
 };
 
-template <int MF>
+template <int MT>
 struct StreamKernel {
   using T = bf16;
   static constexpr int threads = kTcThreads;
-  static constexpr int smem = stream_smem_bytes<MF>();
+  static constexpr int smem = StreamCfg<MT>::kSmem;
   static constexpr int bn = kTcBN;
-  static constexpr bool views = false;
+  static constexpr bool views = true;
   static const void* fn() {
-    return reinterpret_cast<const void*>(ag_stream_ring_kernel<MF>);
+    return reinterpret_cast<const void*>(ag_stream_ring_kernel<MT>);
   }
 };
 
@@ -493,10 +518,11 @@ template <typename F>
 cudaError_t with_kernel(int op, int dtype, int path, int M, F&& f) {
   const bool sw = op == kOpSwiglu;
   if (path == kPathStream) {
-    switch (stream_frags(M)) {
-      case 1: return f(StreamKernel<1>{});
-      case 2: return f(StreamKernel<2>{});
-      default: return f(StreamKernel<4>{});
+    switch (stream_tokens(M)) {
+      case 8: return f(StreamKernel<8>{});
+      case 16: return f(StreamKernel<16>{});
+      case 32: return f(StreamKernel<32>{});
+      default: return f(StreamKernel<64>{});
     }
   }
   if (dtype == 0 && path == kPathMma)
@@ -580,10 +606,11 @@ int tdt_ag_ring_sizes(int op, int dtype, int path, int world, int rows,
 // biases or null). ws_tab / sig_tab: device tables of each rank's (M, K)
 // workspace and its signals ((world, pieces), then tdt_ag_ring_sizes'
 // *prods); ws_base / ws_step: rank 0's workspace and the elements from one
-// rank's to the next (the tensor-core tile reads them through a TMA view;
-// ws_step a multiple of 8); prod_tab (decode body with *ws > 0) each rank's
-// f32 products workspace. Chunks move in `pieces` pieces of piece_bytes (the last may be
-// shorter). `sms`: the card's SMs, as tdt_ag_ring_sizes was given.
+// rank's to the next (the tensor-core tile and the decode body read them
+// through a TMA view; ws_step a multiple of 8); prod_tab (decode body with
+// *ws > 0) each rank's f32 products workspace. Chunks move in `pieces`
+// pieces of piece_bytes (the last may be shorter). `sms`: the card's SMs,
+// as tdt_ag_ring_sizes was given.
 // `epoch` is greater than every earlier call's on these signals.
 // Returns a cudaError_t.
 int tdt_ag_ring(int op, int dtype, int path, const void* x,
@@ -606,12 +633,12 @@ int tdt_ag_ring(int op, int dtype, int path, const void* x,
             (dirs == 1 || dirs == 2) && epoch != 0 &&
             (op != kOpSwiglu ||
              (bu != nullptr && (bg == nullptr) == (bias_u == nullptr))) &&
-            (path != kPathMma ||
+            (path == kPathFma ||
              (aligned16(ws_base) && aligned16(bu) && ws_step % 8 == 0 &&
               ws_step >= static_cast<long long>(world) * rows * K));
   for (int i = 0; ok && i < n_b; ++i)
     ok = b[i] != nullptr && c[i] != nullptr &&
-         (path != kPathMma || aligned16(b[i]));
+         (path == kPathFma || aligned16(b[i]));
   // The decode body's K splits: the world-1 decode plan's of a rank's shard.
   const int splits =
       ok && path == kPathStream
@@ -666,11 +693,21 @@ int tdt_ag_ring(int op, int dtype, int path, const void* x,
           // Every rank's workspace as one (K, rows, chunk, rank) view; the
           // global weights.
           TileViews v = {};
-          cudaError_t err = make_view(
-              &v.a, ws_base, {K, rows, world, world},
-              {K, static_cast<long long>(rows) * K, ws_step}, kPfBM);
+          cudaError_t err =
+              path == kPathStream
+                  ? make_box_view<4>(&v.a, ws_base, {K, world * rows, world, 1},
+                                     {K, ws_step, ws_step * world},
+                                     {64, stream_tokens(world * rows), 1, 1},
+                                     kStreamL2)
+                  : make_view(&v.a, ws_base, {K, rows, world, world},
+                              {K, static_cast<long long>(rows) * K, ws_step},
+                              kPfBM);
+          const CUtensorMapL2promotion promo =
+              path == kPathStream ? kStreamL2
+                                  : CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
           for (int i = 0; err == cudaSuccess && i < n_b; ++i)
-            err = b_view(&v.b[i], b[i], K, a.segs.ld[i], a.segs.ld[i]);
+            err = b_view(&v.b[i], b[i], K, a.segs.ld[i], a.segs.ld[i],
+                         promo);
           if (err == cudaSuccess && op == kOpSwiglu)
             err = b_view(&v.bu, bu, K, a.segs.ld[0], a.segs.ld[0]);
           if (err != cudaSuccess) return err;

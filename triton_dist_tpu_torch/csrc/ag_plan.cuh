@@ -6,7 +6,7 @@
 
 #pragma once
 
-#include "tiles.cuh"
+#include "stream.cuh"
 
 namespace {
 
@@ -15,16 +15,17 @@ constexpr int kOpSwiglu = 1;
 
 // Paths of a plan.
 constexpr int kPlanFma = 0;       // tile_fma: f32 and odd shapes
-constexpr int kPlanDecode = 1;    // stream_mma: bf16 aligned, M <= kTcBM
+constexpr int kPlanDecode = 1;    // stream_tc: bf16 aligned, M <= kTcBM
 constexpr int kPlanPrefill = 2;   // tile_wg: bf16 aligned, larger M / SwiGLU
 
 // How one call is launched. The path depends on the op, the dtype and the
 // shape only, never on where the operands lie, so equal inputs give equal
 // bits.
 struct Plan {
-  int path;    // kPlanFma, kPlanDecode or kPlanPrefill
-  int tiles;   // output tiles (blocks of one split)
-  int splits;  // K splits (stream_mma only)
+  int path;         // kPlanFma, kPlanDecode or kPlanPrefill
+  int tiles;        // output tiles (blocks of one split)
+  int splits;       // K splits (decode only: one cluster of stream_tc)
+  int k_per_split;  // K rows of a split
 };
 
 // Column tile width and row tile height of a path.
@@ -63,7 +64,8 @@ inline Plan make_plan(int op, int M, int count, const int* n, int K, int sms,
   int col_tiles = 0;
   for (int i = 0; i < count; ++i) col_tiles += (n[i] + bn - 1) / bn;
   p.tiles = col_tiles * ((M + tile_rows(p.path) - 1) / tile_rows(p.path));
-  p.splits = p.path == kPlanDecode ? splitk_count(p.tiles, K, sms) : 1;
+  p.splits = p.path == kPlanDecode ? stream_splits(p.tiles, K, sms) : 1;
+  p.k_per_split = stream_k_per_split(K, p.splits, p.path == kPlanDecode);
   return p;
 }
 

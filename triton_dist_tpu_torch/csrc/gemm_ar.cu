@@ -23,41 +23,39 @@
 // What the design does about it. Two kernels, picked by dtype and shape
 // (make_plan, exported as tdt_gemm_ar_plan):
 //  * bf16 with N and K multiples of 8 (every Qwen3 shape) takes the
-//    tensor-core kernel `stream_mma`: a block holds up to 64 rows of A and a
-//    64-column tile of B, and a 4-stage cp.async pipeline streams B through
-//    shared memory, 16 bytes per copy, three 64-row chunks in flight while
-//    mma.sync multiplies the fourth. B is read from HBM once for all rows.
-//    Each 64-term stage accumulates in the tensor core and is then added to
-//    an f32 register sum, so long K sums stay within one bf16 ulp of the
-//    f32 reference.
+//    tensor-core kernel `stream_tc` (stream.cuh): a warpgroup streams one
+//    64-column tile of B through a deep ring of TMA stages (54-108 KB in
+//    flight a block, two blocks an SM) and multiplies each stage on wgmma
+//    with the weight tile as the 64-row side and the M <= 64 tokens as the
+//    narrow one. B is read from HBM once for all rows. The K splits of a
+//    column tile are one cluster; its rank 0 sums their f32 partials
+//    through distributed shared memory in split order and rounds once, so
+//    a call is one launch with no workspace. The split count
+//    (stream_splits) fills the card in whole waves: Qwen3-8B's o_proj and
+//    down take 2 splits (128 blocks on 132 SMs).
 //  * f32, and bf16 at other shapes, take the FMA kernel `gemm_ar_partial`
 //    (body `fma_stream_block`): eight neighbouring threads read one 16-byte
 //    row segment of a 64-column tile of B, four rows in flight per thread,
 //    and multiply it into all the rows of a small M tile (BM = 1, 2, 4 or
-//    8) held in registers.
-//  * One block per 64-column tile would fill only N / 64 = 64 of the 132 SMs
-//    at N = 4096, so both kernels split K across blocks too (grid.z), about
-//    two blocks per SM. Each split writes f32 partials to a workspace that
-//    the wrapper allocates at the size the plan asks for, and
-//    `splitk_reduce` sums the splits in a fixed order (0, 1, ...). Within a
-//    split every sum has a fixed order too. There are no atomics, and the
-//    path depends on dtype and shape only, so the result is bit-identical
-//    from run to run.
-//  * No wgmma / TMA / persistent blocks yet: at these shapes the tensor cores
-//    are not what bounds the kernel. Prefill-sized products of mode "ag_rs"
-//    go to ag_gemm.cu's tiled kernel instead.
+//    8) held in registers. It splits K too (splitk_count, about two blocks
+//    per SM); the splits' f32 partials go to a workspace that the wrapper
+//    allocates at the size the plan asks for, and `splitk_reduce` sums
+//    them in a fixed order (0, 1, ...).
+//  * Within a split every sum has a fixed order too. There are no atomics,
+//    and the path depends on dtype and shape only, so the result is
+//    bit-identical from run to run.
 //
-// Both bodies, the plan (stream_plan), the split count and the split
-// reduce live in gemm_common.cuh, shared with ag_gemm.cu (whose decode plan
-// runs the same tensor-core kernel over up to three products) and
-// gemm_rs_ring.cu (whose decode body runs both bodies on each rank's
-// shard, so its partials are this kernel's bits).
+// The plan (stream_plan), the split counts and the FMA body live in
+// gemm_common.cuh, the tensor-core body in stream.cuh, shared with
+// ag_gemm.cu (whose decode plan runs the same kernel over up to three
+// products) and gemm_rs_ring.cu (whose decode body runs both bodies on
+// each rank's shard, so its partials are this kernel's bits).
 //
 // Plain C entry points `tdt_gemm_ar_plan` and `tdt_gemm_ar`, loaded with
 // ctypes. The launch runs on the stream it is given, allocates nothing and
 // returns cudaGetLastError().
 
-#include "gemm_common.cuh"
+#include "stream.cuh"
 
 namespace {
 
@@ -98,57 +96,41 @@ void run_fma(const T* A, const T* B, T* C, float* W, int M, int N, int K,
   }
 }
 
-// How one call is launched. The path depends on the dtype and the shape
-// only, never on where the operands lie, so equal inputs give equal bits.
-struct Plan {
-  int path;    // 0: FMA kernel, 1: tensor-core kernel
-  int tiles;   // output tiles (blocks of one split)
-  int splits;  // K splits (grid.z)
-};
-
-// gemm_common.cuh's stream_plan: the split count (splitk_count) is a
-// function of the shape, the path and the card, so repeated calls sum in
-// the same order (and gemm_rs_ring.cu's decode body plans each rank's
-// product with the same rule).
-Plan make_plan(int M, int N, int K, int sms, int dtype) {
-  const StreamPlan sp = stream_plan(M, N, K, sms, dtype);
-  Plan p;
-  p.path = sp.mma;
-  p.tiles = sp.col_tiles * sp.row_tiles;
-  p.splits = sp.splits;
-  return p;
-}
-
 }  // namespace
 
 extern "C" {
 
-// The launch plan of C = A @ B (M, K) x (K, N) on a card with `sms` SMs.
-// dtype: 0 = bfloat16, 1 = float32. Fills *path (0: the FMA kernel, 1: the
-// tensor-core kernel, taken by bf16 with N and K multiples of 8), *tiles
-// (output tiles) and *splits (K splits). A launch with splits > 1 needs a
-// workspace of splits * M * N floats. Returns a cudaError_t.
+// The launch plan of C = A @ B (M, K) x (K, N) on a card with `sms` SMs
+// (gemm_common.cuh's stream_plan). dtype: 0 = bfloat16, 1 = float32. Fills
+// *path (0: the FMA kernel, 1: the tensor-core kernel, taken by bf16 with N
+// and K multiples of 8), *tiles (output tiles), *splits (K splits; the
+// tensor-core kernel's are one cluster), *k_per_split (K rows of a split)
+// and *ws (the f32 workspace a launch needs: the FMA kernel's splits x M x
+// N when it splits, else 0). Returns a cudaError_t.
 int tdt_gemm_ar_plan(int M, int N, int K, int sms, int dtype, int* path,
-                     int* tiles, int* splits) {
+                     int* tiles, int* splits, int* k_per_split,
+                     long long* ws) {
   if (M <= 0 || N <= 0 || K <= 0 || sms <= 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = make_plan(M, N, K, sms, dtype);
-  *path = p.path;
-  *tiles = p.tiles;
+  const StreamPlan p = stream_plan(M, N, K, sms, dtype);
+  *path = p.mma;
+  *tiles = p.col_tiles * p.row_tiles;
   *splits = p.splits;
+  *k_per_split = p.k_per_split;
+  *ws = p.workspace;
   return static_cast<int>(cudaSuccess);
 }
 
 // C = A @ B as tdt_gemm_ar_plan plans it for the same arguments; ws holds
-// the workspace that plan asks for (may be null with one split). A and B
-// must be 16-byte aligned. Returns a cudaError_t.
+// the workspace that plan asks for (may be null when it asks for none). A
+// and B must be 16-byte aligned. Returns a cudaError_t.
 int tdt_gemm_ar(const void* a, const void* b, void* c, void* ws, int M, int N,
                 int K, int sms, int dtype, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || sms <= 0 || !aligned16(a) ||
-      !aligned16(b))
+      !aligned16(b) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = make_plan(M, N, K, sms, dtype);
-  if (p.splits > 65535 || (p.splits > 1 && ws == nullptr))
+  const StreamPlan p = stream_plan(M, N, K, sms, dtype);
+  if (p.splits > 65535 || (p.workspace > 0 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* W = static_cast<float*>(ws);
@@ -157,15 +139,17 @@ int tdt_gemm_ar(const void* a, const void* b, void* c, void* ws, int M, int N,
     const T* A = static_cast<const T*>(a);
     const T* B = static_cast<const T*>(b);
     T* C = static_cast<T*>(c);
-    const Segs<T> segs = make_segs<T>(1, &B, &C, &N, kTcBN);
-    if (p.path == 1) {
-      const cudaError_t err = run_stream(A, segs, W, M, K, p.splits, s);
+    if (p.mma) {
+      const cudaError_t err =
+          run_stream(A, make_segs<T>(1, &B, &C, &N, kTcBN), M, K, p.splits, s);
       if (err != cudaSuccess) return static_cast<int>(err);
     } else {
       run_fma<T>(A, B, C, W, M, N, K, p.splits, s);
-      if (p.splits > 1) reduce_splits<T>(W, segs, M, p.splits, s);
+      if (p.splits > 1)
+        reduce_splits<T>(W, make_segs<T>(1, &B, &C, &N, kFaBN), M, p.splits,
+                         s);
     }
-  } else if (dtype == 1) {
+  } else {
     using T = float;
     const T* A = static_cast<const T*>(a);
     const T* B = static_cast<const T*>(b);
@@ -174,8 +158,6 @@ int tdt_gemm_ar(const void* a, const void* b, void* c, void* ws, int M, int N,
     if (p.splits > 1)
       reduce_splits<T>(W, make_segs<T>(1, &B, &C, &N, kFaBN), M, p.splits,
                        s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

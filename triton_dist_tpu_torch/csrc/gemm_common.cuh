@@ -1,23 +1,21 @@
 // Pieces shared by the port's GEMM kernels for Hopper (sm_90a):
 // gemm_ar.cu (GEMM-AR at world = 1), ag_gemm.cu (AG-GEMM, AG-SwiGLU and
 // the GEMM of GEMM-RS at world = 1), gemm_rs_ring.cu (GEMM-RS / GEMM-AR
-// at world W, whose decode body runs the two small-M bodies below) and
-// ag_gemm_ring.cu (AG-GEMM at world W, whose decode body runs the
-// tensor-core one on each rank's column shard).
+// at world W, whose decode body runs the small-M bodies on each rank's
+// shard) and ag_gemm_ring.cu (AG-GEMM at world W, whose decode body runs
+// the tensor-core one on each rank's column shard).
 //
 //  * conversions, cp.async, ldmatrix and mma.sync m16n8k16 (bf16 in, f32
-//    accumulate) wrappers;
+//    accumulate) wrappers (flash_decode.cu's decode body);
 //  * `Segs`: up to three products C_i = A @ B_i that share A, each with its
 //    own B pointer, output pointer and width, laid side by side as one
 //    concatenated width (a block finds its product from its column tile);
-//  * the small-M (decode) products and their plan (`stream_plan`: body,
-//    tiles, the split-K count `splitk_count`): `stream_mma_block`, the
-//    B-streaming tensor-core body, and `fma_stream_block`, its FMA
-//    counterpart (f32 and odd bf16 shapes), each one block's work;
-//    `stream_mma`, the kernel of the tensor-core body, and the fixed-order
-//    split reduce `splitk_reduce`. gemm_ar runs them with one product,
-//    ag_gemm's decode plan `stream_mma` with up to three, and the AG ring
-//    `stream_mma_block` with B-first prologue (`kBFirst`).
+//  * the plan of the small-M (decode) products (`stream_plan`): the body,
+//    its tiles and its K splits. The tensor-core body (stream.cuh: wgmma
+//    fed by TMA, the splits of a column tile one cluster) takes
+//    `stream_splits`; the FMA body `fma_stream_block` below (f32 and odd
+//    bf16 shapes) takes `splitk_count` and the fixed-order split reduce
+//    `splitk_reduce` over an f32 workspace.
 //
 // Every sum has a fixed order and there are no atomics: equal inputs give
 // equal bits from run to run.
@@ -81,6 +79,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -160,10 +159,10 @@ __device__ __forceinline__ int seg_width(const Segs<T>& s) {
 }
 
 // ---------------------------------------------------------------------------
-// The split-K count of a small-M product: it doubles while the grid stays
-// within about two blocks per SM and each split keeps at least
-// kMinKPerSplit rows of B. A function of the shape and the card only, so
-// repeated calls sum in the same order.
+// The split-K count of the FMA body: it doubles while the grid stays within
+// about two blocks per SM and each split keeps at least kMinKPerSplit rows
+// of B. A function of the shape and the card only, so repeated calls sum
+// in the same order.
 constexpr int kMinKPerSplit = 256;
 
 int splitk_count(int tiles, int K, int sms) {
@@ -204,211 +203,12 @@ void reduce_splits(const float* W, const Segs<T>& segs, int M, int splits,
 }
 
 // ---------------------------------------------------------------------------
-// B-streaming tensor-core body (bf16, every n[i] % 8 == 0, K % 8 == 0;
-// operands 16-byte aligned), for M <= 64: one block's work, 128 threads.
-//
-// The block computes column tile `tile` of the concatenated width, rows
-// [mt * 64, mt * 64 + 64) and K rows [z * k_per_split, (z + 1) *
-// k_per_split) of A (row stride lda) times B. It holds up to 64 rows of A
-// (MF m16 fragments) and one 64-column tile of one product's B; each of
-// its four warps owns 16 columns and runs mma.sync m16n8k16 (bf16 in, f32
-// accumulate) over the block's K slice. A 4-stage cp.async pipeline keeps
-// three 64-row chunks of B (and A) in flight while the fourth is
-// multiplied, so B streams from HBM once for every row of the tile. Each
-// output element has exactly one owner thread, summing its K slice in a
-// fixed order. `direct` (one split): it writes C rounded; otherwise its
-// f32 partial goes to ws[z, m, col] over the concatenated width. A caller
-// that runs the body for more than one item syncs the block between
-// them (the stages' shared memory is reused).
-//
-// kBFirst (a compile-time variant of the prologue, for an A that other
-// blocks are still writing): the first stages' copies of B are issued,
-// then `ready()` (every thread of the block calls it; it returns once A
-// may be read), then A's. The sums do not change.
-constexpr int kTcBN = 64;                 // columns per block
-constexpr int kTcBM = 64;                 // rows of A per block (4 x m16)
-constexpr int kTcBK = 64;                 // K per pipeline stage
-constexpr int kTcStages = 4;
+// The tensor-core body's tile (stream.cuh): 64 columns of B, up to 64 rows
+// of A, K in stages of 64, one warpgroup.
+constexpr int kTcBN = 64;                 // columns per item
+constexpr int kTcBM = 64;                 // rows of A per item
+constexpr int kTcBK = 64;                 // K per stage
 constexpr int kTcThreads = 128;
-constexpr int kTcLdA = kTcBK + 8;         // padded rows: conflict-free ldmatrix
-constexpr int kTcLdB = kTcBN + 8;
-
-template <int MF>
-constexpr int stream_smem_bytes() {
-  return kTcStages * (MF * 16 * kTcLdA + kTcBK * kTcLdB) *
-         static_cast<int>(sizeof(__nv_bfloat16));
-}
-
-// The `ready` of a block whose A is in place before it starts.
-struct NoWait {
-  __device__ __forceinline__ void operator()() const {}
-};
-
-template <int MF, bool kBFirst = false, class Ready = NoWait>
-__device__ __forceinline__ void stream_mma_block(
-    const __nv_bfloat16* __restrict__ A, long long lda,
-    const Segs<__nv_bfloat16>& segs, float* __restrict__ ws, int M, int K,
-    int k_per_split, bool direct, int tile, int mt, int z,
-    unsigned char* smem_raw, const Ready& ready = Ready{}) {
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + kTcStages * MF * 16 * kTcLdA;
-
-  const int seg = seg_of_tile(segs, tile);
-  const __nv_bfloat16* __restrict__ B = seg_field(segs.b, seg);
-  const int N = seg_field(segs.n, seg);
-  const long long ldn = seg_field(segs.ld, seg);
-  const int n0 = (tile - seg_field(segs.tile0, seg)) * kTcBN;
-  const int m0 = mt * kTcBM;
-  const int k_begin = z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const int nk = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK : 0;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // Stage `kc` of this block's K slice into pipeline slot `slot`. Chunks of
-  // 8 elements past M, N or the slice end are zero-filled (N and K are
-  // multiples of 8 and the slice starts on a multiple of 64).
-  auto load_a = [&](int slot, int kc) {
-    const int k0 = k_begin + kc * kTcBK;
-    __nv_bfloat16* as = As + slot * MF * 16 * kTcLdA;
-    for (int c = tid; c < MF * 16 * (kTcBK / 8); c += kTcThreads) {
-      const int r = c / (kTcBK / 8);
-      const int kk = (c % (kTcBK / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + kk < k_end;
-      const __nv_bfloat16* src =
-          ok ? A + static_cast<size_t>(m0 + r) * lda + k0 + kk : A;
-      cp_async16(as + r * kTcLdA + kk, src, ok);
-    }
-  };
-  auto load_b = [&](int slot, int kc) {
-    const int k0 = k_begin + kc * kTcBK;
-    __nv_bfloat16* bs = Bs + slot * kTcBK * kTcLdB;
-    for (int c = tid; c < kTcBK * (kTcBN / 8); c += kTcThreads) {
-      const int r = c / (kTcBN / 8);
-      const int nn = (c % (kTcBN / 8)) * 8;
-      const bool ok = k0 + r < k_end && n0 + nn < N;
-      const __nv_bfloat16* src =
-          ok ? B + static_cast<size_t>(k0 + r) * ldn + n0 + nn : B;
-      cp_async16(bs + r * kTcLdB + nn, src, ok);
-    }
-  };
-  auto load_stage = [&](int slot, int kc) {
-    load_a(slot, kc);
-    load_b(slot, kc);
-  };
-
-  float acc[MF][2][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  if constexpr (kBFirst) {
-    // B's stages join the first commit group, so stage s's group still
-    // holds all of stage s and the waits below count the same.
-#pragma unroll
-    for (int s = 0; s < kTcStages - 1; ++s)
-      if (s < nk) load_b(s, s);
-    ready();
-#pragma unroll
-    for (int s = 0; s < kTcStages - 1; ++s) {
-      if (s < nk) load_a(s, s);
-      cp_async_commit();
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < kTcStages - 1; ++s) {
-      if (s < nk) load_stage(s, s);
-      cp_async_commit();
-    }
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<kTcStages - 2>();
-    __syncthreads();  // stage kc landed; slot (kc - 1) % stages is free
-    const int next = kc + kTcStages - 1;
-    if (next < nk) load_stage(next % kTcStages, next);
-    cp_async_commit();
-
-    const int slot = kc % kTcStages;
-    const __nv_bfloat16* as = As + slot * MF * 16 * kTcLdA;
-    const __nv_bfloat16* bs = Bs + slot * kTcBK * kTcLdB;
-    // The tensor core's own accumulation is not a full IEEE f32 sum over
-    // thousands of terms: each stage's 64-term products accumulate in
-    // `part`, which is then added to `acc` in f32.
-    float part[MF][2][4];
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kTcBK; ks += 16) {
-      // B: rows ks..ks+15 of this warp's 16 columns, transposed into the
-      // "col" operand: regs 0-1 feed columns +0..7, regs 2-3 columns +8..15.
-      unsigned bfr[4];
-      ldmatrix_x4_trans(
-          bfr, bs + (ks + (lane & 15)) * kTcLdB + warp * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mf = 0; mf < MF; ++mf) {
-        unsigned afr[4];
-        ldmatrix_x4(afr,
-                    as + (mf * 16 + (lane & 15)) * kTcLdA + ks + (lane >> 4) * 8);
-        mma_bf16(part[mf][0], afr, bfr[0], bfr[1]);
-        mma_bf16(part[mf][1], afr, bfr[2], bfr[3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-  }
-  cp_async_wait<0>();
-
-  // Accumulator layout of m16n8: c0,c1 at (row g, cols 2t, 2t+1), c2,c3 at
-  // row g + 8, with g = lane / 4 and t = lane % 4.
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int ncat = seg_width(segs);
-  const int col0 = seg_field(segs.col0, seg);
-  __nv_bfloat16* __restrict__ C = seg_field(segs.c, seg);
-#pragma unroll
-  for (int mf = 0; mf < MF; ++mf) {
-#pragma unroll
-    for (int nf = 0; nf < 2; ++nf) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + mf * 16 + g + (e >> 1) * 8;
-        const int n = n0 + warp * 16 + nf * 8 + 2 * t + (e & 1);
-        if (m >= M || n >= N) continue;
-        if (direct) {
-          C[static_cast<size_t>(m) * ldn + n] =
-              from_f32<__nv_bfloat16>(acc[mf][nf][e]);
-        } else {
-          ws[(static_cast<size_t>(z) * M + m) * ncat + col0 + n] =
-              acc[mf][nf][e];
-        }
-      }
-    }
-  }
-}
-
-// grid = (column tiles of all products, ceil(M / 64), splits): one block
-// per item of the body above.
-template <int MF>
-__global__ void __launch_bounds__(kTcThreads)
-stream_mma(const __nv_bfloat16* __restrict__ A, Segs<__nv_bfloat16> segs,
-           float* __restrict__ ws, int M, int K, int k_per_split,
-           int splits) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  stream_mma_block<MF>(A, K, segs, ws, M, K, k_per_split, splits == 1,
-                       blockIdx.x, blockIdx.y, blockIdx.z, smem_raw);
-}
 
 // ---------------------------------------------------------------------------
 // The FMA body (f32, and bf16 at shapes the tensor-core body does not
@@ -558,20 +358,24 @@ __device__ __forceinline__ void fma_stream_block(
 
 // ---------------------------------------------------------------------------
 // The plan of one small-M product C = A @ B, (M, K) x (K, N), on a card
-// with `sms` SMs: the tensor-core body for bf16 with N and K multiples of
-// 8, else the FMA body; its rows per tile (64, or BM = 1, 2, 4 or 8), the
-// output tiles, the K splits (splitk_count) and each split's K rows (a
-// multiple of the pipeline's 64 on the tensor-core body). A function of
-// the dtype (0: bf16, 1: f32), the shape and the card only, so equal
-// inputs sum in the same order; gemm_ar.cu plans its world-1 launches with
-// it and gemm_rs_ring.cu each rank's product of its decode body.
+// with `sms` SMs: the tensor-core body (stream.cuh) for bf16 with N and K
+// multiples of 8, else the FMA body; its rows per tile (64, or BM = 1, 2,
+// 4 or 8), the output tiles, the K splits and each split's K rows (a whole
+// number of the tensor-core body's 64-deep stages), and the f32 workspace
+// the FMA body's splits need (the tensor-core body sums its splits in a
+// cluster and needs none). A function of the dtype (0: bf16, 1: f32), the
+// shape and the card only, so equal inputs sum in the same order;
+// gemm_ar.cu plans its world-1 launches with it and gemm_rs_ring.cu each
+// rank's product of its decode body. ops/allgather_gemm.py's
+// `stream_plan` mirrors it.
 struct StreamPlan {
-  int mma;          // 1: stream_mma_block, 0: fma_stream_block
+  int mma;          // 1: the tensor-core body, 0: fma_stream_block
   int bm;           // rows per tile
   int col_tiles;
   int row_tiles;
   int splits;
   int k_per_split;
+  long long workspace;  // f32 elements (FMA body with more than one split)
 };
 
 // Whether the tensor-core body takes the product: bf16 (dtype 0) with N and
@@ -583,14 +387,37 @@ inline bool stream_mma_ok(int dtype, int N, int K) {
 // Rows of A one FMA block holds for M rows.
 inline int fma_rows(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8; }
 
-// m16 fragments of A one tensor-core block holds for M rows.
-inline int stream_frags(int M) { return M <= 16 ? 1 : M <= 32 ? 2 : 4; }
-
 // K rows of one split. Each tensor-core split starts on a multiple of
-// kTcBK, so the pipeline's chunks never straddle two splits.
+// kTcBK, so a stage never straddles two splits.
 inline int stream_k_per_split(int K, int splits, int mma) {
   const int k = (K + splits - 1) / splits;
   return mma ? (k + kTcBK - 1) / kTcBK * kTcBK : k;
+}
+
+// The tensor-core body's K splits for `tiles` items of one split over K:
+// the count s (a cluster, so at most 8) whose busiest SM streams the
+// fewest stages, ceil(tiles s / sms) items of ceil(stages / s) stages,
+// each item charged kStreamFill stages more for its start and its split
+// sum; ties go to fewer splits. Counts that would leave a split empty are
+// skipped, so every split has stages.
+constexpr int kStreamMaxSplits = 8;
+constexpr int kStreamFill = 2;
+
+inline int stream_splits(int tiles, int K, int sms) {
+  const int stages = (K + kTcBK - 1) / kTcBK;
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; stages > 0 && s <= kStreamMaxSplits; ++s) {
+    const int per = (stages + s - 1) / s;
+    if ((stages + per - 1) / per != s) continue;
+    const long long waves = (static_cast<long long>(tiles) * s + sms - 1) / sms;
+    const long long cost = waves * (per + kStreamFill);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 inline StreamPlan stream_plan(int M, int N, int K, int sms, int dtype) {
@@ -599,42 +426,12 @@ inline StreamPlan stream_plan(int M, int N, int K, int sms, int dtype) {
   p.bm = p.mma ? kTcBM : fma_rows(M);
   p.col_tiles = (N + (p.mma ? kTcBN : kFaBN) - 1) / (p.mma ? kTcBN : kFaBN);
   p.row_tiles = (M + p.bm - 1) / p.bm;
-  p.splits = splitk_count(p.col_tiles * p.row_tiles, K, sms);
+  const int tiles = p.col_tiles * p.row_tiles;
+  p.splits = p.mma ? stream_splits(tiles, K, sms) : splitk_count(tiles, K, sms);
   p.k_per_split = stream_k_per_split(K, p.splits, p.mma);
+  p.workspace = !p.mma && p.splits > 1
+                    ? static_cast<long long>(p.splits) * M * N : 0;
   return p;
-}
-
-template <int MF>
-cudaError_t launch_stream(const __nv_bfloat16* a,
-                          const Segs<__nv_bfloat16>& segs, float* ws, int M,
-                          int K, int splits, cudaStream_t stream) {
-  constexpr int smem = stream_smem_bytes<MF>();
-  // The attribute belongs to the current device: set it on every launch
-  // (it is cheap) so a second card is configured too.
-  const cudaError_t err = cudaFuncSetAttribute(
-      stream_mma<MF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int k_per_split = stream_k_per_split(K, splits, 1);
-  dim3 grid(segs.tile0[segs.count], (M + kTcBM - 1) / kTcBM, splits);
-  stream_mma<MF><<<grid, kTcThreads, smem, stream>>>(a, segs, ws, M, K,
-                                                     k_per_split, splits);
-  return cudaSuccess;
-}
-
-// The streaming products of `segs` (tiles kTcBN wide), then the split
-// reduce when there is more than one split.
-cudaError_t run_stream(const __nv_bfloat16* A, const Segs<__nv_bfloat16>& segs,
-                       float* W, int M, int K, int splits,
-                       cudaStream_t stream) {
-  cudaError_t err;
-  switch (stream_frags(M)) {
-    case 1: err = launch_stream<1>(A, segs, W, M, K, splits, stream); break;
-    case 2: err = launch_stream<2>(A, segs, W, M, K, splits, stream); break;
-    default: err = launch_stream<4>(A, segs, W, M, K, splits, stream);
-  }
-  if (err != cudaSuccess) return err;
-  if (splits > 1) reduce_splits<__nv_bfloat16>(W, segs, M, splits, stream);
-  return cudaSuccess;
 }
 
 }  // namespace

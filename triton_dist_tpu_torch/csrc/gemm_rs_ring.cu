@@ -60,18 +60,23 @@
 //   one live row. This body reads it once, and runs the ring on the
 //   results, in three phases of one launch:
 //   - phase 0, the products: rank r's partial of all M rows, P_r = A_r @
-//     B_r, with gemm_common.cuh's small-M bodies (`stream_mma_block` on the
-//     tensor cores for bf16 with kl and N multiples of 8, else
+//     B_r, with the world-1 kernel's items (stream.cuh's `stream_item` on
+//     the tensor cores for bf16 with kl and N multiples of 8: B's boxes
+//     and A's rows by TMA into a deep stage ring, wgmma with the weight
+//     tile as the 64-row side; else gemm_common.cuh's
 //     `fma_stream_block`), planned by `stream_plan` on the rank's own
 //     shape: the K splits of the world-1 kernel on that shard. Items are
 //     (column tile, row tile, split); each writes its f32 partial into the
-//     rank's workspace and releases its own signal. The products do not
-//     depend on the ring, so computing them first loses nothing.
+//     rank's workspace and releases its own signal (the ring is a
+//     cooperative launch, not clusters, so the split sum stays its own).
+//     The products do not depend on the ring, so computing them first
+//     loses nothing.
 //   - phase 1, the ring, in pieces of 64 columns of a chunk (a chunk is one
 //     row at Qwen3-8B's decode, so a step has 64 pieces): step s's item
-//     waits for its product tiles, sums their splits in split order and
-//     rounds once (gemm_ar.cu's split reduce: JAX's `partial_chunk`, so
-//     rank r's partial is the world-1 kernel's bits on its shard), then
+//     waits for its product tiles, sums their splits in split order from
+//     0.f and rounds once (the order of gemm_ar.cu's cluster sum; JAX's
+//     `partial_chunk`), so rank r's partial is the world-1 kernel's bits
+//     on its shard, then
 //     (s > 0) waits for the travelling sum in its slab s - 1, adds it in
 //     f32, rounds and pushes into the neighbour's slab s, as above.
 //   - GEMM-AR: the last step stores the reduced piece into every rank's
@@ -98,6 +103,7 @@
 #include <stdint.h>
 
 #include "shmem.cuh"
+#include "stream.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -414,13 +420,16 @@ rs_ring_wg_kernel(RsArgs<bf16> a, const __grid_constant__ RsViews views) {
   }
 }
 
-// The decode body (M = W * rows <= kStreamMaxM). R: the m16 fragments of
-// stream_mma_block (MMA) or the rows of fma_stream_block. Signals of a
-// rank: its product items (column tile, row tile, split), then (W - 1,
-// pieces) ring steps.
+// The decode body (M = W * rows <= kStreamMaxM). R: the token rows of
+// stream.cuh's item (MMA: 8, 16, 32 or 64) or the rows of
+// fma_stream_block. views (MMA only): A as (kl, rank, M), so rank r's
+// columns of a row are one box row and TMA fills K past kl and rows past M
+// with zeros, and B's row shards as (N, kl, rank). Signals of a rank: its
+// product items (column tile, row tile, split), then (W - 1, pieces) ring
+// steps.
 template <typename T, bool MMA, int R>
 __global__ void __launch_bounds__(MMA ? kTcThreads : kFaThreads)
-rs_stream_ring_kernel(RsArgs<T> a) {
+rs_stream_ring_kernel(RsArgs<T> a, const __grid_constant__ TileViews views) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kThreads = MMA ? kTcThreads : kFaThreads;
   constexpr int kBM = MMA ? kTcBM : R;
@@ -441,21 +450,26 @@ rs_stream_ring_kernel(RsArgs<T> a) {
 
   // Phase 0: my f32 partial of all M rows; item (column tile, row tile,
   // split), into ws[split, m, n].
+  [[maybe_unused]] int seq = 0;            // the MMA item's stage count
+  [[maybe_unused]] StreamSmem<MMA ? R : 8> sm{};
+  if constexpr (MMA) sm = stream_smem<R>(smem_raw);
   for (int i = j; i < prods; i += a.bpr) {
     const int t = i / per_col;
     const int mt = i % per_col / a.splits;
     const int z = i % a.splits;
     __syncthreads();                       // the last item's smem is free
     if constexpr (MMA) {
-      Segs<bf16> segs = {};
-      segs.b[0] = B;
-      segs.n[0] = N;
-      segs.ld[0] = N;
-      segs.col0[1] = N;
-      segs.tile0[1] = col_tiles;
-      segs.count = 1;
-      stream_mma_block<R>(A, a.K, segs, ws, M, a.kl, a.k_per_split, false, t,
-                          mt, z, smem_raw);
+      const int k0 = z * a.k_per_split;
+      float acc[R / 2];
+      stream_item<R>(sm, seq, {&views.a, k0, me, mt * kTcBM, 0},
+                     {&views.b[0], t * kTcBN, k0, me, 0},
+                     stream_stages(a.kl, k0, a.k_per_split), acc);
+      stream_frag<R>(acc, [&](int n, int m, float v) {
+        const int row = mt * kTcBM + m;
+        const int col = t * kTcBN + n;
+        if (row < M && col < N)
+          ws[(static_cast<size_t>(z) * M + row) * N + col] = v;
+      });
     } else {
       const bool vec = N % kFaCPT == 0 &&
                        (reinterpret_cast<uintptr_t>(B) & 15) == 0;
@@ -538,13 +552,18 @@ rs_stream_ring_kernel(RsArgs<T> a) {
   }
 }
 
-// A kernel of this file with its block size, dynamic shared memory and
-// whether it takes the TMA views.
+// A kernel of this file with its block size, dynamic shared memory and the
+// TMA views it takes: none, the tile's (RsViews) or the decode body's
+// (TileViews: A, B in views.b[0]; zero for the FMA body).
+constexpr int kViewsNone = 0;
+constexpr int kViewsTile = 1;
+constexpr int kViewsStream = 2;
+
 struct WgKernel {
   using T = bf16;
   static constexpr int threads = kPfThreads;
   static constexpr int smem = kPfSmemBytes;
-  static constexpr bool views = true;
+  static constexpr int views = kViewsTile;
   static const void* fn() {
     return reinterpret_cast<const void*>(rs_ring_wg_kernel);
   }
@@ -555,7 +574,7 @@ struct TileKernel {
   using T = T_;
   static constexpr int threads = kFmThreads;
   static constexpr int smem = 0;
-  static constexpr bool views = false;
+  static constexpr int views = kViewsNone;
   static const void* fn() {
     return reinterpret_cast<const void*>(rs_ring_kernel<T>);
   }
@@ -563,10 +582,14 @@ struct TileKernel {
 
 template <typename T_, bool MMA, int R>
 struct StreamKernel {
+  static constexpr int body_smem() {
+    if constexpr (MMA) return StreamCfg<R>::kSmem;
+    return 0;
+  }
   using T = T_;
   static constexpr int threads = MMA ? kTcThreads : kFaThreads;
-  static constexpr int smem = MMA ? stream_smem_bytes<R>() : 0;
-  static constexpr bool views = false;
+  static constexpr int smem = body_smem();
+  static constexpr int views = kViewsStream;
   static const void* fn() {
     return reinterpret_cast<const void*>(rs_stream_ring_kernel<T, MMA, R>);
   }
@@ -625,10 +648,11 @@ cudaError_t with_kernel(int dtype, int path, int M, int kl, int n, F&& f) {
     return f(TileKernel<float>{});
   }
   if (stream_mma_ok(dtype, n, kl)) {
-    switch (stream_frags(M)) {
-      case 1: return f(StreamKernel<bf16, true, 1>{});
-      case 2: return f(StreamKernel<bf16, true, 2>{});
-      default: return f(StreamKernel<bf16, true, 4>{});
+    switch (stream_tokens(M)) {
+      case 8: return f(StreamKernel<bf16, true, 8>{});
+      case 16: return f(StreamKernel<bf16, true, 16>{});
+      case 32: return f(StreamKernel<bf16, true, 32>{});
+      default: return f(StreamKernel<bf16, true, 64>{});
     }
   }
   switch (fma_rows(M)) {
@@ -727,7 +751,9 @@ int tdt_rs_ring(int dtype, int path, const void* a, const void* b, void* out,
       !path_ok(dtype, path, world, rows, kl, n, split) ||
       (stream_path && ws_tab == nullptr) ||
       (ag && !stream_path && ag_tab == nullptr) ||
-      (path == kPathMma && !(aligned16(a) && aligned16(b))))
+      ((path == kPathMma ||
+        (stream_path && stream_mma_ok(dtype, n, kl))) &&
+       !(aligned16(a) && aligned16(b))))
     return static_cast<int>(cudaErrorInvalidValue);
   int bpr = 0;
   const int err = tdt_rs_ring_grid(dtype, path, world, rows, kl, n, &bpr);
@@ -758,7 +784,7 @@ int tdt_rs_ring(int dtype, int path, const void* a, const void* b, void* out,
     args.splits = sp.splits;
     args.k_per_split = sp.k_per_split;
     args.epoch = epoch;
-    if constexpr (K::views) {
+    if constexpr (K::views == kViewsTile) {
       RsViews v = {};
       cudaError_t err = cudaSuccess;
       const long long ld = static_cast<long long>(world) * kl;
@@ -770,6 +796,20 @@ int tdt_rs_ring(int dtype, int path, const void* a, const void* b, void* out,
         err = make_view(&v.b, b, {n, kl, world, 1},
                         {n, static_cast<long long>(n) * kl, ld * n}, 64);
       if (err != cudaSuccess) return err;
+      return launch<K>(world * bpr, s, args, v);
+    } else if constexpr (K::views == kViewsStream) {
+      TileViews v = {};
+      if (stream_mma_ok(dtype, n, kl)) {
+        const long long ld = static_cast<long long>(world) * kl;
+        cudaError_t err = make_box_view<4>(
+            &v.a, a, {kl, world, M, 1}, {kl, ld, ld * M},
+            {64, 1, stream_tokens(M), 1}, kStreamL2);
+        if (err == cudaSuccess)
+          err = make_view(&v.b[0], b, {n, kl, world, 1},
+                          {n, static_cast<long long>(n) * kl, ld * n}, 64,
+                          kStreamL2);
+        if (err != cudaSuccess) return err;
+      }
       return launch<K>(world * bpr, s, args, v);
     } else {
       return launch<K>(world * bpr, s, args);

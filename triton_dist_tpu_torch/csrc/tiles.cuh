@@ -148,14 +148,15 @@ inline EncodeTiled tensor_map_encoder() {
 // A bf16 view of `base` for TMA of rank N (at most 5): extents dim[0..N)
 // (dim[0] contiguous), row strides step[0..N-1) of dims 1..N-1 in
 // elements, boxes of box[0..N) elements (box[0] = 64: 128 bytes) in the
-// 128-byte swizzle; elements outside the extents read as zeros. Every step
-// must be a multiple of 8 and base 16-byte aligned. An empty view (an
-// extent of 0) is left zeroed: no tile reads it.
+// 128-byte swizzle; elements outside the extents read as zeros; `promo`
+// the L2 fetch size of a box row. Every step must be a multiple of 8 and
+// base 16-byte aligned. An empty view (an extent of 0) is left zeroed: no
+// tile reads it.
 template <int N>
-inline cudaError_t make_box_view(CUtensorMap* map, const void* base,
-                                 const long long (&dim)[N],
-                                 const long long (&step)[N - 1],
-                                 const int (&box)[N]) {
+inline cudaError_t make_box_view(
+    CUtensorMap* map, const void* base, const long long (&dim)[N],
+    const long long (&step)[N - 1], const int (&box)[N],
+    CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   *map = CUtensorMap{};
   for (long long d : dim)
     if (d == 0) return cudaSuccess;
@@ -173,16 +174,16 @@ inline cudaError_t make_box_view(CUtensorMap* map, const void* base,
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, const_cast<void*>(base),
       gdim, gstride, gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      CU_TENSOR_MAP_SWIZZLE_128B, promo, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // A 4-D view with boxes of 64 x `box_rows` elements of dims 0 and 1.
-inline cudaError_t make_view(CUtensorMap* map, const void* base,
-                             const long long (&dim)[4],
-                             const long long (&step)[3], int box_rows) {
-  return make_box_view<4>(map, base, dim, step, {64, box_rows, 1, 1});
+inline cudaError_t make_view(
+    CUtensorMap* map, const void* base, const long long (&dim)[4],
+    const long long (&step)[3], int box_rows,
+    CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
+  return make_box_view<4>(map, base, dim, step, {64, box_rows, 1, 1}, promo);
 }
 
 // A (rows, K) row-major view (row stride ld), 128-row boxes of A.
@@ -193,9 +194,10 @@ inline cudaError_t a_view(CUtensorMap* map, const void* a, long long rows,
 }
 
 // A (K, N) row-major weight (row stride ld), 64 x 64 boxes (N inner).
-inline cudaError_t b_view(CUtensorMap* map, const void* b, long long K,
-                          long long N, long long ld) {
-  return make_view(map, b, {N, K, 1, 1}, {ld, ld * K, ld * K}, 64);
+inline cudaError_t b_view(
+    CUtensorMap* map, const void* b, long long K, long long N, long long ld,
+    CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
+  return make_view(map, b, {N, K, 1, 1}, {ld, ld * K, ld * K}, 64, promo);
 }
 
 // The views of one launch's tensor-core tiles: A, each product's B and

@@ -57,8 +57,8 @@ from triton_dist_tpu_torch.runtime.symm_mem import RingState
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _OP_GEMM, _OP_SWIGLU = 0, 1
 #: The kernel's plans, by the path code of ``tdt_ag_gemm_plan``: the f32 /
-#: odd-shape FMA kernel, the B-streaming decode kernel (M <= 64), the
-#: tiled tensor-core prefill kernel.
+#: odd-shape FMA kernel, the B-streaming decode kernel (M <= 64,
+#: ``csrc/stream.cuh``), the tiled tensor-core prefill kernel.
 PATHS = ("fma", "decode", "prefill")
 #: Products one ``ag_gemm_multi`` launch takes.
 MAX_PRODUCTS = 3
@@ -284,13 +284,85 @@ def ag_swiglu(a: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return launch_swiglu(a, w_gate, w_up, b_gate, b_up)
 
 
+# -- the decode plan ---------------------------------------------------------------
+#: The decode bodies' tiles (``csrc/gemm_common.cuh``): 64 columns of B
+#: an item; the tensor-core body's K stages of 64 and at most 8 K splits
+#: (one cluster); the stages an item's start and split sum weigh in its
+#: split choice; the FMA body's least K rows a split.
+STREAM_COLS = 64
+STREAM_DEPTH = 64
+STREAM_MAX_SPLITS = 8
+STREAM_FILL = 2
+FMA_MIN_K_PER_SPLIT = 256
+
+
+class StreamPlan(NamedTuple):
+    """A decode product's plan, as ``csrc/gemm_common.cuh``'s
+    ``stream_plan`` (gemm_ar) and ``csrc/ag_plan.cuh``'s decode plan
+    (ag_gemm) make it: ``tensor_cores`` (``csrc/stream.cuh``, else the
+    FMA body), ``cols`` (columns of B an item), ``tiles`` (items of one K
+    split), ``splits`` (K splits; the tensor-core body's are one cluster,
+    so at most 8), ``k_per_split`` (K rows of a split) and ``workspace``
+    (f32 elements a call needs: the FMA body's splits, else 0)."""
+    tensor_cores: bool
+    cols: int
+    tiles: int
+    splits: int
+    k_per_split: int
+    workspace: int
+
+
+def stream_splits(tiles: int, k: int, sms: int) -> int:
+    """The tensor-core body's K splits (``stream_splits`` in
+    ``csrc/gemm_common.cuh``): the count s up to :data:`STREAM_MAX_SPLITS`
+    whose busiest SM streams the fewest stages, ceil(tiles s / sms) items
+    of ceil(stages / s) stages, each charged :data:`STREAM_FILL` more;
+    counts that leave a split empty are skipped, ties go to fewer."""
+    stages = -(-k // STREAM_DEPTH)
+    best, best_cost = 1, None
+    for s in range(1, STREAM_MAX_SPLITS + 1):
+        per = -(-stages // s)
+        if not stages or -(-stages // per) != s:
+            continue
+        cost = -(-tiles * s // sms) * (per + STREAM_FILL)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def stream_plan(m: int, widths, k: int, dtype: torch.dtype,
+                sms: int) -> StreamPlan:
+    """The plan of the decode products ``(m, k) @ (k, n)`` for ``n`` in
+    ``widths`` on a card with ``sms`` SMs (several widths: ag_gemm's
+    decode plan, bf16 only). It depends on dtype, shape and SM count only,
+    so equal inputs sum in the same order from run to run."""
+    widths = tuple(widths)
+    if dtype == torch.bfloat16 and k % 8 == 0 and all(
+            n % 8 == 0 for n in widths):
+        tiles = (sum(-(-n // STREAM_COLS) for n in widths)
+                 * -(-m // DECODE_MAX_M))
+        splits = stream_splits(tiles, k, sms)
+        kps = -(-(-(-k // splits)) // STREAM_DEPTH) * STREAM_DEPTH
+        return StreamPlan(True, STREAM_COLS, tiles, splits, kps, 0)
+    if len(widths) != 1:
+        raise ValueError("the FMA body takes one product")
+    n = widths[0]
+    rows = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+    tiles = -(-n // STREAM_COLS) * -(-m // rows)
+    splits = 1                               # splitk_count
+    while (tiles * splits <= sms
+           and k // (splits * 2) >= FMA_MIN_K_PER_SPLIT):
+        splits *= 2
+    return StreamPlan(False, STREAM_COLS, tiles, splits, -(-k // splits),
+                      splits * m * n if splits > 1 else 0)
+
+
 # -- the kernel ------------------------------------------------------------------
 class Plan(NamedTuple):
     """How the kernel runs one call, as ``csrc/ag_gemm.cu`` plans it:
     ``path`` (one of :data:`PATHS`), ``tiles`` (output tiles, the blocks
-    of one K split) and ``splits`` (K splits of the decode plan; with more
-    than one the call needs a workspace of ``splits * M * sum(widths)``
-    floats)."""
+    of one K split) and ``splits`` (K splits of the decode plan, one
+    cluster of its launch: no plan needs a workspace)."""
     path: str
     tiles: int
     splits: int
@@ -307,11 +379,11 @@ def plan(op: str, m: int, widths: tuple, k: int, dtype: torch.dtype,
     lib = _lib()
     op_code = {"gemm": _OP_GEMM, "swiglu": _OP_SWIGLU}[op]
     w = list(widths) + [0] * (MAX_PRODUCTS - len(widths))
-    path, tiles, splits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    path, tiles, splits, kps = (ctypes.c_int() for _ in range(4))
     _check(lib, lib.tdt_ag_gemm_plan(op_code, m, len(widths), *w, k,
                                      num_sms, _DTYPE_CODES[dtype],
                                      ctypes.byref(path), ctypes.byref(tiles),
-                                     ctypes.byref(splits)))
+                                     ctypes.byref(splits), ctypes.byref(kps)))
     return Plan(PATHS[path.value], tiles.value, splits.value)
 
 
@@ -357,15 +429,12 @@ def launch_gemm(a: torch.Tensor, bs: list, count: LaunchCount) -> list:
     p = plan("gemm", m, widths, k, a.dtype, sms)
     a = aligned16(a)
     bs = [aligned16(b) for b in bs]
-    ws = (torch.empty((p.splits, m, sum(widths)), dtype=torch.float32,
-                      device=a.device) if p.splits > 1 else None)
     pad = MAX_PRODUCTS - len(bs)
     b_ptrs = [b.data_ptr() for b in bs] + [None] * pad
     c_ptrs = [o.data_ptr() for o in outs] + [None] * pad
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _check(lib, lib.tdt_ag_gemm(a.data_ptr(), len(bs), *b_ptrs, *c_ptrs,
                                 *(list(widths) + [0] * pad),
-                                ws.data_ptr() if ws is not None else None,
                                 m, k, sms, _DTYPE_CODES[a.dtype], stream))
     count.add((p.path, k, widths))
     return outs
@@ -620,10 +689,10 @@ def _lib() -> ctypes.CDLL:
     if lib.tdt_ag_gemm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
-        lib.tdt_ag_gemm_plan.argtypes = [i] * 9 + [ip, ip, ip]
+        lib.tdt_ag_gemm_plan.argtypes = [i] * 9 + [ip] * 4
         lib.tdt_ag_gemm_plan.restype = i
         lib.tdt_ag_gemm.argtypes = ([p, i] + [p] * 6 + [i] * 3
-                                    + [p, i, i, i, i, p])
+                                    + [i, i, i, i, p])
         lib.tdt_ag_gemm.restype = i
         lib.tdt_ag_swiglu.argtypes = [p] * 6 + [i] * 5 + [p]
         lib.tdt_ag_swiglu.restype = i

@@ -6,9 +6,10 @@ and ``gemm_rs`` (:884). With one ring member their Pallas kernels
 ``_gemm_rs_hbm_kernel`` :533) all reduce to ``o = x @ w`` with f32
 accumulation and one rounding, so the two entry points compute one
 function. The kernels are hand-written CUDA for Hopper: ``gemm_ar`` runs
-``csrc/gemm_ar.cu`` (B-streaming, for decode batches); ``gemm_rs`` runs
-that kernel for M <= 64 and the tiled prefill GEMM of ``csrc/ag_gemm.cu``
-(one product) above. The notes at the top of the sources say what bounds
+``csrc/gemm_ar.cu`` (B-streaming, for decode batches: bf16 on
+``csrc/stream.cuh``'s wgmma body fed by TMA, one launch a call);
+``gemm_rs`` runs that kernel for M <= 64 and the tiled prefill GEMM of
+``csrc/ag_gemm.cu`` (one product) above. The notes at the top of the sources say what bounds
 them and what their design does about that.
 
 At world W > 1 (a ``runtime.dist.RankGroup`` of W ranks on one card)
@@ -81,13 +82,18 @@ def gemm_rs_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class Plan(NamedTuple):
-    """How the kernel runs one call, as ``csrc/gemm_ar.cu`` plans it:
-    ``tensor_cores`` (else the FMA kernel), ``tiles`` (output tiles, the
-    blocks of one K split) and ``splits`` (K splits; with more than one,
-    the call needs a workspace of ``splits * M * N`` floats)."""
+    """How the kernel runs one call, as ``csrc/gemm_ar.cu`` plans it
+    (``csrc/gemm_common.cuh``'s ``stream_plan``; mirrored by
+    ``allgather_gemm.stream_plan``): ``tensor_cores`` (else the FMA
+    kernel), ``tiles`` (output tiles, the blocks of one K split),
+    ``splits`` (K splits: the tensor-core kernel's are one cluster),
+    ``k_per_split`` (K rows of a split) and ``workspace`` (the f32
+    elements the call needs: the FMA kernel's splits, else 0)."""
     tensor_cores: bool
     tiles: int
     splits: int
+    k_per_split: int
+    workspace: int
 
 
 @functools.cache
@@ -97,11 +103,14 @@ def plan(m: int, n: int, k: int, dtype: torch.dtype, num_sms: int) -> Plan:
     the shape only, so equal inputs always sum in the same order (and a
     shape's plan is asked of the library once)."""
     lib = _gemm_ar_lib()
-    path, tiles, splits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    path, tiles, splits, kps = (ctypes.c_int() for _ in range(4))
+    ws = ctypes.c_longlong()
     _check(lib, lib.tdt_gemm_ar_plan(m, n, k, num_sms, _DTYPE_CODES[dtype],
                                      ctypes.byref(path), ctypes.byref(tiles),
-                                     ctypes.byref(splits)))
-    return Plan(bool(path.value), tiles.value, splits.value)
+                                     ctypes.byref(splits), ctypes.byref(kps),
+                                     ctypes.byref(ws)))
+    return Plan(bool(path.value), tiles.value, splits.value, kps.value,
+                ws.value)
 
 
 def _check_operands(op: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -502,8 +511,8 @@ def _launch_gemm_ar(op: str, a: torch.Tensor, b: torch.Tensor,
     sms = num_sms(a.device.index)
     p = plan(m, n, k, a.dtype, sms)
     a, b = aligned16(a), aligned16(b)
-    ws = (torch.empty((p.splits, m, n), dtype=torch.float32,
-                      device=a.device) if p.splits > 1 else None)
+    ws = (torch.empty(p.workspace, dtype=torch.float32, device=a.device)
+          if p.workspace else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _check(lib, lib.tdt_gemm_ar(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                 ws.data_ptr() if ws is not None else None,
@@ -523,7 +532,8 @@ def _gemm_ar_lib() -> ctypes.CDLL:
     if lib.tdt_gemm_ar.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
-        lib.tdt_gemm_ar_plan.argtypes = [i, i, i, i, i, ip, ip, ip]
+        lib.tdt_gemm_ar_plan.argtypes = [i, i, i, i, i, ip, ip, ip, ip,
+                                         ctypes.POINTER(ctypes.c_longlong)]
         lib.tdt_gemm_ar_plan.restype = i
         lib.tdt_gemm_ar.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.tdt_gemm_ar.restype = i
