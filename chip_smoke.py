@@ -5434,11 +5434,14 @@ def phase_arw_kernels(torch, ar, rs, rd, card: str) -> list:
     rank's own stage slot) intact, a straggling rank (JAX's
     straggler_option) changing no bit, and a skipped push (its signal
     still set) over a NaN-filled workspace refused. Then the W = 4 bf16
-    cases timed (:func:`queued_ms`, each call on the next of 8 inputs:
-    128 MiB at prefill, more than the L2) beside the bound, one
-    ``torch.sum(x, 0)``, impl "xla", the plain version and the world-1
-    copy at the same per-rank shape. Returns the JSON records with their
-    launch keys, ``launches`` to fill from :func:`phase_arw_main`."""
+    cases: an entry call must queue exactly one kernel
+    (:func:`kernels_a_call`: a captured graph, and the kernel alone from a
+    profiler session where one recorded every launch), the plan printed
+    (pieces and grid), and each timed (:func:`queued_ms`, each call on the
+    next of 8 inputs: 128 MiB at prefill, more than the L2) beside the
+    bound, one ``torch.sum(x, 0)``, impl "xla", the plain version and the
+    world-1 copy at the same per-rank shape. Returns the JSON records with
+    their launch keys, ``launches`` to fill from :func:`phase_arw_main`."""
     print("== phase 26: world-W reduce-scatter and all-reduce kernels vs "
           "their plain versions", flush=True)
     t0 = time.perf_counter()
@@ -5520,6 +5523,14 @@ def phase_arw_kernels(torch, ar, rs, rd, card: str) -> list:
             one = arw_context(ar, rs, op, method, None)
             check(arw_method(ar, rs, ctx, xs[0], op) == method,
                   f"{op} {method} at W={world} {name} runs another method")
+            def entry():
+                return arw_call(ar, rs, xs[0], ctx, op, stacked=False)
+            nodes, seen, names, alone = kernels_a_call(
+                torch, entry, f"{op} {method} {name}")
+            check(one_kernel(nodes, seen),
+                  f"{op}_world[{method}] {name}: an entry call queued "
+                  f"{nodes} (graph), {seen} kernel records a call {names} "
+                  f"(profiler)")
             ms = queued_ms(torch, lambda: arw_call(ar, rs, nxt(), ctx, op,
                                                    stacked=False))
             xla_ms = queued_ms(torch, lambda: (
@@ -5531,14 +5542,18 @@ def phase_arw_kernels(torch, ar, rs, rd, card: str) -> list:
             w1_ms = queued_ms(torch, lambda: arw_call(ar, rs, nxt()[:1], one,
                                                       op, stacked=False))
             bnd = arw_bound_ms(op, world, m, n, 2)
-            grid, resident = rs.world_grid(xs[0], op, method)
+            plan = rs.world_grid(xs[0], op, method)
             print(f"kernel {op}_world[{method}] W={world} bf16 {name} "
-                  f"({world}, {m}, {n}): ms={ms:.5f} bound_ms={bnd:.5f} "
+                  f"({world}, {m}, {n}): an entry call queued {nodes} "
+                  f"(graph), {seen} kernel records a call (profiler); "
+                  f"ms={ms:.5f} (the entry) kernel_alone_ms={fmt_ms(alone)} "
+                  f"(profiler) bound_ms={bnd:.5f} "
                   f"(bytes) torch_sum_ms={lib_ms:.5f} xla_ms={xla_ms:.5f} "
                   f"plain_ms={plain_ms:.5f} w1_ms={w1_ms:.5f} (the world-1 "
-                  f"copy of one ({m}, {n}) partial); grid {grid} of "
-                  f"{resident} resident blocks; times by CUDA events around "
-                  f"queued calls [{card}]", flush=True)
+                  f"copy of one ({m}, {n}) partial); plan: {plan.pieces} "
+                  f"pieces of {plan.piece} elements a unit, grid "
+                  f"{plan.grid} of {plan.resident} resident blocks; times "
+                  f"by CUDA events around queued calls [{card}]", flush=True)
             records.append(({
                 "name": f"{op}_world[{method},{name}]", "route": "cuda",
                 "source": "triton_dist_tpu_torch/csrc/reduce_world.cu",
@@ -5546,7 +5561,8 @@ def phase_arw_kernels(torch, ar, rs, rd, card: str) -> list:
                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms,
                 "library": "torch.sum(x, 0)", "xla_ms": xla_ms,
-                "w1_ms": w1_ms,
+                "w1_ms": w1_ms, "kernel_alone_ms": alone,
+                "kernels_a_call": nodes["kernel"],
                 "wall_ms": wall_ms(torch, lambda: arw_call(
                     ar, rs, xs[0], ctx, op, stacked=False)),
                 "shape": [world, m, n], "ok": True},
@@ -5718,10 +5734,13 @@ def phase_p2p_kernels(torch, p2p, ks, rd, card: str) -> list:
     :func:`p2p_deltas`, on the inputs of :func:`p2p_inputs`: both entries,
     a launch into a NaN-filled (0xFF-filled for bytes) buffer and a repeat
     bit-equal to the plain roll, and rank 0's first piece skipped (its
-    signal still set) refused. Then the W = 4 cases timed
-    (:func:`queued_ms`) beside the bound, one ``torch.roll(x.view(W, -1),
-    delta, 0)`` and the plain version. Returns the JSON records of the
-    main path's shapes with their launch keys (entry, key)."""
+    signal still set) refused. Then the W = 4 cases: an entry call must
+    queue exactly one kernel (:func:`kernels_a_call`), the plan printed
+    (pieces and grid), and each timed (:func:`queued_ms`) beside the
+    bound, one ``torch.roll(x.view(W, -1), delta, 0)`` and the plain
+    version, each call on the next of copies of the input that hold 128
+    MiB together (more than the L2). Returns the JSON records of the main
+    path's shapes with their launch keys (entry, key)."""
     print("== phase 27: the pipeline shift and the KV ship hop vs the plain "
           "roll", flush=True)
     t0 = time.perf_counter()
@@ -5776,21 +5795,36 @@ def phase_p2p_kernels(torch, p2p, ks, rd, card: str) -> list:
         else:
             def call():
                 return p2p.pp_shift(x, ctx, delta=1)
-        ms = queued_ms(torch, call)
-        plain_ms = queued_ms(torch, lambda: p2p.pp_shift_reference(x, world,
+        nodes, seen, names, alone = kernels_a_call(torch, call,
+                                                   f"{entry} {name}")
+        check(one_kernel(nodes, seen),
+              f"{entry}[{name}]: an entry call queued {nodes} (graph), "
+              f"{seen} kernel records a call {names} (profiler)")
+        # Timed calls each take the next of copies that hold 128 MiB
+        # together, so a prefill-sized input is read from HBM, not the L2.
+        nx = rotating([x] + [x.clone() for _ in
+                             range(-(-(128 << 20) // x.nbytes) - 1)])
+        ms = queued_ms(torch, (lambda: ks.symm_ship(nx(), ship, delta=1))
+                       if entry == "symm_ship"
+                       else (lambda: p2p.pp_shift(nx(), ctx, delta=1)))
+        plain_ms = queued_ms(torch, lambda: p2p.pp_shift_reference(nx(), world,
                                                                    1))
-        lib_ms = queued_ms(torch, lambda: torch.roll(x.view(world, -1), 1, 0))
+        lib_ms = queued_ms(torch, lambda: torch.roll(nx().view(world, -1), 1,
+                                                     0))
+        del nx
         bnd = p2p_bound_ms(x)
-        grid, resident = p2p.shift_grid(x, world)
+        plan = p2p.shift_grid(x, world)
         chunk = x.numel() * x.element_size() // world
         rows = x.shape[0] // world
         print(f"kernel {entry}[{name}] W={world} {tuple(x.shape)} "
-              f"{str(x.dtype).removeprefix('torch.')}: ms={ms:.5f} "
-              f"bound_ms={bnd:.5f} (bytes) torch_roll_ms={lib_ms:.5f} "
-              f"plain_ms={plain_ms:.5f}; grid {grid} of {resident} resident "
-              f"blocks, {p2p._lib().tdt_shift_signals(chunk, world)} pieces "
-              f"a rank; times by CUDA events around queued calls [{card}]",
-              flush=True)
+              f"{str(x.dtype).removeprefix('torch.')}: an entry call queued "
+              f"{nodes} (graph), {seen} kernel records a call (profiler); "
+              f"ms={ms:.5f} (the entry) kernel_alone_ms={fmt_ms(alone)} "
+              f"(profiler) bound_ms={bnd:.5f} (bytes) "
+              f"torch_roll_ms={lib_ms:.5f} plain_ms={plain_ms:.5f}; plan: "
+              f"{plan.pieces} pieces of {plan.piece} bytes a rank, grid "
+              f"{plan.grid} of {plan.resident} resident blocks; times by "
+              f"CUDA events around queued calls [{card}]", flush=True)
         if name.endswith("_f32"):                  # off the main path
             continue
         records.append(({
@@ -5799,6 +5833,7 @@ def phase_p2p_kernels(torch, p2p, ks, rd, card: str) -> list:
             "replaces": P2P_REPLACES[entry], "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
             "library_ms": lib_ms, "library": "torch.roll(x.view(W, -1), 1, 0)",
+            "kernel_alone_ms": alone, "kernels_a_call": nodes["kernel"],
             "wall_ms": wall_ms(torch, call),
             "shape": list(x.shape), "ok": True},
             (entry, (world, rows, chunk // rows))))

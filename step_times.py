@@ -32,6 +32,18 @@ the card's name and power limit on every line. Groups:
   GEMM-RS o_proj and down and AG-GEMM QKV and gate|up; then one decode
   step (batch 4 after a 128-token prefill) of the gemm_ar engine (decode
   mode "gemm_ar") and of the fused engine (mode "ag_rs").
+* ``collectives``: the world-W exchanges at W = 4 on Qwen3-8B's widths
+  (bf16), by ``chip_smoke.queued_ms``, each beside its bound, one library
+  call of the same function and the node types one call queues (a CUDA
+  graph captured from it): ``all_reduce`` (one-shot, two-shot, recursive
+  doubling) and ``reduce_scatter`` (ring, one-shot) on (4, M, 4096)
+  partials at decode (M = 4) and prefill (M = 512), each call on the next
+  of 8 inputs, as ``chip_smoke.py``'s phase 26; ``pp_shift`` on the decode
+  (16, 4096) and prefill (2048, 4096) hops and ``symm_ship`` on one KV
+  block (4,718,592 bytes), as phase 27, each call on the next of copies
+  that hold 128 MiB together. So every prefill-sized input is read from
+  HBM, not from the 50 MB L2. It builds only ``reduce_world`` and
+  ``p2p``.
 * ``sp``: the flash prefill (``csrc/sp_attention.cu``) at Qwen3-8B's
   attention width (32 / 8 heads, D 128, bf16, causal): the 32k prompt at
   world 1 and through the W = 4 ring, and phase 14's B 4 x 4096, full 4096
@@ -52,7 +64,7 @@ change, parent on the card, e.g.::
     python step_times.py change dense tiles
     (cd parent && python ../step_times.py parent dense tiles)
 
-With no group named it runs all six.
+With no group named it runs all seven.
 """
 
 from __future__ import annotations
@@ -62,7 +74,7 @@ import re
 import sys
 import time
 
-GROUPS = ("dense", "tiles", "moe", "sp", "grouped", "decode")
+GROUPS = ("dense", "tiles", "moe", "sp", "grouped", "decode", "collectives")
 #: (what, model options, prefill mode, step mode, exchange kernel name).
 STEPS = (("EP decode step", {"fwd_mode": "xla", "moe_parallel": "ep",
                              "world": 4}, "xla", "xla", "a2a_kernel"),
@@ -259,6 +271,89 @@ def decode_rows(torch, cs, models, cfg, params, label, card):
         del kv
 
 
+#: The world-W reduce's rows: (op, method).
+REDUCE_ROWS = (("all_reduce", "one_shot"), ("all_reduce", "two_shot"),
+               ("all_reduce", "recursive_doubling"),
+               ("reduce_scatter", "ring"), ("reduce_scatter", "one_shot"))
+
+
+#: Bytes the inputs of one hop row hold together: more than the L2.
+HOP_BYTES = 128 << 20
+
+
+def collective_cases(torch, cs):
+    """The W = 4 rows of ``collectives``, bf16 on Qwen3-8B's widths: dicts
+    of the row's name, ``run(x)`` (the entry on one input; every copy of
+    the all-reduce), its inputs (8 partials for a reduce, copies that hold
+    :data:`HOP_BYTES` for a hop, so each timed call takes the next), the
+    bound in ms and ``library(x)`` (one ``torch.sum`` / ``torch.roll`` of
+    the same function)."""
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
+    from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    from triton_dist_tpu_torch.serving import kv_stream as ks
+    world, n = 4, 4096
+    group = create_rank_group(world, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cases = []
+    for name, m in (("decode", 4), ("prefill", 512)):
+        xs = [torch.randn((world, m, n), generator=gen, device="cuda")
+              .mul(4.0 ** torch.arange(world, device="cuda")[:, None, None])
+              .bfloat16() for _ in range(8)]
+        for op, method in REDUCE_ROWS:
+            if op == "all_reduce":
+                ctx = ar.create_allreduce_context(
+                    method=ar.AllReduceMethod(method), group=group)
+                run = (lambda x, ctx=ctx:
+                       ar.all_reduce(x, ctx, stacked=True))
+            else:
+                ctx = rs.create_reduce_scatter_context(
+                    method=rs.ReduceScatterMethod(method), group=group)
+                run = (lambda x, ctx=ctx: rs.reduce_scatter(x, ctx))
+            cases.append(dict(
+                name=f"{op} {method} W={world} {name} ({world}, {m}, {n}) "
+                     f"bf16", run=run, xs=xs,
+                bound=cs.arw_bound_ms(op, world, m, n, 2),
+                library=lambda x: torch.sum(x, 0), lib_name="torch.sum"))
+    ctx = p2p.create_p2p_context(create_rank_group(world, "pp",
+                                                   device="cuda"))
+    ship = create_rank_group(world, "tp", device="cuda")
+    for name, x in (
+            ("decode hop", torch.randn((world * 4, n), generator=gen,
+                                       device="cuda").bfloat16()),
+            ("prefill hop", torch.randn((world * 512, n), generator=gen,
+                                        device="cuda").bfloat16()),
+            ("KV block", torch.randint(0, 255, (36 * 2 * 16 * 8 * 128 * 4,),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.uint8))):
+        ship_it = name == "KV block"
+        cases.append(dict(
+            name=f"{'symm_ship' if ship_it else 'pp_shift'} {name} W={world} "
+                 f"{tuple(x.shape)} {str(x.dtype).removeprefix('torch.')}",
+            run=((lambda t: ks.symm_ship(t, ship, delta=1)) if ship_it
+                 else (lambda t: p2p.pp_shift(t, ctx, delta=1))),
+            xs=[x] + [x.clone() for _ in
+                      range(-(-HOP_BYTES // x.nbytes) - 1)],
+            bound=cs.p2p_bound_ms(x),
+            library=lambda t: torch.roll(t.view(world, -1), 1, 0),
+            lib_name="torch.roll"))
+    return cases
+
+
+def collective_rows(torch, cs, label, card):
+    from triton_dist_tpu_torch.tools.queued import queued_work
+    for c in collective_cases(torch, cs):
+        nx = cs.rotating(c["xs"])
+        ms = cs.queued_ms(torch, lambda: c["run"](nx()))
+        lib = cs.queued_ms(torch, lambda: c["library"](nx()))
+        nodes = dict(queued_work(lambda: c["run"](c["xs"][0])))
+        print(f"[{label}] {c['name']}: {ms:.5f} ms, bound {c['bound']:.5f} "
+              f"({ms / c['bound']:.1f}x), {c['lib_name']} {lib:.5f} "
+              f"({ms / lib:.2f}x); a call queues {nodes} [{card}]",
+              flush=True)
+
+
 def sp_rows(torch, cs, label, card):
     import torch.nn.functional as F
 
@@ -448,7 +543,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
-    _build.build_all(["sp_attention"] if groups == ["sp"] else None)
+    only = {("sp",): ["sp_attention"],
+            ("collectives",): ["reduce_world", "p2p"]}
+    _build.build_all(only.get(tuple(groups)))
     print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
     if {"dense", "tiles", "decode"} & set(groups):
         cfg = models.presets.qwen3_8b()
@@ -461,6 +558,8 @@ def main() -> int:
             decode_rows(torch, cs, models, cfg, params, label, card)
         del params
         torch.cuda.empty_cache()
+    if "collectives" in groups:
+        collective_rows(torch, cs, label, card)
     if "sp" in groups:
         sp_rows(torch, cs, label, card)
     if "grouped" in groups:

@@ -978,8 +978,8 @@ def test_reduce_world_source_targets_sm90a_through_cooperative_launches():
     text = src.read_text()
     assert 'extern "C"' in text and '#include "shmem.cuh"' in text
     for entry in ("cudaLaunchCooperativeKernel", "tdt_signal_release",
-                  "tdt_signal_wait_until", "tdt_signal_acquire",
-                  "tdt_reduce_world_signals", "tdt_reduce_world_workspace",
+                  "tdt_rank_ptr", "tdt_signal_acquire",
+                  "tdt_reduce_world_workspace",
                   "tdt_reduce_world_grid", "tdt_reduce_scatter_world",
                   "tdt_all_reduce_world", "tdt_error_string",
                   # the TPU kernels it replaces
@@ -1049,9 +1049,9 @@ def test_p2p_source_targets_sm90a_through_a_cooperative_launch():
     assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
     text = src.read_text()
     assert 'extern "C"' in text and '#include "shmem.cuh"' in text
-    for entry in ("cudaLaunchCooperativeKernel", "tdt_putmem_signal_block",
-                  "tdt_signal_release", "tdt_signal_wait_until",
-                  "tdt_peer_ptr", "tdt_shift_signals", "tdt_shift_grid",
+    for entry in ("cudaLaunchCooperativeKernel", "tdt_putmem_block_x4",
+                  "tdt_signal_release", "tdt_signal_wait_all",
+                  "tdt_rank_ptr", "tdt_shift_grid",
                   "tdt_shift_world", "tdt_error_string",
                   # the TPU kernels it replaces
                   "_shift_kernel", "_ship_kernel"):

@@ -1107,17 +1107,65 @@ def test_all_to_all_grid_fits_the_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["all_to_all_decode", "all_to_all_prefill",
                                    "full_mesh_push", "ring_1d", "ring_bidir",
-                                   "broadcast"])
+                                   "broadcast", "all_reduce_one_shot",
+                                   "all_reduce_two_shot",
+                                   "all_reduce_recursive_doubling",
+                                   "reduce_scatter_ring",
+                                   "reduce_scatter_one_shot", "pp_shift",
+                                   "symm_ship"])
 def test_one_entry_call_queues_one_kernel_on_card(cuda_device, entry):
     """A CUDA graph captured from one call of ``fast_all_to_all``,
     ``launch_all_gather_world`` or ``launch_broadcast_world`` at W = 4 on
-    Qwen3-30B-A3B's shapes holds one kernel node and nothing else."""
+    Qwen3-30B-A3B's shapes, or of ``all_reduce`` (each method),
+    ``reduce_scatter`` (both), ``pp_shift`` or ``symm_ship`` at W = 4 on
+    Qwen3-8B's prefill partials and hop, holds one kernel node and nothing
+    else."""
     from triton_dist_tpu_torch.ops import all_to_all as a2a
     from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.ops import reduce_scatter as rs
     from triton_dist_tpu_torch.runtime.dist import create_rank_group
+    from triton_dist_tpu_torch.serving import kv_stream as ks
     from triton_dist_tpu_torch.tools.queued import queued_work
     world, h = 4, 2048
     group = create_rank_group(world, device=cuda_device)
+    if entry.startswith(("all_reduce", "reduce_scatter", "pp_shift",
+                         "symm_ship")):
+        x = torch.randn(world, 512, 4096, device=cuda_device).bfloat16()
+        if entry.startswith("all_reduce"):
+            method = entry.removeprefix("all_reduce_")
+            ctx = ar.create_allreduce_context(
+                method=ar.AllReduceMethod(method), group=group)
+
+            def call():
+                return ar.all_reduce(x, ctx, stacked=True)
+            want = _rw_plain(x, "all_reduce", method)
+        elif entry.startswith("reduce_scatter"):
+            method = entry.removeprefix("reduce_scatter_")
+            ctx = rs.create_reduce_scatter_context(
+                method=rs.ReduceScatterMethod(method), group=group)
+
+            def call():
+                return rs.reduce_scatter(x, ctx)
+            want = _rw_plain(x, "reduce_scatter", method)
+        else:
+            x = x.reshape(world * 512, 4096)
+            ctx = p2p.create_p2p_context(create_rank_group(
+                world, "pp", device=cuda_device))
+            ship = create_rank_group(world, "tp", device=cuda_device)
+
+            def call():
+                return (p2p.pp_shift(x, ctx) if entry == "pp_shift"
+                        else ks.symm_ship(x, ship))
+            want = p2p.pp_shift_reference(x, world, 1)
+        call()
+        assert dict(queued_work(call)) == {"kernel": 1}
+        assert queued_work(lambda: (call(), x.float()))["kernel"] == 2
+        got = call()
+        copies = list(got) if entry.startswith("all_reduce") else [got]
+        assert all(torch.equal(_bits(c), _bits(want)) for c in copies)
+        return
     if entry.startswith("all_to_all"):
         cap = 8 if entry.endswith("decode") else 1024
         send = torch.randn(world * world, cap, h,
@@ -1966,8 +2014,13 @@ def test_world_reduce_kernel_matches_plain_on_card(cuda_device, dtype, op,
         assert torch.equal(_bits(got), _bits(_rw_plain(x, op, "one_shot")))
         return
     kind = rs.KINDS[(op, method)]
+    # Units that straddle 4 KiB pieces, whole vectors past the last
+    # boundary (n = 8200) or odd elements past it (8195: odd chunks off
+    # 16-byte alignment), and 64 rows a rank (the pieces grow past 4 KiB
+    # so that every block is resident).
     for i, (m, n) in enumerate([(world, 4096), (32 * world, 4096),
-                                (3 * world, 5)]):
+                                (3 * world, 5), (world, 8200),
+                                (world, 8195), (64 * world, 4096)]):
         x = _rw_partials(world, m, n, dtype, cuda_device, seed=world + i)
         want = _rw_plain(x, op, method)
         shape = (m, n) if op == "reduce_scatter" else (world, m, n)
@@ -2001,8 +2054,11 @@ def test_world_reduce_kernel_matches_plain_on_card(cuda_device, dtype, op,
 
 @pytest.mark.cuda
 def test_world_reduce_grid_fits_the_card(cuda_device):
-    """The launch is one block an item, never more than the card holds at
-    once (the cooperative launch fails otherwise)."""
+    """The plan: a block for every piece of every rank, never more than
+    the card holds at once (the cooperative launch fails otherwise);
+    pieces of up to 4 KiB while those blocks fit, larger past that,
+    every one a whole number of 16-byte vectors; one signal a hop of each
+    piece."""
     from triton_dist_tpu_torch.ops import reduce_scatter as rs
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for world in (2, 4, 8):
@@ -2010,9 +2066,26 @@ def test_world_reduce_grid_fits_the_card(cuda_device):
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.empty((world, m, 4096), dtype=dtype,
                                 device=cuda_device)
+                size = x.element_size()
                 for op, method in RW_CASES:
-                    grid, resident = rs.world_grid(x, op, method)
-                    assert 1 <= grid <= resident <= 32 * sms
+                    plan = rs.world_grid(x, op, method)
+                    assert 1 <= plan.grid <= plan.resident <= 32 * sms
+                    assert plan.grid == world * plan.pieces
+                    unit = m * 4096 // (1 if op == "all_reduce" and
+                                        method != "two_shot" else world)
+                    # ceil(unit / 4 KiB) pieces while their blocks fit,
+                    # else as many as fit; even pieces of whole vectors.
+                    pieces = min(-(-unit // (4096 // size)),
+                                 plan.resident // world)
+                    vec = 16 // size
+                    piece = -(-(-(-unit // pieces)) // vec) * vec
+                    assert (plan.piece, plan.pieces) == \
+                        (piece, -(-unit // piece))
+                    kind = rs.KINDS[(op, method)]
+                    hops = {0: world, 1: world - 1, 2: world,
+                            3: 2 * world - 1,
+                            4: world.bit_length() - 1}[kind]
+                    assert plan.signals == hops * plan.pieces
 
 
 # -- slice 14: the pipeline shift and the KV ship hop (csrc/p2p.cu) ---------
@@ -2025,15 +2098,18 @@ def _p2p_deltas(world):
 
 def _p2p_inputs(world, dtype, device, seed):
     """Inputs of the shift at ``world``: Qwen3-8B's decode rows (4 a rank,
-    4096 wide) and a small odd block for floats; for bytes a W x 37-byte
-    payload (unaligned shards) and a W x 4096-byte one."""
+    4096 wide), a small odd block and 18,000-byte blocks (a 16 KiB piece
+    and a short one) for floats; for bytes a W x 37-byte payload
+    (unaligned shards), a W x 4096-byte one and W x (16 KiB + 37) bytes
+    (a whole piece, then an unaligned one)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if dtype == torch.uint8:
         return [torch.randint(0, 255, (world * n,), generator=gen,
                               device=device, dtype=torch.uint8)
-                for n in (37, 4096)]
+                for n in (37, 4096, 16384 + 37)]
     return [torch.randn((world * rows, cols), generator=gen, device=device
-                        ).to(dtype) for rows, cols in ((4, 4096), (3, 5))]
+                        ).to(dtype)
+            for rows, cols in ((4, 4096), (3, 5), (9, 1000))]
 
 
 def _p2p_fill(dtype):
@@ -2084,8 +2160,8 @@ def test_shift_kernel_matches_plain_on_card(cuda_device, dtype, world):
 def test_shift_kernel_at_the_main_path_sizes_on_card(cuda_device):
     """The prefill hop (512 rows of 4096 bf16 a rank) and one Qwen3-8B KV
     block as bytes (36 x 2 x (16, 8, 128) f32 = 4,718,592 bytes) at
-    W = 4, bit-equal to the plain roll, with the grid spread over the
-    card."""
+    W = 4, bit-equal to the plain roll, with a push block for each of
+    their several pieces a rank and a wait block a rank, all resident."""
     from triton_dist_tpu_torch.ops import p2p
     from triton_dist_tpu_torch.runtime.dist import create_rank_group
     from triton_dist_tpu_torch.serving import kv_stream as ks
@@ -2104,25 +2180,31 @@ def test_shift_kernel_at_the_main_path_sizes_on_card(cuda_device):
             torch.cuda.synchronize()
             assert torch.equal(_bits(got), _bits(
                 p2p.pp_shift_reference(t, world, delta)))
-        grid, resident = p2p.shift_grid(t, world)
-        assert grid == resident
+        plan = p2p.shift_grid(t, world)
+        chunk = t.numel() * t.element_size() // world
+        assert plan.grid == world * (plan.pieces + 1) <= plan.resident
+        assert plan.pieces == -(-chunk // plan.piece) > 1
 
 
 @pytest.mark.cuda
 def test_shift_grid_fits_the_card(cuda_device):
-    """One block an item (W x pieces pushes and as many waits), never more
-    than the card holds at once; at the decode hop every push item has a
-    block of its own."""
+    """A push block for every piece of every rank and a wait block a rank,
+    never more than the card holds at once: pieces of up to 16 KiB while
+    they fit (the decode hop, a KV block), larger ones past that."""
     from triton_dist_tpu_torch.ops import p2p
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for world in P2P_WORLDS:
         for n in (37, 4 * 4096 * 2, 512 * 4096 * 2, 4718592 // 4):
             x = torch.empty((world * n,), dtype=torch.uint8,
                             device=cuda_device)
-            grid, resident = p2p.shift_grid(x, world)
-            assert 1 <= grid <= resident <= 32 * sms
-            pieces = p2p._lib().tdt_shift_signals(n, world)
-            assert grid == min(2 * world * pieces, resident)
+            plan = p2p.shift_grid(x, world)
+            assert 1 <= plan.grid <= plan.resident <= 32 * sms
+            assert plan.grid == world * (plan.pieces + 1)
+            # ceil(n / 16 KiB) pieces while their blocks and the W waits
+            # fit, else as many as fit; even pieces of 16-byte multiples.
+            pieces = min(-(-n // 16384), (plan.resident - world) // world)
+            piece = -(-(-(-n // pieces)) // 16) * 16
+            assert (plan.piece, plan.pieces) == (piece, -(-n // piece))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """The world-W exchange entries queue one kernel a call and nothing else:
 ``fast_all_to_all`` (``csrc/all_to_all.cu``), the world-W all-gather in
-every method and the broadcast (``csrc/allgather.cu``), on the CPU.
+every method and the broadcast (``csrc/allgather.cu``), ``all_reduce`` in
+every method and ``reduce_scatter`` in both (``csrc/reduce_world.cu``),
+``pp_shift`` and ``symm_ship`` (``csrc/p2p.cu``), on the CPU.
 
 The calls get CPU tensors that report the CUDA device, so they take the
 kernel route, and a stub in place of the built library that records each
@@ -13,7 +15,8 @@ stub's results, written through the (base, step) addresses, are
 bit-equal to the plain versions, the addresses equal ``rank_table``'s and
 the receive counts the kernel is told to write equal ``_xla_a2a`` of the
 send counts. The kernels themselves run on the card
-(``tests/test_torch_kernels.py``, ``chip_smoke.py`` phases 16 and 22)."""
+(``tests/test_torch_kernels.py``, ``chip_smoke.py`` phases 16, 22, 26 and
+27)."""
 
 import ctypes
 import types
@@ -21,12 +24,17 @@ import types
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 
 from triton_dist_tpu_torch.ops import all_to_all as a2a
 from triton_dist_tpu_torch.ops import allgather as ag
+from triton_dist_tpu_torch.ops import allreduce as ar
+from triton_dist_tpu_torch.ops import p2p
+from triton_dist_tpu_torch.ops import reduce_scatter as rs
 from triton_dist_tpu_torch.runtime import symm_mem
 from triton_dist_tpu_torch.runtime.dist import create_rank_group
+from triton_dist_tpu_torch.serving import kv_stream as ks
 
 WORLDS = (2, 3, 4, 8)
 #: aten ops that allocate without writing: no kernel on the card.
@@ -307,3 +315,234 @@ def test_rank_span_is_rank_table(world):
             [x[r * rows].data_ptr() for r in range(world)]
     with pytest.raises(ValueError):
         symm_mem.rank_span(big[:world * 3 + 1], world)
+
+
+def _host_tensor(address: int, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """The ``n`` elements of ``dtype`` at a host ``address``, as a tensor
+    over the same memory."""
+    size = n * torch.empty((), dtype=dtype).element_size()
+    return torch.frombuffer((ctypes.c_char * size).from_address(address),
+                            dtype=dtype)
+
+
+_CODES = {0: torch.bfloat16, 1: torch.float32}
+
+
+def _put(**outs) -> int:
+    """Writes each value through its ``ctypes.byref`` argument, as a C
+    entry writes its outputs; returns 0 (cudaSuccess)."""
+    for ref, value in outs.values():
+        ref._obj.value = value
+    return 0
+
+
+class ReduceStub:
+    """``csrc/reduce_world.cu``'s entries: the plain version's result of
+    the kind asked for, written into every rank's output through (out,
+    out_step)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def tdt_reduce_world_grid(self, kind, world, elems, dtype, grid,
+                              resident, piece, pieces, signals):
+        return _put(grid=(grid, world), resident=(resident, 1056),
+                    piece=(piece, elems), pieces=(pieces, 1),
+                    signals=(signals, 2 * world))
+
+    def tdt_reduce_world_workspace(self, kind, world, elems):
+        return world * elems
+
+    def _launch(self, op, x, out, out_step, ws, ws_step, sig, sig_step,
+                elems, world, method, dtype, straggler, cycles, epoch, fault,
+                stream):
+        self.calls.append(dict(op=op, out=out, out_step=out_step, ws=ws,
+                               ws_step=ws_step, sig=sig, sig_step=sig_step,
+                               method=method, epoch=epoch))
+        # The kernel's work, which the caller's op log does not see.
+        with _disable_current_modes():
+            rows = world if elems % world == 0 else 1
+            xs = _host_tensor(x, world * elems, _CODES[dtype]).reshape(
+                world, rows, -1)
+            if op == "reduce_scatter":
+                want = rs.reduce_scatter_world_reference(
+                    xs, rs.ReduceScatterMethod(("one_shot", "ring")[method]))
+                parts = list(want)             # rank r's chunk: row r
+            else:
+                want = ar.all_reduce_world_reference(xs, ar.AllReduceMethod(
+                    ("one_shot", "two_shot", "recursive_doubling")[method]))
+                parts = [want.reshape(-1)] * world
+            for r, part in enumerate(parts):
+                part = part.contiguous()
+                ctypes.memmove(out + r * out_step, part.data_ptr(),
+                               part.numel() * part.element_size())
+        return 0
+
+    def tdt_reduce_scatter_world(self, *args):
+        return self._launch("reduce_scatter", *args)
+
+    def tdt_all_reduce_world(self, *args):
+        return self._launch("all_reduce", *args)
+
+    def tdt_error_string(self, err):
+        return b"stub"
+
+
+RW_CASES = [("all_reduce", "one_shot"), ("all_reduce", "two_shot"),
+            ("all_reduce", "recursive_doubling"),
+            ("reduce_scatter", "ring"), ("reduce_scatter", "one_shot")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("op,method", RW_CASES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_world_reduce_call_queues_one_kernel(monkeypatch, no_stream, world,
+                                             op, method, dtype):
+    """``all_reduce`` / ``reduce_scatter`` at world W and a launch into a
+    NaN-filled buffer queue the kernel alone; their output, workspace and
+    signal rows go as (base, step) with ``rank_table``'s addresses, the
+    state's buffers made by the first call, and the stub's results written
+    through them are bit-equal to the plain version (every all-reduce
+    copy). At W = 3 recursive doubling runs one-shot, as JAX's rule
+    says."""
+    stub = ReduceStub()
+    monkeypatch.setattr(rs, "_lib", lambda: stub)
+    group = create_rank_group(world, device="cpu")
+    m, n = 2 * world, 24
+    rng = np.random.RandomState(world)
+    x = (torch.from_numpy(rng.randn(world, m, n).astype(np.float32))
+         * 4.0 ** torch.arange(world)[:, None, None]).to(dtype)
+    if op == "all_reduce":
+        ctx = ar.create_allreduce_context(
+            method=ar.AllReduceMethod(method), group=group)
+        ran = ar.resolve_method(ctx, m, m * n * x.element_size())
+        want = ar.all_reduce_world_reference(x, ran)
+
+        def call():
+            return ar.all_reduce(on_cuda(x), ctx, stacked=True)
+        counter, shape = ar.all_reduce_launches, (world, m, n)
+    else:
+        ctx = rs.create_reduce_scatter_context(
+            method=rs.ReduceScatterMethod(method), group=group)
+        ran = ctx.resolve_method(m // world * n * x.element_size())
+        want = rs.reduce_scatter_world_reference(x, ran)
+
+        def call():
+            return rs.reduce_scatter(on_cuda(x), ctx)
+        counter, shape = rs.reduce_scatter_launches, (m, n)
+    call()
+    out = torch.full(shape, float("nan"), dtype=dtype)
+    before = counter.total
+    with OpLog() as log:
+        got = call()
+        into = rs.launch_reduce_world(on_cuda(x), ctx, op, ran.value,
+                                      out=on_cuda(out))
+    assert log.work() == []
+    assert counter.total == before + 1
+    epochs = [c["epoch"] for c in stub.calls]
+    assert epochs == [epochs[0], epochs[0] + 1, epochs[0] + 2]
+    kind = rs.KINDS[(op, ran.value)]
+    assert {c["method"] for c in stub.calls} == \
+        {kind - rs.KINDS[(op, "one_shot")]}
+    ws, sig = rs.world_buffers(x, ctx.state, kind)
+    for c in stub.calls:
+        assert _addresses(c, "ws", world) == \
+            symm_mem.rank_table(ws, world).tolist()
+        assert _addresses(c, "sig", world) == \
+            symm_mem.rank_table(sig, world).tolist()
+    assert _addresses(stub.calls[-1], "out", world) == \
+        symm_mem.rank_table(out, world).tolist()
+    assert host(into).data_ptr() == out.data_ptr()
+    copies = [got, into] if op == "reduce_scatter" else [*got, *into]
+    assert all(torch.equal(bits(c), bits(want)) for c in copies)
+
+
+class ShiftStub:
+    """``csrc/p2p.cu``'s entries: rank r's block written into rank
+    dst(r)'s output block through (out, out_step)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def tdt_shift_grid(self, chunk, world, grid, resident, piece, pieces):
+        n = -(-chunk // (16 * 1024))
+        return _put(grid=(grid, world * (n + 1)), resident=(resident, 1056),
+                    piece=(piece, 16 * 1024), pieces=(pieces, n))
+
+    def tdt_shift_world(self, x, out, out_step, sig, sig_step, chunk, world,
+                        delta, epoch, fault, stream):
+        self.calls.append(dict(out=out, out_step=out_step, sig=sig,
+                               sig_step=sig_step, epoch=epoch))
+        for r in range(world):
+            dst = p2p.shift_partners(r, delta, world)[0]
+            ctypes.memmove(out + dst * out_step, x + r * chunk, chunk)
+        return 0
+
+    def tdt_error_string(self, err):
+        return b"stub"
+
+
+DELTAS = {"1": lambda w: 1, "-1": lambda w: -1, "W+1": lambda w: w + 1,
+          "-(W+2)": lambda w: -(w + 2)}
+
+
+@pytest.mark.parametrize("delta", list(DELTAS))
+@pytest.mark.parametrize("entry,dtype", [
+    ("pp_shift", torch.bfloat16), ("pp_shift", torch.float32),
+    ("symm_ship", torch.bfloat16), ("symm_ship", torch.float32),
+    ("symm_ship", torch.uint8)])
+@pytest.mark.parametrize("world", WORLDS)
+def test_shift_call_queues_one_kernel(monkeypatch, no_stream, world, entry,
+                                      dtype, delta):
+    """``pp_shift`` / ``symm_ship`` at world W and a launch into a filled
+    buffer queue the kernel alone; the output and signal rows go as (base,
+    step) with ``rank_table``'s addresses, the signals made by the first
+    call, and the stub's results written through them are bit-equal to
+    the plain roll (a uint8 payload of W x 37 bytes: shards off 16-byte
+    alignment)."""
+    stub = ShiftStub()
+    monkeypatch.setattr(p2p, "_lib", lambda: stub)
+    d = DELTAS[delta](world)
+    rng = np.random.RandomState(world)
+    if dtype == torch.uint8:
+        x = torch.from_numpy(rng.randint(0, 256, world * 37).astype(np.uint8))
+    else:
+        x = torch.from_numpy(rng.randn(4 * world, 40).astype(np.float32)
+                             ).to(dtype)
+    if entry == "pp_shift":
+        ctx = p2p.create_p2p_context(create_rank_group(world, "pp",
+                                                       device="cpu"))
+
+        def call():
+            return p2p.pp_shift(on_cuda(x), ctx, delta=d)
+        counter = p2p.pp_shift_launches
+    else:
+        group = create_rank_group(world, "tp", device="cpu")
+
+        def call():
+            return ks.symm_ship(on_cuda(x), group, delta=d)
+        counter = ks.symm_ship_launches
+    call()
+    if entry == "symm_ship":
+        ctx = ks._ship_context(group)
+    fill = 255 if dtype == torch.uint8 else float("nan")
+    out = torch.full_like(x, fill)
+    before = counter.total
+    with OpLog() as log:
+        got = call()
+        into = p2p.launch_shift(on_cuda(x), ctx, d, counter,
+                                out=on_cuda(out))
+    assert log.work() == []
+    assert counter.total == before + 2
+    epochs = [c["epoch"] for c in stub.calls]
+    assert epochs == [epochs[0], epochs[0] + 1, epochs[0] + 2]
+    sig = ctx.state.signals("p2p", p2p.shift_grid(x, world).pieces)
+    for c in stub.calls:
+        assert _addresses(c, "sig", world) == \
+            symm_mem.rank_table(sig, world).tolist()
+    assert _addresses(stub.calls[-1], "out", world) == \
+        symm_mem.rank_table(out, world).tolist()
+    assert host(into).data_ptr() == out.data_ptr()
+    want = p2p.pp_shift_reference(x, world, d)
+    for t in (got, into):
+        assert torch.equal(bits(t), bits(want))

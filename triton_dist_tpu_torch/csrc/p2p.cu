@@ -14,13 +14,15 @@
 // i's output is the block of rank i - delta.
 //
 // Ranks are W slices of one card (runtime/dist.py): rank r's input block
-// is bytes [r C, (r + 1) C) of one global tensor; its output is rank r's
-// block of the output tensor, reached through a device table of base
-// addresses (shmem.cuh's tdt_peer_ptr), as a Pallas kernel reaches a
-// peer's buffer by device id. dst and src follow JAX's shift_partners
-// (:58): span = (|delta| / W + 1) W keeps the remainder's argument
-// non-negative, so any delta, of either sign and |delta| >= W, gives
-// ranks in [0, W) (a C `%` of a negative number is negative).
+// is bytes [r C, (r + 1) C) of one global tensor; its output block and its
+// signal row are rank r's shards of the output tensor and of the signal
+// buffer, reached from rank 0's address and the bytes between two ranks'
+// shards (shmem.cuh's tdt_rank_ptr), as a Pallas kernel reaches a peer's
+// buffer by device id: a call takes them by value and queues this one
+// kernel and nothing else. dst and src follow JAX's shift_partners (:58):
+// span = (|delta| / W + 1) W keeps the remainder's argument non-negative,
+// so any delta, of either sign and |delta| >= W, gives ranks in [0, W) (a
+// C `%` of a negative number is negative).
 //
 // What bounds it: bytes. Every block is read once and written once: 2 W C
 // bytes at 3.35 TB/s. Qwen3-8B's decode hop at W = 4 (4 rows of 4096
@@ -28,28 +30,26 @@
 // prefill hop (512 rows, 4 MiB a rank) 10 us; one KV block (36 layers x
 // 2 x (16, 8, 128) f32, 4.7 MB in all) 2.8 us.
 //
-// The design, a simple kernel that is right first:
-//  * each block is cut into pieces of `piece` bytes (piece_bytes: the
-//    whole payload over the resident blocks, rounded up to 16 bytes,
-//    between kMinPiece and kMaxPiece), so every resident block gets a
-//    piece at decode size; each piece has one 64-bit signal in the
-//    receiver's signal row, stamped with the call's epoch (never reset: a
-//    wait compares for equality);
-//  * items are dealt round-robin to all blocks of the launch, every rank's
-//    items to every block (on one card a rank owns no SMs): first every
-//    push item (rank, piece), then every wait item (rank, piece). A wait's
-//    producer is a push, which has a smaller index, so with every block
-//    resident (the cooperative launch) the smallest unfinished item can
-//    always run: no deadlock. A grid larger than the card holds is never
-//    launched: the grid is min(items, resident blocks), and blocks walk
-//    the items;
+// The design:
+//  * each block is cut into pieces of 16 KiB (kPiece), larger when the
+//    launch's blocks would not all be resident at once (piece_bytes); each
+//    piece has one 64-bit signal in the receiver's signal row, stamped
+//    with the call's epoch (never reset: a wait compares for equality);
+//  * one push block for every piece of every rank, then one wait block
+//    for every rank, all resident together (the cooperative launch: a
+//    grid the card cannot hold is never launched), so no block waits for
+//    another to be dealt;
 //  * a push copies 16-byte vectors, neighbouring threads on neighbouring
-//    addresses, when both ends are 16-byte aligned, then the tail bytes
-//    (tdt_putmem_block: byte copies for an unaligned uint8 payload; it
-//    never reads past a rank's bytes), then __syncthreads, a fence and one
-//    release store of the piece's signal; a wait is an acquire load loop
-//    (JAX's wait_recv). JAX's wait_send has no counterpart: a push is done
-//    when its block's stores are;
+//    addresses, four loads in flight a thread before their stores, when
+//    both ends are 16-byte aligned, then the tail bytes
+//    (tdt_putmem_block_x4: byte copies for an unaligned uint8 payload; it
+//    never reads past a rank's bytes), then __syncthreads and thread 0's
+//    release store of the piece's signal, no __threadfence before it
+//    (reduce_world.cu says why);
+//  * a rank's wait block polls the signals of all of its pieces, spread
+//    over its threads (tdt_signal_wait_all: JAX's wait_recv). JAX's
+//    wait_send has no counterpart: a push is done when its block's stores
+//    are;
 //  * no barrier_all before the pushes: every call writes into a new output
 //    tensor (or a caller's `out`) and stream order separates calls, so no
 //    peer's output can be overwritten before that peer is ready (a
@@ -69,14 +69,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Bounds of one piece's bytes: one push item, one signal.
-constexpr long long kMinPiece = 1024;
-constexpr long long kMaxPiece = 64 * 1024;
+// Bytes of one piece while the blocks fit: one x4 round of the block.
+constexpr long long kPiece = 4LL * 16 * kThreads;
 
 struct Args {
   const unsigned char* x;    // W blocks of `chunk` bytes, rank r's at r C
-  const long long* out_tab;  // rank r's output block
-  const long long* sig_tab;  // rank r's signal row
+  unsigned char* out;        // rank 0's output block
+  unsigned long long* sig;   // rank 0's signal row
+  long long out_step, sig_step;  // bytes from rank r's to r + 1's
   long long chunk;           // bytes of one rank's block
   long long piece;           // bytes of one piece (the last may be short)
   long long pieces;          // pieces of one block
@@ -94,52 +94,35 @@ __device__ __forceinline__ int partner(int me, long long delta, int world) {
   return static_cast<int>((me + delta + span) % world);
 }
 
-__device__ __forceinline__ unsigned long long* signal_of(const Args& a,
-                                                         int owner,
-                                                         long long pc) {
-  return reinterpret_cast<unsigned long long*>(
-             tdt_peer_ptr(a.sig_tab, owner)) + pc;
+__device__ __forceinline__ unsigned long long* signals_of(const Args& a,
+                                                          int owner) {
+  return tdt_rank_ptr(a.sig, a.sig_step, owner);
 }
 
-// Push item `it` = (me, piece): piece pc of rank me's block into rank
-// dst's output, then its signal in dst's row.
-__device__ void push_item(const Args& a, long long it) {
-  const long long pc = it % a.pieces;
-  const int me = static_cast<int>(it / a.pieces);
+// Push block (me, piece): piece pc of rank me's block into rank dst's
+// output, then its signal in dst's row.
+__device__ void push_piece(const Args& a, int me, long long pc) {
   const int dst = partner(me, a.delta, a.world);
   const long long off = pc * a.piece;
   const long long left = a.chunk - off;
   const long long n = left < a.piece ? left : a.piece;
-  unsigned long long* sig = signal_of(a, dst, pc);
-  if (a.fault && me == 0 && pc == 0) {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      tdt_signal_release(sig, a.epoch);
-    }
-    return;
-  }
-  tdt_putmem_signal_block(tdt_peer_ptr(a.out_tab, dst) + off,
-                          a.x + me * a.chunk + off, n, sig, a.epoch);
-}
-
-// Wait item `it` = (me, piece): rank me waits for piece pc of the block
-// arriving from src = partner(me, -delta).
-__device__ void wait_item(const Args& a, long long it) {
-  const long long pc = it % a.pieces;
-  const int me = static_cast<int>(it / a.pieces);
-  tdt_signal_wait_until(signal_of(a, me, pc), a.epoch);
+  if (!(a.fault && me == 0 && pc == 0))
+    tdt_putmem_block_x4(tdt_rank_ptr(a.out, a.out_step, dst) + off,
+                        a.x + me * a.chunk + off, n);
+  __syncthreads();
+  if (threadIdx.x == 0) tdt_signal_release(signals_of(a, dst) + pc, a.epoch);
 }
 
 __global__ void __launch_bounds__(kThreads) shift_world(Args a) {
   const long long pushes = static_cast<long long>(a.world) * a.pieces;
-  for (long long it = blockIdx.x; it < 2 * pushes; it += gridDim.x) {
-    if (it < pushes) {
-      push_item(a, it);
-    } else {
-      wait_item(a, it - pushes);
-    }
-    __syncthreads();  // the block's threads leave an item together
+  const long long b = blockIdx.x;
+  if (b < pushes) {
+    push_piece(a, static_cast<int>(b / a.pieces), b % a.pieces);
+  } else {
+    // Rank b - pushes waits for every piece arriving from src =
+    // partner(me, -delta).
+    tdt_signal_wait_all(signals_of(a, static_cast<int>(b - pushes)),
+                        static_cast<int>(a.pieces), a.epoch);
   }
 }
 
@@ -165,77 +148,80 @@ cudaError_t resident_blocks(int* out) {
 }
 
 // Bytes of one piece for blocks of `chunk` bytes over `world` ranks when
-// `resident` blocks fit on the card.
+// `resident` blocks fit on the card: kPiece, or more while the W pieces'
+// push blocks and the W wait blocks would not all be resident; 0 when the
+// card cannot hold W + W blocks.
 long long piece_bytes(long long chunk, int world, int resident) {
-  const long long total = chunk * world;
-  long long p = (total + resident - 1) / resident;
-  p = (p + 15) / 16 * 16;
-  if (p < kMinPiece) p = kMinPiece;
-  if (p > kMaxPiece) p = kMaxPiece;
-  return p;
+  const long long per_rank = (resident - world) / world;
+  if (per_rank < 1) return 0;
+  long long pieces = (chunk + kPiece - 1) / kPiece;
+  if (pieces > per_rank) pieces = per_rank;
+  const long long p = (chunk + pieces - 1) / pieces;
+  return (p + 15) / 16 * 16;
 }
 
 bool valid(long long chunk, int world) { return chunk >= 1 && world >= 2; }
+
+// The plan of a call: *piece bytes, *pieces a rank, *grid blocks.
+cudaError_t plan_of(long long chunk, int world, long long* piece,
+                    long long* pieces, int* grid, int* resident) {
+  cudaError_t err = resident_blocks(resident);
+  if (err != cudaSuccess) return err;
+  *piece = piece_bytes(chunk, world, *resident);
+  if (*piece < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *pieces = (chunk + *piece - 1) / *piece;
+  *grid = static_cast<int>(world * (*pieces + 1));
+  return cudaSuccess;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Signals a call with `chunk_bytes` a rank over `world` ranks needs in each
-// rank's row on the current card: one per piece of the block that arrives
-// into it; -1 for bad arguments or a card without cooperative launches.
-long long tdt_shift_signals(long long chunk_bytes, int world) {
-  int resident = 0;
-  if (!valid(chunk_bytes, world) || resident_blocks(&resident) != cudaSuccess)
-    return -1;
-  const long long p = piece_bytes(chunk_bytes, world, resident);
-  return (chunk_bytes + p - 1) / p;
-}
-
-// The launch's blocks (*grid: one an item, at most what fits) and the
-// blocks the card holds at once (*resident). Returns a cudaError_t.
+// The plan of a call on this card: *grid blocks of the launch (W x pieces
+// pushes, then W waits, every one resident), *resident blocks the card
+// holds at once, *piece bytes of a piece, *pieces of them a rank (and the
+// signals a call needs in each rank's row: one per piece of the block that
+// arrives into it). Returns a cudaError_t.
 int tdt_shift_grid(long long chunk_bytes, int world, int* grid,
-                   int* resident) {
-  if (!valid(chunk_bytes, world) || grid == nullptr || resident == nullptr)
+                   int* resident, long long* piece, long long* pieces) {
+  if (!valid(chunk_bytes, world) || grid == nullptr || resident == nullptr ||
+      piece == nullptr || pieces == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = resident_blocks(resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long p = piece_bytes(chunk_bytes, world, *resident);
-  const long long items = 2LL * world * ((chunk_bytes + p - 1) / p);
-  *grid = static_cast<int>(items < *resident ? items : *resident);
-  return static_cast<int>(cudaSuccess);
+  return static_cast<int>(
+      plan_of(chunk_bytes, world, piece, pieces, grid, resident));
 }
 
 // The shift over `world` ranks of one card: rank r's block x[r C,
-// (r + 1) C) into rank dst(r)'s output block (out_tab[dst(r)], C bytes),
-// dst(r) = (r + delta) mod W by JAX's rule. sig_tab[r]: rank r's row of
-// tdt_shift_signals(C, W) uint64 signals. `epoch` must differ from every
-// earlier call's on these signals (a counter, never 0); `fault` plants the
-// test fault. Returns a cudaError_t.
-int tdt_shift_world(const void* x, const void* out_tab, const void* sig_tab,
-                    long long chunk_bytes, int world, long long delta,
-                    unsigned long long epoch, int fault, void* stream) {
-  if (x == nullptr || out_tab == nullptr || sig_tab == nullptr ||
+// (r + 1) C) into rank dst(r)'s output block (at out + dst(r) * out_step,
+// C bytes), dst(r) = (r + delta) mod W by JAX's rule. Rank r's row of
+// `pieces` (tdt_shift_grid) uint64 signals at sig + r * sig_step. `epoch`
+// must differ from every earlier call's on these signals (a counter,
+// never 0); `fault` plants the test fault. Returns a cudaError_t.
+int tdt_shift_world(const void* x, void* out, long long out_step, void* sig,
+                    long long sig_step, long long chunk_bytes, int world,
+                    long long delta, unsigned long long epoch, int fault,
+                    void* stream) {
+  if (x == nullptr || out == nullptr || sig == nullptr ||
       !valid(chunk_bytes, world) || epoch == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int grid = 0, resident = 0;
-  int err = tdt_shift_grid(chunk_bytes, world, &grid, &resident);
-  if (err != 0) return err;
-  if (grid < 1 || grid > resident)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   Args a;
+  int grid = 0, resident = 0;
+  cudaError_t e = plan_of(chunk_bytes, world, &a.piece, &a.pieces, &grid,
+                          &resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
   a.x = static_cast<const unsigned char*>(x);
-  a.out_tab = static_cast<const long long*>(out_tab);
-  a.sig_tab = static_cast<const long long*>(sig_tab);
+  a.out = static_cast<unsigned char*>(out);
+  a.sig = static_cast<unsigned long long*>(sig);
+  a.out_step = out_step;
+  a.sig_step = sig_step;
   a.chunk = chunk_bytes;
-  a.piece = piece_bytes(chunk_bytes, world, resident);
-  a.pieces = (chunk_bytes + a.piece - 1) / a.piece;
   a.delta = delta;
   a.epoch = epoch;
   a.world = world;
   a.fault = fault;
   void* params[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(
+  e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(shift_world),
       dim3(static_cast<unsigned>(grid)), dim3(kThreads), params, 0,
       static_cast<cudaStream_t>(stream));

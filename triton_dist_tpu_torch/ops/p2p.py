@@ -29,13 +29,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import typing
 
 import torch
 
 from triton_dist_tpu_torch.ops import _build
 from triton_dist_tpu_torch.ops.common import LaunchCount
 from triton_dist_tpu_torch.runtime.dist import RankGroup
-from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_span
 
 #: Launches of the shift kernel through :func:`pp_shift`, by (W, rows, row
 #: bytes).
@@ -153,32 +154,36 @@ def launch_shift(x: torch.Tensor, ctx: P2PContext, delta: int,
     lib = _lib()
     if ctx.state is None:
         ctx.state = RingState(ctx.group)
-    n_sig = lib.tdt_shift_signals(chunk, world)
-    if n_sig < 1:
-        raise RuntimeError("the shift kernel cannot run on this card (no "
-                           "cooperative launch)")
-    sig = ctx.state.signals("p2p", n_sig)
-    # The tables stay referenced until the launch is queued: a freed
-    # temporary's memory would be handed to the next one.
-    out_tab, sig_tab = rank_table(out, world), rank_table(sig, world)
+    sig = ctx.state.signals("p2p", shift_grid(x, world).pieces)
     epoch = ctx.state.next_epoch()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(lib, lib.tdt_shift_world(
-        x.data_ptr(), out_tab.data_ptr(), sig_tab.data_ptr(), chunk, world,
-        delta, epoch, int(fault), stream))
+        x.data_ptr(), *rank_span(out, world), *rank_span(sig, world), chunk,
+        world, delta, epoch, int(fault), stream))
     counter.add((world, rows, chunk // max(rows, 1)))
     return out
 
 
-def shift_grid(x: torch.Tensor, world: int) -> tuple:
-    """(blocks of the launch for ``x`` over ``world`` ranks, blocks the
-    card holds at once): one block an item, at most what fits."""
+class ShiftPlan(typing.NamedTuple):
+    """The launch plan of a shift (``tdt_shift_grid``)."""
+    grid: int          # blocks: W x pieces pushes, then W waits
+    resident: int      # blocks the card holds at once
+    piece: int         # bytes of a piece
+    pieces: int        # pieces of one rank's block
+
+
+def shift_grid(x: torch.Tensor, world: int) -> ShiftPlan:
+    """The card's plan of the shift of ``x`` over ``world`` ranks: a push
+    block for every piece (up to 16 KiB) of every rank's block (larger pieces
+    while the blocks would not all be resident) and a wait block a
+    rank."""
     lib = _lib()
     grid, resident = ctypes.c_int(), ctypes.c_int()
+    piece, pieces = ctypes.c_longlong(), ctypes.c_longlong()
     _check(lib, lib.tdt_shift_grid(
         x.numel() * x.element_size() // world, world, ctypes.byref(grid),
-        ctypes.byref(resident)))
-    return grid.value, resident.value
+        ctypes.byref(resident), ctypes.byref(piece), ctypes.byref(pieces)))
+    return ShiftPlan(grid.value, resident.value, piece.value, pieces.value)
 
 
 def _check(lib: ctypes.CDLL, err: int) -> None:
@@ -191,12 +196,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("p2p")
     if lib.tdt_shift_world.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tdt_shift_signals.argtypes = [ll, i]
-        lib.tdt_shift_signals.restype = ll
         lib.tdt_shift_grid.argtypes = [ll, i, ctypes.POINTER(i),
-                                       ctypes.POINTER(i)]
+                                       ctypes.POINTER(i), ctypes.POINTER(ll),
+                                       ctypes.POINTER(ll)]
         lib.tdt_shift_grid.restype = i
-        lib.tdt_shift_world.argtypes = [p, p, p, ll, i, ll,
+        lib.tdt_shift_world.argtypes = [p, p, ll, p, ll, ll, i, ll,
                                         ctypes.c_ulonglong, i, p]
         lib.tdt_shift_world.restype = i
         lib.tdt_error_string.argtypes = [i]

@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import enum
+import typing
 
 import torch
 
@@ -40,7 +41,7 @@ from triton_dist_tpu_torch.ops.allgather import (
     _world_operands, launch_copy, world_state)
 from triton_dist_tpu_torch.ops.common import LaunchCount
 from triton_dist_tpu_torch.runtime.dist import RankGroup
-from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_table
+from triton_dist_tpu_torch.runtime.symm_mem import RingState, rank_span
 from triton_dist_tpu_torch.tools.perf_model import (
     ChipSpec, estimate_one_shot_reduce_time_ms,
     estimate_reduce_scatter_time_ms)
@@ -183,15 +184,14 @@ def world_buffers(x: torch.Tensor, state: RingState, kind: int) -> tuple:
     """(workspace, signals) of a world-W call of ``kind`` on ``x`` in
     ``state``: the (W, row) workspace in ``x.dtype`` (stage or receive
     slots, NaN-filled when made, each row ending in the NaN canary tail)
-    and the (W, count) signals. The one-shots' stage slot [r] of rank r
-    is never written."""
+    and the (W, count) signals, one a hop of each piece of the card's plan
+    (:func:`world_grid`). The one-shots' stage slot [r] of rank r is never
+    written."""
     lib = _lib()
     world, elems = x.shape[0], x[0].numel()
     ws = state.workspace(lib.tdt_reduce_world_workspace(kind, world, elems),
                          x.dtype)
-    sig = state.signals("reduce",
-                        lib.tdt_reduce_world_signals(kind, world, elems))
-    return ws, sig
+    return ws, state.signals("reduce", _plan(x, kind).signals)
 
 
 def launch_reduce_world(x: torch.Tensor, ctx, op: str, method: str,
@@ -225,36 +225,51 @@ def launch_reduce_world(x: torch.Tensor, ctx, op: str, method: str,
     lib = _lib()
     shape = (m, n) if op == "reduce_scatter" else (world, m, n)
     if out is None:
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        out = x.new_empty(shape)
     elif (tuple(out.shape) != shape or out.dtype != x.dtype
           or out.device != x.device or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous {x.dtype} tensor of "
                          f"shape {shape} on {x.device}")
     ws, sig = world_buffers(x, state, kind)
-    # The tables stay referenced until the launch is queued: a freed
-    # temporary's memory would be handed to the next one.
-    out_tab = rank_table(out, world)
-    ws_tab, sig_tab = rank_table(ws, world), rank_table(sig, world)
     epoch = state.next_epoch()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     entry = (lib.tdt_reduce_scatter_world if op == "reduce_scatter"
              else lib.tdt_all_reduce_world)
     _check(lib, entry(
-        x.data_ptr(), out_tab.data_ptr(), ws_tab.data_ptr(),
-        sig_tab.data_ptr(), m * n, world, kind - KINDS[(op, "one_shot")],
-        _DTYPE_CODES[x.dtype], rank, cycles, epoch, int(fault), stream))
+        x.data_ptr(), *rank_span(out, world), *rank_span(ws, world),
+        *rank_span(sig, world), m * n, world,
+        kind - KINDS[(op, "one_shot")], _DTYPE_CODES[x.dtype], rank, cycles,
+        epoch, int(fault), stream))
     return out
 
 
-def world_grid(x: torch.Tensor, op: str, method: str) -> tuple:
-    """(blocks of the world-W launch for ``x`` (W, M, N), blocks the card
-    holds at once): the launch is one block an item, at most what fits."""
+class WorldPlan(typing.NamedTuple):
+    """The world-W launch plan of a call (``tdt_reduce_world_grid``)."""
+    grid: int          # blocks of the cooperative launch, all resident
+    resident: int      # blocks the card holds at once
+    piece: int         # elements of a piece
+    pieces: int        # pieces of a unit (a chunk, or a whole partial)
+    signals: int       # signals of a rank's row: one a hop of each piece
+
+
+def world_grid(x: torch.Tensor, op: str, method: str) -> WorldPlan:
+    """The card's plan of a world-W call on ``x`` (W, M, N): a block for
+    every piece of every rank, pieces of at most 4 KiB, larger while
+    those blocks would not all be resident."""
+    return _plan(x, KINDS[(op, method)])
+
+
+def _plan(x: torch.Tensor, kind: int) -> WorldPlan:
     lib = _lib()
     grid, resident = ctypes.c_int(), ctypes.c_int()
+    piece, pieces = ctypes.c_longlong(), ctypes.c_longlong()
+    signals = ctypes.c_longlong()
     _check(lib, lib.tdt_reduce_world_grid(
-        KINDS[(op, method)], x.shape[0], x[0].numel(),
-        _DTYPE_CODES[x.dtype], ctypes.byref(grid), ctypes.byref(resident)))
-    return grid.value, resident.value
+        kind, x.shape[0], x[0].numel(), _DTYPE_CODES[x.dtype],
+        ctypes.byref(grid), ctypes.byref(resident), ctypes.byref(piece),
+        ctypes.byref(pieces), ctypes.byref(signals)))
+    return WorldPlan(grid.value, resident.value, piece.value, pieces.value,
+                     signals.value)
 
 
 def _check(lib: ctypes.CDLL, err: int) -> None:
@@ -267,17 +282,16 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("reduce_world")
     if lib.tdt_reduce_scatter_world.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ("tdt_reduce_world_signals",
-                     "tdt_reduce_world_workspace"):
-            getattr(lib, name).argtypes = [i, i, ll]
-            getattr(lib, name).restype = ll
-        lib.tdt_reduce_world_grid.argtypes = [i, i, ll, i,
-                                              ctypes.POINTER(i),
-                                              ctypes.POINTER(i)]
+        lib.tdt_reduce_world_workspace.argtypes = [i, i, ll]
+        lib.tdt_reduce_world_workspace.restype = ll
+        lib.tdt_reduce_world_grid.argtypes = [
+            i, i, ll, i, ctypes.POINTER(i), ctypes.POINTER(i),
+            ctypes.POINTER(ll), ctypes.POINTER(ll), ctypes.POINTER(ll)]
         lib.tdt_reduce_world_grid.restype = i
         for name in ("tdt_reduce_scatter_world", "tdt_all_reduce_world"):
-            getattr(lib, name).argtypes = [p, p, p, p, ll, i, i, i, i, ll,
-                                           ctypes.c_ulonglong, i, p]
+            getattr(lib, name).argtypes = [p, p, ll, p, ll, p, ll, ll, i, i,
+                                           i, i, ll, ctypes.c_ulonglong, i,
+                                           p]
             getattr(lib, name).restype = i
         lib.tdt_error_string.argtypes = [i]
         lib.tdt_error_string.restype = ctypes.c_char_p

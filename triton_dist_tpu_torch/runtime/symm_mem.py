@@ -12,8 +12,9 @@ side by side. :func:`rank_table` gives the same table for the rank
 shards of one global tensor (its leading dimension), and
 :func:`rank_span` its two numbers, rank 0's address and the step between
 ranks, which a kernel takes by value (``tdt_rank_ptr``): the all-to-all's
-send and receive buffers and the world-W all-gather's output go that way,
-with no table to build. :class:`RingState` holds the
+send and receive buffers, the world-W all-gather's output, and the
+world-W reduce's and the shift's outputs, workspaces and signals go that
+way, with no table to build. :class:`RingState` holds the
 per-rank workspaces and signals of the ring kernels (AG-GEMM, GEMM-RS /
 AR) across calls, with the call counter that stamps the signals.
 """
