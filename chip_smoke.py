@@ -82,7 +82,12 @@ without the final line:
     (within 0.25), each engine's decode step wall vs device time and the
     ag_rs prefill's per-kernel breakdown (``device_breakdown``: lower
     bounds, shares not measured, when no profiler session recorded every
-    port launch).
+    port launch). Then chunked admission on the reference engine: a
+    512-token prompt in chunks of 128 (``prefill_step``, a decode step
+    of another row between chunks), each chunk's launches those of a
+    whole prefill, the first token equal to a whole admission's, the
+    sampled logits within 0.25; and one ``serve`` with telemetry on
+    (``obs``: the engine's counters and histograms read back).
 
 12. MoE kernels: Qwen3-30B-A3B (``presets.qwen3_30b_a3b()``, full width
     and depth, random bf16 weights drawn on the card from the seed) after
@@ -1838,6 +1843,93 @@ def phase_ag_checks(torch, ag, engines, params, square, cfg,
         print(line, flush=True)
 
 
+def phase_chunked(torch, ag, rs, ops, engines, params, cfg,
+                  card: str) -> None:
+    """Phase 11, chunked admission and telemetry on the reference ag_rs
+    engine (prefill ag_rs, decode gemm_ar), no new model: a 512-token
+    prompt admitted whole into row 0 of one stream session, then in
+    chunks of 128 (``prefill_step``) into row 0 of another while row 1
+    decodes, one decode step between chunks. Each chunk launches what a
+    whole prefill does (one AG-GEMM, one AG-SwiGLU and two GEMM-RS a
+    layer); the first token equals the whole admission's and the
+    sampled logits are within LOGITS_ATOL. Then one ``serve`` with
+    telemetry on (``obs``), its engine histograms read back."""
+    from triton_dist_tpu_torch import obs
+    eng = engines["reference"]
+    layers = cfg.num_hidden_layers
+    host = torch.Generator().manual_seed(24)
+    prompt, other = (torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=host).tolist()
+                     for n in (512, 100))
+    sampled = []
+    sample = eng._sample
+
+    def spy(logits):
+        sampled.append(logits[0].float().clone())
+        return sample(logits)
+    eng._sample = spy
+    try:
+        whole_sess = eng.stream_session(params)
+        whole, whole_ms = sync_time(
+            torch, lambda: whole_sess.prefill_into_row(0, prompt))
+        whole_logits = sampled[-1]
+        sess = eng.stream_session(params)
+        sess.prefill_into_row(1, other)
+        per_chunk = {"ag_gemm": layers, "ag_swiglu": layers,
+                     "gemm_rs": 2 * layers, "gemm_ar": 0}
+        first, chunks, chunk_ms = None, 0, 0.0
+        while first is None:
+            if chunks:
+                sess.decode_step()
+            before = ag_counts(ag, rs, ops)
+            first, ms = sync_time(
+                torch, lambda: (sess.prefill_into_row(0, prompt, chunk=128)
+                                if not chunks else sess.prefill_step(0)))
+            chunk_ms += ms
+            chunks += 1
+            got = {k: v - before[k] for k, v in ag_counts(ag, rs, ops).items()}
+            check(got == per_chunk, f"chunk {chunks} launches {got}, "
+                                    f"expected {per_chunk}")
+            check(first is not None or sess.free_rows() == [2, 3],
+                  f"a mid-chunk row counted free: {sess.free_rows()}")
+        chunk_logits = sampled[-1]
+    finally:
+        eng._sample = sample
+    check(chunks == 4, f"512 tokens took {chunks} chunks of 128")
+    check(bool(torch.isfinite(chunk_logits).all()),
+          "non-finite chunked-admission logits")
+    err = (chunk_logits - whole_logits).abs().max().item()
+    check(first == whole, f"chunked first token {first} != whole {whole}")
+    check(err <= LOGITS_ATOL, f"chunked admission logits differ by {err}")
+    print(f"chunked admission (reference ag_rs engine): 512-token prompt in "
+          f"{chunks} chunks of 128, a decode step between chunks: first "
+          f"token equal to the whole admission's, sampled logits max abs "
+          f"diff {err:.4g} (tol {LOGITS_ATOL}); launches per chunk "
+          f"{per_chunk}; chunks {chunk_ms:.1f} ms in all, whole admission "
+          f"{whole_ms:.1f} ms (host clock) [{card}]", flush=True)
+    square = [prompt[:128]] * 4
+    obs.enable()
+    try:
+        obs.reset()
+        eng.serve(params, square, GEN, stop_tokens=[])
+        snap = obs.snapshot()
+    finally:
+        obs.disable()
+    hist = snap["histograms"]
+    check(snap["counters"].get("engine.serve_calls") == 1
+          and hist["engine.decode_step_ms"]["count"] == GEN - 1
+          and snap["counters"].get("engine.tokens_generated") == 4 * GEN,
+          f"engine telemetry: {snap['counters']}")
+    print(f"telemetry (obs on, reference ag_rs engine, batch 4 x 128, {GEN} "
+          f"tokens): engine.prefill_ms {hist['engine.prefill_ms']['sum']:.1f}"
+          f", engine.ttft_ms {hist['engine.ttft_ms']['sum']:.1f}, "
+          f"engine.decode_step_ms mean "
+          f"{hist['engine.decode_step_ms']['sum'] / (GEN - 1):.2f}, "
+          f"engine.tokens_per_s "
+          f"{snap['gauges']['engine.tokens_per_s']:.1f} (host clock, each "
+          f"step waited for) [{card}]", flush=True)
+
+
 def ag_kernels_line(records, launches) -> list:
     out = []
     for rec, counter, key in records:
@@ -2099,7 +2191,9 @@ def phase_moe_kernels(torch, gg, mrs, agk, cfg, params, card: str) -> list:
         lib_ms = queued_ms(torch, lambda: out.copy_(x))
         bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
         print(f"kernel all_gather bf16 ({m}, {h}): equal to its input "
-              f"(tol exact), repeat bit-identical; kernel_ms={ms:.4f} (wall "
+              f"(tol exact), repeat bit-identical; one input reused (L2-warm;"
+              f" `step_times.py collectives` reads past the L2); "
+              f"kernel_ms={ms:.4f} (wall "
               f"{wall:.4f}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"(Tensor.copy_) bound_ms={bnd:.5f} (bytes) [{card}]",
               flush=True)
@@ -6114,6 +6208,7 @@ def main() -> int:
     from triton_dist_tpu_torch.layers import p2p as pipe
     from triton_dist_tpu_torch.serving import kv_stream as kvs
 
+    t_smoke = time.perf_counter()
     print("== phase 1: setup", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -6151,6 +6246,7 @@ def main() -> int:
     ag_engines, ag_launches = phase_ag_rs_main(torch, models, ag, ops, ops,
                                                cfg, params, base, card)
     phase_ag_checks(torch, ag, ag_engines, params, base[0], cfg, card)
+    phase_chunked(torch, ag, ops, ops, ag_engines, params, cfg, card)
     del ag_engines
     t17 = time.perf_counter()
     ring_records = phase_ring_kernels(torch, ag, ops, rd, params, cfg, card)
@@ -6244,6 +6340,8 @@ def main() -> int:
     mrr_launches = phase_mrr_main(torch, gg, mrs, mu, agk, rd, cfg, params,
                                   hidden, card)
     kernels += mrr_kernels_line(mrr_records, mrr_launches)
+    print(f"smoke total {time.perf_counter() - t_smoke:.1f} s (builds "
+          f"included)", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

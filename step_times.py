@@ -32,7 +32,14 @@ the card's name and power limit on every line. Groups:
   GEMM-RS o_proj and down and AG-GEMM QKV and gate|up; then one decode
   step (batch 4 after a 128-token prefill) of the gemm_ar engine (decode
   mode "gemm_ar") and of the fused engine (mode "ag_rs").
-* ``collectives``: the world-W exchanges at W = 4 on Qwen3-8B's widths
+* ``collectives``: the world-1 copy (``tdt_copy``) under TP-MoE's
+  all-gather at (4, 2048) and (512, 2048) and the one-shot all-reduce at
+  (1, 512, 4096), bf16, each call on the next of copies that hold 128
+  MiB, beside ``Tensor.copy_`` and the bound, once back to back and once
+  each call behind the work ahead of it on its path (TP-MoE's router for
+  the all-gather, one elementwise kernel for the all-reduce), the copy's
+  time there being the pair's less that work's; then the world-W exchanges
+  at W = 4 on Qwen3-8B's widths
   (bf16), by ``chip_smoke.queued_ms``, each beside its bound, one library
   call of the same function and the node types one call queues (a CUDA
   graph captured from it): ``all_reduce`` (one-shot, two-shot, recursive
@@ -42,8 +49,8 @@ the card's name and power limit on every line. Groups:
   (16, 4096) and prefill (2048, 4096) hops and ``symm_ship`` on one KV
   block (4,718,592 bytes), as phase 27, each call on the next of copies
   that hold 128 MiB together. So every prefill-sized input is read from
-  HBM, not from the 50 MB L2. It builds only ``reduce_world`` and
-  ``p2p``.
+  HBM, not from the 50 MB L2. It builds only ``allgather``,
+  ``reduce_world`` and ``p2p``.
 * ``sp``: the flash prefill (``csrc/sp_attention.cu``) at Qwen3-8B's
   attention width (32 / 8 heads, D 128, bf16, causal): the 32k prompt at
   world 1 and through the W = 4 ring, and phase 14's B 4 x 4096, full 4096
@@ -281,6 +288,63 @@ REDUCE_ROWS = (("all_reduce", "one_shot"), ("all_reduce", "two_shot"),
 HOP_BYTES = 128 << 20
 
 
+def copy_cases(torch, cs, gen):
+    """The world-1 copy rows of ``collectives`` (``csrc/allgather.cu``'s
+    ``tdt_copy``), bf16: TP-MoE's all-gather of Qwen3-30B-A3B's decode (4,
+    2048) and prefill (512, 2048) token rows and the one-shot all-reduce
+    of one (1, 512, 4096) Qwen3-8B partial, each call on the next of
+    copies that hold :data:`HOP_BYTES`, beside one ``Tensor.copy_`` of the
+    same bytes into one output. ``before(t)`` is the work queued ahead of
+    the copy in the ``behind`` rows: for the all-gather what precedes it
+    in ``layers/tp_moe.py`` (the f32 router product over 128 experts and
+    the top-8 routing), for the all-reduce one elementwise kernel over
+    its input."""
+    from triton_dist_tpu_torch.ops import allgather as agk
+    from triton_dist_tpu_torch.ops import allreduce as ar
+    from triton_dist_tpu_torch.ops.moe_utils import topk_routing
+    cases = []
+    one_shot = ar.create_allreduce_context(method=ar.AllReduceMethod.ONE_SHOT)
+    w_router = torch.randn((2048, 128), generator=gen, device="cuda")
+    for shape in ((4, 2048), (512, 2048), (1, 512, 4096)):
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        out = torch.empty_like(x)
+        gather = len(shape) == 2
+        cases.append(dict(
+            name=f"{'all_gather' if gather else 'all_reduce one_shot'} W=1 "
+                 f"{shape} bf16 (tdt_copy)",
+            run=(agk.all_gather if gather else
+                 (lambda t: ar.all_reduce(t, one_shot))),
+            xs=[x] + [x.clone() for _ in
+                      range(-(-HOP_BYTES // x.nbytes) - 1)],
+            bound=cs.p2p_bound_ms(x),
+            library=lambda t, out=out: out.copy_(t),
+            lib_name="Tensor.copy_",
+            before=((lambda t: topk_routing(t.float() @ w_router, 8))
+                    if gather else (lambda t: t.mul(1.5))),
+            before_name="the router" if gather else "one mul"))
+    return cases
+
+
+def behind_row(torch, cs, c, label, card):
+    """One copy row queued behind ``c["before"]`` on the same input: the
+    copy's time is the pair's less ``before``'s alone, for the kernel and
+    for ``Tensor.copy_``, so the kernel that runs ahead of the copy is not
+    another copy."""
+    nx = cs.rotating(c["xs"])
+    n = 50
+
+    def pair(copy):
+        t = nx()
+        c["before"](t)
+        copy(t)
+    alone = cs.queued_ms(torch, lambda: c["before"](nx()), n=n)
+    ms = cs.queued_ms(torch, lambda: pair(c["run"]), n=n) - alone
+    lib = cs.queued_ms(torch, lambda: pair(c["library"]), n=n) - alone
+    print(f"[{label}] {c['name']} behind {c['before_name']} "
+          f"({alone:.5f} ms alone): {ms:.5f} ms, {c['lib_name']} "
+          f"{lib:.5f} ({ms / lib:.2f}x) [{card}]", flush=True)
+
+
 def collective_cases(torch, cs):
     """The W = 4 rows of ``collectives``, bf16 on Qwen3-8B's widths: dicts
     of the row's name, ``run(x)`` (the entry on one input; every copy of
@@ -296,7 +360,7 @@ def collective_cases(torch, cs):
     world, n = 4, 4096
     group = create_rank_group(world, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(23)
-    cases = []
+    cases = copy_cases(torch, cs, gen)
     for name, m in (("decode", 4), ("prefill", 512)):
         xs = [torch.randn((world, m, n), generator=gen, device="cuda")
               .mul(4.0 ** torch.arange(world, device="cuda")[:, None, None])
@@ -352,6 +416,8 @@ def collective_rows(torch, cs, label, card):
               f"({ms / c['bound']:.1f}x), {c['lib_name']} {lib:.5f} "
               f"({ms / lib:.2f}x); a call queues {nodes} [{card}]",
               flush=True)
+        if "before" in c:
+            behind_row(torch, cs, c, label, card)
 
 
 def sp_rows(torch, cs, label, card):
@@ -544,7 +610,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     only = {("sp",): ["sp_attention"],
-            ("collectives",): ["reduce_world", "p2p"]}
+            ("collectives",): ["allgather", "reduce_world", "p2p"]}
     _build.build_all(only.get(tuple(groups)))
     print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
     if {"dense", "tiles", "decode"} & set(groups):

@@ -113,8 +113,14 @@ def test_stream_session_verbs(models, jax_tokens):
     assert sess.live == [False, False]
     # Row 0 stayed free: it re-emits its token and does not advance.
     assert sess.offsets.tolist() == [0, len(STREAM[0]) + GEN - 1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.prefill_into_row(0, STREAM[1], chunk=2)
+    # Chunked admission (2 + 2 + 1 tokens): row 0 is neither live nor
+    # free until its last chunk lands with the JAX engine's first token.
+    assert sess.prefill_into_row(0, STREAM[1], chunk=2) is None
+    assert sess.free_rows() == [1]
+    assert sess.prefill_step(0) is None
+    assert sess.prefill_step(0) == \
+        jax_tokens["stream"][1][len(STREAM[1])]
+    assert sess.live == [True, False] and sess.free_rows() == [1]
 
 
 @pytest.fixture()

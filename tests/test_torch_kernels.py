@@ -852,7 +852,7 @@ def test_all_gather_copy_on_card(cuda_device, rows, cols, dtype):
     torch.cuda.synchronize()
     assert ag.all_gather_launches.total == before + 1
     assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
-    # A view that starts off 16 bytes takes the byte copy.
+    # A view 2 bytes off a 16-byte boundary takes the 2-byte units.
     flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
     view = flat[1:].view_as(x).copy_(x)
     assert torch.equal(ag.all_gather(view), x)
@@ -969,6 +969,63 @@ def test_collectives_copy_on_card(cuda_device, m, n, dtype):
     assert ag.broadcast_launches.total == before + 1
     assert got.data_ptr() != x.data_ptr() and torch.equal(got, x[0])
     assert ar.all_reduce(x, impl="xla").data_ptr() == x.data_ptr()
+
+
+#: Byte counts of the copy card test: empty, under one vector, one vector
+#: and either side of it, the (4, 2048) bf16 decode chunk (16 KiB) and
+#: either side of it, 2 and 4 MiB.
+COPY_BYTES = [0, 1, 15, 16, 17, 16383, 16384, 16385, 2 << 20, 4 << 20]
+#: Bytes after the copy's destination that it must leave alone.
+COPY_CANARY = 64
+
+
+def _copy_into(src, dst):
+    """``tdt_copy`` from ``src`` into ``dst`` (bytes each, any offset), by
+    the C entry that ``launch_copy`` calls, on the current stream."""
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops.common import num_sms
+    lib = ag._lib()
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    ag._check(lib, lib.tdt_copy(src.data_ptr(), dst.data_ptr(), src.numel(),
+                                num_sms(src.device.index), stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbytes", COPY_BYTES)
+def test_copy_kernel_bits_every_offset_on_card(cuda_device, nbytes):
+    """``tdt_copy`` at each byte count of COPY_BYTES, src and dst each at a
+    byte offset of 0, 1 or 8 from a 256-byte allocation: dst equal to src
+    bit for bit, the bytes before dst and a canary after it untouched,
+    and one call one kernel in a captured CUDA graph."""
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.tools.queued import queued_work
+    gen = torch.Generator(device=cuda_device).manual_seed(nbytes)
+    size = nbytes + 16 + COPY_CANARY
+    src_buf = torch.randint(0, 256, (size,), generator=gen,
+                            dtype=torch.uint8, device=cuda_device)
+    for so in (0, 1, 8):
+        for do in (0, 1, 8):
+            dst_buf = torch.full((size,), 0xA5, dtype=torch.uint8,
+                                 device=cuda_device)
+            src = src_buf[so:so + nbytes]
+            dst = dst_buf[do:do + nbytes]
+            _copy_into(src, dst)
+            torch.cuda.synchronize()
+            assert torch.equal(dst, src), (so, do)
+            assert bool((dst_buf[:do] == 0xA5).all())
+            assert bool((dst_buf[do + nbytes:] == 0xA5).all()), (so, do)
+    if nbytes:
+        x = src_buf[:nbytes]
+        out = torch.empty_like(x)
+
+        def call():
+            _copy_into(x, out)
+        call()
+        assert dict(queued_work(call)) == {"kernel": 1}
+        assert torch.equal(out, x)
+        got = ag.launch_copy(x)
+        torch.cuda.synchronize()
+        assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
 
 
 # -- slice 6: the expert-parallel all-to-all (csrc/all_to_all.cu) --------------

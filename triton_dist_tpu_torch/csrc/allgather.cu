@@ -18,9 +18,40 @@
 //      _one_shot_rs_kernel (:150, :157-159): `o = x[0 : M]`;
 //    - ops/allgather.py::_broadcast_kernel (:218, :225-229): the root's
 //      buffer.
-// A grid-stride copy in 16-byte vectors when both ends are 16-byte
-// aligned, then the tail bytes; byte copies otherwise; about eight blocks
-// per SM at most.
+//
+// What bounds the copy: bytes, 2 x n (each byte read once and written
+// once) at 3.35 TB/s: 0.0025 ms for the 4 MiB of (1, 512, 4096) bf16,
+// 0.0013 for TP-MoE's (512, 2048) prefill chunk and 0.00001 for its
+// (4, 2048) decode chunk. Below a few hundred KiB no copy comes near that:
+// a launch and one round trip to memory (1.3-2 us on an H100 queued behind
+// other kernels) are the floor, and no kernel design removes them.
+//
+// The design (`copy_body`), by bytes:
+//  * one trip: a thread issues all its kCopyUnroll loads (16 bytes each,
+//    neighbouring threads on neighbouring addresses) before its first
+//    store, so a block moves blockDim x kCopyUnroll units in one round
+//    trip; there is no grid-stride loop;
+//  * a block owns one contiguous piece of the copy for the whole call.
+//    Small copies (the decode chunk, 16 KiB) take the narrowest blocks
+//    (32 threads) so their trips spread over as many SMs as there are
+//    trips; larger ones widen the block up to 256 threads while the grid
+//    would exceed one block an SM, so a 4 MiB copy is one wave of 256
+//    one-trip blocks, all resident at once. Past kCopyBlocksPerSm x SMs
+//    trips a block walks several trips of its piece;
+//  * misaligned ends: when src and dst share their offset mod 16, block 0
+//    copies the head bytes up to the first 16-byte boundary and the last
+//    block the tail bytes after the last whole vector, so the body stays
+//    in 16-byte vectors. Only a true mismatch takes narrower units (8, 4,
+//    2 or 1 bytes: the widest on which src and dst agree), in the same
+//    kernel;
+//  * the launch allows programmatic stream serialization: its blocks may
+//    be placed while the stream's previous kernel finishes, and wait for
+//    it (griddepcontrol.wait) before their first load. That hides part
+//    of the launch, not the round trip. On an H100 most of the gain over
+//    the grid-stride loop is this: launched without it, the same body
+//    timed as the old kernel at 16 KiB, 2 MiB and 4 MiB, back to back
+//    (`step_times.py collectives` times the copy rows).
+// src and dst must not overlap.
 //
 // World W (`tdt_all_gather_world`, `tdt_broadcast_world`): the ranks are W
 // slices of one card (runtime/dist.py). Rank r's input chunk is chunk r of
@@ -84,25 +115,96 @@ constexpr int kThreads = 256;
 // Bytes of one piece of a chunk: one copy item, one signal.
 constexpr long long kPiece = 16 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
-chunk_copy(const unsigned char* __restrict__ src,
-           unsigned char* __restrict__ dst, long long n, int vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  long long done = 0;
-  if (vec) {
-    const long long n16 = n / 16;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long j = i; j < n16; j += stride) d[j] = s[j];
-    done = n16 * 16;
+// -- world 1: the copy ----------------------------------------------------
+// Loads a thread issues before its first store.
+constexpr int kCopyUnroll = 4;
+// The narrowest and widest block.
+constexpr int kCopyMinThreads = 32;
+constexpr int kCopyMaxThreads = 256;
+// One-trip blocks of copy_body the grid takes on each SM before a block
+// walks more than one trip (8 x 256 threads: the SM's 2048).
+constexpr int kCopyBlocksPerSm = 8;
+
+// dst[0, n) <- src[0, n), src and dst at the same offset mod sizeof(T):
+// `head` bytes up to the first T-aligned address (block 0), `units` whole
+// units of T, then the tail bytes (the last block). Block b owns units
+// [b per_block, (b + 1) per_block), walked in trips of blockDim x
+// kCopyUnroll units.
+template <typename T>
+__global__ void __launch_bounds__(kCopyMaxThreads)
+copy_body(const unsigned char* __restrict__ src,
+          unsigned char* __restrict__ dst, long long n, int head,
+          long long units, long long per_block) {
+  // The stream's previous kernel has finished and its writes are
+  // visible (the launch allows programmatic stream serialization).
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int t = threadIdx.x;
+  const long long nt = blockDim.x;
+  if (blockIdx.x == 0 && t < head) dst[t] = src[t];
+  const long long tail0 = head + units * static_cast<long long>(sizeof(T));
+  if (blockIdx.x == gridDim.x - 1 && t < n - tail0)
+    dst[tail0 + t] = src[tail0 + t];
+  const T* s = reinterpret_cast<const T*>(src + head);
+  T* d = reinterpret_cast<T*>(dst + head);
+  const long long begin = static_cast<long long>(blockIdx.x) * per_block;
+  const long long end = begin + per_block < units ? begin + per_block
+                                                  : units;
+  for (long long base = begin + t; base < end; base += nt * kCopyUnroll) {
+    T v[kCopyUnroll];
+#pragma unroll
+    for (int j = 0; j < kCopyUnroll; ++j)
+      if (base + j * nt < end) v[j] = s[base + j * nt];
+#pragma unroll
+    for (int j = 0; j < kCopyUnroll; ++j)
+      if (base + j * nt < end) d[base + j * nt] = v[j];
   }
-  for (long long j = done + i; j < n; j += stride) dst[j] = src[j];
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// A copy's launch: the unit width (bytes), head bytes, units, block width,
+// units a block owns, blocks.
+struct CopyPlan {
+  int width, head;
+  long long units;
+  int threads;
+  long long per_block, grid;
+};
+
+CopyPlan copy_plan(uintptr_t src, uintptr_t dst, long long n, int sms) {
+  CopyPlan p;
+  p.width = 16;
+  while (p.width > 1 && src % p.width != dst % p.width) p.width /= 2;
+  const long long head = (p.width - static_cast<long long>(src % p.width)) %
+                         p.width;
+  p.head = static_cast<int>(head < n ? head : n);
+  p.units = (n - p.head) / p.width;
+  p.threads = kCopyMinThreads;
+  while (p.threads < kCopyMaxThreads &&
+         p.units > static_cast<long long>(p.threads) * kCopyUnroll * sms)
+    p.threads *= 2;
+  const long long trip = static_cast<long long>(p.threads) * kCopyUnroll;
+  const long long trips = p.units > 0 ? (p.units + trip - 1) / trip : 1;
+  const long long cap = static_cast<long long>(sms) * kCopyBlocksPerSm;
+  const long long spread = trips < cap ? trips : cap;
+  p.per_block = (trips + spread - 1) / spread * trip;
+  p.grid = p.units > 0 ? (p.units + p.per_block - 1) / p.per_block : 1;
+  return p;
+}
+
+template <typename T>
+cudaError_t launch_copy_body(const CopyPlan& p, const unsigned char* src,
+                             unsigned char* dst, long long n,
+                             cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(p.grid));
+  cfg.blockDim = dim3(p.threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, copy_body<T>, src, dst, n, p.head, p.units,
+                            p.per_block);
 }
 
 // -- world W --------------------------------------------------------------
@@ -342,21 +444,28 @@ Args make_args(const void* x, void* out, long long out_step,
 
 extern "C" {
 
-// dst <- src (nbytes bytes), on a card with `sms` SMs. Returns a
-// cudaError_t.
+// dst <- src (nbytes bytes, not overlapping), on a card with `sms` SMs,
+// in one launch of copy_body. Returns a cudaError_t.
 int tdt_copy(const void* src, void* dst, long long nbytes, int sms,
              void* stream) {
+  if (nbytes == 0) return static_cast<int>(cudaSuccess);  // empty: nullptr
   if (src == nullptr || dst == nullptr || nbytes < 0 || sms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nbytes == 0) return static_cast<int>(cudaSuccess);
   const unsigned char* s = static_cast<const unsigned char*>(src);
   unsigned char* d = static_cast<unsigned char*>(dst);
-  const int vec = aligned16(s) && aligned16(d);
-  const long long units = vec ? (nbytes + 15) / 16 : nbytes;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  if (blocks > 8LL * sms) blocks = 8LL * sms;
-  chunk_copy<<<static_cast<unsigned>(blocks), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(s, d, nbytes, vec);
+  const CopyPlan p = copy_plan(reinterpret_cast<uintptr_t>(s),
+                               reinterpret_cast<uintptr_t>(d), nbytes, sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (p.width) {
+    case 16: err = launch_copy_body<uint4>(p, s, d, nbytes, st); break;
+    case 8: err = launch_copy_body<uint2>(p, s, d, nbytes, st); break;
+    case 4: err = launch_copy_body<unsigned>(p, s, d, nbytes, st); break;
+    case 2: err = launch_copy_body<unsigned short>(p, s, d, nbytes, st);
+      break;
+    default: err = launch_copy_body<unsigned char>(p, s, d, nbytes, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

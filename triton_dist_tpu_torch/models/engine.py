@@ -23,9 +23,21 @@ item 10). The engine families served:
   admission.
 
 Served: ``serve``, ``serve_ragged`` (not in mode "sp", which is
-non-ragged), ``serve_stream`` and :class:`StreamSession`. The mega and
-auto decode paths, speculative decoding and chunked stream admission
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+non-ragged), ``serve_stream`` and :class:`StreamSession`, with chunked
+stream admission (:meth:`StreamSession.prefill_step`). The mega and auto
+decode paths and speculative decoding raise ``NotImplementedError``
+naming their ROADMAP.md item.
+
+Telemetry (``obs``): the JAX engine's counters, histograms, gauges and
+spans under its names (``engine.serve_calls``, ``engine.prefill_ms``,
+``engine.ttft_ms``, the ``engine.decode_step`` span,
+``engine.tokens_generated``, ``engine.tokens_per_s``,
+``engine.serve_stream_calls``, ``engine.stream_admissions``, the
+``engine.stream_step`` span, the prefix-cache counters). The clocks read
+completed device work: with telemetry or tracing on, the engine waits for
+its device (``torch.cuda.synchronize``) where JAX blocks until ready;
+with both off the decode loop adds no wait and no host work beyond the
+counters' no-op calls.
 
 Sampling: greedy is ``argmax``. Temperature sampling draws from a
 ``torch.Generator`` seeded with ``seed``; its draws differ from
@@ -34,11 +46,15 @@ Sampling: greedy is ``argmax``. Temperature sampling draws from a
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch import obs
 from triton_dist_tpu_torch.models.kv_cache import (
     KVCacheManager, PagedKVCacheManager)
+from triton_dist_tpu_torch.obs import trace as _trace
 
 
 def sample_token(logits: torch.Tensor,
@@ -158,6 +174,12 @@ class Engine:
         return sample_token(logits, self.generator, self.temperature,
                             self.top_k, self.top_p)
 
+    def _wait(self) -> None:
+        """Wait for the work queued on the engine's device (telemetry's
+        clocks read completed work, not the enqueue)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _stop_set(self, stop_tokens) -> tuple:
         if stop_tokens is None:
             eos = getattr(self.model.config, "eos_token_id", -1)
@@ -180,6 +202,15 @@ class Engine:
         b, s = input_ids.shape
         if gen_len <= 0:
             return input_ids
+        # Telemetry: ``timed`` gates every clock read and device wait.
+        # With telemetry and tracing off the loop's span is a shared
+        # no-op and nothing waits.
+        tel = obs.enabled()
+        tr = _trace.enabled()
+        timed = tel or tr
+        t_serve0 = time.perf_counter() if timed else 0.0
+        obs.counter("engine.serve_calls").inc()
+        obs.counter("engine.decode_path.plain").inc()
         stop_tokens = self._stop_set(stop_tokens)
         has_stop = bool(stop_tokens)
         stop = torch.tensor(list(stop_tokens) or [-1], dtype=torch.int64,
@@ -208,6 +239,7 @@ class Engine:
             # request).
             caches = self.kv.init(rows=b)
         fwd = dict(block_table=table) if sp else dict(kv_start=kv_start)
+        t_pre0 = time.perf_counter() if timed else 0.0
         chunk = self.prefill_chunk
         if chunk and s > chunk:
             # Chunked sp prefill: each slice writes its K/V and attends
@@ -221,27 +253,58 @@ class Engine:
                                                 mode=self.prefill_mode, **fwd)
         self.kv.inc_offset(s)
         token = self._sample(logits[:, -1])
+        if timed:
+            self._wait()
+            now = time.perf_counter()
+            obs.histogram("engine.prefill_ms").observe((now - t_pre0) * 1e3)
+            obs.histogram("engine.ttft_ms").observe((now - t_serve0) * 1e3)
+            if tr:
+                _trace.complete(
+                    "engine.prefill", "engine", _trace.perf_to_us(t_pre0),
+                    (now - t_pre0) * 1e6,
+                    args={"batch": b, "prompt_len": s,
+                          "chunked": bool(chunk and s > chunk)})
         done = torch.isin(token, stop) if has_stop else None
         stopped = has_stop and bool(done.all())  # prefill may already stop
         out = [input_ids, token[:, None]]
         n_total = gen_len - 1
+        steps_run = 0
+        t_dec0 = time.perf_counter() if timed else 0.0
         for i in range(n_total):
             if stopped:
                 out.append(token[:, None].expand(b, n_total - i))
                 break
-            logits, caches = self.model.forward(
-                params, token[:, None], caches, self.kv.offset,
-                mode=self.decode_mode, **fwd)
-            nxt = self._sample(logits[:, -1])
-            if has_stop:
-                nxt = torch.where(done, token, nxt)
-                done = done | torch.isin(nxt, stop)
-            token = nxt
+            with obs.span("engine.decode_step"):
+                logits, caches = self.model.forward(
+                    params, token[:, None], caches, self.kv.offset,
+                    mode=self.decode_mode, **fwd)
+                nxt = self._sample(logits[:, -1])
+                if has_stop:
+                    nxt = torch.where(done, token, nxt)
+                    done = done | torch.isin(nxt, stop)
+                token = nxt
+                if timed:
+                    self._wait()
+            steps_run += 1
             self.kv.inc_offset(1)
             out.append(token[:, None])
             # the all-done check is a host sync; amortize it
             if has_stop and i % 8 == 7 and bool(done.all()):
                 stopped = True
+        if timed:
+            self._wait()
+            dt = time.perf_counter() - t_dec0
+            # Computed tokens only: the first and one a decode step a row.
+            obs.counter("engine.tokens_generated").inc(b * (steps_run + 1))
+            if steps_run > 0 and dt > 0:
+                obs.gauge("engine.tokens_per_s").set(b * steps_run / dt)
+            if tr:
+                now = time.perf_counter()
+                _trace.complete(
+                    "engine.serve", "engine", _trace.perf_to_us(t_serve0),
+                    (now - t_serve0) * 1e6,
+                    args={"batch": b, "prompt_len": s, "gen_len": gen_len,
+                          "steps_run": steps_run, "mega": False})
         return torch.cat(out, dim=1)
 
     def serve_ragged(self, params, prompts, gen_len: int, stop_tokens=None,
@@ -293,6 +356,7 @@ class Engine:
         never fit the pool is refused up front. Greedy results equal
         serving each prompt alone. Returns prompt + generated token lists
         in input order."""
+        obs.counter("engine.serve_stream_calls").inc()
         b = self.kv.batch
         stop_set = set(self._stop_set(stop_tokens))
         if gen_len <= 0:
@@ -365,8 +429,10 @@ class Engine:
 class StreamSession:
     """Incremental row-level API over an Engine's fixed decode window.
 
-    * :meth:`prefill_into_row` admits a prompt into a free row and
-      returns its first token;
+    * :meth:`prefill_into_row` admits a prompt into a free row: the whole
+      prompt in one prefill, returning its first token, or (``chunk=N``)
+      the first N tokens, the rest advanced by :meth:`prefill_step`
+      between decode steps until it returns the first token;
     * :meth:`decode_step` runs ONE shared decode step for every live row
       (frozen rows re-emit their token and do not advance);
     * :meth:`retire_row` frees a finished row for the next admission.
@@ -396,6 +462,7 @@ class StreamSession:
         self.offsets = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.live = [False] * b
         self._host_off = [0] * b     # host shadow of the per-row offsets
+        self._pending: dict = {}     # row -> chunked admission state
         #: Facts about the last admission: the prompt tokens served from
         #: the prefix cache.
         self.admit_info: dict | None = None
@@ -403,6 +470,11 @@ class StreamSession:
     @property
     def batch(self) -> int:
         return self.engine.kv.batch
+
+    def free_rows(self) -> list:
+        """Rows with no occupant (neither live nor mid-prefill)."""
+        return [r for r in range(self.batch)
+                if not self.live[r] and r not in self._pending]
 
     def can_admit(self, prompt_len: int, gen_len: int,
                   extra=None) -> bool:
@@ -424,27 +496,32 @@ class StreamSession:
 
     # -- admission ---------------------------------------------------------
     def prefill_into_row(self, row: int, prompt, chunk: int | None = None,
-                         gen_budget: int | None = None) -> int:
-        """Admit ``prompt`` into free row ``row`` in one admission
-        prefill and return the first sampled token.
+                         gen_budget: int | None = None):
+        """Admit ``prompt`` into free row ``row``.
+
+        Whole prompt (``chunk=None``): runs the admission prefill now and
+        returns the first sampled token (int). Chunked: runs only the
+        first ``chunk``-token slice and returns ``None``; call
+        :meth:`prefill_step` (between decode steps) until it returns the
+        first token. Chunking applies where the JAX package applies it:
+        contiguous caches, a prefill mode other than "sp", a prompt
+        longer than the chunk and its padded length (whole chunks)
+        within ``max_seq``; other engines admit in one prefill.
 
         ``gen_budget`` (paged engines): the tokens this request may still
         generate; admission commits that many future blocks so a later
-        admission cannot starve the row mid-decode. Chunked admission
-        (``chunk``) of the default modes is not ported yet; mode "sp"
-        engines admit in one prefill whatever ``chunk`` says, as in
-        the JAX package."""
+        admission cannot starve the row mid-decode."""
         eng = self.engine
-        if chunk and eng.prefill_mode != "sp":
-            raise _unported("chunked admission (prefill_step)",
-                            "Queue A item 9")
-        if self.live[row]:
+        if self.live[row] or row in self._pending:
             raise ValueError(f"row {row} is occupied")
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompts must be non-empty")
         if eng.paged:
             return self._admit_paged(row, prompt, gen_budget)
+        if (chunk and eng.prefill_mode != "sp" and len(prompt) > chunk
+                and -(-len(prompt) // chunk) * chunk <= eng.kv.max_seq):
+            return self._start_chunked(row, prompt, int(chunk))
         return self._admit_whole(row, prompt)
 
     def _bucket(self, n: int) -> int:
@@ -478,8 +555,61 @@ class StreamSession:
                                       self._prefill_ids(prompt, lb), lanes,
                                       0, mode=eng.prefill_mode)
         first = int(eng._sample(logits[:, len(prompt) - 1])[0])
+        self.admit_info = {"cached": 0}
         self._mark_admitted(row, len(prompt), first)
         return first
+
+    def _start_chunked(self, row: int, prompt: list, chunk: int):
+        """Start a chunked admission: the prompt right-padded to whole
+        chunks, batch-1 scratch caches of that length (zeroed, so the
+        decode steps that run between chunks never touch them: a frozen
+        row still writes its own lane), then the first chunk."""
+        eng = self.engine
+        lb = -(-len(prompt) // chunk) * chunk
+        self._pending[row] = {
+            "ids": self._prefill_ids(prompt, lb), "len": len(prompt),
+            "chunk": chunk, "pos": 0,
+            "small": [(torch.zeros((1, lb) + ck.shape[2:], dtype=ck.dtype,
+                                   device=eng.device),
+                       torch.zeros((1, lb) + cv.shape[2:], dtype=cv.dtype,
+                                   device=eng.device))
+                      for ck, cv in self.caches]}
+        return self.prefill_step(row)
+
+    @torch.no_grad()
+    def prefill_step(self, row: int):
+        """Advance row ``row``'s chunked admission by one slice; returns
+        the first sampled token (int) once the last slice lands, else
+        ``None``."""
+        eng = self.engine
+        st = self._pending[row]
+        c = st["chunk"]
+        logits, _ = eng.model.forward(
+            self.params, st["ids"][:, st["pos"]:st["pos"] + c], st["small"],
+            st["pos"], mode=eng.prefill_mode)
+        st["pos"] += c
+        if st["pos"] < st["ids"].shape[1]:
+            return None
+        # The last slice: sample the first token at the prompt's last
+        # position, then copy the scratch prefix into the row's lane at
+        # slot 0 (JAX ``_build_admit_finish``). The pad positions' K/V are
+        # causally invisible and overwritten by the row's decode steps
+        # before any mask exposes them.
+        del self._pending[row]
+        idx = st["len"] - 1 - (st["pos"] - c)   # last real token's index
+        first = int(eng._sample(logits[:, idx])[0])
+        lb = st["ids"].shape[1]
+        for (ck, cv), (sk, sv) in zip(self.caches, st["small"]):
+            ck[row:row + 1, :lb].copy_(sk)
+            cv[row:row + 1, :lb].copy_(sv)
+        self.admit_info = {"cached": 0}
+        self._mark_admitted(row, st["len"], first)
+        return first
+
+    def cancel_prefill(self, row: int) -> None:
+        """Drop a mid-chunk admission (its scratch caches were never
+        copied into the batch, so the session stays consistent)."""
+        self._pending.pop(row, None)
 
     @torch.no_grad()
     def _admit_paged(self, row: int, prompt: list,
@@ -522,11 +652,35 @@ class StreamSession:
             self.cur_table = kv.block_table()
             raise
         kv.register_prefix(row, prompt, hashes=hashes)
+        self._note_prefix(row, L, cached)
         self.admit_info = {"cached": cached}
         self._mark_admitted(row, L, first)
         return first
 
+    def _note_prefix(self, row: int, prompt_len: int, cached: int) -> None:
+        """Prefix-cache telemetry for one admission: tokens saved, the
+        block-weighted hit rate (from the lifetime counters), and a trace
+        instant on the request's timeline."""
+        kv = self.engine.kv
+        if kv.prefix is None:
+            return
+        obs.counter("serving.prefill_tokens_saved").inc(cached)
+        hits = obs.counter("serving.prefix_hit_blocks")
+        hits.inc(cached // kv.page_size)
+        lookups = obs.counter("serving.prefix_lookup_blocks")
+        lookups.inc(kv.prefix_lookup_blocks(prompt_len))
+        if lookups.value > 0:
+            obs.gauge("serving.prefix_hit_rate").set(
+                round(hits.value / lookups.value, 4))
+        if cached:
+            _trace.instant("serving.prefix_hit", "serving",
+                           args={"row": row, "prompt_len": prompt_len,
+                                 "cached_tokens": cached})
+
     def _mark_admitted(self, row: int, prompt_len: int, first: int) -> None:
+        obs.counter("engine.stream_admissions").inc()
+        _trace.instant("engine.stream_admission", "engine",
+                       args={"row": row, "prompt_len": prompt_len})
         self.offsets[row] = prompt_len
         self._host_off[row] = prompt_len
         self.live[row] = True
@@ -558,12 +712,15 @@ class StreamSession:
         done = torch.tensor([not alive for alive in self.live],
                             device=eng.device)
         fwd = ({"block_table": self.cur_table} if eng.paged else {})
-        logits, self.caches = eng.model.forward(
-            self.params, self.token[:, None], self.caches, self.offsets,
-            mode=eng.decode_mode, **fwd)
-        nxt = eng._sample(logits[:, -1])
-        self.token = torch.where(done, self.token, nxt)
-        self.offsets = torch.where(done, self.offsets, self.offsets + 1)
+        with obs.span("engine.stream_step"):
+            logits, self.caches = eng.model.forward(
+                self.params, self.token[:, None], self.caches, self.offsets,
+                mode=eng.decode_mode, **fwd)
+            nxt = eng._sample(logits[:, -1])
+            self.token = torch.where(done, self.token, nxt)
+            self.offsets = torch.where(done, self.offsets, self.offsets + 1)
+            if obs.enabled() or _trace.enabled():
+                eng._wait()
         for r in range(self.batch):
             if self.live[r]:
                 self._host_off[r] += 1
